@@ -10,13 +10,13 @@ and losses are float32. The two bf16 flavours keep the reference's names:
   (``compute_copy``), grads upcast once (``master_grads``).
 
 Parameter trees are nested dicts/lists of tensors (the reference's pytree
-layout), walked by :func:`tree_map`.
+layout), walked by :func:`tree_map` and :func:`tree_leaves`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, List
 
 import torch
 
@@ -28,6 +28,16 @@ def tree_map(fn: Callable[[torch.Tensor], Any], tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensor leaves of a nested dict/list/tuple, in the order
+    :func:`tree_map` visits them."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,4 +5,4 @@ use. Each wrapper counts its launches in a plain integer attribute.
 """
 
 #: kernel sources this package builds (``csrc/<name>.cu``)
-KERNEL_SOURCES = ("flash_fwd",)
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd")

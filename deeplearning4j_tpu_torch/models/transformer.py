@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM on PyTorch: inference half of
+"""Decoder-only transformer LM on PyTorch: port of
 ``deeplearning4j_tpu/models/transformer.py``.
 
 Parameters are a nested dict of tensors with the reference's leaf names
@@ -12,20 +12,26 @@ result in the input dtype, tanh-approximated GELU, RoPE angles in f32,
 and an unembedding whose compute-dtype operands multiply into an f32
 result that is never rounded to bf16 (summed in f64 and rounded once).
 
-This slice serves: ``forward``, ``generate`` (greedy and sampled) and
-the ``_prefill``/``_decode_token``/``_block`` pieces ``serving/`` builds
-on. Training (``_step_body``), ``generate_beam``, sequence parallelism
-and the backward flash kernels come in later slices.
+Serving: ``forward``, ``generate`` (greedy and sampled) and the
+``_prefill``/``_decode_token``/``_block`` pieces ``serving/`` builds on.
+Training: ``loss``, the hand-written Adam step (``_step_body``,
+``make_train_step``, ``make_multi_train_step``, ``fit_batch``,
+``fit_batch_multi``) and ``evaluate_perplexity``; under ``train=True``
+attention goes through the differentiable flash kernels (forward B1,
+backward B2 and B3) whenever head_dim tiles. Not ported yet:
+``generate_beam`` and sequence parallelism (``mesh=``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from deeplearning4j_tpu_torch import dtypes as dtypes_mod
 from deeplearning4j_tpu_torch._device import resolve_device
@@ -83,6 +89,18 @@ def sample_logits(logits: torch.Tensor, temperature: float,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+def _state_leaves(params, state) -> List[Dict[str, torch.Tensor]]:
+    """The ``{"m", "v"}`` entries of ``state`` in
+    ``tree_leaves(params)`` order."""
+    if isinstance(params, dict):
+        return [x for key in params
+                for x in _state_leaves(params[key], state[key])]
+    if isinstance(params, (list, tuple)):
+        return [x for p, s in zip(params, state)
+                for x in _state_leaves(p, s)]
+    return [state]
+
+
 class TransformerLM:
     def __init__(self, vocab_size: int, d_model: int = 256,
                  num_heads: int = 8, num_layers: int = 4,
@@ -116,8 +134,7 @@ class TransformerLM:
         self.attn_impl = attn_impl
         self.pos_encoding = pos_encoding
         self.attn_window = attn_window
-        # training-side options: kept in the config so a model round-trips
-        # through get_config; the training step is a later slice
+        # sp_impl only matters with sequence parallelism (not ported)
         self.sp_impl = sp_impl
         self.scan_layers = bool(scan_layers)
         self.remat = remat
@@ -132,6 +149,8 @@ class TransformerLM:
         self.dtype_policy_name = dtype_policy
         self.policy = dtypes_mod.policy_from_name(dtype_policy)
         self.params: Optional[Dict[str, Any]] = None
+        self.opt_state: Optional[Dict[str, Any]] = None
+        self.step_count = 0
 
     # ------------------------------------------------------------------
     def init(self) -> "TransformerLM":
@@ -171,6 +190,9 @@ class TransformerLM:
                         "w2": dense(F_, D), "b2": torch.zeros(D, dtype=dt)},
             })
         self.params = dtypes_mod.tree_map(lambda p: p.to(self.device), params)
+        self.opt_state = dtypes_mod.tree_map(
+            lambda p: {"m": torch.zeros_like(p), "v": torch.zeros_like(p)},
+            self.params)
         return self
 
     def _ensure_init(self):
@@ -280,13 +302,173 @@ class TransformerLM:
         return self.policy.cast_compute(h)
 
     @torch.no_grad()
-    def forward(self, params, tokens, *, train: bool = False):
-        """tokens: [b, t] int → logits [b, t, V] in the output dtype."""
+    def forward(self, params, tokens, *, mesh=None,
+                sequence_parallel: bool = False, train: bool = False):
+        """tokens: [b, t] int → logits [b, t, V] in the output dtype. Builds
+        no autograd graph (the serve path); ``loss`` differentiates."""
+        return self._logits(params, tokens, mesh=mesh,
+                            sequence_parallel=sequence_parallel,
+                            train=train)
+
+    def _logits(self, params, tokens, *, mesh=None,
+                sequence_parallel: bool = False, train: bool = False):
+        """``forward`` without ``no_grad``. ``remat`` recomputes each
+        block's activations in the backward pass
+        (``torch.utils.checkpoint``); ``scan_layers`` runs the same loop,
+        since a scan over stacked layers has nothing to save in eager
+        PyTorch."""
+        if mesh is not None or sequence_parallel:
+            raise NotImplementedError(
+                "sequence parallelism (mesh=, sequence_parallel=True) is "
+                "not ported yet")
         tokens = self._tokens(tokens)
         h = self._embed(params, tokens)
+
+        def block_fn(blk, h):
+            return self._block(blk, h, train=train)[0]
+
         for blk in params["blocks"]:
-            h = self._block(blk, h, train=train)[0]
+            if self.remat and torch.is_grad_enabled():
+                h = checkpoint(block_fn, blk, h, use_reentrant=False)
+            else:
+                h = block_fn(blk, h)
         return self.policy.cast_output(self._unembed(params, h))
+
+    def loss(self, params, tokens, *, mesh=None,
+             sequence_parallel: bool = False, train: bool = False):
+        """Next-token cross entropy (mean over positions), log-softmax in
+        f32."""
+        tokens = self._tokens(tokens)
+        logits = self._logits(params, tokens, mesh=mesh,
+                              sequence_parallel=sequence_parallel,
+                              train=train)[:, :-1]
+        logp = F.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, tokens[:, 1:, None])
+        return nll.mean()
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def _step_body(self, *, mesh=None, sequence_parallel: bool = False):
+        """One optimizer step ``step(params, opt_state, tokens,
+        step_count) -> (params, opt_state, loss)``. Under the
+        ``mixed_bf16`` master-weights policy it derives ONE bf16
+        parameter copy per step, takes the grads with respect to that
+        copy, upcasts them once and applies Adam to the f32 masters and
+        f32 moments. Unlike the reference's pure function, the step
+        updates the masters and moments IN PLACE (under ``no_grad``) and
+        returns the same objects; the masters never require grad, so the
+        serve path builds no graph."""
+        if mesh is not None or sequence_parallel:
+            raise NotImplementedError(
+                "sequence parallelism (mesh=, sequence_parallel=True) is "
+                "not ported yet")
+        lr = self.lr
+        b1, b2, eps = 0.9, 0.999, 1e-8
+
+        def step(params, opt_state, tokens, step_count):
+            fwd = dtypes_mod.tree_map(lambda p: p.detach().requires_grad_(),
+                                      self.policy.compute_copy(params))
+            leaves = dtypes_mod.tree_leaves(fwd)
+            loss = self.loss(fwd, tokens, train=True)
+            grads = torch.autograd.grad(loss, leaves)
+            grads = [self.policy.master_grads(g) for g in grads]
+            # t in f32 as in the reference, on the host: a device scalar
+            # made here would be copied in with a synchronisation that
+            # stalls the host in the middle of every step
+            t = torch.tensor(step_count + 1, dtype=torch.float32)
+            bc1, bc2 = float(1 - b1 ** t), float(1 - b2 ** t)
+            states = _state_leaves(params, opt_state)
+            ms, vs = [s["m"] for s in states], [s["v"] for s in states]
+            # the reference's per-leaf Adam, operation for operation, on
+            # all leaves at once (multi-tensor ops: a few launches per
+            # operation instead of one per leaf)
+            with torch.no_grad():
+                torch._foreach_mul_(ms, b1)
+                torch._foreach_add_(ms, torch._foreach_mul(grads, 1 - b1))
+                torch._foreach_mul_(vs, b2)
+                torch._foreach_add_(vs, torch._foreach_mul(
+                    torch._foreach_mul(grads, 1 - b2), grads))
+                mhat = torch._foreach_div(ms, bc1)
+                denom = torch._foreach_add(
+                    torch._foreach_sqrt(torch._foreach_div(vs, bc2)), eps)
+                torch._foreach_sub_(
+                    dtypes_mod.tree_leaves(params),
+                    torch._foreach_div(torch._foreach_mul(mhat, lr), denom))
+            return params, opt_state, loss.detach()
+
+        return step
+
+    def make_train_step(self, *, mesh=None, sequence_parallel: bool = False):
+        """The step function (it updates the masters and moments in
+        place, see ``_step_body``)."""
+        return self._step_body(mesh=mesh,
+                               sequence_parallel=sequence_parallel)
+
+    def make_multi_train_step(self, k: int, *, mesh=None,
+                              sequence_parallel: bool = False):
+        """K optimizer steps in one call (a Python loop over the shared
+        step body); returns the last step's loss."""
+        step = self._step_body(mesh=mesh,
+                               sequence_parallel=sequence_parallel)
+
+        def multi(params, opt_state, tokens, step_count):
+            for i in range(k):
+                params, opt_state, loss = step(params, opt_state, tokens,
+                                               step_count + i)
+            return params, opt_state, loss
+
+        return multi
+
+    def fit_batch(self, tokens, train_step=None, block: bool = True):
+        """One optimizer step on [b, t] tokens. ``block=False`` returns the
+        loss as a device tensor without a host round-trip."""
+        self._ensure_init()
+        train_step = train_step or self._default_step
+        self.params, self.opt_state, loss = train_step(
+            self.params, self.opt_state, self._tokens(tokens),
+            self.step_count)
+        self.step_count += 1
+        return float(loss) if block else loss
+
+    def fit_batch_multi(self, tokens, *, multi_step, k: int,
+                        block: bool = True):
+        """Run a K-step function (see ``make_multi_train_step``)."""
+        self._ensure_init()
+        self.params, self.opt_state, loss = multi_step(
+            self.params, self.opt_state, self._tokens(tokens),
+            self.step_count)
+        self.step_count += k
+        return float(loss) if block else loss
+
+    @functools.cached_property
+    def _default_step(self):
+        return self.make_train_step()
+
+    @torch.no_grad()
+    def evaluate_perplexity(self, tokens) -> float:
+        """Corpus perplexity ``exp(mean next-token NLL)`` over [b, t]
+        token batches."""
+        self._ensure_init()
+        return float(torch.exp(self.loss(self.params, tokens)))
+
+    def flops_per_token(self, t: int) -> int:
+        """Model FLOPs per trained token at sequence length ``t``: 6 per
+        matmul parameter (the tied unembedding included) plus the
+        attention term over the average visible keys (exact for a
+        window). The reference's ``bench._transformer_flops_per_token``."""
+        self._ensure_init()
+        n_params_matmul = sum(
+            p.numel() for blk in self.params["blocks"]
+            for grp in blk.values() for p in grp.values())
+        n_params_matmul += self.d_model * self.vocab_size
+        if self.attn_window is None or self.attn_window >= t:
+            avg_keys = t / 2
+        else:
+            w = self.attn_window
+            avg_keys = w * (t - (w - 1) / 2) / t
+        return int(6 * n_params_matmul
+                   + 12 * self.num_layers * self.d_model * avg_keys)
 
     def _unembed(self, params, h: torch.Tensor) -> torch.Tensor:
         """Final layernorm + tied unembedding on [..., D] → [..., V] f32

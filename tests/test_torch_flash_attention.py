@@ -101,8 +101,10 @@ def test_argument_checks():
         fa.flash_attention_fwd(q, q, q, window=4)         # window w/o causal
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(q, k[..., :32], k, causal=False)
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention(q.requires_grad_(), q, q, causal=True)
+    # flash_attention is differentiable: a grad flows back to q
+    qg = q.clone().requires_grad_()
+    fa.flash_attention(qg, q, q, causal=True).sum().backward()
+    assert qg.grad is not None and qg.grad.shape == q.shape
 
 
 def test_bound_counts_visible_keys():
