@@ -8,23 +8,32 @@ Run from the repository root on a machine with one CUDA card:
 Five phases; any failure exits non-zero and prints no result line.
 
 1. Build and device: compile every CUDA kernel from ``csrc/`` (one
-   ``nvcc`` per source, all at once) and print the card's name and power
-   limit from ``nvidia-smi``.
+   ``nvcc`` per source, all at once), print ptxas's registers and spill
+   bytes for each kernel, and the card's name and power limit from
+   ``nvidia-smi``.
 2. Kernels against their plain versions on the card: the flash-attention
-   forward (f32 and bf16; causal prompts of 16, 37, 512 and 1000 tokens,
-   a windowed case, a non-causal case, head_dim 128, and every prefill
-   shape of the serve phase) against ``flash_attention_fwd_reference``
-   with TF32 off, at f32 2e-5 and bf16 2e-2 on out and lse. Prints the
-   kernel's time beside the plain version's,
-   ``F.scaled_dot_product_attention`` as a yardstick the port never
-   calls, and the H100 bound. The training shape [16, 1024, 8, 64] is
-   timed too.
+   forward (f32 and bf16; causal prompts of 1, 5, 16, 17, 37, 63, 512
+   and 1000 tokens, windows of 1, 65 and 128 at 1000, non-causal
+   tq=300/tkv=700 and tq=5/tkv=130, head_dim 128 at b=2 P=513 and at
+   P=1000, the training shape [16, 1024, 8, 64], and every prefill shape
+   of the serve phase) against ``flash_attention_fwd_reference`` with
+   TF32 off, at f32 2e-5 and bf16 2e-2 on out and lse. The short and
+   windowed cases put sequence ends and mask edges inside one 16-row MMA
+   tile and one zero-filled ``cp.async`` row. Prints each kernel's
+   variant ("mma.sync bf16" or "fma f32") and time beside the plain
+   version's, ``F.scaled_dot_product_attention`` as a yardstick the port
+   never calls, and the H100 bound; asserts that two launches at the
+   training shape give bitwise identical outputs. Times are CUDA events
+   over 20 launches queued behind a sleep kernel (``cuda_ms``), so small
+   shapes show the card's time and not the host's launch rate.
 3. Flash backward: the dk/dv kernel (B2) and the dq kernel (B3) against
    their plain versions on the card with TF32 off, on the forward
    phase's cases and the training shape, in f32 (1e-4) and bf16 (2e-2)
-   on dq, dk and dv. Prints each kernel's time, the plain version's,
-   the bound and the backward of ``F.scaled_dot_product_attention`` (B2
-   and B3 together), a yardstick the port never calls.
+   on dq, dk and dv. Prints each kernel's variant and time, the plain
+   version's, the bound and the backward of
+   ``F.scaled_dot_product_attention`` (B2 and B3 together), a yardstick
+   the port never calls; asserts that two B2 launches at the training
+   shape give bitwise identical dk and dv.
 4. Serve: the d512·L8·H8 ``TransformerLM`` (vocab 8192, d_ff 2048,
    learned positions, max_len 1024, ``mixed_bf16``, ``attn_impl="flash"``,
    random weights from seed 0) first has its logits on a 77-token prompt
@@ -47,9 +56,10 @@ Five phases; any failure exits non-zero and prints no result line.
    steps under ``mixed_bf16`` (2e-2, 1e-2).
 
 Output: metric lines, then a ``{"kernels": [...]}`` JSON line (each
-kernel's ``launches`` counted over the train phase's timed steps; B1's
-over the serve phase too, as ``launches_serve``) and the ``nvidia-smi``
-line, then ``{"ok": true, "device": {...}}`` last.
+kernel's ``variant`` and ``launches`` counted over the train phase's
+timed steps; B1's over the serve phase too, as ``launches_serve``, and
+its train-shape numbers under ``train``) and the ``nvidia-smi`` line,
+then ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -57,6 +67,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -83,6 +94,15 @@ TRAIN_CFG = {**SERVE_CFG, "attn_impl": "auto"}
 TRAIN_BATCH, TRAIN_T = 16, 1024
 TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 H100_BF16_FLOPS = 989e12
+# the kernels whose bf16 launches run on the tensor cores (csrc/ notes);
+# the rest, and every f32 launch, run the FMA kernels
+MMA_BF16 = ("fwd", "dkdv")
+
+
+def variant(kernel: str, dtype: str) -> str:
+    """The CUDA kernel a wrapper launches: "mma.sync bf16" or "fma f32"."""
+    return ("mma.sync bf16" if dtype == "bfloat16" and kernel in MMA_BF16
+            else "fma f32")
 
 
 def fail(msg: str) -> None:
@@ -101,15 +121,67 @@ def card_line() -> str:
     return out[0] if out else "nvidia-smi printed nothing"
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events)."""
+def ptxas_lines(log: str):
+    """One line per kernel from ``nvcc -Xptxas=-v`` output: its mangled
+    name, registers and spill bytes."""
+    name, spill, out = None, "", []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        elif "spill stores" in line:
+            spill = line.strip()
+        else:
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                out.append(f"{name}: {m.group(1)} registers, {spill}")
+                name, spill = None, ""
+    return out
+
+
+def same_twice(fn) -> bool:
+    """Whether two launches of ``fn()`` give bitwise identical outputs."""
     import torch
 
-    for _ in range(warmup):
+    a, b = fn(), fn()
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+_SLEEP_CYCLES_PER_MS = []
+
+
+def sleep_cycles_per_ms() -> float:
+    """Cycles of ``torch.cuda._sleep`` per ms on this card (measured once)."""
+    import torch
+
+    if not _SLEEP_CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(10 ** 7 / start.elapsed_time(end))
+    return _SLEEP_CYCLES_PER_MS[0]
+
+
+def cuda_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events).
+    The timed launches are queued behind a sleep kernel twice as long as
+    the host took to issue as many in the warm-up, so the card runs them
+    back to back: at small shapes this is the kernel's time, not the
+    host's launch rate."""
+    import torch
+
+    t = time.perf_counter()
+    for _ in range(iters):  # warm-up, and the host's time to issue
         fn()
+    host_ms = (time.perf_counter() - t) * 1e3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(2 * host_ms * sleep_cycles_per_ms()))
     start.record()
     for _ in range(iters):
         fn()
@@ -127,11 +199,16 @@ def flash_cases():
     prompt-ladder rung of its prompt lengths); the last is the largest."""
     from deeplearning4j_tpu_torch.perf.bucketing import prompt_bucket
 
+    # P=1, 5, 17, 63, tq=5/tkv=130 and w=1/65 put sequence ends and mask
+    # edges inside one 16-row MMA tile and one 16-byte cp.async chunk row
     cases = [(f"causal P={p}", 1, p, p, 8, 64, True, None)
-             for p in (16, 37, 512, 1000)]
-    cases += [("windowed P=1000 w=128", 1, 1000, 1000, 8, 64, True, 128),
-              ("non-causal tq=300 tkv=700", 1, 300, 700, 8, 64, False, None),
+             for p in (1, 5, 16, 17, 37, 63, 512, 1000)]
+    cases += [(f"windowed P=1000 w={w}", 1, 1000, 1000, 8, 64, True, w)
+              for w in (1, 65, 128)]
+    cases += [("non-causal tq=300 tkv=700", 1, 300, 700, 8, 64, False, None),
+              ("non-causal tq=5 tkv=130", 1, 5, 130, 8, 64, False, None),
               ("head_dim 128 b=2 P=513", 2, 513, 513, 4, 128, True, None),
+              ("head_dim 128 P=1000", 1, 1000, 1000, 8, 128, True, None),
               train_case()]
     rungs = sorted({prompt_bucket(n, max_len=SERVE_MAX_LEN)
                     for n in SERVE_PROMPT_LENS})
@@ -156,7 +233,7 @@ def check_flash(card: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    failures, entry = [], None
+    failures, entry, train = [], None, None
     for label, b, tq, tkv, h, d, causal, window in flash_cases():
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
@@ -185,17 +262,30 @@ def check_flash(card: str) -> dict:
                 is_causal=causal and mask is None))
             bound = fa.flash_bound(b, tq, tkv, h, d, dtype, causal=causal,
                                    window=window)
-            print(f"flash_fwd {label} {name}: max_abs_err={err:.3e} "
+            print(f"flash_fwd {label} {name} [{variant('fwd', name)}]: "
+                  f"max_abs_err={err:.3e} "
                   f"(tol {TOL[name]:.0e}) kernel_ms={ms:.5f} "
                   f"plain_ms={plain_ms:.5f} library_ms={lib_ms:.5f} "
                   f"bound_ms={bound['bound_ms']:.6f} ({bound['bound_by']}) "
                   f"{'ok' if ok else 'MISMATCH'} [{card}]")
             if not ok:
                 failures.append(f"{label} {name}: err {err} finite {finite}")
+            if label == train_case()[0] and dtype == torch.bfloat16:
+                same = same_twice(lambda: fa.flash_attention_fwd(q, k, v,
+                                                                 **kw))
+                print(f"flash_fwd {label} {name}: two launches bitwise "
+                      f"identical: {same} [{card}]")
+                if not same:
+                    failures.append(f"{label} {name}: two launches differ")
+                train = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bound_ms": bound["bound_ms"],
+                         "bound_by": bound["bound_by"], "max_abs_err": err,
+                         "shape": [b, tq, h, d]}
             if label == flash_cases()[-1][0] and dtype == torch.bfloat16:
                 entry = {
                     "name": "flash_attention_fwd",
                     "route": "cuda",
+                    "variant": variant("fwd", name),
                     "source": "deeplearning4j_tpu_torch/kernels/csrc/"
                               "flash_fwd.cu",
                     "replaces": "deeplearning4j_tpu/pallas/"
@@ -211,6 +301,7 @@ def check_flash(card: str) -> dict:
     if failures:
         raise AssertionError("flash kernel disagrees with its plain "
                              "version: " + "; ".join(failures))
+    entry["train"] = train  # the same kernel at the train step's shape
     return entry
 
 
@@ -372,7 +463,8 @@ def check_flash_bwd(card: str) -> list:
             bound = fa.flash_bwd_bound(b, tq, tkv, h, d, dtype, causal=causal,
                                        window=window)
             for kern in ("dkdv", "dq"):
-                print(f"flash_bwd_{kern} {label} {name}: "
+                print(f"flash_bwd_{kern} {label} {name} "
+                      f"[{variant(kern, name)}]: "
                       f"max_abs_err={err[kern]:.3e} "
                       f"(tol {BWD_TOL[name]:.0e}) kernel_ms={ms[kern]:.5f} "
                       f"plain_ms={plain_ms[kern]:.5f} "
@@ -385,10 +477,18 @@ def check_flash_bwd(card: str) -> list:
             if not ok:
                 failures.append(f"{label} {name}: err {err} finite {finite}")
             if label == train_case()[0] and dtype == torch.bfloat16:
+                same = same_twice(
+                    lambda: fa.flash_attention_bwd_dkdv(*args, **kw))
+                print(f"flash_bwd_dkdv {label} {name}: two launches bitwise "
+                      f"identical: {same} [{card}]")
+                if not same:
+                    failures.append(f"{label} {name}: two B2 launches "
+                                    "differ")
                 for kern, line in (("dkdv", 391), ("dq", 432)):
                     entries.append({
                         "name": f"flash_attention_bwd_{kern}",
                         "route": "cuda",
+                        "variant": variant(kern, name),
                         "source": "deeplearning4j_tpu_torch/kernels/csrc/"
                                   "flash_bwd.cu",
                         "replaces": "deeplearning4j_tpu/pallas/"
@@ -569,6 +669,9 @@ def main() -> None:
         _build.build_all(KERNEL_SOURCES)
         print(f"build: {len(KERNEL_SOURCES)} kernel(s) in "
               f"{time.monotonic() - t0:.1f} s [{card}]")
+        for name in KERNEL_SOURCES:
+            for line in ptxas_lines(_build.LOGS.get(name, "")):
+                print(f"ptxas {name}.cu {line}")
     except Exception:
         traceback.print_exc()
         fail("kernel build failed")

@@ -2,15 +2,18 @@
 with ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
-into ``_build/lib<name>-<hash>.so`` (the directory is git-ignored; the
-hash of the source in the file name makes a stale library impossible to
-load). Nothing is built when a module is imported: the CPU tests import
-every module on machines without ``nvcc``.
+into ``_build/lib<name>-<hash>.so`` (the directory is git-ignored). The
+hash covers the source, every shared header ``csrc/*.cuh`` and the
+compiler flags, so a stale library is impossible to load. Nothing is
+built when a module is imported: the CPU tests import every module on
+machines without ``nvcc``. ``LOGS`` keeps each build's compiler output,
+with ptxas's register and spill counts.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -23,8 +26,10 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+#: compiler output of each library built by this process, by source name
+LOGS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -42,9 +47,16 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """Where ``csrc/<name>.cu`` builds to: the file name carries a hash of
+    the source, of every ``csrc/*.cuh`` (sorted by name) and of the
+    flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    for path in [os.path.join(CSRC, f"{name}.cu")] + headers:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _compile_cmd(name: str, out: str) -> List[str]:
@@ -71,6 +83,7 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
     errors = []
     for name, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
+        LOGS[name] = log
         if proc.returncode != 0:
             os.unlink(tmp)
             errors.append(f"nvcc failed for {name}.cu "

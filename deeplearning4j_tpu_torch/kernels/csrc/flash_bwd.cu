@@ -11,39 +11,56 @@
 // p = exp(s - lse), dp = v.do^T, ds = p * (dp - delta) * scale, then
 // dv += p^T.do, dk += ds^T.q (B2) and dq += ds.k (B3). delta = sum(out *
 // do) comes in f32 from the host wrapper, as in the reference. p is
-// rounded to the input dtype before p^T.do and ds before ds^T.q and ds.k,
-// where the Pallas tiles round. Masked (q, k) pairs give p = 0
-// explicitly: the Pallas tile relies on exp(-1e30 - lse) == 0, which
-// fails for a row whose lse is itself -1e30.
+// rounded to the input dtype before p^T.do and ds (from the unrounded p)
+// before ds^T.q and ds.k, where the Pallas tiles round. Masked (q, k)
+// pairs give p = 0 explicitly: the Pallas tile relies on
+// exp(-1e30 - lse) == 0, which fails for a row whose lse is itself -1e30.
 //
-// Design (simple and right first, in the style of flash_fwd.cu):
-// - B2: one block of 256 threads per (batch*head, 64-key tile). K and V
-//   stay in shared memory; the block loops over 64-query tiles from the
-//   causal diagonal to the window's far edge and keeps dk, dv in f32
-//   registers (a 4 x D/16 micro-tile of each per thread).
-// - B3: one block per (batch*head, 64-query tile). Q, dO, lse and delta
-//   stay in shared memory; the block loops over the key tiles of its
-//   band and keeps dq in f32 registers.
-// - Each block writes only its own rows, so neither kernel needs atomics
-//   across blocks: the two-kernel split removes them and keeps the
-//   gradients the same from run to run.
-// - Tiles that are wholly dead are never visited, so work scales with the
-//   window, not with t^2. Ragged edges and padded query rows are masked
-//   here; the host pads nothing.
-// - Products are plain f32 FMAs on operands widened from the input dtype
-//   (exact for bf16), so only the summation order differs from a bf16
-//   MMA with f32 accumulation.
+// Common to every variant:
+// - B2 has one block per (batch*head, 64-key tile) that loops over the
+//   64-query tiles from the causal diagonal to the window's far edge; B3
+//   one block per (batch*head, 64-query tile) over the key tiles of its
+//   band. Each block writes only its own rows, so neither kernel needs
+//   atomics across blocks and the gradients are bitwise the same from run
+//   to run.
+// - Wholly dead tiles are never visited, so work scales with the window,
+//   not with t^2. Ragged edges and padded query rows are masked here; the
+//   host pads nothing.
+//
+// B2 bf16 (dtype 1): "mma.sync bf16", on the tensor cores (building
+// blocks in mma_bf16.cuh). 4 warps, each owning 16 key rows.
+// - At head_dim 64 each warp holds its K and V rows as A fragments in
+//   registers. At head_dim 128 the dk and dv accumulators alone take 128
+//   registers a thread, so K and V stay in shared memory and their
+//   fragments are re-read by ldmatrix per query tile (about an eighth
+//   more shared-memory reads), and each 64-query tile is taken in two
+//   passes of 32 queries to halve the s and dp registers. The other
+//   option, splitting the d columns across a warp pair, would compute
+//   s and dp twice.
+// - Q, dO, lse and delta tiles stream through a two-stage cp.async ring
+//   (rows padded by 16 bytes against ldmatrix bank conflicts; rows past
+//   tq zero-filled); the next tile's copy overlaps this tile's math.
+// - S^T = K.Q^T and dP^T = V.dO^T by mma.sync, their B operands read
+//   from the row-major Q and dO tiles by plain ldmatrix. p^T and ds^T are
+//   formed in the f32 accumulators (the mask evaluated only on tiles that
+//   cross the diagonal, the window edge or a sequence end), rounded to
+//   bf16 in registers and fed straight back as the A operands of
+//   dV += P^T.dO and dK += dS^T.Q, whose B operands come from the same
+//   tiles by ldmatrix.trans. p and ds never touch shared memory.
+//
+// B2 f32 (dtype 0) and B3 (both dtypes): "fma f32", the first kernels of
+// this file, unchanged. One block of 256 threads; K, V, Q and dO staged in
+// shared memory as f32 tiles; p and ds passed through shared memory;
+// scalar f32 FMAs on operands widened from the input dtype (exact for
+// bf16). A tensor-core f32 path would need TF32, which cannot pass the f32
+// gate (1e-4). B3's bf16 redesign, reusing mma_bf16.cuh, comes next.
 //
 // Bound on an H100: B2 does 8*b*h*d*sum(visible keys) FLOPs (s, dp, dv,
 // dk), B3 6*b*h*d*sum(visible) (s, dp, dq), against 989 TFLOP/s (bf16)
 // or 67 TFLOP/s (f32); both read q, k, v, do once in the input dtype and
 // lse, delta in f32, and write their outputs in f32, against 3.35 TB/s.
-// At the training shape ([16, 1024, 8, 64] bf16 causal) both bounds are
-// tens of microseconds. These kernels are limited by f32 FMA issue and
-// shared-memory traffic instead. Left on the table: tensor cores
-// (mma.sync / wgmma), cp.async or TMA staging of the streamed tiles, and
-// one fused kernel that keeps dq in shared memory with atomics or a
-// second pass.
+// Left on the table: wgmma, TMA and warp specialisation, and a schedule
+// that balances the causal key tiles across the 132 SMs.
 //
 // C entry points `dl4j_flash_bwd_dkdv` and `dl4j_flash_bwd_dq` (loaded
 // with ctypes) return the CUDA error code of the launch (0 on success).
@@ -51,6 +68,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -404,6 +423,231 @@ int launch_dq(const Args& a, void* dq) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// B2 bf16 tensor-core variant
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+constexpr int kMmaThreads = 128;  // 4 warps x 16 key rows
+
+template <int D>
+constexpr size_t dkdv_mma_smem_bytes() {
+  // K, V [64][D+8] and Q, dO [2 stages][64][D+8] in bf16; lse and delta
+  // [2 stages][64] in f32
+  return (size_t)6 * 64 * (D + 8) * sizeof(bf16) +
+         (size_t)2 * 2 * kBQ * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int heads, int tq, int tkv, int causal, int window,
+                          float scale) {
+  using namespace dl4j_mma;
+  constexpr int LD = D + 8;   // padded shared row, elements
+  constexpr int KC = D / 16;  // k-steps over d of S^T and dP^T
+  constexpr int NO = D / 8;   // 8-wide column tiles of dk and dv
+  // head_dim 64: K and V fragments live in registers and a query tile is
+  // one pass; 128: they are re-read from shared memory and a query tile
+  // takes two passes of 32 (see the note at the top)
+  constexpr bool kKVRegs = D == 64;
+  constexpr int QS = D == 64 ? 64 : 32;  // query columns per pass
+  constexpr int NS = QS / 8;             // 8-query column tiles of S^T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
+  bf16* Vs = Ks + kBK * LD;                      // [64][LD]
+  bf16* Qs = Vs + kBK * LD;                      // [2][64][LD]
+  bf16* dOs = Qs + 2 * kBQ * LD;                 // [2][64][LD]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * kBQ * LD);  // [2][64]
+  float* delta_s = lse_s + 2 * kBQ;                             // [2][64]
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads, h = bh % heads;
+  const int k0 = blockIdx.y * kBK;  // causal: the heaviest tiles come first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int64_t tstride = (int64_t)heads * D;
+  const int64_t qoff = ((int64_t)b * tq * heads + h) * D;
+  const int64_t koff = ((int64_t)b * tkv * heads + h) * D;
+  const float* lse_b = lse + (int64_t)bh * tq;
+  const float* delta_b = delta + (int64_t)bh * tq;
+
+  // query tiles that can see this key tile, as in the f32 kernel
+  int q_lo = 0, q_hi = tq;
+  if (causal) q_lo = k0;
+  if (window > 0) q_hi = min(tq, k0 + kBK - 1 + window);
+  const int qt_lo = q_lo / kBQ, qt_hi = (q_hi + kBQ - 1) / kBQ;
+
+  // one stage of the ring: Q, dO, lse and delta of query tile qt
+  auto load_q_tile = [&](int qt, int stage) {
+    const int q0 = qt * kBQ;
+    cp_tile_64<D, kMmaThreads>(Qs + stage * kBQ * LD, q + qoff, q0, tq,
+                               tstride);
+    cp_tile_64<D, kMmaThreads>(dOs + stage * kBQ * LD, dout + qoff, q0, tq,
+                               tstride);
+    const int i = threadIdx.x % kBQ, t = q0 + i;
+    const float* src = threadIdx.x < kBQ ? lse_b : delta_b;
+    float* dst = (threadIdx.x < kBQ ? lse_s : delta_s) + stage * kBQ + i;
+    cp_async_4(dst, src + (t < tq ? t : 0), t < tq ? 4 : 0);
+  };
+
+  cp_tile_64<D, kMmaThreads>(Ks, k + koff, k0, tkv, tstride);
+  cp_tile_64<D, kMmaThreads>(Vs, v + koff, k0, tkv, tstride);
+  if (qt_lo < qt_hi) load_q_tile(qt_lo, 0);
+  cp_async_commit();
+
+  // ldmatrix row of this warp's K and V A fragments
+  const int arow = (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+  uint32_t kf[kKVRegs ? KC : 1][4], vf[kKVRegs ? KC : 1][4];
+  float dk_acc[NO][4], dv_acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int qt = qt_lo; qt < qt_hi; ++qt) {
+    const int stage = (qt - qt_lo) & 1;
+    if (qt + 1 < qt_hi) load_q_tile(qt + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and K, V) have landed
+    __syncthreads();
+    if constexpr (kKVRegs) {
+      if (qt == qt_lo) {
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+          ldmatrix_x4(kf[kc], Ks + arow + kc * 16);
+          ldmatrix_x4(vf[kc], Vs + arow + kc * 16);
+        }
+      }
+    }
+    const bf16* Qt = Qs + stage * kBQ * LD;
+    const bf16* dOt = dOs + stage * kBQ * LD;
+    const float* lse_t = lse_s + stage * kBQ;
+    const float* delta_t = delta_s + stage * kBQ;
+    const int q0 = qt * kBQ;
+    const bool edge = q0 + kBQ > tq || k0 + kBK > tkv ||
+                      (causal && k0 + kBK - 1 > q0) ||
+                      (window > 0 && q0 + kBQ - 1 - k0 >= window);
+
+    // one pass at a time: unrolled, the two passes at head_dim 128 would
+    // overlap and spill
+#pragma unroll 1
+    for (int qs = 0; qs < kBQ; qs += QS) {
+      // S^T = K.Q^T and dP^T = V.dO^T; Q and dO rows are the B operands'
+      // columns (plain ldmatrix)
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t ka[4], va[4];
+        if constexpr (kKVRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ka[e] = kf[kc][e];
+            va[e] = vf[kc][e];
+          }
+        } else {
+          ldmatrix_x4(ka, Ks + arow + kc * 16);
+          ldmatrix_x4(va, Vs + arow + kc * 16);
+        }
+#pragma unroll
+        for (int jp = 0; jp < NS / 2; ++jp) {
+          const int off = (qs + jp * 16 + lane % 8 + (lane / 16) * 8) * LD +
+                          kc * 16 + ((lane / 8) % 2) * 8;
+          uint32_t bq[4], bo[4];
+          ldmatrix_x4(bq, Qt + off);
+          mma_16816(s[2 * jp], ka, bq[0], bq[1]);
+          mma_16816(s[2 * jp + 1], ka, bq[2], bq[3]);
+          ldmatrix_x4(bo, dOt + off);
+          mma_16816(dp[2 * jp], va, bo[0], bo[1]);
+          mma_16816(dp[2 * jp + 1], va, bo[2], bo[3]);
+        }
+      }
+
+      // p^T = exp(s.scale - lse), 0 where masked; ds^T = p^T (dp^T -
+      // delta) scale from the unrounded p
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = qs + j * 8 + 2 * t4 + e % 2;  // column in the tile
+          float p = expf(s[j][e] * scale - lse_t[qc]);
+          if (edge) {
+            const int qi = q0 + qc, kj = k0 + warp * 16 + g + (e / 2) * 8;
+            bool keep = qi < tq && kj < tkv;
+            if (causal) keep = keep && qi >= kj;
+            if (window > 0) keep = keep && qi - kj < window;
+            p = keep ? p : 0.f;
+          }
+          dp[j][e] = p * (dp[j][e] - delta_t[qc]) * scale;
+          s[j][e] = p;
+        }
+
+      // dV += P^T.dO and dK += dS^T.Q: A operands (rounded to bf16) from
+      // the registers above, B operands by ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        uint32_t pa[4], da[4];
+        c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+        c_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+        const int row = (qs + kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD;
+#pragma unroll
+        for (int np = 0; np < NO / 2; ++np) {
+          const int off = row + np * 16 + (lane / 16) * 8;
+          uint32_t bo[4], bq[4];
+          ldmatrix_x4_trans(bo, dOt + off);
+          mma_16816(dv_acc[2 * np], pa, bo[0], bo[1]);
+          mma_16816(dv_acc[2 * np + 1], pa, bo[2], bo[3]);
+          ldmatrix_x4_trans(bq, Qt + off);
+          mma_16816(dk_acc[2 * np], da, bq[0], bq[1]);
+          mma_16816(dk_acc[2 * np + 1], da, bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = k0 + warp * 16 + g + i * 8;
+    if (t < tkv) {
+      const int64_t row = koff + t * tstride + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        *reinterpret_cast<float2*>(dk + row + n * 8) =
+            make_float2(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
+        *reinterpret_cast<float2*>(dv + row + n * 8) =
+            make_float2(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_dkdv_mma(const Args& a, void* dk, void* dv) {
+  const size_t bytes = dkdv_mma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_mma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.batch * a.heads, (a.tkv + kBK - 1) / kBK);
+  flash_bwd_dkdv_mma_kernel<D><<<grid, kMmaThreads, bytes, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), a.heads, a.tq,
+      a.tkv, a.causal, a.window, a.scale);
+  return (int)cudaGetLastError();
+}
+
 bool valid(const Args& a) {
   return a.batch >= 1 && a.heads >= 1 && a.tq >= 1 && a.tkv >= 1 &&
          (int64_t)a.batch * a.heads <= 65535;
@@ -411,7 +655,8 @@ bool valid(const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. window <= 0 means no window.
+// dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core
+// kernel). window <= 0 means no window.
 // q, k, v, dout: BTHD in the input dtype; lse, delta: [batch*heads, tq]
 // f32; dk, dv: BTHD f32 [batch, tkv, heads, head_dim].
 extern "C" int dl4j_flash_bwd_dkdv(const void* q, const void* k,
@@ -427,14 +672,13 @@ extern "C" int dl4j_flash_bwd_dkdv(const void* q, const void* k,
   if (dtype == 0 && head_dim == 64) return launch_dkdv<float, 64>(a, dk, dv);
   if (dtype == 0 && head_dim == 128)
     return launch_dkdv<float, 128>(a, dk, dv);
-  if (dtype == 1 && head_dim == 64)
-    return launch_dkdv<__nv_bfloat16, 64>(a, dk, dv);
-  if (dtype == 1 && head_dim == 128)
-    return launch_dkdv<__nv_bfloat16, 128>(a, dk, dv);
+  if (dtype == 1 && head_dim == 64) return launch_dkdv_mma<64>(a, dk, dv);
+  if (dtype == 1 && head_dim == 128) return launch_dkdv_mma<128>(a, dk, dv);
   return (int)cudaErrorInvalidValue;
 }
 
-// Same inputs; dq: BTHD f32 [batch, tq, heads, head_dim].
+// Same inputs; dq: BTHD f32 [batch, tq, heads, head_dim]. Both dtypes run
+// the FMA kernel.
 extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int batch,

@@ -33,7 +33,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 
-FLASH_KERNEL = "flash_fwd_kernel"
+# both variants of B1: flash_fwd_kernel (f32), flash_fwd_mma_kernel (bf16)
+FLASH_KERNEL = "flash_fwd_"
 
 
 def _busy_us(intervals):

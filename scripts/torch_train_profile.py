@@ -51,9 +51,10 @@ def _is_gemm(name: str) -> bool:
 
 
 GROUPS = (
-    ("flash_fwd (B1)", lambda n: "flash_fwd_kernel" in n),
-    ("flash_bwd_dkdv (B2)", lambda n: "flash_bwd_dkdv_kernel" in n),
-    ("flash_bwd_dq (B3)", lambda n: "flash_bwd_dq_kernel" in n),
+    # both variants of each kernel: flash_fwd_kernel, flash_fwd_mma_kernel
+    ("flash_fwd (B1)", lambda n: "flash_fwd_" in n),
+    ("flash_bwd_dkdv (B2)", lambda n: "flash_bwd_dkdv_" in n),
+    ("flash_bwd_dq (B3)", lambda n: "flash_bwd_dq_" in n),
     ("f64 GEMMs", lambda n: _is_gemm(n) and _is_f64(n)),
     ("other GEMMs", _is_gemm),
     ("copies and casts", lambda n: "copy" in n.lower() or "Memcpy" in n),
@@ -85,7 +86,7 @@ def unembed_ms(lm, tokens: int, iters: int = 10) -> float:
         logits = lm._unembed(params, h)
         torch.autograd.grad(logits, (h, params["embed"]), g)
 
-    return cs.cuda_ms(run, iters=iters, warmup=2)
+    return cs.cuda_ms(run, iters=iters)
 
 
 def sync_ops(lm, tok) -> int:

@@ -5,8 +5,12 @@ The JAX side runs the Pallas kernel in interpret mode, as
 ``flash_attention_fwd`` on CPU tensors, which takes its plain version
 (the CUDA kernel itself is checked against that plain version on the card
 by ``chip_smoke.py``). Tolerances: f32 2e-5 on out and lse; bf16 inputs
-against the f32 oracle 5e-2.
+against the f32 oracle 5e-2. Also checks, without building anything, that
+a kernel library's name tracks its source and the shared headers.
 """
+
+import os
+import shutil
 
 import numpy as np
 import pytest
@@ -16,6 +20,7 @@ import jax.numpy as jnp
 
 from deeplearning4j_tpu.pallas.flash_attention import (
     flash_attention_fwd as jax_flash_fwd)
+from deeplearning4j_tpu_torch.kernels import KERNEL_SOURCES, _build
 from deeplearning4j_tpu_torch.kernels import flash_attention as fa
 
 CASES = [
@@ -116,3 +121,30 @@ def test_bound_counts_visible_keys():
     assert b["bytes"] == 2 * 4 * 1024 * 8 * 64 + 4 * 8 * 1024
     assert b["bound_by"] == "bytes"
     assert b["bound_ms"] == pytest.approx(b["bytes"] / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("name", KERNEL_SOURCES)
+def test_library_path_hashes_shared_headers(name, tmp_path, monkeypatch):
+    """A kernel's library name changes with its source and with every
+    ``csrc/*.cuh`` it may include, and with nothing else; computing it
+    builds nothing."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    headers = sorted(csrc.glob("*.cuh"))
+    assert "mma_bf16.cuh" in [h.name for h in headers]
+    first = _build.library_path(name)
+    assert os.path.dirname(first) == str(tmp_path / "build")
+    assert _build.library_path(name) == first          # nothing changed
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    second = _build.library_path(name)
+    assert second != first                             # header edited
+    (csrc / "zz_new.cuh").write_text("#pragma once\n")
+    assert _build.library_path(name) not in (first, second)  # header added
+    (csrc / "zz_new.cuh").unlink()
+    assert _build.library_path(name) == second
+    src = csrc / f"{name}.cu"
+    src.write_text(src.read_text() + "\n")
+    assert _build.library_path(name) != second         # source edited
+    assert not (tmp_path / "build").exists()
