@@ -32,8 +32,8 @@ Five phases; any failure exits non-zero and prints no result line.
    on dq, dk and dv. Prints each kernel's variant and time, the plain
    version's, the bound and the backward of
    ``F.scaled_dot_product_attention`` (B2 and B3 together), a yardstick
-   the port never calls; asserts that two B2 launches at the training
-   shape give bitwise identical dk and dv.
+   the port never calls; asserts that two launches of B2 and of B3 at the
+   training shape give bitwise identical gradients.
 4. Serve: the d512·L8·H8 ``TransformerLM`` (vocab 8192, d_ff 2048,
    learned positions, max_len 1024, ``mixed_bf16``, ``attn_impl="flash"``,
    random weights from seed 0) first has its logits on a 77-token prompt
@@ -49,7 +49,11 @@ Five phases; any failure exits non-zero and prints no result line.
    steps on one seeded ``[16, 1024]`` batch under ``mixed_bf16``.
    Asserts finite, falling losses, B1, B2 and B3 each launched
    ``num_layers`` times per step, and f32 masters and Adam moments;
-   prints ms/step, tokens/s and the share of the bf16 peak. Then, at full
+   prints ms/step, host time per step, tokens/s and the share of the
+   bf16 peak. Holds the training unembedding (bf16 GEMMs with f32
+   output) against the f32 product of its widened operands at the step's
+   shape (logits 1e-4, gradients 2e-2 of their largest magnitude) and
+   prints its time beside the f64 decode unembedding's. Then, at full
    width and batch 2, holds the flash path against the plain-attention
    path on the same weights: one step's loss and gradients under
    ``float32`` (rtol 2e-3, atol 1e-3) and the loss and params after 3
@@ -95,8 +99,8 @@ TRAIN_BATCH, TRAIN_T = 16, 1024
 TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 H100_BF16_FLOPS = 989e12
 # the kernels whose bf16 launches run on the tensor cores (csrc/ notes);
-# the rest, and every f32 launch, run the FMA kernels
-MMA_BF16 = ("fwd", "dkdv")
+# every f32 launch runs the FMA kernels
+MMA_BF16 = ("fwd", "dkdv", "dq")
 
 
 def variant(kernel: str, dtype: str) -> str:
@@ -140,10 +144,13 @@ def ptxas_lines(log: str):
 
 
 def same_twice(fn) -> bool:
-    """Whether two launches of ``fn()`` give bitwise identical outputs."""
+    """Whether two launches of ``fn()`` (a tensor or a tuple of them)
+    give bitwise identical outputs."""
     import torch
 
     a, b = fn(), fn()
+    if isinstance(a, torch.Tensor):
+        a, b = (a,), (b,)
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
@@ -477,13 +484,14 @@ def check_flash_bwd(card: str) -> list:
             if not ok:
                 failures.append(f"{label} {name}: err {err} finite {finite}")
             if label == train_case()[0] and dtype == torch.bfloat16:
-                same = same_twice(
-                    lambda: fa.flash_attention_bwd_dkdv(*args, **kw))
-                print(f"flash_bwd_dkdv {label} {name}: two launches bitwise "
-                      f"identical: {same} [{card}]")
-                if not same:
-                    failures.append(f"{label} {name}: two B2 launches "
-                                    "differ")
+                for kern, fn in (("dkdv", fa.flash_attention_bwd_dkdv),
+                                 ("dq", fa.flash_attention_bwd_dq)):
+                    same = same_twice(lambda: fn(*args, **kw))
+                    print(f"flash_bwd_{kern} {label} {name}: two launches "
+                          f"bitwise identical: {same} [{card}]")
+                    if not same:
+                        failures.append(f"{label} {name}: two {kern} "
+                                        "launches differ")
                 for kern, line in (("dkdv", 391), ("dq", 432)):
                     entries.append({
                         "name": f"flash_attention_bwd_{kern}",
@@ -590,7 +598,94 @@ def train(card: str) -> dict:
         if x.dtype != torch.float32 or x.requires_grad:
             raise AssertionError(f"a master or moment is {x.dtype} "
                                  f"(requires_grad={x.requires_grad})")
+    check_train_unembedding(lm, card)
     return launches
+
+
+def unembed_inputs(lm, rows: int):
+    """``(params, h, g)`` for the unembedding at a train step's shape: the
+    step's compute-dtype copy of ``embed`` (requiring grad) and ``ln_f``,
+    a seeded hidden state of ``rows`` rows in the compute dtype
+    (requiring grad) and an f32 upstream gradient, on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    params = lm.policy.compute_copy({"embed": lm.params["embed"],
+                                     "ln_f": lm.params["ln_f"]})
+    params["embed"] = params["embed"].detach().requires_grad_()
+    h = torch.randn((rows, lm.d_model), device="cuda", generator=gen).to(
+        lm.policy.compute_dtype).requires_grad_()
+    g = torch.randn((rows, lm.vocab_size), device="cuda", generator=gen)
+    return params, h, g
+
+
+def unembed_ms(lm, rows: int, *, train: bool, iters: int = 10) -> float:
+    """Forward and backward of the training unembedding
+    (``lm._unembed_train``: bf16 products, f32 sums) or, with
+    ``train=False``, of the decode one (``lm._unembed``: f64 sums) on
+    :func:`unembed_inputs` (CUDA events)."""
+    import torch
+
+    params, h, g = unembed_inputs(lm, rows)
+    fn = lm._unembed_train if train else lm._unembed
+    return cuda_ms(lambda: torch.autograd.grad(
+        fn(params, h), (h, params["embed"]), g), iters=iters)
+
+
+def mm_dtype_differentiates() -> bool:
+    """Whether this torch can differentiate ``torch.mm(...,
+    out_dtype=torch.float32)`` by itself (the port does not rely on it:
+    ``_UnembedBF16`` writes the backward)."""
+    import torch
+
+    a = torch.ones((16, 16), device="cuda", dtype=torch.bfloat16,
+                   requires_grad=True)
+    try:
+        torch.mm(a, a, out_dtype=torch.float32).sum().backward()
+    except RuntimeError:
+        return False
+    return True
+
+
+def check_train_unembedding(lm, card: str) -> None:
+    """The training unembedding on the card (bf16 GEMMs with f32 output)
+    against its plain version at the train step's shape: the f32 product
+    of the same operands widened to f32 with TF32 off, under autograd.
+    Logits within 1e-4 (exact products, f32 sums in two orders, logits
+    of magnitude < 3 here); gradients within 2e-2 of their largest
+    magnitude, the forward's bf16 gate (both sides round each gradient
+    to bf16, one ulp apart at most, 2^-8; the card's side also rounds the
+    upstream gradient to bf16 before the backward products). Prints its
+    time and the decode unembedding's (f64 sums), which training ran
+    before."""
+    import torch
+    from deeplearning4j_tpu_torch.models.transformer import _layernorm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = TRAIN_BATCH * TRAIN_T
+    params, h, g = unembed_inputs(lm, n)
+    e = params["embed"]
+    got = lm._unembed_train(params, h)
+    got_grads = torch.autograd.grad(got, (h, e), g)
+    hf = _layernorm(h, params["ln_f"]["g"], params["ln_f"]["b"])
+    want = hf.float() @ e.float().T
+    want_grads = torch.autograd.grad(want, (h, e), g)
+    err = float((got - want).detach().abs().max())
+    grad_err = max(float((a.float() - b.float()).abs().max())
+                   / float(b.float().abs().max())
+                   for a, b in zip(got_grads, want_grads))
+    ok = got.dtype == torch.float32 and err <= 1e-4 and grad_err <= 2e-2
+    train_ms = unembed_ms(lm, n, train=True)
+    decode_ms = unembed_ms(lm, n, train=False)
+    print(f"train unembedding [{n}, {lm.d_model}] x [{lm.vocab_size}, "
+          f"{lm.d_model}] bf16 -> f32 vs widened f32: max_abs_err={err:.3e} "
+          f"(tol 1e-4) grad_rel_err={grad_err:.3e} (tol 2e-2) "
+          f"fwd_bwd_ms={train_ms:.5f} decode_f64_fwd_bwd_ms={decode_ms:.5f} "
+          f"mm_dtype_differentiates={mm_dtype_differentiates()} "
+          f"{'ok' if ok else 'MISMATCH'} [{card}]")
+    if not ok:
+        raise AssertionError("the training unembedding disagrees with its "
+                             "plain version")
 
 
 def check_train_parity(card: str) -> None:

@@ -48,12 +48,28 @@
 //   dV += P^T.dO and dK += dS^T.Q, whose B operands come from the same
 //   tiles by ldmatrix.trans. p and ds never touch shared memory.
 //
-// B2 f32 (dtype 0) and B3 (both dtypes): "fma f32", the first kernels of
-// this file, unchanged. One block of 256 threads; K, V, Q and dO staged in
-// shared memory as f32 tiles; p and ds passed through shared memory;
-// scalar f32 FMAs on operands widened from the input dtype (exact for
-// bf16). A tensor-core f32 path would need TF32, which cannot pass the f32
-// gate (1e-4). B3's bf16 redesign, reusing mma_bf16.cuh, comes next.
+// B3 bf16 (dtype 1): "mma.sync bf16", B1's query-stationary loop with a
+// second product and another last product. 4 warps, each owning 16 query
+// rows, with their lse and delta in registers.
+// - At head_dim 64 each warp holds its Q and dO rows as A fragments in
+//   registers. At head_dim 128 the dq accumulators take 64 registers and
+//   s and dp another 64, so Q and dO stay in shared memory and their
+//   fragments are re-read by ldmatrix per key tile (a sixth more
+//   shared-memory reads: 32 rows of Q and dO against 192 of K and V).
+// - K and V tiles stream through a two-stage cp.async ring as in B1.
+// - S = Q.K^T and dP = dO.V^T by mma.sync, their B operands read from the
+//   row-major K and V tiles by plain ldmatrix. p (0 where masked, the mask
+//   evaluated only on edge tiles) and ds = p (dp - delta) scale from the
+//   unrounded p are formed in the f32 accumulators; ds is rounded to bf16
+//   in registers and fed straight back as the A operand of dQ += dS.K, K
+//   read again by ldmatrix.trans. ds never touches shared memory.
+//
+// B2 and B3 f32 (dtype 0): "fma f32", the first kernels of this file,
+// which take f32 inputs only since every bf16 launch runs on the tensor
+// cores. One block of 256 threads; K, V, Q and dO staged in shared
+// memory as f32 tiles; p and ds passed through shared memory; scalar f32
+// FMAs. A tensor-core f32 path would need TF32, which cannot pass the
+// f32 gate (1e-4).
 //
 // Bound on an H100: B2 does 8*b*h*d*sum(visible keys) FLOPs (s, dp, dv,
 // dk), B3 6*b*h*d*sum(visible) (s, dp, dq), against 989 TFLOP/s (bf16)
@@ -77,29 +93,14 @@ constexpr int kBQ = 64;        // query rows per tile
 constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 x 16 thread grid
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// x rounded to T and widened back (round to nearest even, like astype)
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// rows [t0, t0 + 64) of one head of a BTHD tensor into a [64][D+1] f32
+// rows [t0, t0 + 64) of one head of a BTHD f32 tensor into a [64][D+1]
 // tile; rows at or past `len` are zeros
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int t0,
-                                          int len, int64_t tstride) {
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int t0, int len, int64_t tstride) {
   for (int i = threadIdx.x; i < 64 * D; i += kThreads) {
     const int r = i / D, c = i % D, t = t0 + r;
-    dst[r * (D + 1) + c] = t < len ? to_f32(src[t * tstride + c]) : 0.f;
+    dst[r * (D + 1) + c] = t < len ? src[t * tstride + c] : 0.f;
   }
 }
 
@@ -123,10 +124,12 @@ constexpr size_t dq_smem_floats() {
   return 4 * 64 * (D + 1) + kBQ * (kBK + 1) + 2 * kBQ;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
                       float* __restrict__ dk, float* __restrict__ dv,
@@ -137,8 +140,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Vs = Ks + kBK * (D + 1);          // [BK][D+1]
   float* Qs = Vs + kBK * (D + 1);          // [BQ][D+1]
   float* dOs = Qs + kBQ * (D + 1);         // [BQ][D+1]
-  float* Ps = dOs + kBQ * (D + 1);         // [BK][BQ+1] p, rounded to T
-  float* dSs = Ps + kBK * (kBQ + 1);       // [BK][BQ+1] ds, rounded to T
+  float* Ps = dOs + kBQ * (D + 1);         // [BK][BQ+1] p
+  float* dSs = Ps + kBK * (kBQ + 1);       // [BK][BQ+1] ds
   float* lse_s = dSs + kBK * (kBQ + 1);    // [BQ]
   float* delta_s = lse_s + kBQ;            // [BQ]
 
@@ -153,8 +156,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* lse_b = lse + (int64_t)bh * tq;
   const float* delta_b = delta + (int64_t)bh * tq;
 
-  load_tile<T, D>(Ks, k + koff, k0, tkv, tstride);
-  load_tile<T, D>(Vs, v + koff, k0, tkv, tstride);
+  load_tile<D>(Ks, k + koff, k0, tkv, tstride);
+  load_tile<D>(Vs, v + koff, k0, tkv, tstride);
 
   constexpr int CJ = D / 16;
   float dk_acc[4][CJ], dv_acc[4][CJ];  // key rows ty + 16*i, cols tx + 16*j
@@ -173,8 +176,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int qt = qt_lo; qt < qt_hi; ++qt) {
     const int q0 = qt * kBQ;
     __syncthreads();  // the previous tile's Q/dO/P/dS reads are done
-    load_tile<T, D>(Qs, q + qoff, q0, tq, tstride);
-    load_tile<T, D>(dOs, dout + qoff, q0, tq, tstride);
+    load_tile<D>(Qs, q + qoff, q0, tq, tstride);
+    load_tile<D>(dOs, dout + qoff, q0, tq, tstride);
     if (tid < kBQ) {
       const int t = q0 + tid;
       lse_s[tid] = t < tq ? lse_b[t] : 0.f;
@@ -218,9 +221,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int c = tx + 16 * j;
         const bool keep = visible(q0 + c, k0 + r, tq, tkv, causal, window);
         const float p = keep ? expf(s[i][j] * scale - lse_s[c]) : 0.f;
-        const float ds = p * (dp[i][j] - delta_s[c]) * scale;
-        Ps[r * (kBQ + 1) + c] = round_to<T>(p);
-        dSs[r * (kBQ + 1) + c] = round_to<T>(ds);
+        Ps[r * (kBQ + 1) + c] = p;
+        dSs[r * (kBQ + 1) + c] = p * (dp[i][j] - delta_s[c]) * scale;
       }
     }
     __syncthreads();
@@ -260,10 +262,11 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int heads, int tq, int tkv, int causal, int window,
@@ -273,7 +276,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dOs = Qs + kBQ * (D + 1);         // [BQ][D+1]
   float* Ks = dOs + kBQ * (D + 1);         // [BK][D+1]
   float* Vs = Ks + kBK * (D + 1);          // [BK][D+1]
-  float* dSs = Vs + kBK * (D + 1);         // [BQ][BK+1] ds, rounded to T
+  float* dSs = Vs + kBK * (D + 1);         // [BQ][BK+1] ds
   float* lse_s = dSs + kBQ * (kBK + 1);    // [BQ]
   float* delta_s = lse_s + kBQ;            // [BQ]
 
@@ -286,8 +289,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t qoff = ((int64_t)b * tq * heads + h) * D;
   const int64_t koff = ((int64_t)b * tkv * heads + h) * D;
 
-  load_tile<T, D>(Qs, q + qoff, q0, tq, tstride);
-  load_tile<T, D>(dOs, dout + qoff, q0, tq, tstride);
+  load_tile<D>(Qs, q + qoff, q0, tq, tstride);
+  load_tile<D>(dOs, dout + qoff, q0, tq, tstride);
   if (tid < kBQ) {
     const int t = q0 + tid;
     lse_s[tid] = t < tq ? lse[(int64_t)bh * tq + t] : 0.f;
@@ -310,8 +313,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's K/dS reads are done
-    load_tile<T, D>(Ks, k + koff, k0, tkv, tstride);
-    load_tile<T, D>(Vs, v + koff, k0, tkv, tstride);
+    load_tile<D>(Ks, k + koff, k0, tkv, tstride);
+    load_tile<D>(Vs, v + koff, k0, tkv, tstride);
     __syncthreads();
 
     // s = Q.K^T and dp = dO.V^T (query rows ty + 16*i, key columns
@@ -350,8 +353,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int c = tx + 16 * j;
         const bool keep = visible(q0 + r, k0 + c, tq, tkv, causal, window);
         const float p = keep ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        dSs[r * (kBK + 1) + c] =
-            round_to<T>(p * (dp[i][j] - delta_s[r]) * scale);
+        dSs[r * (kBK + 1) + c] = p * (dp[i][j] - delta_s[r]) * scale;
       }
     }
     __syncthreads();
@@ -389,34 +391,34 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <int D>
 int launch_dkdv(const Args& a, void* dk, void* dv) {
   const size_t bytes = dkdv_smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<T, D>,
+      flash_bwd_dkdv_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.tkv + kBK - 1) / kBK, a.batch * a.heads);
-  flash_bwd_dkdv_kernel<T, D><<<grid, kThreads, bytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  flash_bwd_dkdv_kernel<D><<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<float*>(dk), static_cast<float*>(dv), a.heads, a.tq,
       a.tkv, a.causal, a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dq(const Args& a, void* dq) {
   const size_t bytes = dq_smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.tq + kBQ - 1) / kBQ, a.batch * a.heads);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, bytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  flash_bwd_dq_kernel<D><<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<float*>(dq), a.heads, a.tq, a.tkv, a.causal, a.window,
       a.scale);
@@ -631,6 +633,210 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// B3 bf16 tensor-core variant
+// ---------------------------------------------------------------------------
+template <int D>
+constexpr size_t dq_mma_smem_bytes() {
+  // Q, dO [64][D+8] and K, V [2 stages][64][D+8], bf16
+  return (size_t)6 * 64 * (D + 8) * sizeof(bf16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int heads, int tq, int tkv,
+                        int causal, int window, float scale) {
+  using namespace dl4j_mma;
+  constexpr int LD = D + 8;    // padded shared row, elements
+  constexpr int KC = D / 16;   // k-steps over d of S and dP
+  constexpr int NS = kBK / 8;  // 8-key column tiles of S and dP
+  constexpr int NO = D / 8;    // 8-wide column tiles of dq
+  // head_dim 64: the warp's Q and dO fragments live in registers; 128:
+  // the dq accumulators take 64 registers, so the fragments are re-read
+  // from shared memory per key tile (see the note at the top)
+  constexpr bool kQRegs = D == 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
+  bf16* dOs = Qs + kBQ * LD;                     // [64][LD]
+  bf16* Ks = dOs + kBQ * LD;                     // [2][64][LD]
+  bf16* Vs = Ks + 2 * kBK * LD;                  // [2][64][LD]
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads, h = bh % heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy tiles first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int64_t tstride = (int64_t)heads * D;
+  const int64_t qoff = ((int64_t)b * tq * heads + h) * D;
+  const int64_t koff = ((int64_t)b * tkv * heads + h) * D;
+
+  // the key tiles this query tile can see, as in the forward
+  int k_lo = 0, k_hi = tkv;
+  if (causal) k_hi = min(tkv, q0 + kBQ);
+  if (window > 0) k_lo = max(0, q0 - window + 1);
+  const int kt_lo = k_lo / kBK, kt_hi = (k_hi + kBK - 1) / kBK;
+
+  cp_tile_64<D, kMmaThreads>(Qs, q + qoff, q0, tq, tstride);
+  cp_tile_64<D, kMmaThreads>(dOs, dout + qoff, q0, tq, tstride);
+  cp_tile_64<D, kMmaThreads>(Ks, k + koff, kt_lo * kBK, tkv, tstride);
+  cp_tile_64<D, kMmaThreads>(Vs, v + koff, kt_lo * kBK, tkv, tstride);
+  cp_async_commit();
+
+  // this thread's rows of the warp's 16: r0 = q0 + 16*warp + g, r0 + 8;
+  // rows past tq read lse = delta = 0 and are masked and never written
+  const int r0 = q0 + warp * 16 + g;
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + i * 8;
+    lse_r[i] = r < tq ? lse[(int64_t)bh * tq + r] : 0.f;
+    delta_r[i] = r < tq ? delta[(int64_t)bh * tq + r] : 0.f;
+  }
+
+  // ldmatrix row of this warp's Q and dO A fragments
+  const int arow = (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+  uint32_t qf[kQRegs ? KC : 1][4], of[kQRegs ? KC : 1][4];
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int stage = (kt - kt_lo) & 1;
+    if (kt + 1 < kt_hi) {  // prefetch the next tile into the other stage
+      const int next = (stage ^ 1) * kBK * LD;
+      cp_tile_64<D, kMmaThreads>(Ks + next, k + koff, (kt + 1) * kBK, tkv,
+                                 tstride);
+      cp_tile_64<D, kMmaThreads>(Vs + next, v + koff, (kt + 1) * kBK, tkv,
+                                 tstride);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and Q, dO) have landed
+    __syncthreads();
+    if constexpr (kQRegs) {
+      if (kt == kt_lo) {
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+          ldmatrix_x4(qf[kc], Qs + arow + kc * 16);
+          ldmatrix_x4(of[kc], dOs + arow + kc * 16);
+        }
+      }
+    }
+    const bf16* Kt = Ks + stage * kBK * LD;
+    const bf16* Vt = Vs + stage * kBK * LD;
+    const int k0 = kt * kBK;
+
+    // S = Q.K^T and dP = dO.V^T: K and V rows are the B operands'
+    // columns (plain ldmatrix)
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t qa[4], oa[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          qa[e] = qf[kc][e];
+          oa[e] = of[kc][e];
+        }
+      } else {
+        ldmatrix_x4(qa, Qs + arow + kc * 16);
+        ldmatrix_x4(oa, dOs + arow + kc * 16);
+      }
+#pragma unroll
+      for (int jp = 0; jp < NS / 2; ++jp) {
+        const int off = (jp * 16 + lane % 8 + (lane / 16) * 8) * LD +
+                        kc * 16 + ((lane / 8) % 2) * 8;
+        uint32_t bk[4], bv[4];
+        ldmatrix_x4(bk, Kt + off);
+        mma_16816(s[2 * jp], qa, bk[0], bk[1]);
+        mma_16816(s[2 * jp + 1], qa, bk[2], bk[3]);
+        ldmatrix_x4(bv, Vt + off);
+        mma_16816(dp[2 * jp], oa, bv[0], bv[1]);
+        mma_16816(dp[2 * jp + 1], oa, bv[2], bv[3]);
+      }
+    }
+
+    // p = exp(s.scale - lse), 0 where masked (evaluated only on tiles
+    // that cross the diagonal, the window edge or a sequence end); ds =
+    // p (dp - delta) scale from the unrounded p
+    const bool edge = q0 + kBQ > tq || k0 + kBK > tkv ||
+                      (causal && k0 + kBK - 1 > q0) ||
+                      (window > 0 && q0 + kBQ - 1 - k0 >= window);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e / 2;
+        float p = expf(s[j][e] * scale - lse_r[i]);
+        if (edge) {
+          const int qi = r0 + i * 8, kj = k0 + j * 8 + 2 * t4 + e % 2;
+          bool keep = qi < tq && kj < tkv;
+          if (causal) keep = keep && qi >= kj;
+          if (window > 0) keep = keep && qi - kj < window;
+          p = keep ? p : 0.f;
+        }
+        dp[j][e] = p * (dp[j][e] - delta_r[i]) * scale;
+      }
+
+    // dQ += dS.K: dS (rounded to bf16) from the registers above, K by
+    // ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      uint32_t da[4];
+      c_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+      const int row = (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD;
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        uint32_t bk[4];
+        ldmatrix_x4_trans(bk, Kt + row + np * 16 + (lane / 16) * 8);
+        mma_16816(acc[2 * np], da, bk[0], bk[1]);
+        mma_16816(acc[2 * np + 1], da, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + i * 8;
+    if (r < tq) {
+      float* row = dq + qoff + r * tstride + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<float2*>(row + n * 8) =
+            make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dq_mma(const Args& a, void* dq) {
+  const size_t bytes = dq_mma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.batch * a.heads, (a.tq + kBQ - 1) / kBQ);
+  flash_bwd_dq_mma_kernel<D><<<grid, kMmaThreads, bytes, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(dq), a.heads, a.tq, a.tkv, a.causal, a.window,
+      a.scale);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_dkdv_mma(const Args& a, void* dk, void* dv) {
   const size_t bytes = dkdv_mma_smem_bytes<D>();
@@ -669,16 +875,14 @@ extern "C" int dl4j_flash_bwd_dkdv(const void* q, const void* k,
   const Args a{q, k, v, dout, lse, delta, batch, heads, tq, tkv, causal,
                window, scale, static_cast<cudaStream_t>(stream)};
   if (!valid(a)) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && head_dim == 64) return launch_dkdv<float, 64>(a, dk, dv);
-  if (dtype == 0 && head_dim == 128)
-    return launch_dkdv<float, 128>(a, dk, dv);
+  if (dtype == 0 && head_dim == 64) return launch_dkdv<64>(a, dk, dv);
+  if (dtype == 0 && head_dim == 128) return launch_dkdv<128>(a, dk, dv);
   if (dtype == 1 && head_dim == 64) return launch_dkdv_mma<64>(a, dk, dv);
   if (dtype == 1 && head_dim == 128) return launch_dkdv_mma<128>(a, dk, dv);
   return (int)cudaErrorInvalidValue;
 }
 
-// Same inputs; dq: BTHD f32 [batch, tq, heads, head_dim]. Both dtypes run
-// the FMA kernel.
+// Same inputs and dtype codes; dq: BTHD f32 [batch, tq, heads, head_dim].
 extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int batch,
@@ -688,11 +892,9 @@ extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
   const Args a{q, k, v, dout, lse, delta, batch, heads, tq, tkv, causal,
                window, scale, static_cast<cudaStream_t>(stream)};
   if (!valid(a)) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && head_dim == 64) return launch_dq<float, 64>(a, dq);
-  if (dtype == 0 && head_dim == 128) return launch_dq<float, 128>(a, dq);
-  if (dtype == 1 && head_dim == 64)
-    return launch_dq<__nv_bfloat16, 64>(a, dq);
-  if (dtype == 1 && head_dim == 128)
-    return launch_dq<__nv_bfloat16, 128>(a, dq);
+  if (dtype == 0 && head_dim == 64) return launch_dq<64>(a, dq);
+  if (dtype == 0 && head_dim == 128) return launch_dq<128>(a, dq);
+  if (dtype == 1 && head_dim == 64) return launch_dq_mma<64>(a, dq);
+  if (dtype == 1 && head_dim == 128) return launch_dq_mma<128>(a, dq);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,14 +9,13 @@ flash_attention.py`` (B1–B3 in PERF.md):
 - B2, ``_bwd_dkdv_kernel``, and B3, ``_bwd_dq_kernel``, both behind
   ``flash_backward_pallas`` → ``csrc/flash_bwd.cu``.
 
-Each C entry point picks its kernel by dtype. B1 and B2 have two
+Each C entry point picks its kernel by dtype. Every kernel has two
 variants: bf16 inputs run a tensor-core kernel ("mma.sync bf16": warp
 ``mma.sync`` with f32 accumulators, ``ldmatrix`` and a two-stage
 ``cp.async`` ring, from the shared header ``csrc/mma_bf16.cuh``); f32
 inputs run the first, CUDA-core kernel ("fma f32"), since TF32 tensor
-cores could not meet the f32 tolerances. B3 runs its FMA kernel for both
-dtypes. Each source's note states the design and what it leaves on the
-table.
+cores could not meet the f32 tolerances. Each source's note states the
+design and what it leaves on the table.
 
 Bounds on an H100 (SXM, 700 W data sheet), against 989 TFLOP/s for bf16
 operands, 67 TFLOP/s for f32 and 3.35 TB/s, counting
@@ -363,9 +362,10 @@ def flash_attention_bwd_dq(
     scale: Optional[float] = None, window: Optional[int] = None,
 ) -> torch.Tensor:
     """B3: f32 ``dq`` in BTHD, from the same inputs as
-    :func:`flash_attention_bwd_dkdv`. CUDA tensors launch the FMA kernel
-    for either dtype (counted in ``flash_attention_bwd_dq.launches``) or
-    raise; CPU tensors take the plain version."""
+    :func:`flash_attention_bwd_dkdv`. CUDA tensors launch the kernel (the
+    tensor-core kernel for bf16, the FMA kernel for f32; counted in
+    ``flash_attention_bwd_dq.launches``) or raise; CPU tensors take the
+    plain version."""
     if _all_cpu(q, k, v, do, lse, delta):
         keep = _keep(q.shape[1], k.shape[1], causal, window, device=q.device)
         return _dq(q, k, v, do, lse, delta, keep, _scale(q, scale))

@@ -10,7 +10,9 @@ params, so the parity tests run both packages on the same weights.
 Numerics follow the reference: layernorm statistics in f32 with the
 result in the input dtype, tanh-approximated GELU, RoPE angles in f32,
 and an unembedding whose compute-dtype operands multiply into an f32
-result that is never rounded to bf16 (summed in f64 and rounded once).
+result that is never rounded to bf16. Training sums it in f32, as the
+reference does (``_unembed_train``); every other caller sums it in f64
+and rounds once (``_unembed``), so that decode rows are batch-invariant.
 
 Serving: ``forward``, ``generate`` (greedy and sampled) and the
 ``_prefill``/``_decode_token``/``_block`` pieces ``serving/`` builds on.
@@ -87,6 +89,39 @@ def sample_logits(logits: torch.Tensor, temperature: float,
         scaled = torch.where(scaled >= kth, scaled, -math.inf)
     probs = torch.softmax(scaled, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two bf16 matrices as f32: exact products, f32 sums. On
+    the card one cuBLAS call on the tensor cores (``aten::mm.dtype``); on
+    the CPU, which has no such kernel, the f32 product of the operands
+    widened to f32 (the same function, summed in another order)."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _UnembedBF16(torch.autograd.Function):
+    """``h @ eᵀ`` for bf16 ``h [N, D]`` and ``e [V, D]``, with f32
+    logits: the reference's ``dot_general(...,
+    preferred_element_type=f32)``. ``mm.dtype`` has no derivative, so
+    the backward is written here: the f32 upstream gradient is rounded to
+    bf16, and both products are bf16 GEMMs with f32 output, rounded once
+    to the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, h, e):
+        ctx.save_for_backward(h, e)
+        return _mm_bf16(h, e.t())
+
+    @staticmethod
+    def backward(ctx, g):
+        h, e = ctx.saved_tensors
+        g = g.to(h.dtype)
+        dh = _mm_bf16(g, e).to(h.dtype) if ctx.needs_input_grad[0] else None
+        de = _mm_bf16(g.t(), h).to(e.dtype) if ctx.needs_input_grad[1] \
+            else None
+        return dh, de
 
 
 def _state_leaves(params, state) -> List[Dict[str, torch.Tensor]]:
@@ -332,7 +367,8 @@ class TransformerLM:
                 h = checkpoint(block_fn, blk, h, use_reentrant=False)
             else:
                 h = block_fn(blk, h)
-        return self.policy.cast_output(self._unembed(params, h))
+        unembed = self._unembed_train if train else self._unembed
+        return self.policy.cast_output(unembed(params, h))
 
     def loss(self, params, tokens, *, mesh=None,
              sequence_parallel: bool = False, train: bool = False):
@@ -475,11 +511,29 @@ class TransformerLM:
         logits from compute-dtype operands, summed in float64 and rounded
         once, so that a row's logits (and its greedy token) do not depend
         on how many rows the matrix library is given (see
-        ``ops.attention._mm_f32``)."""
+        ``ops.attention._mm_f32``). Every caller but training uses it:
+        ``forward``, ``evaluate_perplexity``, ``generate`` and the
+        serving engine."""
         policy = self.policy
         hf = _layernorm(h, params["ln_f"]["g"], params["ln_f"]["b"])
         return (policy.cast_compute(hf).double()
                 @ policy.cast_compute(params["embed"]).double().T).float()
+
+    def _unembed_train(self, params, h: torch.Tensor) -> torch.Tensor:
+        """The training unembedding, as the reference computes it: the
+        same layernorm and compute-dtype operands, products summed in f32
+        and f32 logits. Under a bf16 compute dtype the product is
+        :class:`_UnembedBF16` (bf16 tensor cores on the card); otherwise a
+        plain matmul in the compute dtype. Training needs no batch
+        invariance, so it pays for no f64 sums."""
+        policy = self.policy
+        hf = policy.cast_compute(
+            _layernorm(h, params["ln_f"]["g"], params["ln_f"]["b"]))
+        e = policy.cast_compute(params["embed"])
+        if hf.dtype != torch.bfloat16:
+            return hf @ e.T
+        logits = _UnembedBF16.apply(hf.reshape(-1, hf.shape[-1]), e)
+        return logits.reshape(*hf.shape[:-1], e.shape[0])
 
     # ------------------------------------------------------------------
     # autoregressive decoding (KV cache)

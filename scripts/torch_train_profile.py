@@ -11,11 +11,14 @@ prints:
   to return without waiting for the card), the device's busy time (the
   union of kernel and copy intervals) and idle share;
 - device time by group: the flash kernels B1, B2 and B3, float64 GEMMs
-  (the batch-invariant unembedding), other GEMMs (the blocks' bf16
-  matmuls), copies and casts (the per-step bf16 weight copy, the f64
-  conversions), and the rest; then the largest kernels by name;
-- the float64 unembedding alone, forward and backward at the step's
-  shape, timed with CUDA events outside the profiler;
+  (the batch-invariant unembedding of the serve path; none in a train
+  step, whose unembedding sums in f32), other GEMMs (the blocks' bf16
+  matmuls and the training unembedding), copies and casts (the per-step
+  bf16 weight copy), and the rest; then the largest kernels by name;
+- the training unembedding alone (bf16 products, f32 sums), forward and
+  backward at the step's shape, and beside it the decode unembedding
+  (f64 sums) at the same shape, both timed with CUDA events outside the
+  profiler;
 - how many synchronising CUDA operations one step makes, as PyTorch's
   sync debug mode detects them (it does not detect all of them).
 
@@ -66,27 +69,6 @@ def group_of(name: str) -> str:
         if pred(name):
             return label
     return "other"
-
-
-def unembed_ms(lm, tokens: int, iters: int = 10) -> float:
-    """Forward and backward of ``lm._unembed`` (f64 sums) on a bf16 hidden
-    state of ``tokens`` rows and the bf16 embedding, given an f32 upstream
-    gradient (CUDA events)."""
-    import torch
-
-    import chip_smoke as cs
-
-    params = {"embed": lm.params["embed"].detach().to(torch.bfloat16)
-              .requires_grad_(), "ln_f": lm.params["ln_f"]}
-    h = torch.randn((tokens, lm.d_model), device="cuda",
-                    dtype=torch.bfloat16, requires_grad=True)
-    g = torch.randn((tokens, lm.vocab_size), device="cuda")
-
-    def run():
-        logits = lm._unembed(params, h)
-        torch.autograd.grad(logits, (h, params["embed"]), g)
-
-    return cs.cuda_ms(run, iters=iters)
 
 
 def sync_ops(lm, tok) -> int:
@@ -170,7 +152,9 @@ def main(argv=None) -> int:
               for g, (t, c) in sorted(by_group.items(),
                                       key=lambda kv: -kv[1][0])}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    unembed = unembed_ms(lm, cs.TRAIN_BATCH * cs.TRAIN_T)
+    rows = cs.TRAIN_BATCH * cs.TRAIN_T
+    unembed = cs.unembed_ms(lm, rows, train=True)
+    unembed_f64 = cs.unembed_ms(lm, rows, train=False)
     syncs = sync_ops(lm, tok)
     step_s = wall_s / steps
     result = {
@@ -185,8 +169,9 @@ def main(argv=None) -> int:
         "device_idle_share": 1.0 - busy_s / wall_s if device else None,
         "device_time_s_per_step": kernel_s / steps,
         "groups": groups,
-        "f64_unembedding_fwd_bwd_ms": unembed,
-        "f64_unembedding_share_of_step": unembed / 1e3 / step_s,
+        "train_unembedding_fwd_bwd_ms": unembed,
+        "train_unembedding_share_of_step": unembed / 1e3 / step_s,
+        "decode_f64_unembedding_fwd_bwd_ms": unembed_f64,
         "sync_ops_per_step": syncs,
         "top_kernels": [{"name": n[:120], "s_per_step": t / 1e6 / steps,
                          "launches_per_step": c / steps}
@@ -202,8 +187,9 @@ def main(argv=None) -> int:
         print(f"  {v['s_per_step']:.6f} s/step  "
               f"share={v['share_of_device']:.4f}  "
               f"x{v['launches_per_step']:<7.1f} {g}")
-    print(f"f64 unembedding fwd+bwd alone: {unembed:.5f} ms "
-          f"({result['f64_unembedding_share_of_step']:.4f} of a step) "
+    print(f"train unembedding fwd+bwd alone: {unembed:.5f} ms "
+          f"({result['train_unembedding_share_of_step']:.4f} of a step); "
+          f"decode f64 unembedding at the same shape: {unembed_f64:.5f} ms "
           f"[{card}]")
     for t in result["top_kernels"]:
         print(f"  {t['s_per_step']:.6f} s/step  "

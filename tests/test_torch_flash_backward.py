@@ -39,8 +39,19 @@ CASES = [
     ("windowed", 1, 300, 300, 1, 64, True, 50, 128),
     ("head_dim 128", 1, 37, 37, 2, 128, True, None, 512),
     ("cross-attention lengths", 1, 64, 160, 2, 64, False, None, 128),
+    # where a 16-row MMA tile or a 64-key tile of the card's kernels has
+    # a ragged or masked edge (chip_smoke.py holds the kernels against
+    # the plain versions at these shapes)
+    ("causal P=17", 1, 17, 17, 2, 64, True, None, 512),
+    ("causal P=63", 1, 63, 63, 2, 64, True, None, 512),
+    ("non-causal tq=5 tkv=130", 1, 5, 130, 2, 64, False, None, 128),
+    ("windowed w=1", 1, 300, 300, 1, 64, True, 1, 128),
+    ("windowed w=65", 1, 300, 300, 1, 64, True, 65, 128),
 ]
 IDS = [c[0] for c in CASES]
+# the bf16 test's cases: multi-block, windowed, cross lengths and the
+# tile edges
+BF16 = [2, 3, 5, 6, 7, 8, 9, 10]
 
 
 def _inputs(b, tq, tkv, h, d, seed=0):
@@ -106,8 +117,8 @@ def test_f32_reference_matches_precise_scan(case):
             fa.flash_attention_bwd_dq.launches) == before
 
 
-@pytest.mark.parametrize("case", [CASES[2], CASES[3], CASES[5]],
-                         ids=[IDS[2], IDS[3], IDS[5]])
+@pytest.mark.parametrize("case", [CASES[i] for i in BF16],
+                         ids=[IDS[i] for i in BF16])
 def test_bf16_reference_matches_pallas_bf16_and_f32_oracle(case):
     causal, window, block = case[6], case[7], case[8]
     jargs, targs = _both(case, jnp.bfloat16, seed=2)

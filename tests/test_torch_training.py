@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from deeplearning4j_tpu.models import transformer as jax_tm
 from deeplearning4j_tpu_torch.models import transformer as tm
@@ -89,6 +90,50 @@ def test_mixed_bf16_steps_match_reference():
     # masters and moments stay f32; the masters never require grad
     for x in jax.tree_util.tree_leaves((port.params, port.opt_state)):
         assert x.dtype == torch.float32 and not x.requires_grad
+
+
+def test_mixed_bf16_training_unembedding_matches_reference():
+    """The training path's unembedding is the reference's ``_unembed``:
+    layernorm, bf16 operands, products summed in f32, f32 logits. On the
+    same bf16 hidden state both sides multiply the same operands exactly
+    and sum in f32 in another order, so the logits agree to a few f32
+    ulps of their largest magnitude (measured: 4; gate 8). Through the
+    blocks, the training-path logits hold the bf16 forward gate of
+    ``test_torch_transformer.py``."""
+    ref, port = _pair(attn_impl="xla", dtype_policy="mixed_bf16")
+    h = np.random.default_rng(6).normal(size=(2, 40, 128)).astype(
+        np.float32)
+    want = np.asarray(ref._unembed(ref.params,
+                                   jnp.asarray(h, jnp.bfloat16)))
+    got = port._unembed_train(port.params,
+                              torch.from_numpy(h).to(torch.bfloat16))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    ulp = np.spacing(np.float32(np.abs(want).max()))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=8 * ulp)
+
+    tok = _tokens(seed=6)
+    with torch.no_grad():
+        logits = port._logits(port.params, tok, train=True)
+    want = np.asarray(ref.forward(ref.params, jnp.asarray(tok), train=True))
+    assert logits.dtype == torch.float32
+    np.testing.assert_allclose(logits.numpy(), want, rtol=5e-2, atol=5e-2)
+
+
+def test_decode_unembedding_keeps_f64_sums_and_batch_invariance():
+    """``_unembed`` (decode, prefill, ``forward``) still sums in f64 and
+    rounds once: a row's logits are bitwise the same alone and inside a
+    batch of 8."""
+    _, port = _pair(dtype_policy="mixed_bf16")
+    h = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(8, 128)).astype(np.float32)).to(torch.bfloat16)
+    batch = port._unembed(port.params, h)
+    for i in range(8):
+        assert torch.equal(port._unembed(port.params, h[i:i + 1]),
+                           batch[i:i + 1])
+    ln = port.params["ln_f"]
+    hf = tm._layernorm(h, ln["g"], ln["b"])
+    e = port.params["embed"].to(torch.bfloat16)
+    assert torch.equal(batch, (hf.double() @ e.double().T).float())
 
 
 def test_params_from_jax_carries_the_adam_state():
