@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Five phases; any failure exits non-zero and prints no result line.
+Six phases; any failure exits non-zero and prints no result line.
 
 1. Build and device: compile every CUDA kernel from ``csrc/`` (one
    ``nvcc`` per source, all at once), print ptxas's registers and spill
@@ -58,6 +58,20 @@ Five phases; any failure exits non-zero and prints no result line.
    path on the same weights: one step's loss and gradients under
    ``float32`` (rtol 2e-3, atol 1e-3) and the loss and params after 3
    steps under ``mixed_bf16`` (2e-2, 1e-2).
+6. Networks: LeNet-5 at ``[1024, 28, 28, 1]`` and the MNIST MLP
+   (784-256-256-10) at ``[4096, 784]``, the sizes of ``bench.py``'s
+   ``bench_lenet`` and ``bench_mlp``, built by the port's zoo on the
+   config DSL and trained through ``MultiLayerNetwork`` under ``bf16``
+   with Adam on one seeded batch placed on the card once: 2 warm-up and
+   20 timed ``fit`` calls, then ``fit_steps(ds, 10)`` twice. Asserts
+   finite, falling losses; prints ms per step, host ms per step and
+   samples/s for ``fit`` and ``fit_steps``. ``evaluate`` with the
+   confusion matrix on the card equals the host path. At batch 64 the
+   card is held against the CPU on the same weights: one step's loss and
+   gradients under ``float32`` with TF32 off (rtol 2e-3, atol 1e-3), the
+   loss and params after 3 steps under ``bf16`` (2e-2, 1e-2). The phase
+   runs cuDNN, cuBLAS and eager torch, and asserts that it launched none
+   of B1–B3.
 
 Output: metric lines, then a ``{"kernels": [...]}`` JSON line (each
 kernel's ``variant`` and ``launches`` counted over the train phase's
@@ -743,6 +757,178 @@ def check_train_parity(card: str) -> None:
                              "attention path")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the DL4J network surface (MultiLayerNetwork on the zoo models)
+# ---------------------------------------------------------------------------
+# bench.py's sizes for its MultiLayerNetwork benches: bench_lenet (batch
+# 1024) and bench_mlp (batch 4096, hidden 256), both under dtype "bf16"
+NETWORKS = {"lenet5": (1024, (28, 28, 1)), "mnist_mlp": (4096, (784,))}
+NET_WARMUP, NET_STEPS, NET_FUSED, NET_FUSED_REPEATS = 2, 20, 10, 2
+NET_PARITY_BATCH = 64
+
+
+def network_data(name: str, batch: int):
+    """bench.py's inputs: ``np.random.default_rng(0)`` draws in [0, 1) and
+    one-hot labels over 10 classes."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    x = rng.random((batch,) + NETWORKS[name][1], np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, batch)]
+    return x, y
+
+
+def build_network(name: str, policy: str, device: str):
+    """A zoo network at the bench's widths, initialised from seed 12345 (the
+    same weights on every device: ``init`` draws on a CPU generator)."""
+    from deeplearning4j_tpu_torch.models import zoo
+
+    kw = {"hidden": 256} if name == "mnist_mlp" else {}
+    return getattr(zoo, name)(dtype_policy=policy, device=device, **kw).init()
+
+
+def train_network(name: str, card: str) -> None:
+    """Warm-up, timed ``fit`` and ``fit_steps`` calls at the bench's batch
+    under ``bf16``, on one batch placed on the card once."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    batch = NETWORKS[name][0]
+    net = build_network(name, "bf16", "cuda")
+    x, y = network_data(name, batch)
+    ds = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    warm = []
+    for _ in range(NET_WARMUP):
+        net.fit(ds)
+        warm.append(net.score_value)
+    torch.cuda.synchronize()
+    scores, host = [], 0.0
+    t0 = time.monotonic()
+    for _ in range(NET_STEPS):
+        t = time.monotonic()
+        net.fit(ds)
+        host += time.monotonic() - t
+        scores.append(net._score)  # a device scalar: no sync per step
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    losses = [float(v) for v in scores]
+    fused = []
+    for _ in range(NET_FUSED_REPEATS):
+        t = time.monotonic()
+        net.fit_steps(ds, NET_FUSED)
+        f_host = time.monotonic() - t
+        torch.cuda.synchronize()
+        fused.append((time.monotonic() - t, f_host, net.score_value))
+    f_wall = sum(f[0] for f in fused)
+    f_host = sum(f[1] for f in fused)
+    f_steps = NET_FUSED * NET_FUSED_REPEATS
+    print(f"networks {name} [{batch}, {', '.join(map(str, NETWORKS[name][1]))}] "
+          f"bf16: warmup_losses={warm} losses={losses} "
+          f"fit: ms_per_step={wall / NET_STEPS * 1e3} "
+          f"host_ms_per_step={host / NET_STEPS * 1e3} "
+          f"samples_per_sec={batch * NET_STEPS / wall} "
+          f"fit_steps({NET_FUSED}) x{NET_FUSED_REPEATS}: "
+          f"ms_per_step={f_wall / f_steps * 1e3} "
+          f"host_ms_per_step={f_host / f_steps * 1e3} "
+          f"samples_per_sec={batch * f_steps / f_wall} "
+          f"fused_losses={[f[2] for f in fused]} "
+          f"iterations={net.iteration_count} [{card}]")
+    every = warm + losses + [f[2] for f in fused]
+    if not all(math.isfinite(v) for v in every):
+        raise AssertionError(f"{name}: non-finite loss: {every}")
+    if not (losses[-1] < losses[0] and fused[-1][2] < losses[-1]):
+        raise AssertionError(f"{name}: loss did not fall on a repeated "
+                             f"batch: {every}")
+    if net.iteration_count != NET_WARMUP + NET_STEPS + f_steps:
+        raise AssertionError(f"{name}: {net.iteration_count} iterations")
+    check_network_evaluate(name, net, ds, card)
+
+
+def check_network_evaluate(name: str, net, ds, card: str) -> None:
+    """``evaluate`` with the confusion matrix on the card equals the host
+    path (every batch's outputs read back), over ragged batches of 1000."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+
+    it = ListDataSetIterator(ds, batch_size=1000)
+    before = net._eval_readbacks
+    dev = net.evaluate(it, device_accumulation=True).confusion.to_array()
+    host = net.evaluate(it, device_accumulation=False).confusion.to_array()
+    same = (dev == host).all() and int(dev.sum()) == ds.num_examples()
+    print(f"networks evaluate {name}: device "
+          f"confusion == host confusion: {bool(same)} "
+          f"(readbacks {net._eval_readbacks - before}) [{card}]")
+    if not same or net._eval_readbacks - before != 1:
+        raise AssertionError("device evaluate disagrees with the host path")
+
+
+def check_network_parity(name: str, card: str) -> None:
+    """The card against the CPU on the same weights at batch 64: one
+    step's loss and gradients under float32 with TF32 off (rtol 2e-3, atol
+    1e-3), and the loss and params after 3 ``fit`` steps under ``bf16``
+    (2e-2, 1e-2), the train phase's gates."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.dtypes import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x, y = network_data(name, NET_PARITY_BATCH)
+
+    def on(device, policy):
+        net = build_network(name, policy, device)
+        return net, net._dev(x), net._dev(y)
+
+    got = {}
+    for device in ("cuda", "cpu"):
+        net, xd, yd = on(device, "float32")
+        loss, _, grads = net._loss_grads(net.params, net.net_state, xd, yd)
+        got[device] = (loss.cpu(), [g.cpu() for g in tree_leaves(grads)],
+                       net.get_flat_params())
+    (lc, gc, pc), (lh, gh, ph) = got["cuda"], got["cpu"]
+    if not (pc == ph).all():
+        raise AssertionError(f"{name}: the card and the CPU drew other "
+                             "weights from one seed")
+    excess = max(float(((a - b).abs() - (1e-3 + 2e-3 * b.abs())).max())
+                 for a, b in zip(gc + [lc], gh + [lh]))
+    err_grad = max(float((a - b).abs().max()) for a, b in zip(gc, gh))
+    ok32 = excess <= 0.0
+    print(f"networks parity {name} float32 [{NET_PARITY_BATCH}] card vs cpu: "
+          f"loss {float(lc)} vs {float(lh)} grad_max_abs_err={err_grad:.3e} "
+          f"(rtol 2e-3, atol 1e-3) {'ok' if ok32 else 'MISMATCH'} [{card}]")
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        net, xd, yd = on(device, "bf16")
+        losses = []
+        for _ in range(3):
+            net.fit(DataSet(xd, yd))
+            losses.append(net.score_value)
+        runs[device] = (losses, net.get_flat_params())
+    (la, pa), (lb, pb) = runs["cuda"], runs["cpu"]
+    err_l = max(abs(a - b) for a, b in zip(la, lb))
+    err_p = float(abs(pa - pb).max())
+    okbf = err_l <= 2e-2 and err_p <= 1e-2
+    print(f"networks parity {name} bf16 [{NET_PARITY_BATCH}] 3 steps card vs "
+          f"cpu: losses {la} vs {lb} loss_err={err_l:.3e} (tol 2e-2) "
+          f"param_err={err_p:.3e} (tol 1e-2) {'ok' if okbf else 'MISMATCH'} "
+          f"[{card}]")
+    if not (ok32 and okbf):
+        raise AssertionError(f"{name} on the card disagrees with the CPU")
+
+
+def networks(card: str) -> None:
+    """Phase 6: LeNet-5 and the MNIST MLP through ``MultiLayerNetwork``.
+    The path is cuDNN, cuBLAS and eager torch: it must launch none of the
+    flash kernels."""
+    reset_launch_counts()
+    for name in NETWORKS:
+        train_network(name, card)
+        check_network_parity(name, card)
+    if any(launch_counts().values()):
+        raise AssertionError(f"the networks phase launched a flash kernel: "
+                             f"{launch_counts()}")
+
+
 def main() -> None:
     try:
         import torch
@@ -773,7 +959,7 @@ def main() -> None:
 
     entries = {}
     serve_launches, train_launches = None, None
-    for phase in ("flash", "flash_bwd", "serve", "train"):
+    for phase in ("flash", "flash_bwd", "serve", "train", "networks"):
         try:
             if phase == "flash":
                 entries["flash_attention_fwd"] = check_flash(card)
@@ -787,9 +973,11 @@ def main() -> None:
                         launch_counts()["flash_attention_bwd_dq"]:
                     raise AssertionError("serving launched a backward "
                                          "kernel")
-            else:
+            elif phase == "train":
                 train_launches = train(card)
                 check_train_parity(card)
+            else:
+                networks(card)
         except Exception:
             traceback.print_exc()
             failed.append(phase)

@@ -1,9 +1,11 @@
-"""Load the reference package's parameters into the port.
+"""Load the reference package's parameters and training state into the port.
 
 ``TransformerLM.params`` from the JAX package, turned into numpy leaf by
 leaf (``np.asarray``), becomes the port's nested dict of tensors with the
-same leaf names. This module imports neither jax nor the JAX package: it
-takes plain numpy.
+same leaf names; a JAX ``MultiLayerNetwork``'s params, updater state, net
+state (keyed ``"0"``, ``"1"``, … as in JAX) and iteration count load into
+a port network, which then carries on the JAX run step for step. This
+module imports neither jax nor the JAX package: it takes plain numpy.
 """
 
 from __future__ import annotations
@@ -28,3 +30,19 @@ def params_from_jax(tree, device="cpu"):
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, device) for v in tree]
     return _leaf(tree, device)
+
+
+def load_network_from_jax(net, params, updater_state=None, net_state=None,
+                          iteration_count=None):
+    """Put a JAX ``MultiLayerNetwork``'s state, as numpy trees, into the
+    port network ``net`` (initialised first, so what is not given keeps
+    its fresh value) on ``net.device``. Returns ``net``."""
+    net.init()
+    net.params = params_from_jax(params, net.device)
+    if updater_state is not None:
+        net.updater_state = params_from_jax(updater_state, net.device)
+    if net_state is not None:
+        net.net_state = params_from_jax(net_state, net.device)
+    if iteration_count is not None:
+        net.iteration_count = int(iteration_count)
+    return net

@@ -1,0 +1,14 @@
+"""The network surface of the port: the config DSL (``nn.conf``), the
+layers, the updaters and ``MultiLayerNetwork``, under the JAX package's
+import paths."""
+
+from deeplearning4j_tpu_torch.nn.conf import (  # noqa: F401
+    InputType,
+    LossFunction,
+    MultiLayerConfiguration,
+    NeuralNetConfiguration,
+    Updater,
+    WeightInit,
+    layers,
+)
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork  # noqa: F401

@@ -1,0 +1,216 @@
+#!/usr/bin/env python3
+"""Where the time goes in a ``MultiLayerNetwork`` step of the port.
+
+Trains the model of ``chip_smoke.py``'s networks phase (``--model
+lenet5``: LeNet-5 at ``[1024, 28, 28, 1]``; ``--model mnist_mlp``: the
+784-256-256-10 MLP at ``[4096, 784]``; both ``bf16`` with Adam, on one
+seeded batch placed on the card once) for a few untraced ``fit`` calls,
+then for ``--steps`` calls under ``torch.profiler`` (CPU + CUDA activity),
+and prints:
+
+- wall time per step, host time per step (the time ``fit`` takes to
+  return without waiting for the card), the device's busy time (the union
+  of kernel and copy intervals) and idle share;
+- device time and launches per step by group: convolutions (cuDNN),
+  GEMMs (cuBLAS), the updater's multi-tensor kernels, copies and casts
+  (dtype casts, cuDNN's layout transforms and channel padding, the conv
+  weights' channels-last copy, memsets), and the rest (elementwise,
+  pooling, reductions, the loss); then the largest kernels by name, each
+  kernel of the copies group, and how often the host operators that copy
+  or cast (``aten::_to_copy``, ``clone``, ``contiguous``, ``copy_``) and
+  the layout views (``permute``) ran per step;
+- how many synchronising CUDA operations one ``fit`` makes, as PyTorch's
+  sync debug mode detects them (it does not detect all of them).
+
+Run from the repository root on a machine with one CUDA card:
+
+    python3 scripts/torch_mln_profile.py --model lenet5 [--steps 5] [--trace DIR]
+
+``--trace`` also writes the Chrome trace into DIR. The last line is one
+JSON object with the numbers above. Without a card it exits 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(HERE))
+sys.path.insert(0, HERE)
+
+# cuDNN's layout transforms and channel padding (bf16 tensor-core convs
+# want channels in multiples of 8), and torch's transposes
+_LAYOUT = ("nchwtonhwc", "nhwctonchw", "addpadding", "transpose")
+
+
+# host operators that copy or cast a tensor, and the layout view
+_COPY_OPS = ("aten::_to_copy", "aten::clone", "aten::contiguous",
+             "aten::copy_", "aten::permute", "aten::constant_pad_nd")
+
+
+def _low(name: str) -> str:
+    return name.lower()
+
+
+GROUPS = (
+    ("copies and casts", lambda n: "copy" in _low(n) or "Memcpy" in n
+     or "Memset" in n or any(w in _low(n) for w in _LAYOUT)),
+    ("conv (cuDNN)", lambda n: any(w in _low(n) for w in (
+        "conv", "fprop", "dgrad", "wgrad", "implicit", "winograd"))),
+    ("GEMM (cuBLAS)", lambda n: any(w in _low(n) for w in (
+        "gemm", "nvjet", "cutlass", "xmma"))),
+    ("updater (multi-tensor)", lambda n: "multi_tensor" in _low(n)
+     or "foreach" in _low(n)),
+)
+
+
+def group_of(name: str) -> str:
+    for label, pred in GROUPS:
+        if pred(name):
+            return label
+    return "elementwise, pooling, reductions"
+
+
+def sync_ops(net, ds) -> int:
+    """Synchronising CUDA operations in one ``fit``, as PyTorch's sync
+    debug mode reports them."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            net.fit(ds)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("lenet5", "mnist_mlp"),
+                    default="lenet5")
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--trace", default=None,
+                    help="directory for the Chrome trace")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_mln_profile: no CUDA device is available",
+              file=sys.stderr)
+        return 1
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from torch_serve_profile import _busy_us
+
+    card = cs.card_line()
+    batch, shape = cs.NETWORKS[args.model]
+    net = cs.build_network(args.model, "bf16", "cuda")
+    x, y = cs.network_data(args.model, batch)
+    ds = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    for _ in range(cs.NET_WARMUP + 1):
+        net.fit(ds)
+    torch.cuda.synchronize()
+
+    host_s = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(args.steps):
+            t = time.monotonic()
+            net.fit(ds)
+            host_s.append(time.monotonic() - t)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+    if args.trace:
+        os.makedirs(args.trace, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.trace,
+                                              f"{args.model}.json"))
+
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name, by_group = {}, {}
+    for e in device:
+        t = e.time_range.end - e.time_range.start
+        n, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (n + t, c + 1)
+        g = group_of(e.name)
+        n, c = by_group.get(g, (0.0, 0))
+        by_group[g] = (n + t, c + 1)
+    busy_s = _busy_us([(e.time_range.start, e.time_range.end)
+                       for e in device]) / 1e6
+    kernel_s = sum(t for t, _ in by_name.values()) / 1e6
+    steps = args.steps
+    groups = {g: {"s_per_step": t / 1e6 / steps,
+                  "launches_per_step": c / steps,
+                  "share_of_device": t / 1e6 / kernel_s}
+              for g, (t, c) in sorted(by_group.items(),
+                                      key=lambda kv: -kv[1][0])}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
+    copies = sorted(((n, v) for n, v in by_name.items()
+                     if group_of(n) == "copies and casts"),
+                    key=lambda kv: -kv[1][0])
+    # the host operators behind those copies, per step
+    copy_ops = {e.key: e.count / steps for e in prof.key_averages()
+                if e.key in _COPY_OPS}
+    syncs = sync_ops(net, ds)
+    result = {
+        "card": card,
+        "model": args.model,
+        "shape": [batch, *shape],
+        "steps": steps,
+        "loss": net.score_value,
+        "wall_s_per_step": wall_s / steps,
+        "host_s_per_step": sum(host_s) / steps,
+        "device_events_per_step": len(device) / steps,
+        "device_busy_s_per_step": busy_s / steps,
+        "device_idle_share": 1.0 - busy_s / wall_s if device else None,
+        "device_time_s_per_step": kernel_s / steps,
+        "groups": groups,
+        "sync_ops_per_step": syncs,
+        "top_kernels": [{"name": n[:120], "s_per_step": t / 1e6 / steps,
+                         "launches_per_step": c / steps}
+                        for n, (t, c) in top],
+        "copy_kernels": [{"name": n[:120], "s_per_step": t / 1e6 / steps,
+                          "launches_per_step": c / steps}
+                         for n, (t, c) in copies],
+        "copy_ops_per_step": copy_ops,
+    }
+    print(f"{args.model} {result['shape']} bf16 under the profiler: "
+          f"wall_s_per_step={result['wall_s_per_step']} "
+          f"host_s_per_step={result['host_s_per_step']} "
+          f"device_busy_s_per_step={result['device_busy_s_per_step']} "
+          f"device_idle_share={result['device_idle_share']} "
+          f"launches_per_step={result['device_events_per_step']} "
+          f"sync_ops_per_step={syncs} [{card}]")
+    for g, v in groups.items():
+        print(f"  {v['s_per_step']:.6f} s/step  "
+              f"share={v['share_of_device']:.4f}  "
+              f"x{v['launches_per_step']:<7.1f} {g}")
+    for t in result["top_kernels"]:
+        print(f"  {t['s_per_step']:.6f} s/step  "
+              f"x{t['launches_per_step']:<6.1f} {t['name']}")
+    print("copies and casts, by kernel:")
+    for t in result["copy_kernels"]:
+        print(f"  {t['s_per_step']:.6f} s/step  "
+              f"x{t['launches_per_step']:<6.1f} {t['name']}")
+    print(f"copying host operators per step: {copy_ops}")
+    print(card)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
