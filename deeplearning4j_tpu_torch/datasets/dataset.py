@@ -118,3 +118,33 @@ class DataSet:
     def __repr__(self):
         return (f"DataSet(features={self.features.shape}, "
                 f"labels={None if self.labels is None else self.labels.shape})")
+
+
+class MultiDataSet:
+    """Multiple ordered inputs + outputs (ComputationGraph batches), on
+    numpy arrays or tensors as :class:`DataSet` takes them."""
+
+    def __init__(self, features: Sequence, labels: Sequence,
+                 features_masks: Optional[Sequence] = None,
+                 labels_masks: Optional[Sequence] = None):
+        self.features = [_as_batch_array(f) for f in features]
+        self.labels = [_as_batch_array(l) for l in labels]
+        self.features_masks = (
+            None if features_masks is None
+            else [_as_batch_array(m) for m in features_masks]
+        )
+        self.labels_masks = (
+            None if labels_masks is None
+            else [_as_batch_array(m) for m in labels_masks]
+        )
+
+    def num_examples(self) -> int:
+        return int(self.features[0].shape[0])
+
+    @staticmethod
+    def from_dataset(ds: DataSet) -> "MultiDataSet":
+        return MultiDataSet(
+            [ds.features], [ds.labels],
+            None if ds.features_mask is None else [ds.features_mask],
+            None if ds.labels_mask is None else [ds.labels_mask],
+        )

@@ -15,8 +15,9 @@ layout), walked by :func:`tree_map` and :func:`tree_leaves`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, List
+from typing import Any, Callable, Iterator, List
 
 import torch
 
@@ -84,6 +85,32 @@ MIXED_BF16 = DtypePolicy(torch.float32, torch.bfloat16, torch.float32)
 MIXED_BF16_MASTER = DtypePolicy(torch.float32, torch.bfloat16, torch.float32,
                                 master_weights=True)
 FLOAT64 = DtypePolicy(torch.float64, torch.float64, torch.float64)
+
+# The process-wide default policy of the reference's surface. The port's
+# layers take their policy through the constructor (``get_layer_impl``),
+# so the networks neither read nor set it.
+_default_policy: DtypePolicy = FLOAT32
+
+
+def get_policy() -> DtypePolicy:
+    return _default_policy
+
+
+def set_policy(policy: DtypePolicy) -> None:
+    global _default_policy
+    _default_policy = policy
+
+
+@contextlib.contextmanager
+def policy_scope(policy: DtypePolicy) -> Iterator[DtypePolicy]:
+    """Temporarily override the global dtype policy."""
+    global _default_policy
+    prev = _default_policy
+    _default_policy = policy
+    try:
+        yield policy
+    finally:
+        _default_policy = prev
 
 
 def policy_from_name(name: str) -> DtypePolicy:

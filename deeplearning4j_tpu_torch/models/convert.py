@@ -2,9 +2,11 @@
 
 ``TransformerLM.params`` from the JAX package, turned into numpy leaf by
 leaf (``np.asarray``), becomes the port's nested dict of tensors with the
-same leaf names; a JAX ``MultiLayerNetwork``'s params, updater state, net
-state (keyed ``"0"``, ``"1"``, … as in JAX) and iteration count load into
-a port network, which then carries on the JAX run step for step. This
+same leaf names; a JAX ``MultiLayerNetwork``'s or ``ComputationGraph``'s
+params, updater state, net state (keyed ``"0"``, ``"1"``, … or by layer
+name, as in JAX; BatchNorm's running ``mean``/``var`` are net state) and
+iteration count load into a port network of the same class, which then
+carries on the JAX run step for step. This
 module imports neither jax nor the JAX package: it takes plain numpy.
 """
 
@@ -34,9 +36,10 @@ def params_from_jax(tree, device="cpu"):
 
 def load_network_from_jax(net, params, updater_state=None, net_state=None,
                           iteration_count=None):
-    """Put a JAX ``MultiLayerNetwork``'s state, as numpy trees, into the
-    port network ``net`` (initialised first, so what is not given keeps
-    its fresh value) on ``net.device``. Returns ``net``."""
+    """Put a JAX ``MultiLayerNetwork``'s or ``ComputationGraph``'s state,
+    as numpy trees, into the port network ``net`` of the same class
+    (initialised first, so what is not given keeps its fresh value) on
+    ``net.device``. Returns ``net``."""
     net.init()
     net.params = params_from_jax(params, net.device)
     if updater_state is not None:

@@ -1,8 +1,9 @@
 """The network surface of the port: the config DSL (``nn.conf``), the
-layers, the updaters and ``MultiLayerNetwork``, under the JAX package's
-import paths."""
+layers, the updaters, ``MultiLayerNetwork`` and ``ComputationGraph``,
+under the JAX package's import paths."""
 
 from deeplearning4j_tpu_torch.nn.conf import (  # noqa: F401
+    ComputationGraphConfiguration,
     InputType,
     LossFunction,
     MultiLayerConfiguration,
@@ -12,3 +13,4 @@ from deeplearning4j_tpu_torch.nn.conf import (  # noqa: F401
     layers,
 )
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork  # noqa: F401
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph  # noqa: F401

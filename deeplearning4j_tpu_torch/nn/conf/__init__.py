@@ -1,5 +1,4 @@
-"""Config DSL package (port of ``deeplearning4j_tpu/nn/conf``; the graph
-configuration waits for ROADMAP A10.1)."""
+"""Config DSL package (port of ``deeplearning4j_tpu/nn/conf``)."""
 
 from deeplearning4j_tpu_torch.nn.conf.enums import (  # noqa: F401
     BackpropType,
@@ -22,5 +21,16 @@ from deeplearning4j_tpu_torch.nn.conf.neural_net import (  # noqa: F401
     ListBuilder,
     MultiLayerConfiguration,
     NeuralNetConfiguration,
+)
+from deeplearning4j_tpu_torch.nn.conf.graph import (  # noqa: F401
+    ComputationGraphConfiguration,
+    DuplicateToTimeSeriesVertex,
+    ElementWiseVertex,
+    GraphBuilder,
+    GraphVertexConf,
+    LastTimeStepVertex,
+    MergeVertex,
+    ScaleVertex,
+    SubsetVertex,
 )
 from deeplearning4j_tpu_torch.ops.losses import LossFunction  # noqa: F401

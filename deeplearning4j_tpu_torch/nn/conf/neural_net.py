@@ -371,9 +371,9 @@ class NeuralNetConfiguration:
             return ListBuilder(self._global, dict(self._layer_defaults))
 
         def graph_builder(self):
-            raise NotImplementedError(
-                "graph_builder: ComputationGraph is not ported yet "
-                "(ROADMAP A10.1)")
+            from deeplearning4j_tpu_torch.nn.conf.graph import GraphBuilder
+
+            return GraphBuilder(self._global, dict(self._layer_defaults))
 
         def layer(self, layer_conf: LayerConf):
             """Single-layer config (reference: .layer(new RBM...) w/o list)."""

@@ -1,0 +1,457 @@
+"""ComputationGraph: DAG networks with several inputs and outputs, on torch.
+
+Port of ``deeplearning4j_tpu/nn/graph.py`` (the reference's
+``nn/graph/ComputationGraph.java`` and the vertex impls in
+``nn/graph/vertex/impl/``). The forward walks ``conf.topological_order``
+once per call: each layer vertex runs its layer (after its
+preprocessor), each other vertex its tensor op. A step takes the path of
+``MultiLayerNetwork._sgd_step``: one compute copy of the params (bf16
+under master weights), every output head's loss plus L1/L2,
+``torch.autograd.grad``, the grads upcast once, and the updaters on
+multi-tensor kernels (``grouped_apply_updaters`` over ``(name, spec)``).
+BatchNorm's new running statistics replace ``net_state``. The iteration
+and the LR scale are device tensors, so the step reads nothing back.
+
+The graph runs on the CUDA card unless it is given ``device="cpu"``;
+with no card and no device it raises. What the slice leaves out raises
+``NotImplementedError`` naming its ROADMAP item: TBPTT and
+``rnn_time_step`` (A10.2), and the fused epoch cache with its guard,
+telemetry, accumulation and mesh (A10.5).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch._device import DeviceLike, resolve_device
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.dtypes import policy_from_name, tree_leaves, tree_map
+from deeplearning4j_tpu_torch.nn.conf.enums import BackpropType
+from deeplearning4j_tpu_torch.nn.conf.graph import (
+    ComputationGraphConfiguration,
+    DuplicateToTimeSeriesVertex,
+    ElementWiseVertex,
+    GraphVertexConf,
+    LastTimeStepVertex,
+    MergeVertex,
+    PreprocessorVertex,
+    ScaleVertex,
+    StackVertex,
+    SubsetVertex,
+    UnstackVertex,
+)
+from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+    InputPreProcessor,
+    apply_preprocessor,
+)
+from deeplearning4j_tpu_torch.nn.layers import get_layer_impl
+from deeplearning4j_tpu_torch.nn.multilayer import (
+    _as_batches,
+    _host,
+    _is_temporal,
+    _named_leaves,
+    _not_ported,
+    copy_model_state,
+    to_device,
+)
+from deeplearning4j_tpu_torch.nn.updater import (
+    UpdaterSpec,
+    grouped_apply_updaters,
+    init_updater_state,
+    lr_policy_scale,
+)
+from deeplearning4j_tpu_torch.ops.losses import compute_loss
+from deeplearning4j_tpu_torch.perf.device_eval import confusion_update
+
+
+def _as_mds(data) -> MultiDataSet:
+    return MultiDataSet.from_dataset(data) if isinstance(data, DataSet) else data
+
+
+class ComputationGraph:
+    def __init__(self, conf: ComputationGraphConfiguration,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.conf = conf
+        self._policy = policy_from_name(conf.global_conf.dtype_policy)
+        self.layer_impls = {n: get_layer_impl(lc, self._policy)
+                            for n, lc in conf.layers.items()}
+        self.params: Dict[str, Any] = {}
+        self.net_state: Dict[str, Any] = {}
+        self.updater_state: Dict[str, Any] = {}
+        self.updater_specs: Dict[str, UpdaterSpec] = {}
+        self.iteration_count = 0
+        self._score: Any = float("nan")
+        self.listeners: List[Any] = []
+        self._initialized = False
+        # dropout draws, on the graph's device
+        self._rng = torch.Generator(device=self.device).manual_seed(
+            conf.global_conf.seed)
+        self._eval_readbacks = 0  # host transfers made by evaluate() calls
+
+    @property
+    def score_value(self) -> float:
+        """Most recent loss. Reading it waits for the device: the step
+        stores the loss as a device scalar so steps queue without a sync."""
+        return float(self._score)
+
+    @score_value.setter
+    def score_value(self, v) -> None:
+        self._score = v
+
+    # ------------------------------------------------------------------
+    def init(self) -> "ComputationGraph":
+        """Draw every layer's params, in ``sorted(name)`` order as the
+        reference splits its key, from one CPU generator seeded with the
+        conf's seed (the same weights on every device), then move them and
+        the layers' state to the graph's device."""
+        if self._initialized:
+            return self
+        gc = self.conf.global_conf
+        gen = torch.Generator().manual_seed(gc.seed)
+        to_dev = lambda t: t.to(self.device)  # noqa: E731
+        for name in sorted(self.layer_impls):
+            impl = self.layer_impls[name]
+            self.params[name] = tree_map(to_dev, impl.init_params(gen))
+            self.net_state[name] = tree_map(to_dev, impl.init_state())
+        self.updater_specs = {
+            n: UpdaterSpec.from_layer_conf(
+                lc, gc.learning_rate, momentum_schedule=gc.momentum_schedule)
+            for n, lc in self.conf.layers.items()}
+        self.updater_state = {
+            n: init_updater_state(spec, self.params[n])
+            for n, spec in self.updater_specs.items()}
+        self._initialized = True
+        return self
+
+    def _ensure_init(self):
+        if not self._initialized:
+            self.init()
+
+    def _batch(self, mds: MultiDataSet):
+        """A MultiDataSet's arrays on the graph's device: (inputs, labels,
+        feature masks or None, label masks or None)."""
+        dev = lambda xs: (None if xs is None  # noqa: E731
+                          else [to_device(x, self.device) for x in xs])
+        return (dev(mds.features), dev(mds.labels), dev(mds.features_masks),
+                dev(mds.labels_masks))
+
+    # ------------------------------------------------------------------
+    # forward over the topological order
+    # ------------------------------------------------------------------
+    def _forward(self, params, net_state, inputs: Sequence[torch.Tensor], *,
+                 train: bool, rng, feature_masks: Optional[Sequence] = None,
+                 collect: bool = False):
+        """Returns (the outputs in ``conf.outputs`` order, or every
+        vertex's value by name when ``collect``; the new net state)."""
+        conf = self.conf
+        values: Dict[str, torch.Tensor] = {}
+        masks: Dict[str, Optional[torch.Tensor]] = {}
+        for i, name in enumerate(conf.inputs):
+            values[name] = inputs[i]
+            masks[name] = None if feature_masks is None else feature_masks[i]
+        new_net_state: Dict[str, Any] = {}
+        for name in conf.topological_order:
+            if name in conf.inputs:
+                continue
+            in_names = conf.vertex_inputs[name]
+            in_vals = [values[n] for n in in_names]
+            in_mask = next((masks[n] for n in in_names
+                            if masks.get(n) is not None), None)
+            if name in conf.layers:
+                h = in_vals[0]
+                pre = conf.preprocessors.get(name)
+                if pre is not None:
+                    h, rng = apply_preprocessor(pre, h, batch=h.shape[0],
+                                                rng=rng)
+                lstate = net_state.get(name, {})
+                h, lstate_out = self.layer_impls[name].forward(
+                    params[name], h, dict(lstate), train=train, rng=rng,
+                    mask=in_mask if h.ndim == 3 else None)
+                new_net_state[name] = {k: v for k, v in lstate_out.items()
+                                       if k in lstate}
+                values[name] = h
+            else:
+                values[name] = self._apply_vertex(conf.vertices[name],
+                                                  in_vals, values, masks)
+            masks[name] = in_mask
+        if collect:
+            return values, new_net_state
+        return [values[o] for o in conf.outputs], new_net_state
+
+    @staticmethod
+    def _apply_vertex(vertex: GraphVertexConf, in_vals, values, masks):
+        if isinstance(vertex, MergeVertex):
+            return torch.cat(in_vals, dim=-1)
+        if isinstance(vertex, ElementWiseVertex):
+            op = vertex.op
+            out = in_vals[0]
+            for v in in_vals[1:]:
+                if op in ("Add", "Average"):
+                    out = out + v
+                elif op == "Subtract":
+                    out = out - v
+                elif op == "Product":
+                    out = out * v
+                elif op == "Max":
+                    out = torch.maximum(out, v)
+                else:
+                    raise ValueError(f"unknown elementwise op {op}")
+            if op == "Average":
+                out = out / float(len(in_vals))
+            return out
+        if isinstance(vertex, SubsetVertex):  # to_index is inclusive
+            return in_vals[0][..., vertex.from_index:vertex.to_index + 1]
+        if isinstance(vertex, LastTimeStepVertex):
+            x = in_vals[0]  # [b, t, f]
+            mask = (None if vertex.mask_input is None
+                    else masks.get(vertex.mask_input))
+            if mask is None:
+                return x[:, -1, :]
+            # the last step the mask keeps, per example
+            idx = torch.clamp(mask.to(torch.int64).sum(dim=1) - 1, min=0)
+            return x[torch.arange(x.shape[0], device=x.device), idx]
+        if isinstance(vertex, DuplicateToTimeSeriesVertex):
+            x = in_vals[0]  # [b, f]
+            t = values[vertex.input_name].shape[1]
+            return x[:, None, :].expand(x.shape[0], t, x.shape[1])
+        if isinstance(vertex, ScaleVertex):
+            return in_vals[0] * vertex.scale
+        if isinstance(vertex, StackVertex):
+            return torch.cat(in_vals, dim=0)
+        if isinstance(vertex, UnstackVertex):
+            x = in_vals[0]
+            n = x.shape[0] // vertex.stack_size
+            return x[vertex.from_index * n:(vertex.from_index + 1) * n]
+        if isinstance(vertex, PreprocessorVertex):
+            p = InputPreProcessor.from_dict(vertex.preprocessor)
+            return p.pre_process(in_vals[0])
+        raise ValueError(f"unknown vertex {type(vertex).__name__}")
+
+    # ------------------------------------------------------------------
+    # loss over all output heads / gradients / the step
+    # ------------------------------------------------------------------
+    def _loss_and_state(self, params, net_state, inputs, labels,
+                        feature_masks, label_masks, rng, train: bool):
+        outs, new_state = self._forward(params, net_state, inputs,
+                                        train=train, rng=rng,
+                                        feature_masks=feature_masks)
+        total = 0.0
+        for i, out_name in enumerate(self.conf.outputs):
+            lc = self.conf.layers.get(out_name)
+            if lc is None or not hasattr(lc, "loss_function"):
+                continue
+            lm = None if label_masks is None else label_masks[i]
+            total = total + compute_loss(lc.loss_function, outs[i],
+                                         labels[i], lm)
+        for name, impl in self.layer_impls.items():
+            penalty = impl.l1_l2_penalty(params[name])
+            if penalty is not None:
+                total = total + penalty
+        return total, new_state
+
+    def _loss_grads(self, params, net_state, inputs, labels,
+                    feature_masks=None, label_masks=None, rng=None):
+        """Training loss, new net state and the gradient tree of ``params``
+        (under master weights their bf16 copy). A param no loss head
+        reaches gets a zero gradient, as under ``jax.grad``."""
+        fwd = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss, new_state = self._loss_and_state(
+            fwd, net_state, inputs, labels, feature_masks, label_masks, rng,
+            train=True)
+        grads = iter(torch.autograd.grad(loss, tree_leaves(fwd),
+                                         allow_unused=True,
+                                         materialize_grads=True))
+        return loss.detach(), new_state, tree_map(lambda _: next(grads), fwd)
+
+    def _apply_updaters(self, params, updater_state, grads, iteration):
+        gc = self.conf.global_conf
+        scale = lr_policy_scale(
+            gc.lr_policy, iteration, gc.lr_policy_decay_rate,
+            gc.lr_policy_steps, gc.lr_policy_power, gc.lr_schedule,
+            base_lr=gc.learning_rate)
+        # the reference takes per_layer_apply_updaters where GSPMD would
+        # miscompile the grouped apply (flat_apply_safe); torch has no
+        # such fault, so the grouped apply always runs
+        return grouped_apply_updaters(list(self.updater_specs.items()),
+                                      params, updater_state, grads, scale,
+                                      iteration + 1)
+
+    def _sgd_step(self, inputs, labels, feature_masks=None,
+                  label_masks=None):
+        """One optimizer step on device tensors; the iteration reaches the
+        device as a fill kernel, so the step never waits for the card."""
+        pol = self._policy
+        iteration = torch.full((), self.iteration_count, dtype=torch.int32,
+                               device=self.device)
+        loss, new_state, grads = self._loss_grads(
+            pol.compute_copy(self.params), self.net_state, inputs, labels,
+            feature_masks, label_masks, self._rng)
+        self.params, self.updater_state = self._apply_updaters(
+            self.params, self.updater_state, pol.master_grads(grads),
+            iteration)
+        self.net_state = new_state
+        self._score = loss  # device scalar; no sync (see score_value)
+
+    # ------------------------------------------------------------------
+    # fit (ComputationGraph.fit :449-563)
+    # ------------------------------------------------------------------
+    def fit(self, data, labels=None, num_epochs: int = 1):
+        """fit(MultiDataSet | DataSet) / fit(features, labels) /
+        fit(iterator, num_epochs)."""
+        self._ensure_init()
+        if labels is not None:
+            data = MultiDataSet(
+                data if isinstance(data, (list, tuple)) else [data],
+                labels if isinstance(labels, (list, tuple)) else [labels])
+        if isinstance(data, (DataSet, MultiDataSet)):
+            self._fit_batches([data])
+            return self
+        for _ in range(num_epochs):
+            if hasattr(data, "reset"):
+                data.reset()
+            self._fit_batches(data)
+        return self
+
+    def _check_tbptt(self, mds: MultiDataSet) -> None:
+        if (self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
+                and any(_is_temporal(f) for f in mds.features)):
+            raise _not_ported("truncated BPTT", "A10.2")
+
+    def _fit_batches(self, batches):
+        for mds in batches:
+            mds = _as_mds(mds)
+            self._check_tbptt(mds)
+            batch = self._batch(mds)
+            for _ in range(max(1, self.conf.global_conf.iterations)):
+                self._sgd_step(*batch)
+                self.iteration_count += 1
+                for listener in self.listeners:
+                    listener.iteration_done(self, self.iteration_count)
+
+    def fit_steps(self, data, n_steps: int):
+        """``fit(data)`` called ``n_steps`` times: the batch moves to the
+        device once, then ``n_steps · conf.iterations`` steps run in a
+        Python loop of the same step (the reference fuses them into one
+        XLA program). Listeners fire once, after the block."""
+        self._ensure_init()
+        mds = _as_mds(data)
+        self._check_tbptt(mds)
+        batch = self._batch(mds)
+        for _ in range(n_steps * max(1, self.conf.global_conf.iterations)):
+            self._sgd_step(*batch)
+            self.iteration_count += 1
+        for listener in self.listeners:
+            listener.iteration_done(self, self.iteration_count)
+        return self
+
+    # ------------------------------------------------------------------
+    # not in this slice
+    # ------------------------------------------------------------------
+    def fused_epochs_supported(self) -> bool:
+        """The fused epoch program is not ported (ROADMAP A10.5)."""
+        return False
+
+    def fit_epochs(self, data, num_epochs: int, **kwargs):
+        raise _not_ported("fit_epochs (the fused epoch cache, guard, "
+                          "telemetry and accumulation)", "A10.5")
+
+    def build_epoch_cache(self, data, mesh=None, **kwargs):
+        raise _not_ported("build_epoch_cache", "A10.5")
+
+    def request_reshard(self, mesh) -> None:
+        raise _not_ported("request_reshard (the mesh)", "A10.5")
+
+    def rnn_clear_previous_state(self):
+        raise _not_ported("rnn_time_step state", "A10.2")
+
+    def rnn_time_step(self, *inputs):
+        raise _not_ported("rnn_time_step", "A10.2")
+
+    # ------------------------------------------------------------------
+    # inference / scoring
+    #
+    # The reference pads every batch up a bucket ladder so that XLA
+    # compiles once per bucket; eager torch compiles nothing per shape,
+    # and pad rows drop out of every result, so the port does not pad.
+    # ------------------------------------------------------------------
+    def _infer(self, inputs, collect: bool = False):
+        with torch.no_grad():
+            out, _ = self._forward(self.params, self.net_state, inputs,
+                                   train=False, rng=None, collect=collect)
+        return out
+
+    def output(self, *inputs) -> List[torch.Tensor]:
+        """The outputs, in ``conf.outputs`` order, for arrays or tensors."""
+        self._ensure_init()
+        return self._infer([to_device(x, self.device) for x in inputs])
+
+    def feed_forward(self, *inputs) -> Dict[str, torch.Tensor]:
+        """Every vertex's activation by name, the inputs included."""
+        self._ensure_init()
+        return self._infer([to_device(x, self.device) for x in inputs],
+                           collect=True)
+
+    def score(self, mds) -> float:
+        self._ensure_init()
+        inputs, labels, fms, lms = self._batch(_as_mds(mds))
+        with torch.no_grad():
+            self._score, _ = self._loss_and_state(
+                self.params, self.net_state, inputs, labels, fms, lms,
+                rng=None, train=False)
+        return self.score_value
+
+    def evaluate(self, iterator_or_ds, output_index: int = 0,
+                 device_accumulation: bool = True):
+        """Classification metrics for one output head. By default the
+        ``[C, C]`` confusion matrix accumulates on the device and comes
+        back once per call; ``device_accumulation=False`` reads each
+        batch's outputs back and accumulates in numpy."""
+        from deeplearning4j_tpu_torch.eval import Evaluation
+
+        self._ensure_init()
+        ev = Evaluation()
+        cm = None
+        for ds in _as_batches(iterator_or_ds):
+            inputs, labels, _, lms = self._batch(_as_mds(ds))
+            out = self._infer(inputs)[output_index]
+            y = labels[output_index]
+            lm = None if lms is None else lms[output_index]
+            if not device_accumulation:
+                ev.eval(_host(y), _host(out),
+                        mask=None if lm is None else _host(lm))
+                continue
+            if cm is None:
+                cm = torch.zeros((int(y.shape[-1]),) * 2, dtype=torch.int32,
+                                 device=self.device)
+            cm = confusion_update(cm, out, y, lm)
+        if cm is not None:
+            self._eval_readbacks += 1
+            ev.eval_confusion(cm.cpu().numpy())  # the one host transfer
+        return ev
+
+    # ------------------------------------------------------------------
+    # params surface
+    # ------------------------------------------------------------------
+    def num_params(self) -> int:
+        """Counted from the layers' shapes; no weight is drawn."""
+        return sum(impl.num_params() for impl in self.layer_impls.values())
+
+    def get_param_table(self) -> Dict[str, np.ndarray]:
+        """Flat ``"<layer>_<param>"`` table, layers in sorted order."""
+        self._ensure_init()
+        return {f"{name}_{path}": _host(leaf)
+                for name in sorted(self.params)
+                for path, leaf in _named_leaves(self.params[name])}
+
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)
+
+    def clone(self) -> "ComputationGraph":
+        self._ensure_init()
+        other = ComputationGraph(self.conf.clone(), device=self.device)
+        copy_model_state(self, other)
+        return other

@@ -10,10 +10,9 @@ on the network's device; the step reads nothing back to the host, and
 ``score_value`` keeps the loss as a device scalar until it is read.
 
 The network runs on the CUDA card unless it is given ``device="cpu"``;
-with no card and no device it raises. What the slice leaves out raises
-``NotImplementedError`` naming its ROADMAP item: ``ComputationGraph``
-and normalization layers (A10.1), recurrent layers, TBPTT and
-``rnn_time_step`` (A10.2), pretraining (A10.3), solvers for a
+with no card and no device it raises. What the port leaves out raises
+``NotImplementedError`` naming its ROADMAP item: recurrent layers,
+TBPTT and ``rnn_time_step`` (A10.2), pretraining (A10.3), solvers for a
 non-SGD ``optimization_algo`` (A10.4), and the fused epoch cache with
 its guard, telemetry, accumulation and mesh (A10.5).
 """
@@ -100,7 +99,8 @@ class MultiLayerNetwork:
         for i, impl in enumerate(self.layers):
             self.params[str(i)] = tree_map(lambda t: t.to(self.device),
                                            impl.init_params(gen))
-            self.net_state[str(i)] = impl.init_state()
+            self.net_state[str(i)] = tree_map(lambda t: t.to(self.device),
+                                              impl.init_state())
         self.updater_specs = [
             UpdaterSpec.from_layer_conf(lc, gc.learning_rate,
                                         momentum_schedule=gc.momentum_schedule)
@@ -116,16 +116,7 @@ class MultiLayerNetwork:
             self.init()
 
     def _dev(self, x) -> Optional[torch.Tensor]:
-        """A batch array on the network's device (float64 host arrays become
-        float32, as the reference's default dtype); a tensor already there
-        is returned as is."""
-        if x is None:
-            return None
-        if not isinstance(x, torch.Tensor):
-            a = np.asarray(x)
-            x = torch.from_numpy(a.astype(np.float32) if a.dtype == np.float64
-                                 else a)
-        return x.to(self.device)
+        return to_device(x, self.device)
 
     # ------------------------------------------------------------------
     # forward
@@ -510,6 +501,19 @@ def copy_model_state(src, dst) -> None:
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
+
+
+def to_device(x, device) -> Optional[torch.Tensor]:
+    """A batch array on ``device`` (float64 host arrays become float32, as
+    the reference's default dtype); a tensor already there is returned as
+    is."""
+    if x is None:
+        return None
+    if not isinstance(x, torch.Tensor):
+        a = np.asarray(x)
+        x = torch.from_numpy(a.astype(np.float32) if a.dtype == np.float64
+                             else a)
+    return x.to(device)
 
 
 def _host(x) -> np.ndarray:

@@ -266,6 +266,29 @@ def apply_updater(spec: UpdaterSpec, grads: Dict[str, Any],
     return walk(grads, state)
 
 
+def per_layer_apply_updaters(items, params, updater_state, grads,
+                             lr_scale: torch.Tensor,
+                             step_count: torch.Tensor):
+    """The classic per-layer loop (one :func:`apply_updater` per layer),
+    with the signature and result of :func:`grouped_apply_updaters` and
+    bit for bit its values: both run :func:`_apply_one`. The networks take
+    the grouped apply; the reference falls back to this loop where GSPMD
+    miscompiles the grouped one over mixed shardings (``flat_apply_safe``),
+    a fault of XLA that has no counterpart here."""
+    new_params, new_updater = {}, {}
+    for key, spec in items:
+        steps, new_updater[key] = apply_updater(
+            spec, grads[key], updater_state[key], lr_scale, step_count)
+        new_params[key] = _sub_tree(params[key], steps)
+    return new_params, new_updater
+
+
+def _sub_tree(params, steps):
+    if isinstance(params, dict):
+        return {k: _sub_tree(params[k], steps[k]) for k in params}
+    return params - steps.to(params.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Grouped updater apply — the fused optimizer tail
 # ---------------------------------------------------------------------------

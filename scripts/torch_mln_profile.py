@@ -1,30 +1,37 @@
 #!/usr/bin/env python3
-"""Where the time goes in a ``MultiLayerNetwork`` step of the port.
+"""Where the time goes in a network step of the port.
 
 Trains the model of ``chip_smoke.py``'s networks phase (``--model
 lenet5``: LeNet-5 at ``[1024, 28, 28, 1]``; ``--model mnist_mlp``: the
-784-256-256-10 MLP at ``[4096, 784]``; both ``bf16`` with Adam, on one
-seeded batch placed on the card once) for a few untraced ``fit`` calls,
-then for ``--steps`` calls under ``torch.profiler`` (CPU + CUDA activity),
-and prints:
+784-256-256-10 MLP at ``[4096, 784]``; ``--model resnet18``: the
+``ComputationGraph`` ResNet-18 at ``[256, 32, 32, 3]``; all ``bf16``
+with Adam, on one seeded batch placed on the card once) for a few
+untraced ``fit`` calls, times ``--steps`` more without the profiler
+(ending in a synchronise), then runs ``--steps`` calls under
+``torch.profiler`` (CPU + CUDA activity), and prints:
 
-- wall time per step, host time per step (the time ``fit`` takes to
-  return without waiting for the card), the device's busy time (the union
-  of kernel and copy intervals) and idle share;
+- wall time per step with and without the profiler, host time per step
+  (the time ``fit`` takes to return without waiting for the card), the
+  device's busy time (the union of kernel and copy intervals) and idle
+  share, both under the profiler and against the unprofiled step;
+  samples/s, the peak of allocated device memory and, for ResNet-18, the
+  share of the bf16 peak (bench.py's 3 × 1.11 GFLOP a sample);
 - device time and launches per step by group: convolutions (cuDNN),
   GEMMs (cuBLAS), the updater's multi-tensor kernels, copies and casts
   (dtype casts, cuDNN's layout transforms and channel padding, the conv
-  weights' channels-last copy, memsets), and the rest (elementwise,
-  pooling, reductions, the loss); then the largest kernels by name, each
-  kernel of the copies group, and how often the host operators that copy
-  or cast (``aten::_to_copy``, ``clone``, ``contiguous``, ``copy_``) and
-  the layout views (``permute``) ran per step;
+  weights' channels-last copy, the explicit pad of a stride-2 SAME
+  convolution, memsets), and the rest (BatchNorm's statistics and
+  normalisation, activations, residual adds, pooling, the loss); then
+  the largest kernels by name, each kernel of the copies group, and how
+  often the host operators that copy or cast (``aten::_to_copy``,
+  ``clone``, ``contiguous``, ``copy_``, ``constant_pad_nd``) and the
+  layout views (``permute``) ran per step;
 - how many synchronising CUDA operations one ``fit`` makes, as PyTorch's
   sync debug mode detects them (it does not detect all of them).
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 scripts/torch_mln_profile.py --model lenet5 [--steps 5] [--trace DIR]
+    python3 scripts/torch_mln_profile.py --model lenet5|mnist_mlp|resnet18 [--steps 5] [--trace DIR]
 
 ``--trace`` also writes the Chrome trace into DIR. The last line is one
 JSON object with the numbers above. Without a card it exits 1.
@@ -41,6 +48,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 sys.path.insert(0, HERE)
+
+import chip_smoke as cs  # noqa: E402
 
 # cuDNN's layout transforms and channel padding (bf16 tensor-core convs
 # want channels in multiples of 8), and torch's transposes
@@ -72,7 +81,7 @@ def group_of(name: str) -> str:
     for label, pred in GROUPS:
         if pred(name):
             return label
-    return "elementwise, pooling, reductions"
+    return "elementwise, BatchNorm, pooling, reductions"
 
 
 def sync_ops(net, ds) -> int:
@@ -96,7 +105,7 @@ def sync_ops(net, ds) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("lenet5", "mnist_mlp"),
+    ap.add_argument("--model", choices=tuple(cs.NETWORKS),
                     default="lenet5")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--trace", default=None,
@@ -112,7 +121,6 @@ def main(argv=None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    import chip_smoke as cs
     from deeplearning4j_tpu_torch.datasets import DataSet
     from torch_serve_profile import _busy_us
 
@@ -121,9 +129,15 @@ def main(argv=None) -> int:
     net = cs.build_network(args.model, "bf16", "cuda")
     x, y = cs.network_data(args.model, batch)
     ds = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(cs.NET_WARMUP + 1):
         net.fit(ds)
     torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(args.steps):
+        net.fit(ds)
+    torch.cuda.synchronize()
+    plain_s = (time.monotonic() - t0) / args.steps
 
     host_s = []
     with profile(activities=[ProfilerActivity.CPU,
@@ -166,6 +180,11 @@ def main(argv=None) -> int:
     copy_ops = {e.key: e.count / steps for e in prof.key_averages()
                 if e.key in _COPY_OPS}
     syncs = sync_ops(net, ds)
+    peak_mem = torch.cuda.max_memory_allocated()
+    share = None
+    if args.model in cs.NET_FWD_FLOPS:
+        share = (3 * cs.NET_FWD_FLOPS[args.model] * batch / plain_s
+                 / cs.H100_BF16_FLOPS)
     result = {
         "card": card,
         "model": args.model,
@@ -173,6 +192,12 @@ def main(argv=None) -> int:
         "steps": steps,
         "loss": net.score_value,
         "wall_s_per_step": wall_s / steps,
+        "unprofiled_wall_s_per_step": plain_s,
+        "unprofiled_samples_per_sec": batch / plain_s,
+        "unprofiled_device_idle_share": (1.0 - busy_s / steps / plain_s
+                                         if device else None),
+        "share_of_bf16_peak": share,
+        "peak_mem_bytes": peak_mem,
         "host_s_per_step": sum(host_s) / steps,
         "device_events_per_step": len(device) / steps,
         "device_busy_s_per_step": busy_s / steps,
@@ -195,6 +220,10 @@ def main(argv=None) -> int:
           f"device_idle_share={result['device_idle_share']} "
           f"launches_per_step={result['device_events_per_step']} "
           f"sync_ops_per_step={syncs} [{card}]")
+    print(f"{args.model} unprofiled: wall_s_per_step={plain_s} "
+          f"samples_per_sec={batch / plain_s} device_idle_share="
+          f"{result['unprofiled_device_idle_share']} "
+          f"share_of_bf16_peak={share} peak_mem_bytes={peak_mem} [{card}]")
     for g, v in groups.items():
         print(f"  {v['s_per_step']:.6f} s/step  "
               f"share={v['share_of_device']:.4f}  "

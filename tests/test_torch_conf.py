@@ -111,7 +111,19 @@ def test_compat_formats_raise_with_their_item(call):
 
 
 def test_graph_builder_raises_with_its_item():
-    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    """``graph_builder()`` builds a graph configuration (ROADMAP A10.1 is
+    done); its YAML and reference-format JSON raise naming A10.6."""
+    from deeplearning4j_tpu_torch.nn.conf import (
+        GraphBuilder,
+        NeuralNetConfiguration,
+        layers as L,
+    )
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.1"):
-        NeuralNetConfiguration.Builder().graph_builder()
+    g = NeuralNetConfiguration.Builder().graph_builder()
+    assert isinstance(g, GraphBuilder)
+    conf = (g.add_inputs("in")
+            .add_layer("out", L.OutputLayer(n_in=4, n_out=2), "in")
+            .set_outputs("out").build())
+    assert conf.topological_order == ["in", "out"]
+    with pytest.raises(NotImplementedError, match="ROADMAP A10.6"):
+        conf.to_yaml()

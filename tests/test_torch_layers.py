@@ -401,7 +401,7 @@ def test_dropout_keep_rate_and_scale():
 
 @pytest.mark.parametrize("cls_name,item", [
     ("GravesLSTM", "A10.2"), ("LSTM", "A10.2"), ("GRU", "A10.2"),
-    ("BatchNormalization", "A10.1"), ("RBM", "A10.3"),
+    ("AutoEncoder", "A10.3"), ("RBM", "A10.3"),
 ])
 def test_unported_layers_raise_with_their_item(cls_name, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

@@ -13,8 +13,9 @@ Tolerances:
   at rtol 1e-4 / atol 1e-6 (the reference's conv and GEMM sum in another
   order; Adam's epsilon of 1e-6 keeps a gradient's last bits from
   swinging a step);
-- under ``bf16`` (bf16 operands, f32 outputs): 2e-2 / 1e-2, the
-  reference's own gates for bf16 training (``tests/test_mixed_precision.py``).
+- under ``bf16`` (bf16 operands, f32 outputs) and ``mixed_bf16`` (a bf16
+  copy of f32 master weights): 2e-2 / 1e-2, the reference's own gates
+  for bf16 training (``tests/test_mixed_precision.py``).
 
 Port-internal equalities (``fit_steps`` against ``fit`` calls, flat
 params round trip) are held bit for bit."""
@@ -105,7 +106,8 @@ def _train_both(ref, port, x, y, steps=3):
 
 
 @pytest.mark.parametrize("policy,rtol,atol", [
-    ("float32", 1e-4, 1e-6), ("bf16", 2e-2, 1e-2)], ids=["f32", "bf16"])
+    ("float32", 1e-4, 1e-6), ("bf16", 2e-2, 1e-2),
+    ("mixed_bf16", 2e-2, 1e-2)], ids=["f32", "bf16", "mixed_bf16"])
 @pytest.mark.parametrize("name", MODELS)
 def test_three_fit_steps_match(name, policy, rtol, atol):
     ref, port = _pair(name, policy)
