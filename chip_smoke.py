@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Six phases; any failure exits non-zero and prints no result line.
+Seven phases; any failure exits non-zero and prints no result line.
 
 1. Build and device: compile every CUDA kernel from ``csrc/`` (one
    ``nvcc`` per source, all at once), print ptxas's registers and spill
@@ -79,6 +79,23 @@ Six phases; any failure exits non-zero and prints no result line.
    after 3 steps under ``bf16``
    (ResNet-18 at lr 1e-4: see ``NET_PARITY_LR``). The phase runs cuDNN,
    cuBLAS and eager torch, and asserts that it launched none of B1–B3.
+7. Recurrent: the char-LSTM (two GravesLSTM layers of 256 with
+   peepholes, ``RnnOutputLayer`` over 128 characters, truncated BPTT in
+   windows of 50) at ``bench.py``'s ``bench_char_lstm`` size, batch 128 ×
+   t 200 of seeded one-hot characters on the card once, ``bf16``, Adam:
+   one warm-up and 5 timed ``fit`` calls (4 windows, so 4 steps, each).
+   Asserts finite losses, a falling last-window loss and the iteration
+   count; prints ms and host ms per ``fit``, samples/s, tokens/s, the
+   share of the bf16 peak (3 × 1.90 MFLOP a token, from the widths) and
+   peak allocated memory. Then ``rnn_time_step`` one character at a time
+   for 200 steps at batch 128 against the full ``output`` (bf16 2e-2 on
+   the softmax outputs), with ms a step. At batch 8 the card is held
+   against the CPU: float32 with TF32 off, the first window's loss,
+   gradients and carried state, and the loss and params after one whole
+   ``fit`` (rtol 2e-3, atol 1e-3); ``bf16`` after one ``fit`` at the
+   zoo's lr (loss 2e-2, params 1e-2); float32 stepwise generation at
+   1e-4. The phase runs cuBLAS and eager torch and asserts that it
+   launched none of B1–B3.
 
 Output: metric lines, then a ``{"kernels": [...]}`` JSON line (each
 kernel's ``variant`` and ``launches`` counted over the train phase's
@@ -932,8 +949,8 @@ def check_network_parity(name: str, card: str) -> None:
         net, xd, yd = on(device, "float32")
         if isinstance(net, ComputationGraph):
             xd, yd = [xd], [yd]
-        loss, state, grads = net._loss_grads(net.params, net.net_state, xd,
-                                             yd)
+        loss, (state, _), grads = net._loss_grads(net.params, net.net_state,
+                                                  xd, yd)
         got[device] = (loss.cpu(), [g.cpu() for g in tree_leaves(grads)]
                        + [s.cpu() for s in tree_leaves(state)],
                        flat(net.params))
@@ -1014,6 +1031,212 @@ def networks(card: str) -> None:
                              f"{launch_counts()}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the recurrent path (the char-LSTM with truncated BPTT)
+# ---------------------------------------------------------------------------
+# bench.py's bench_char_lstm (bench.py:320-341), nothing cut: vocab 128,
+# two GravesLSTM layers of 256, TBPTT windows of 50, batch 128 x t 200,
+# under "bf16" with Adam at the zoo's lr 3e-3; 4 windows, so 4 steps a fit
+RNN_CFG = dict(vocab_size=128, hidden=256, layers=2, tbptt_length=50,
+               seed=12345)
+RNN_BATCH, RNN_T = 128, 200
+RNN_WARMUP, RNN_FITS = 1, 5
+RNN_PARITY_BATCH = 8
+# generation: stepwise against the full forward. bf16 rounds the second
+# layer's input GEMM over [128, 256] rows per step and over [25600, 256]
+# in one go; cuBLAS may sum each in another order, so bf16's gate holds
+# the softmax outputs; float32 with TF32 off holds them at 1e-4
+RNN_GEN_TOL = {"bf16": 2e-2, "float32": 1e-4}
+
+
+def char_lstm_data(batch: int):
+    """bench.py's draw: ``np.random.default_rng(0)`` character ids, one-hot
+    ``x`` and ``y`` = ``x`` one step ahead (rolled)."""
+    import numpy as np
+
+    vocab = RNN_CFG["vocab_size"]
+    idx = np.random.default_rng(0).integers(0, vocab, (batch, RNN_T))
+    eye = np.eye(vocab, dtype=np.float32)
+    return eye[idx], eye[np.roll(idx, -1, axis=1)]
+
+
+def char_lstm_flops_per_token() -> int:
+    """Forward FLOPs a token from the widths: each GravesLSTM layer's input
+    and recurrent GEMMs, 2·(n_in + h)·4h, and the output layer's 2·h·vocab
+    (1.90 MFLOP at the bench's widths; a training step is taken as 3x)."""
+    v, h = RNN_CFG["vocab_size"], RNN_CFG["hidden"]
+    n_in, flops = v, 2 * h * v
+    for _ in range(RNN_CFG["layers"]):
+        flops += 2 * (n_in + h) * 4 * h
+        n_in = h
+    return flops
+
+
+def build_char_lstm(policy: str, device: str, **kw):
+    """``zoo.char_lstm`` at the bench's widths, from seed 12345 (the same
+    weights on every device)."""
+    from deeplearning4j_tpu_torch.models import zoo
+
+    return zoo.char_lstm(dtype_policy=policy, device=device,
+                         **{**RNN_CFG, **kw}).init()
+
+
+def train_char_lstm(card: str):
+    """Warm-up and timed ``fit`` calls at the bench's size; returns the
+    network and its batch on the card."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    net = build_char_lstm("bf16", "cuda")
+    x, y = char_lstm_data(RNN_BATCH)
+    ds = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm = []
+    for _ in range(RNN_WARMUP):
+        net.fit(ds)
+        warm.append(net.score_value)
+    torch.cuda.synchronize()
+    scores, host = [], 0.0
+    t0 = time.monotonic()
+    for _ in range(RNN_FITS):
+        t = time.monotonic()
+        net.fit(ds)
+        host += time.monotonic() - t
+        scores.append(net._score)  # the last window's loss, on the card
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    losses = [float(v) for v in scores]
+    windows = -(-RNN_T // RNN_CFG["tbptt_length"])
+    sps = RNN_BATCH * RNN_FITS / wall
+    train_flops = 3 * char_lstm_flops_per_token()
+    print(f"recurrent char_lstm [{RNN_BATCH}, {RNN_T}, "
+          f"{RNN_CFG['vocab_size']}] hidden {RNN_CFG['hidden']} x"
+          f"{RNN_CFG['layers']} tbptt {RNN_CFG['tbptt_length']} bf16: "
+          f"warmup_losses={warm} losses={losses} "
+          f"ms_per_fit={wall / RNN_FITS * 1e3} "
+          f"host_ms_per_fit={host / RNN_FITS * 1e3} "
+          f"steps_per_fit={windows} samples_per_sec={sps} "
+          f"tokens_per_sec={sps * RNN_T} "
+          f"share_of_bf16_peak={train_flops * sps * RNN_T / H100_BF16_FLOPS} "
+          f"(train_flops_per_token={train_flops}) "
+          f"peak_mem_bytes={torch.cuda.max_memory_allocated()} "
+          f"iterations={net.iteration_count} [{card}]")
+    every = warm + losses
+    if not all(math.isfinite(v) for v in every):
+        raise AssertionError(f"char_lstm: non-finite loss: {every}")
+    if not losses[-1] < warm[0]:
+        raise AssertionError(f"char_lstm: the last window's loss did not "
+                             f"fall on a repeated batch: {every}")
+    if net.iteration_count != windows * (RNN_WARMUP + RNN_FITS):
+        raise AssertionError(f"char_lstm: {net.iteration_count} iterations")
+    return net, ds
+
+
+def check_char_lstm_parity(card: str) -> None:
+    """The card against the CPU on the same weights at batch 8, full width
+    and t 200: under float32 with TF32 off, the first window's loss,
+    gradients and carried state (rtol 2e-3, atol 1e-3), then one whole
+    ``fit`` (4 windows) on loss and params (the same); under ``bf16``, one
+    whole ``fit`` at the zoo's lr: loss 2e-2, params 1e-2."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.dtypes import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pbatch, w = RNN_PARITY_BATCH, RNN_CFG["tbptt_length"]
+    x, y = char_lstm_data(pbatch)
+
+    def rel_excess(got, want):
+        return max(float(((a - b).abs() - (1e-3 + 2e-3 * b.abs())).max())
+                   for a, b in zip(got, want))
+
+    window, fits = {}, {}
+    for device in ("cuda", "cpu"):
+        net = build_char_lstm("float32", device)
+        xd, yd = (torch.from_numpy(a[:, :w]).to(device) for a in (x, y))
+        loss, (_, carry), grads = net._loss_grads(
+            net.params, net.net_state, xd, yd,
+            rnn_state=net._zero_rnn_state(pbatch))
+        window[device] = ([loss.cpu()] + [g.cpu() for g in tree_leaves(grads)]
+                          + [c.detach().cpu() for c in tree_leaves(carry)],
+                          flat(net.params))
+        for policy in ("float32", "bf16"):
+            net = build_char_lstm(policy, device)
+            net.fit(DataSet(*(torch.from_numpy(a).to(device) for a in (x, y))))
+            fits[policy, device] = (torch.tensor(net.score_value),
+                                    torch.from_numpy(flat(net.params)))
+    if not (window["cuda"][1] == window["cpu"][1]).all():
+        raise AssertionError("char_lstm: the card and the CPU drew other "
+                             "weights from one seed")
+    err_w = max(float((a - b).abs().max())
+                for a, b in zip(window["cuda"][0], window["cpu"][0]))
+    ok_w = rel_excess(window["cuda"][0], window["cpu"][0]) <= 0.0
+    (lc, pc), (lh, ph) = fits["float32", "cuda"], fits["float32", "cpu"]
+    ok_f = rel_excess([lc, pc], [lh, ph]) <= 0.0
+    (bc, bpc), (bh, bph) = fits["bf16", "cuda"], fits["bf16", "cpu"]
+    err_bl, err_bp = abs(float(bc - bh)), float((bpc - bph).abs().max())
+    ok_b = err_bl <= 2e-2 and err_bp <= 1e-2
+    print(f"recurrent parity float32 [{pbatch}, {RNN_T}] card vs cpu: "
+          f"window 0 loss {float(window['cuda'][0][0])} vs "
+          f"{float(window['cpu'][0][0])}, loss_grads_and_carry_max_abs_err="
+          f"{err_w:.3e} (rtol 2e-3, atol 1e-3) {'ok' if ok_w else 'MISMATCH'}"
+          f"; one fit (4 windows) loss {float(lc)} vs {float(lh)} "
+          f"param_max_abs_err={float((pc - ph).abs().max()):.3e} "
+          f"(rtol 2e-3, atol 1e-3) {'ok' if ok_f else 'MISMATCH'} [{card}]")
+    print(f"recurrent parity bf16 [{pbatch}, {RNN_T}] one fit (4 windows) "
+          f"card vs cpu at lr {3e-3}: loss {float(bc)} vs {float(bh)} "
+          f"loss_err={err_bl:.3e} (tol 2e-2) param_err={err_bp:.3e} "
+          f"(tol 1e-2) {'ok' if ok_b else 'MISMATCH'} [{card}]")
+    if not (ok_w and ok_f and ok_b):
+        raise AssertionError("char_lstm on the card disagrees with the CPU")
+
+
+def check_generation(net, x, policy: str, card: str) -> None:
+    """``rnn_time_step`` one character at a time equals the full-sequence
+    ``output`` on the same weights (``RNN_GEN_TOL``); prints ms a step."""
+    import torch
+
+    with torch.no_grad():
+        full = net.output(x)
+    net.rnn_clear_previous_state()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    steps = [net.rnn_time_step(x[:, s]) for s in range(x.shape[1])]
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) / x.shape[1] * 1e3
+    err = float((torch.stack(steps, dim=1) - full).abs().max())
+    ok = err <= RNN_GEN_TOL[policy] and steps[0].shape == (x.shape[0],
+                                                           x.shape[2])
+    print(f"recurrent generation {policy} [{x.shape[0]}] {x.shape[1]} "
+          f"rnn_time_step calls vs full output: max_abs_err={err:.3e} "
+          f"(tol {RNN_GEN_TOL[policy]}) ms_per_step={ms} "
+          f"{'ok' if ok else 'MISMATCH'} [{card}]")
+    if not ok:
+        raise AssertionError(f"{policy} stepwise generation disagrees with "
+                             "the full forward")
+
+
+def recurrent(card: str) -> None:
+    """Phase 7: the char-LSTM through ``MultiLayerNetwork``'s truncated
+    BPTT, the card against the CPU, and stepwise generation. The path is
+    cuBLAS and eager torch: it must launch none of the flash kernels."""
+    import torch
+
+    reset_launch_counts()
+    net, ds = train_char_lstm(card)
+    check_generation(net, ds.features, "bf16", card)
+    del net, ds
+    check_char_lstm_parity(card)
+    x, _ = char_lstm_data(RNN_PARITY_BATCH)
+    check_generation(build_char_lstm("float32", "cuda"),
+                     torch.from_numpy(x).cuda(), "float32", card)
+    if any(launch_counts().values()):
+        raise AssertionError(f"the recurrent phase launched a flash kernel: "
+                             f"{launch_counts()}")
+
+
 def main() -> None:
     try:
         import torch
@@ -1044,7 +1267,8 @@ def main() -> None:
 
     entries = {}
     serve_launches, train_launches = None, None
-    for phase in ("flash", "flash_bwd", "serve", "train", "networks"):
+    for phase in ("flash", "flash_bwd", "serve", "train", "networks",
+                  "recurrent"):
         try:
             if phase == "flash":
                 entries["flash_attention_fwd"] = check_flash(card)
@@ -1061,8 +1285,10 @@ def main() -> None:
             elif phase == "train":
                 train_launches = train(card)
                 check_train_parity(card)
-            else:
+            elif phase == "networks":
                 networks(card)
+            else:
+                recurrent(card)
         except Exception:
             traceback.print_exc()
             failed.append(phase)

@@ -1,9 +1,9 @@
-"""Model zoo of the port: the MNIST MLP, LeNet-5 and ResNet-18.
+"""Model zoo of the port: the MNIST MLP, LeNet-5, the char-LSTM and
+ResNet-18.
 
-Port of ``deeplearning4j_tpu/models/zoo.py:21-59, 87-144``, built with
-the same config DSL calls and the same layer and vertex names; each
-builder also takes ``device=`` (``None`` is the CUDA card).
-``char_lstm`` waits for the recurrent layers (ROADMAP A10.2).
+Port of ``deeplearning4j_tpu/models/zoo.py:21-144``, built with the same
+config DSL calls and the same layer and vertex names; each builder also
+takes ``device=`` (``None`` is the CUDA card).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from deeplearning4j_tpu_torch.nn.conf import (
     WeightInit,
 )
 from deeplearning4j_tpu_torch.nn.conf import layers as L
-from deeplearning4j_tpu_torch.nn.conf.enums import PoolingType
+from deeplearning4j_tpu_torch.nn.conf.enums import BackpropType, PoolingType
 from deeplearning4j_tpu_torch.nn.conf.graph import ElementWiseVertex
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
@@ -63,6 +63,31 @@ def lenet5(lr: float = 1e-3, seed: int = 12345,
         .set_input_type(InputType.convolutional(28, 28, 1))
         .build()
     )
+    return MultiLayerNetwork(conf, device=device)
+
+
+def char_lstm(vocab_size: int = 128, hidden: int = 256, layers: int = 2,
+              lr: float = 3e-3, tbptt_length: int = 50, seed: int = 12345,
+              dtype_policy: str = "float32",
+              device: DeviceLike = None) -> MultiLayerNetwork:
+    """GravesLSTM char-RNN (tiny-shakespeare style) with TBPTT —
+    BASELINE.md config 4."""
+    b = (
+        NeuralNetConfiguration.Builder()
+        .seed(seed).learning_rate(lr).updater(Updater.ADAM)
+        .dtype_policy(dtype_policy)
+        .list()
+    )
+    n_in = vocab_size
+    for i in range(layers):
+        b.layer(i, L.GravesLSTM(n_in=n_in, n_out=hidden, activation="tanh"))
+        n_in = hidden
+    b.layer(layers, L.RnnOutputLayer(n_in=hidden, n_out=vocab_size,
+                                     loss_function=LossFunction.MCXENT))
+    conf = (b.backprop_type(BackpropType.TRUNCATED_BPTT)
+            .t_bptt_forward_length(tbptt_length)
+            .t_bptt_backward_length(tbptt_length)
+            .build())
     return MultiLayerNetwork(conf, device=device)
 
 

@@ -11,12 +11,13 @@ under master weights), every output head's loss plus L1/L2,
 multi-tensor kernels (``grouped_apply_updaters`` over ``(name, spec)``).
 BatchNorm's new running statistics replace ``net_state``. The iteration
 and the LR scale are device tensors, so the step reads nothing back.
+Truncated BPTT and ``rnn_time_step`` are the MLN's, with the carries
+keyed by layer name; static 2-D inputs go whole to every window.
 
 The graph runs on the CUDA card unless it is given ``device="cpu"``;
 with no card and no device it raises. What the slice leaves out raises
-``NotImplementedError`` naming its ROADMAP item: TBPTT and
-``rnn_time_step`` (A10.2), and the fused epoch cache with its guard,
-telemetry, accumulation and mesh (A10.5).
+``NotImplementedError`` naming its ROADMAP item: the fused epoch cache
+with its guard, telemetry, accumulation and mesh (A10.5).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     apply_preprocessor,
 )
 from deeplearning4j_tpu_torch.nn.layers import get_layer_impl
+from deeplearning4j_tpu_torch.nn.layers.recurrent import zero_rnn_state
 from deeplearning4j_tpu_torch.nn.multilayer import (
     _as_batches,
     _host,
@@ -71,6 +73,22 @@ def _as_mds(data) -> MultiDataSet:
     return MultiDataSet.from_dataset(data) if isinstance(data, DataSet) else data
 
 
+def _slice_time(batch, start: int, end: int):
+    """A device batch (inputs, labels, feature masks, label masks) cut to
+    the ``[start, end)`` window: temporal ``[b, t, ...]`` arrays and the
+    ``[b, t]`` masks are cut, 2-D inputs and labels pass whole."""
+    def cut(a):
+        return a[:, start:end] if a.ndim >= 3 else a
+
+    def cut_masks(ms):
+        return None if ms is None else [
+            None if m is None else m[:, start:end] for m in ms]
+
+    inputs, labels, fms, lms = batch
+    return ([cut(f) for f in inputs], [cut(l) for l in labels],
+            cut_masks(fms), cut_masks(lms))
+
+
 class ComputationGraph:
     def __init__(self, conf: ComputationGraphConfiguration,
                  device: DeviceLike = None):
@@ -91,6 +109,7 @@ class ComputationGraph:
         self._rng = torch.Generator(device=self.device).manual_seed(
             conf.global_conf.seed)
         self._eval_readbacks = 0  # host transfers made by evaluate() calls
+        self._rnn_state: Dict[str, Any] = {}  # rnn_time_step's carries
 
     @property
     def score_value(self) -> float:
@@ -144,9 +163,11 @@ class ComputationGraph:
     # ------------------------------------------------------------------
     def _forward(self, params, net_state, inputs: Sequence[torch.Tensor], *,
                  train: bool, rng, feature_masks: Optional[Sequence] = None,
-                 collect: bool = False):
+                 collect: bool = False, rnn_state: Optional[dict] = None):
         """Returns (the outputs in ``conf.outputs`` order, or every
-        vertex's value by name when ``collect``; the new net state)."""
+        vertex's value by name when ``collect``; the new net state; the
+        recurrent layers' new carries, or None without ``rnn_state``, which
+        maps a layer's name to its initial ``h``/``c``)."""
         conf = self.conf
         values: Dict[str, torch.Tensor] = {}
         masks: Dict[str, Optional[torch.Tensor]] = {}
@@ -154,6 +175,7 @@ class ComputationGraph:
             values[name] = inputs[i]
             masks[name] = None if feature_masks is None else feature_masks[i]
         new_net_state: Dict[str, Any] = {}
+        new_rnn_state = {} if rnn_state is not None else None
         for name in conf.topological_order:
             if name in conf.inputs:
                 continue
@@ -168,9 +190,13 @@ class ComputationGraph:
                     h, rng = apply_preprocessor(pre, h, batch=h.shape[0],
                                                 rng=rng)
                 lstate = net_state.get(name, {})
+                carry = None if rnn_state is None else rnn_state.get(name)
                 h, lstate_out = self.layer_impls[name].forward(
-                    params[name], h, dict(lstate), train=train, rng=rng,
+                    params[name], h, {**lstate, **(carry or {})},
+                    train=train, rng=rng,
                     mask=in_mask if h.ndim == 3 else None)
+                if carry is not None:
+                    new_rnn_state[name] = {k: lstate_out[k] for k in carry}
                 new_net_state[name] = {k: v for k, v in lstate_out.items()
                                        if k in lstate}
                 values[name] = h
@@ -179,8 +205,8 @@ class ComputationGraph:
                                                   in_vals, values, masks)
             masks[name] = in_mask
         if collect:
-            return values, new_net_state
-        return [values[o] for o in conf.outputs], new_net_state
+            return values, new_net_state, new_rnn_state
+        return [values[o] for o in conf.outputs], new_net_state, new_rnn_state
 
     @staticmethod
     def _apply_vertex(vertex: GraphVertexConf, in_vals, values, masks):
@@ -235,10 +261,13 @@ class ComputationGraph:
     # loss over all output heads / gradients / the step
     # ------------------------------------------------------------------
     def _loss_and_state(self, params, net_state, inputs, labels,
-                        feature_masks, label_masks, rng, train: bool):
-        outs, new_state = self._forward(params, net_state, inputs,
-                                        train=train, rng=rng,
-                                        feature_masks=feature_masks)
+                        feature_masks, label_masks, rng, train: bool,
+                        rnn_state=None):
+        """Every head's loss plus L1/L2, and (new net state, new rnn
+        carries)."""
+        outs, new_state, new_rnn = self._forward(
+            params, net_state, inputs, train=train, rng=rng,
+            feature_masks=feature_masks, rnn_state=rnn_state)
         total = 0.0
         for i, out_name in enumerate(self.conf.outputs):
             lc = self.conf.layers.get(out_name)
@@ -251,21 +280,22 @@ class ComputationGraph:
             penalty = impl.l1_l2_penalty(params[name])
             if penalty is not None:
                 total = total + penalty
-        return total, new_state
+        return total, (new_state, new_rnn)
 
     def _loss_grads(self, params, net_state, inputs, labels,
-                    feature_masks=None, label_masks=None, rng=None):
-        """Training loss, new net state and the gradient tree of ``params``
-        (under master weights their bf16 copy). A param no loss head
-        reaches gets a zero gradient, as under ``jax.grad``."""
+                    feature_masks=None, label_masks=None, rng=None,
+                    rnn_state=None):
+        """Training loss, (new net state, new rnn carries) and the gradient
+        tree of ``params`` (under master weights their bf16 copy). A param
+        no loss head reaches gets a zero gradient, as under ``jax.grad``."""
         fwd = tree_map(lambda p: p.detach().requires_grad_(), params)
-        loss, new_state = self._loss_and_state(
+        loss, states = self._loss_and_state(
             fwd, net_state, inputs, labels, feature_masks, label_masks, rng,
-            train=True)
+            train=True, rnn_state=rnn_state)
         grads = iter(torch.autograd.grad(loss, tree_leaves(fwd),
                                          allow_unused=True,
                                          materialize_grads=True))
-        return loss.detach(), new_state, tree_map(lambda _: next(grads), fwd)
+        return loss.detach(), states, tree_map(lambda _: next(grads), fwd)
 
     def _apply_updaters(self, params, updater_state, grads, iteration):
         gc = self.conf.global_conf
@@ -281,20 +311,28 @@ class ComputationGraph:
                                       iteration + 1)
 
     def _sgd_step(self, inputs, labels, feature_masks=None,
-                  label_masks=None):
-        """One optimizer step on device tensors; the iteration reaches the
-        device as a fill kernel, so the step never waits for the card."""
+                  label_masks=None, rnn_state=None):
+        """One optimizer step on device tensors; returns the recurrent
+        layers' new carries (``None`` without ``rnn_state``). The iteration
+        reaches the device as a fill kernel, so the step never waits for
+        the card."""
         pol = self._policy
         iteration = torch.full((), self.iteration_count, dtype=torch.int32,
                                device=self.device)
-        loss, new_state, grads = self._loss_grads(
+        loss, (new_state, new_rnn), grads = self._loss_grads(
             pol.compute_copy(self.params), self.net_state, inputs, labels,
-            feature_masks, label_masks, self._rng)
+            feature_masks, label_masks, self._rng, rnn_state)
         self.params, self.updater_state = self._apply_updaters(
             self.params, self.updater_state, pol.master_grads(grads),
             iteration)
         self.net_state = new_state
         self._score = loss  # device scalar; no sync (see score_value)
+        return new_rnn
+
+    def _post_iteration(self):
+        self.iteration_count += 1
+        for listener in self.listeners:
+            listener.iteration_done(self, self.iteration_count)
 
     # ------------------------------------------------------------------
     # fit (ComputationGraph.fit :449-563)
@@ -316,30 +354,53 @@ class ComputationGraph:
             self._fit_batches(data)
         return self
 
-    def _check_tbptt(self, mds: MultiDataSet) -> None:
-        if (self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
-                and any(_is_temporal(f) for f in mds.features)):
-            raise _not_ported("truncated BPTT", "A10.2")
+    def _is_tbptt(self, mds: MultiDataSet) -> bool:
+        return (self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
+                and any(_is_temporal(f) for f in mds.features))
 
     def _fit_batches(self, batches):
         for mds in batches:
             mds = _as_mds(mds)
-            self._check_tbptt(mds)
+            if self._is_tbptt(mds):
+                self._fit_tbptt(mds)
+                continue
             batch = self._batch(mds)
             for _ in range(max(1, self.conf.global_conf.iterations)):
                 self._sgd_step(*batch)
-                self.iteration_count += 1
-                for listener in self.listeners:
-                    listener.iteration_done(self, self.iteration_count)
+                self._post_iteration()
+
+    def _fit_tbptt(self, mds: MultiDataSet):
+        """Truncated BPTT over the DAG (ComputationGraph.java:489-534): the
+        MLN's window loop. The time length is the longest 3-D input's."""
+        iterations = max(1, self.conf.global_conf.iterations)
+        window = self.conf.tbptt_fwd_length
+        batch = self._batch(mds)
+        t = max(f.shape[1] for f in batch[0] if _is_temporal(f))
+        rnn_state = self._zero_rnn_state(mds.num_examples())
+        for start in range(0, t, window):
+            sub = _slice_time(batch, start, min(start + window, t))
+            for _ in range(iterations):
+                new_rnn = self._sgd_step(*sub, rnn_state)
+                self._post_iteration()
+            if new_rnn is not None:  # truncation: no gradient crosses
+                rnn_state = tree_map(torch.Tensor.detach, new_rnn)
+
+    def _zero_rnn_state(self, batch: int) -> Optional[Dict[str, Any]]:
+        return zero_rnn_state(self.conf.layers.items(), batch, self.device,
+                              self._policy.output_dtype)
 
     def fit_steps(self, data, n_steps: int):
         """``fit(data)`` called ``n_steps`` times: the batch moves to the
         device once, then ``n_steps · conf.iterations`` steps run in a
         Python loop of the same step (the reference fuses them into one
-        XLA program). Listeners fire once, after the block."""
+        XLA program). Listeners fire once, after the block. TBPTT falls
+        back to a plain ``fit`` loop."""
         self._ensure_init()
         mds = _as_mds(data)
-        self._check_tbptt(mds)
+        if self._is_tbptt(mds):
+            for _ in range(n_steps):
+                self.fit(mds)
+            return self
         batch = self._batch(mds)
         for _ in range(n_steps * max(1, self.conf.global_conf.iterations)):
             self._sgd_step(*batch)
@@ -365,11 +426,32 @@ class ComputationGraph:
     def request_reshard(self, mesh) -> None:
         raise _not_ported("request_reshard (the mesh)", "A10.5")
 
+    # ------------------------------------------------------------------
+    # rnnTimeStep (ComputationGraph.java:1285): stateful stepping
+    # ------------------------------------------------------------------
     def rnn_clear_previous_state(self):
-        raise _not_ported("rnn_time_step state", "A10.2")
+        self._rnn_state = {}
 
-    def rnn_time_step(self, *inputs):
-        raise _not_ported("rnn_time_step", "A10.2")
+    def rnn_time_step(self, *inputs) -> List[torch.Tensor]:
+        """The outputs for ``[b, t, f]`` inputs (or all ``[b, f]``, one
+        step, which gives 2-D outputs) from the hidden state the last call
+        left; the state starts at zero, at the first call's batch size."""
+        self._ensure_init()
+        xs = [to_device(x, self.device) for x in inputs]
+        single_step = all(x.ndim == 2 for x in xs)
+        if single_step:
+            xs = [x[:, None, :] for x in xs]
+        if not self._rnn_state:
+            self._rnn_state = self._zero_rnn_state(xs[0].shape[0]) or {}
+        with torch.no_grad():
+            outs, _, new_rnn = self._forward(
+                self.params, self.net_state, xs, train=False, rng=None,
+                rnn_state=self._rnn_state)
+        if new_rnn:
+            self._rnn_state = new_rnn
+        if single_step:
+            outs = [o[:, 0, :] if o.ndim == 3 else o for o in outs]
+        return outs
 
     # ------------------------------------------------------------------
     # inference / scoring
@@ -380,8 +462,8 @@ class ComputationGraph:
     # ------------------------------------------------------------------
     def _infer(self, inputs, collect: bool = False):
         with torch.no_grad():
-            out, _ = self._forward(self.params, self.net_state, inputs,
-                                   train=False, rng=None, collect=collect)
+            out, _, _ = self._forward(self.params, self.net_state, inputs,
+                                      train=False, rng=None, collect=collect)
         return out
 
     def output(self, *inputs) -> List[torch.Tensor]:

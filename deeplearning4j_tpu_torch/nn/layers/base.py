@@ -14,8 +14,8 @@ holds its conf and the network's dtype policy:
 
 Dropout on the layer *input* (the reference's per-layer ``dropOut``) is
 inverted dropout drawn from the generator the network passes as ``rng``.
-Recurrent and pretrain layers are not registered yet: a conf that uses
-one raises ``NotImplementedError`` naming its ROADMAP item.
+Pretrain layers are not registered yet: a conf that uses one raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -38,8 +38,6 @@ _BIAS_PARAM_NAMES = frozenset({"b", "vb", "hb", "be", "bd", "beta", "bias"})
 
 # layer families of the reference that later slices port
 _NOT_PORTED = {
-    L.GravesLSTM: "A10.2", L.GravesBidirectionalLSTM: "A10.2",
-    L.GRU: "A10.2", L.LSTM: "A10.2", L.ImageLSTM: "A10.2",
     L.AutoEncoder: "A10.3", L.RecursiveAutoEncoder: "A10.3", L.RBM: "A10.3",
 }
 

@@ -9,12 +9,16 @@ normalization and the updaters on multi-tensor kernels
 on the network's device; the step reads nothing back to the host, and
 ``score_value`` keeps the loss as a device scalar until it is read.
 
+Truncated BPTT (``_fit_tbptt``) is the reference's per-window loop: one
+step per window of ``tbptt_fwd_length`` timesteps, the recurrent layers'
+``h``/``c`` carried from window to window and detached at each boundary.
+``rnn_time_step`` carries the same state across calls for generation.
+
 The network runs on the CUDA card unless it is given ``device="cpu"``;
 with no card and no device it raises. What the port leaves out raises
-``NotImplementedError`` naming its ROADMAP item: recurrent layers,
-TBPTT and ``rnn_time_step`` (A10.2), pretraining (A10.3), solvers for a
-non-SGD ``optimization_algo`` (A10.4), and the fused epoch cache with
-its guard, telemetry, accumulation and mesh (A10.5).
+``NotImplementedError`` naming its ROADMAP item: pretraining (A10.3),
+solvers for a non-SGD ``optimization_algo`` (A10.4), and the fused epoch
+cache with its guard, telemetry, accumulation and mesh (A10.5).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch._device import DeviceLike, resolve_device
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.dtypes import policy_from_name, tree_leaves, tree_map
 from deeplearning4j_tpu_torch.nn.conf.enums import (
     BackpropType,
@@ -34,6 +39,7 @@ from deeplearning4j_tpu_torch.nn.conf.enums import (
 from deeplearning4j_tpu_torch.nn.conf.neural_net import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import apply_preprocessor
 from deeplearning4j_tpu_torch.nn.layers import get_layer_impl
+from deeplearning4j_tpu_torch.nn.layers.recurrent import zero_rnn_state
 from deeplearning4j_tpu_torch.nn.updater import (
     UpdaterSpec,
     grouped_apply_updaters,
@@ -74,6 +80,7 @@ class MultiLayerNetwork:
         self._rng = torch.Generator(device=self.device).manual_seed(
             conf.global_conf.seed)
         self._eval_readbacks = 0  # host transfers made by evaluate() calls
+        self._rnn_state: Dict[str, Any] = {}  # rnn_time_step's carries
 
     @property
     def score_value(self) -> float:
@@ -122,12 +129,15 @@ class MultiLayerNetwork:
     # forward
     # ------------------------------------------------------------------
     def _forward(self, params, net_state, x, *, train: bool, rng,
-                 feature_mask=None, collect: bool = False):
-        """Apply preprocessors + layers. Returns (out, new_net_state,
-        activations or None)."""
+                 feature_mask=None, rnn_state: Optional[dict] = None,
+                 collect: bool = False):
+        """Apply preprocessors + layers. ``rnn_state`` maps a recurrent
+        layer's index to its initial ``h``/``c``. Returns (out,
+        new_net_state, the new carries or None, activations or None)."""
         batch = x.shape[0]
         activations = [x] if collect else None
         new_net_state = {}
+        new_rnn_state = {} if rnn_state is not None else None
         h = x
         for i, impl in enumerate(self.layers):
             pre = self.conf.input_preprocessors.get(i)
@@ -135,14 +145,19 @@ class MultiLayerNetwork:
                 h, rng = apply_preprocessor(pre, h, batch=batch, rng=rng)
             si = str(i)
             lstate = dict(net_state.get(si, {}))
+            carry = None if rnn_state is None else rnn_state.get(si)
+            if carry is not None:
+                lstate.update(carry)
             mask = feature_mask if h.ndim == 3 else None
             h, lstate_out = impl.forward(params[si], h, lstate, train=train,
                                          rng=rng, mask=mask)
+            if carry is not None:
+                new_rnn_state[si] = {k: lstate_out[k] for k in carry}
             new_net_state[si] = {k: v for k, v in lstate_out.items()
                                  if k in net_state.get(si, {})}
             if collect:
                 activations.append(h)
-        return h, new_net_state, activations
+        return h, new_net_state, new_rnn_state, activations
 
     # ------------------------------------------------------------------
     # loss / gradients / the step
@@ -156,26 +171,30 @@ class MultiLayerNetwork:
         return last
 
     def _loss_and_state(self, params, net_state, x, y, feature_mask,
-                        label_mask, rng, train: bool):
-        out, new_state, _ = self._forward(params, net_state, x, train=train,
-                                          rng=rng, feature_mask=feature_mask)
+                        label_mask, rng, train: bool, rnn_state=None):
+        """Loss plus L1/L2, and (new net state, new rnn carries)."""
+        out, new_state, new_rnn, _ = self._forward(
+            params, net_state, x, train=train, rng=rng,
+            feature_mask=feature_mask, rnn_state=rnn_state)
         loss = compute_loss(self._output_conf.loss_function, out, y,
                             label_mask)
         for i, impl in enumerate(self.layers):
             penalty = impl.l1_l2_penalty(params[str(i)])
             if penalty is not None:
                 loss = loss + penalty
-        return loss, new_state
+        return loss, (new_state, new_rnn)
 
     def _loss_grads(self, params, net_state, x, y, feature_mask=None,
-                    label_mask=None, rng=None):
-        """Training loss, new net state and the gradient tree of ``params``
-        (the tree the forward ran on: under master weights its bf16 copy)."""
+                    label_mask=None, rng=None, rnn_state=None):
+        """Training loss, (new net state, new rnn carries) and the gradient
+        tree of ``params`` (the tree the forward ran on: under master
+        weights its bf16 copy)."""
         fwd = tree_map(lambda p: p.detach().requires_grad_(), params)
-        loss, new_state = self._loss_and_state(
-            fwd, net_state, x, y, feature_mask, label_mask, rng, train=True)
+        loss, states = self._loss_and_state(
+            fwd, net_state, x, y, feature_mask, label_mask, rng, train=True,
+            rnn_state=rnn_state)
         grads = iter(torch.autograd.grad(loss, tree_leaves(fwd)))
-        return loss.detach(), new_state, tree_map(lambda _: next(grads), fwd)
+        return loss.detach(), states, tree_map(lambda _: next(grads), fwd)
 
     def _lr_scale(self, iteration, lr_scale_host):
         """The LR policy's factor at ``iteration`` times the host scale."""
@@ -195,10 +214,12 @@ class MultiLayerNetwork:
         return grouped_apply_updaters(items, params, updater_state, grads,
                                       scale, iteration + 1)
 
-    def _sgd_step(self, x, y, feature_mask=None, label_mask=None):
-        """One optimizer step on device tensors. The iteration and the host
-        LR scale reach the device as fill kernels, not copies, so the step
-        never waits for the card."""
+    def _sgd_step(self, x, y, feature_mask=None, label_mask=None,
+                  rnn_state=None):
+        """One optimizer step on device tensors; returns the recurrent
+        layers' new carries (``None`` without ``rnn_state``). The iteration
+        and the host LR scale reach the device as fill kernels, not
+        copies, so the step never waits for the card."""
         pol = self._policy
         iteration = torch.full((), self.iteration_count, dtype=torch.int32,
                                device=self.device)
@@ -206,14 +227,15 @@ class MultiLayerNetwork:
                                    dtype=torch.float32, device=self.device)
         # master weights: one bf16 copy for forward/backward, grads upcast
         # once, the updater applies to the f32 masters
-        loss, new_state, grads = self._loss_grads(
+        loss, (new_state, new_rnn), grads = self._loss_grads(
             pol.compute_copy(self.params), self.net_state, x, y,
-            feature_mask, label_mask, self._rng)
+            feature_mask, label_mask, self._rng, rnn_state)
         self.params, self.updater_state = self._apply_updaters(
             self.params, self.updater_state, pol.master_grads(grads),
             iteration, lr_scale_host)
         self.net_state = new_state
         self._score = loss  # device scalar; no sync (see score_value)
+        return new_rnn
 
     # ------------------------------------------------------------------
     # fit
@@ -223,8 +245,6 @@ class MultiLayerNetwork:
         """fit(DataSetIterator) / fit(DataSet) / fit(features, labels)."""
         self._ensure_init()
         if labels is not None:
-            from deeplearning4j_tpu_torch.datasets.dataset import DataSet
-
             data = DataSet(data, labels, feature_mask, label_mask)
         if hasattr(data, "features"):  # single DataSet
             self._fit_batches([data])
@@ -241,18 +261,49 @@ class MultiLayerNetwork:
         gc = self.conf.global_conf
         if not self.conf.backprop:
             return
-        if gc.optimization_algo != OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT:
-            raise _not_ported(f"the {gc.optimization_algo.value} solver",
-                              "A10.4")
         for ds in batches:
             if (self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
                     and _is_temporal(ds.features)):
-                raise _not_ported("truncated BPTT", "A10.2")
+                self._fit_tbptt(ds)
+                continue
+            if (gc.optimization_algo
+                    != OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT):
+                raise _not_ported(f"the {gc.optimization_algo.value} solver",
+                                  "A10.4")
             x, y = self._dev(ds.features), self._dev(ds.labels)
             fm, lm = self._dev(ds.features_mask), self._dev(ds.labels_mask)
             for _ in range(max(1, gc.iterations)):
                 self._sgd_step(x, y, fm, lm)
                 self._post_iteration()
+
+    def _fit_tbptt(self, ds):
+        """Truncated BPTT (doTruncatedBPTT): the batch moves to the device
+        once, then each window of ``tbptt_fwd_length`` timesteps (the tail
+        shorter) takes ``conf.iterations`` steps from the carry the last
+        window left, detached at the boundary. A 2-D label stays whole for
+        every window. The reference ignores ``tbptt_back_length``, and so
+        does the port. (The reference fuses the full windows into one XLA
+        program only where that cannot be told apart from this loop.)"""
+        iterations = max(1, self.conf.global_conf.iterations)
+        window = self.conf.tbptt_fwd_length
+        ds = DataSet(self._dev(ds.features), self._dev(ds.labels),
+                     self._dev(ds.features_mask), self._dev(ds.labels_mask))
+        t = ds.features.shape[1]
+        rnn_state = self._zero_rnn_state(ds.num_examples())
+        for start in range(0, t, window):
+            sub = ds.slice_time(start, min(start + window, t))
+            for _ in range(iterations):
+                new_rnn = self._sgd_step(sub.features, sub.labels,
+                                         sub.features_mask, sub.labels_mask,
+                                         rnn_state)
+                self._post_iteration()
+            if new_rnn is not None:  # truncation: no gradient crosses
+                rnn_state = tree_map(torch.Tensor.detach, new_rnn)
+
+    def _zero_rnn_state(self, batch: int) -> Optional[Dict[str, Any]]:
+        return zero_rnn_state(
+            ((str(i), lc) for i, lc in enumerate(self.conf.layers)), batch,
+            self.device, self._policy.output_dtype)
 
     def fit_steps(self, ds, n_steps: int):
         """``fit(ds)`` called ``n_steps`` times: the batch moves to the
@@ -314,11 +365,32 @@ class MultiLayerNetwork:
     def pretrain(self, batches):
         raise _not_ported("layerwise pretraining", "A10.3")
 
+    # ------------------------------------------------------------------
+    # rnnTimeStep (:1208): stateful stepping for generation
+    # ------------------------------------------------------------------
     def rnn_clear_previous_state(self):
-        raise _not_ported("rnn_time_step state", "A10.2")
+        self._rnn_state = {}
 
-    def rnn_time_step(self, x):
-        raise _not_ported("rnn_time_step", "A10.2")
+    def rnn_time_step(self, x) -> torch.Tensor:
+        """``x [b, t, f]`` (or ``[b, f]`` for one step, which gives a 2-D
+        output) from the hidden state the last call left; the state starts
+        at zero, at the batch size of the first call after a clear."""
+        self._ensure_init()
+        x = self._dev(x)
+        single_step = x.ndim == 2
+        if single_step:
+            x = x[:, None, :]
+        if not self._rnn_state:
+            self._rnn_state = self._zero_rnn_state(x.shape[0]) or {}
+        with torch.no_grad():
+            out, _, new_rnn, _ = self._forward(
+                self.params, self.net_state, x, train=False, rng=None,
+                rnn_state=self._rnn_state)
+        if new_rnn:
+            self._rnn_state = new_rnn
+        if single_step and out.ndim == 3:
+            out = out[:, 0, :]
+        return out
 
     # ------------------------------------------------------------------
     # inference / scoring
@@ -329,8 +401,8 @@ class MultiLayerNetwork:
     # ------------------------------------------------------------------
     def _infer(self, x) -> torch.Tensor:
         with torch.no_grad():
-            out, _, _ = self._forward(self.params, self.net_state, x,
-                                      train=False, rng=None)
+            out, _, _, _ = self._forward(self.params, self.net_state, x,
+                                         train=False, rng=None)
         return out
 
     def output(self, x, train: bool = False) -> torch.Tensor:
@@ -342,7 +414,7 @@ class MultiLayerNetwork:
         """All layer activations, input first (feedForward :586)."""
         self._ensure_init()
         with torch.no_grad():
-            _, _, acts = self._forward(self.params, self.net_state,
+            _, _, _, acts = self._forward(self.params, self.net_state,
                                        self._dev(x), train=False, rng=None,
                                        collect=True)
         return acts

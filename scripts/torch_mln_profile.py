@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
 """Where the time goes in a network step of the port.
 
-Trains the model of ``chip_smoke.py``'s networks phase (``--model
-lenet5``: LeNet-5 at ``[1024, 28, 28, 1]``; ``--model mnist_mlp``: the
-784-256-256-10 MLP at ``[4096, 784]``; ``--model resnet18``: the
-``ComputationGraph`` ResNet-18 at ``[256, 32, 32, 3]``; all ``bf16``
-with Adam, on one seeded batch placed on the card once) for a few
-untraced ``fit`` calls, times ``--steps`` more without the profiler
-(ending in a synchronise), then runs ``--steps`` calls under
-``torch.profiler`` (CPU + CUDA activity), and prints:
+Trains the model of ``chip_smoke.py``'s networks or recurrent phase
+(``--model lenet5``: LeNet-5 at ``[1024, 28, 28, 1]``; ``--model
+mnist_mlp``: the 784-256-256-10 MLP at ``[4096, 784]``; ``--model
+resnet18``: the ``ComputationGraph`` ResNet-18 at ``[256, 32, 32, 3]``;
+``--model char_lstm``: the char-LSTM at ``[128, 200, 128]``, one step per
+TBPTT window of 50, so a ``fit`` is 4 steps; all ``bf16`` with Adam, on
+one seeded batch placed on the card once) for a few untraced ``fit``
+calls, times ``--steps`` more without the profiler (ending in a
+synchronise), then runs ``--steps`` calls under ``torch.profiler`` (CPU
++ CUDA activity), and prints (a "step" below is one ``fit`` call):
 
 - wall time per step with and without the profiler, host time per step
   (the time ``fit`` takes to return without waiting for the card), the
   device's busy time (the union of kernel and copy intervals) and idle
   share, both under the profiler and against the unprofiled step;
-  samples/s, the peak of allocated device memory and, for ResNet-18, the
-  share of the bf16 peak (bench.py's 3 × 1.11 GFLOP a sample);
+  samples/s, the peak of allocated device memory and, for ResNet-18 and
+  the char-LSTM, the share of the bf16 peak (bench.py's 3 × 1.11 GFLOP a
+  ResNet-18 sample; 3 × 1.90 MFLOP a character, from the char-LSTM's
+  widths); for the char-LSTM also tokens/s and the launches per timestep
+  and layer (a step's launches over ``t × layers``, the output layer's
+  and Adam's included);
 - device time and launches per step by group: convolutions (cuDNN),
   GEMMs (cuBLAS), the updater's multi-tensor kernels, copies and casts
   (dtype casts, cuDNN's layout transforms and channel padding, the conv
@@ -31,7 +37,7 @@ untraced ``fit`` calls, times ``--steps`` more without the profiler
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 scripts/torch_mln_profile.py --model lenet5|mnist_mlp|resnet18 [--steps 5] [--trace DIR]
+    python3 scripts/torch_mln_profile.py --model lenet5|mnist_mlp|resnet18|char_lstm [--steps 5] [--trace DIR]
 
 ``--trace`` also writes the Chrome trace into DIR. The last line is one
 JSON object with the numbers above. Without a card it exits 1.
@@ -105,7 +111,7 @@ def sync_ops(net, ds) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=tuple(cs.NETWORKS),
+    ap.add_argument("--model", choices=tuple(cs.NETWORKS) + ("char_lstm",),
                     default="lenet5")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--trace", default=None,
@@ -125,9 +131,16 @@ def main(argv=None) -> int:
     from torch_serve_profile import _busy_us
 
     card = cs.card_line()
-    batch, shape = cs.NETWORKS[args.model]
-    net = cs.build_network(args.model, "bf16", "cuda")
-    x, y = cs.network_data(args.model, batch)
+    rnn = args.model == "char_lstm"
+    if rnn:
+        batch = cs.RNN_BATCH
+        shape = (cs.RNN_T, cs.RNN_CFG["vocab_size"])
+        net = cs.build_char_lstm("bf16", "cuda")
+        x, y = cs.char_lstm_data(batch)
+    else:
+        batch, shape = cs.NETWORKS[args.model]
+        net = cs.build_network(args.model, "bf16", "cuda")
+        x, y = cs.network_data(args.model, batch)
     ds = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
     torch.cuda.reset_peak_memory_stats()
     for _ in range(cs.NET_WARMUP + 1):
@@ -181,10 +194,16 @@ def main(argv=None) -> int:
                 if e.key in _COPY_OPS}
     syncs = sync_ops(net, ds)
     peak_mem = torch.cuda.max_memory_allocated()
-    share = None
+    share = per_timestep_layer = tokens_per_sec = None
     if args.model in cs.NET_FWD_FLOPS:
         share = (3 * cs.NET_FWD_FLOPS[args.model] * batch / plain_s
                  / cs.H100_BF16_FLOPS)
+    if rnn:
+        tokens_per_sec = batch * cs.RNN_T / plain_s
+        share = (3 * cs.char_lstm_flops_per_token() * tokens_per_sec
+                 / cs.H100_BF16_FLOPS)
+        per_timestep_layer = (len(device) / args.steps
+                              / (cs.RNN_T * cs.RNN_CFG["layers"]))
     result = {
         "card": card,
         "model": args.model,
@@ -194,12 +213,14 @@ def main(argv=None) -> int:
         "wall_s_per_step": wall_s / steps,
         "unprofiled_wall_s_per_step": plain_s,
         "unprofiled_samples_per_sec": batch / plain_s,
+        "unprofiled_tokens_per_sec": tokens_per_sec,
         "unprofiled_device_idle_share": (1.0 - busy_s / steps / plain_s
                                          if device else None),
         "share_of_bf16_peak": share,
         "peak_mem_bytes": peak_mem,
         "host_s_per_step": sum(host_s) / steps,
         "device_events_per_step": len(device) / steps,
+        "device_events_per_timestep_layer": per_timestep_layer,
         "device_busy_s_per_step": busy_s / steps,
         "device_idle_share": 1.0 - busy_s / wall_s if device else None,
         "device_time_s_per_step": kernel_s / steps,
@@ -219,9 +240,11 @@ def main(argv=None) -> int:
           f"device_busy_s_per_step={result['device_busy_s_per_step']} "
           f"device_idle_share={result['device_idle_share']} "
           f"launches_per_step={result['device_events_per_step']} "
+          f"launches_per_timestep_layer={per_timestep_layer} "
           f"sync_ops_per_step={syncs} [{card}]")
     print(f"{args.model} unprofiled: wall_s_per_step={plain_s} "
-          f"samples_per_sec={batch / plain_s} device_idle_share="
+          f"samples_per_sec={batch / plain_s} "
+          f"tokens_per_sec={tokens_per_sec} device_idle_share="
           f"{result['unprofiled_device_idle_share']} "
           f"share_of_bf16_peak={share} peak_mem_bytes={peak_mem} [{card}]")
     for g, v in groups.items():

@@ -638,30 +638,13 @@ def test_clone_and_param_table():
     (lambda n, ds: n.fit_epochs(ds, 1), "A10.5"),
     (lambda n, ds: n.build_epoch_cache(ds), "A10.5"),
     (lambda n, ds: n.request_reshard(None), "A10.5"),
-    (lambda n, ds: n.rnn_time_step(ds.features), "A10.2"),
-    (lambda n, ds: n.rnn_clear_previous_state(), "A10.2"),
-], ids=["fit_epochs", "build_epoch_cache", "request_reshard",
-        "rnn_time_step", "rnn_clear_previous_state"])
+], ids=["fit_epochs", "build_epoch_cache", "request_reshard"])
 def test_features_outside_the_slice_raise(call, item):
     net = ComputationGraph(_narrow_resnet(PORT, "float32"), device="cpu")
     x, y = _resnet_data()
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         call(net, DataSet(x, y))
     assert not net.fused_epochs_supported()
-
-
-def test_tbptt_raises_with_its_item():
-    g = (port_conf.NeuralNetConfiguration.Builder().graph_builder()
-         .add_inputs("in")
-         .backprop_type(E.BackpropType.TRUNCATED_BPTT))
-    g.add_layer("out", L.RnnOutputLayer(n_in=3, n_out=2), "in")
-    net = ComputationGraph(g.set_outputs("out").build(), device="cpu")
-    x = _rand(2, 4, 3)
-    y = _onehot(8, 2).reshape(2, 4, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.2"):
-        net.fit(DataSet(x, y))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.2"):
-        net.fit_steps(DataSet(x, y), 2)
 
 
 @pytest.mark.parametrize("call", [

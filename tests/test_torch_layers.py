@@ -400,7 +400,6 @@ def test_dropout_keep_rate_and_scale():
 
 
 @pytest.mark.parametrize("cls_name,item", [
-    ("GravesLSTM", "A10.2"), ("LSTM", "A10.2"), ("GRU", "A10.2"),
     ("AutoEncoder", "A10.3"), ("RBM", "A10.3"),
 ])
 def test_unported_layers_raise_with_their_item(cls_name, item):

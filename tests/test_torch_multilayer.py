@@ -311,22 +311,12 @@ def test_lenet_counts_its_params_without_drawing_them():
     assert net.init().get_flat_params().size == 431_080
 
 
-def test_lstm_conf_raises_with_its_item():
-    conf = (NeuralNetConfiguration.Builder().list()
-            .layer(0, L.GravesLSTM(n_in=4, n_out=8))
-            .layer(1, L.RnnOutputLayer(n_in=8, n_out=4)).build())
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.2"):
-        MultiLayerNetwork(conf, device="cpu")
-
-
 @pytest.mark.parametrize("call,item", [
     (lambda n, ds: n.fit_epochs(ds, 1), "A10.5"),
     (lambda n, ds: n.build_epoch_cache(ds), "A10.5"),
     (lambda n, ds: n.request_reshard(None), "A10.5"),
     (lambda n, ds: n.pretrain([ds]), "A10.3"),
-    (lambda n, ds: n.rnn_time_step(ds.features), "A10.2"),
-], ids=["fit_epochs", "build_epoch_cache", "request_reshard", "pretrain",
-        "rnn_time_step"])
+], ids=["fit_epochs", "build_epoch_cache", "request_reshard", "pretrain"])
 def test_features_outside_the_slice_raise(call, item):
     net = zoo.mnist_mlp(hidden=8, device="cpu").init()
     x, y = _data("mnist_mlp")
