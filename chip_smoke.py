@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Seven phases; any failure exits non-zero and prints no result line.
+Eight phases; any failure exits non-zero and prints no result line.
 
 1. Build and device: compile every CUDA kernel from ``csrc/`` (one
    ``nvcc`` per source, all at once), print ptxas's registers and spill
@@ -46,9 +46,15 @@ Seven phases; any failure exits non-zero and prints no result line.
    prompt, and that both settings give the same streams.
 5. Train: the same model with ``attn_impl="auto"`` (which resolves to
    flash under ``train=True``) takes 2 warm-up and 8 timed ``fit_batch``
-   steps on one seeded ``[16, 1024]`` batch under ``mixed_bf16``.
+   steps on one seeded ``[16, 1024]`` batch under ``mixed_bf16``; the
+   first warm-up step runs eagerly, the second captures the step as a
+   CUDA graph, and every later step is a replay with B1–B3 inside it.
    Asserts finite, falling losses, B1, B2 and B3 each launched
-   ``num_layers`` times per step, and f32 masters and Adam moments;
+   ``num_layers`` times per step (counted as the launches that ran:
+   ``perf.step_graph.kernel_launches``, replays included; one more
+   replayed step under ``torch.profiler`` must show the card running as
+   many of each kernel as that count says), and f32 masters and Adam
+   moments;
    prints ms/step, host time per step, tokens/s and the share of the
    bf16 peak. Holds the training unembedding (bf16 GEMMs with f32
    output) against the f32 product of its widened operands at the step's
@@ -66,7 +72,9 @@ Seven phases; any failure exits non-zero and prints no result line.
    ``bench_resnet18``, built by the port's zoo on the config DSL and
    trained under ``bf16`` with Adam on one seeded batch placed on the
    card once: 2 warm-up and 20 timed ``fit`` calls (ResNet-18: 10), then
-   ``fit_steps(ds, 10)`` twice. Asserts finite, falling losses; prints
+   ``fit_steps(ds, 10)`` twice (replays of a captured step; the first
+   call's time includes the warm-up step and the capture). Asserts
+   finite, falling losses; prints
    ms per step, host ms per step and samples/s for ``fit`` and
    ``fit_steps``, the peak of allocated device memory, and for ResNet-18
    the share of the bf16 peak (3 × 1.11 GFLOP a sample, bench.py's
@@ -83,7 +91,9 @@ Seven phases; any failure exits non-zero and prints no result line.
    peepholes, ``RnnOutputLayer`` over 128 characters, truncated BPTT in
    windows of 50) at ``bench.py``'s ``bench_char_lstm`` size, batch 128 ×
    t 200 of seeded one-hot characters on the card once, ``bf16``, Adam:
-   one warm-up and 5 timed ``fit`` calls (4 windows, so 4 steps, each).
+   one warm-up and 5 timed ``fit`` calls (4 windows, so 4 steps, each;
+   the full windows replay a captured window step, the warm-up ``fit``
+   running the first eagerly and capturing it).
    Asserts finite losses, a falling last-window loss and the iteration
    count; prints ms and host ms per ``fit``, samples/s, tokens/s, the
    share of the bf16 peak (3 × 1.90 MFLOP a token, from the widths) and
@@ -96,11 +106,47 @@ Seven phases; any failure exits non-zero and prints no result line.
    zoo's lr (loss 2e-2, params 1e-2); float32 stepwise generation at
    1e-4. The phase runs cuBLAS and eager torch and asserts that it
    launched none of B1–B3.
+8. Fused: every fused training path as CUDA-graph replays, each against
+   the same run eagerly (``perf.step_graph._capture`` off: the same steps,
+   the same order and generator seed; ``torch.equal`` on params, updater
+   state, net state and the loss history), with ms and host ms (the time
+   to return), and under ``torch.profiler`` the host's launch calls by
+   CUDA API (``cudaGraphLaunch`` being a replay), the card's events, busy
+   time and idle share. The epoch and ``fit_steps`` cells print the peak
+   allocated memory and what stays resident (live tensors and graph pools,
+   cached blocks released) of each run. The epoch cell is ``bench.py``'s
+   ``bench_epoch``: the MNIST MLP (hidden 256, ``bf16``), 16 batches of
+   2048 x 784 from ``default_rng(0)``, 5 epochs by streaming ``fit`` and
+   by ``fit_epochs`` with chunks of 1 and of 5 epochs (samples/s, replays
+   and other launches per epoch). The guard cell poisons batch 5 with a
+   NaN row: under ``skip`` the sentinel trips once an epoch, at that
+   batch's place in each epoch's order, and params stay finite; on clean
+   data ``off`` and ``skip`` are bitwise equal; ``raise`` names the batch.
+   ``fit_steps`` cells: LeNet-5 at ``[1024, 28, 28, 1]`` and ResNet-18 at
+   ``[256, 32, 32, 3]`` (BatchNorm state under replay), ``bf16``, 2 + 10
+   steps. The char-LSTM cell: phase 7's ``fit``, 5 timed. The LM cell: the
+   train phase's model, ``fit_batch_multi`` with a captured step (k 4, 3
+   timed calls); B1–B3 must launch ``num_layers`` times a step under
+   replay and eagerly, and one more call under ``torch.profiler`` must
+   show the card running what the count says. The programs cell runs six
+   fused calls of five keys on one ResNet-18 at ``[256, 32, 32, 3]``, 4
+   batches (``fit_epochs`` under ``skip``, ``off``, telemetry and in
+   order, ``fit_steps``, then the first key again) against the same calls
+   eagerly, bitwise, printing the resident memory after each; its graphs
+   share one pool, and dropping the cache frees it while the network keeps
+   its programs. Then the card's fused runs against the CPU's at the
+   earlier gates: ``fit_epochs`` of the MLP (4 batches of 64, 2 epochs in
+   order) under float32 with TF32 off (rtol 2e-3, atol 1e-3) and ``bf16``
+   (loss 2e-2, params 1e-2), and ``fit_steps(ds, 3)`` of LeNet-5 and
+   ResNet-18 at phase 6's parity batches under ``bf16`` (ResNet-18 at
+   ``NET_PARITY_LR``).
 
 Output: metric lines, then a ``{"kernels": [...]}`` JSON line (each
 kernel's ``variant`` and ``launches`` counted over the train phase's
-timed steps; B1's over the serve phase too, as ``launches_serve``, and
-its train-shape numbers under ``train``) and the ``nvidia-smi`` line,
+timed steps, replays included; over phase 8's LM cell as
+``launches_fused_lm``; B1's over the serve phase too, as
+``launches_serve``, and its train-shape numbers under ``train``) and
+the ``nvidia-smi`` line,
 then ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -110,6 +156,7 @@ import json
 import math
 import os
 import re
+import contextlib
 import subprocess
 import sys
 import time
@@ -561,19 +608,18 @@ def check_flash_bwd(card: str) -> list:
 # phase 5: train the slice's model
 # ---------------------------------------------------------------------------
 def launch_counts() -> dict:
-    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    """B1–B3's launches that ran on the card: the wrappers' counts, less
+    the launches a CUDA-graph capture recorded, plus what replays ran
+    (``perf.step_graph.kernel_launches``)."""
+    from deeplearning4j_tpu_torch.perf import step_graph
 
-    return {"flash_attention_fwd": fa.flash_attention_fwd.launches,
-            "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv.launches,
-            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches}
+    return step_graph.kernel_launches()
 
 
 def reset_launch_counts() -> None:
-    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.perf import step_graph
 
-    fa.flash_attention_fwd.launches = 0
-    fa.flash_attention_bwd_dkdv.launches = 0
-    fa.flash_attention_bwd_dq.launches = 0
+    step_graph.reset_kernel_launches()
 
 
 def train_tokens(batch: int = TRAIN_BATCH):
@@ -636,6 +682,10 @@ def train(card: str) -> dict:
         if x.dtype != torch.float32 or x.requires_grad:
             raise AssertionError(f"a master or moment is {x.dtype} "
                                  f"(requires_grad={x.requires_grad})")
+    traced = traced_launches(lambda: lm.fit_batch(tok),
+                             "train fit_batch, one replayed step", card)
+    if any(n != lm.num_layers for n in traced.values()):
+        raise AssertionError(f"the traced step launched {traced}")
     check_train_unembedding(lm, card)
     return launches
 
@@ -1237,6 +1287,599 @@ def recurrent(card: str) -> None:
                              f"{launch_counts()}")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the fused training paths, each a CUDA-graph replay per step
+# ---------------------------------------------------------------------------
+# bench.py's bench_epoch (bench.py:527-590), nothing cut: the MNIST MLP
+# (hidden 256) under bf16, 16 batches of 2048 x 784 float32 from
+# default_rng(0), 5 epochs
+EPOCH_BATCH, EPOCH_BATCHES, EPOCH_EPOCHS = 2048, 16, 5
+EPOCH_POISON = 5  # the guard cell's poisoned batch (one NaN feature row)
+EPOCH_PARITY = (64, 4, 2)  # card against CPU: batch, batches, epochs
+FUSED_NETS = ("lenet5", "resnet18")  # fit_steps cells, the bench's sizes
+FUSED_WARMUP, FUSED_STEPS = 2, 10
+LM_FUSED_K, LM_FUSED_CALLS = 4, 3  # fit_batch_multi: k steps, calls timed
+# the programs cell: ResNet-18 at the bench's batch, 4 batches a epoch
+PROGRAMS_NET, PROGRAMS_BATCHES = "resnet18", 4
+# the CUDA runtime calls that put work on the card, counted under the
+# profiler as the host's launches
+HOST_LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                    "cudaMemcpyAsync", "cudaMemsetAsync")
+# the hand-written kernels by the names the card's trace gives them (both
+# variants of each: flash_fwd_kernel, flash_fwd_mma_kernel, ...)
+KERNEL_TRACE_NAMES = {"flash_attention_fwd": "flash_fwd_",
+                      "flash_attention_bwd_dkdv": "flash_bwd_dkdv_",
+                      "flash_attention_bwd_dq": "flash_bwd_dq_"}
+
+
+def busy_union_s(intervals) -> float:
+    """Seconds covered by the union of ``(start_us, end_us)`` intervals."""
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total / 1e6
+
+
+def profiled(fn, units: int) -> dict:
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA activity), per one
+    of ``units``: the host's launch calls by API (``cudaGraphLaunch`` is
+    one replay), the device's events (kernels, copies, memsets), its
+    busy time (their union) and the hand-written kernels it ran
+    (``kernels``, by wrapper name)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name in HOST_LAUNCH_APIS:
+            host[e.name] = host.get(e.name, 0) + 1
+    kernels = {k: sum(tag in e.name for e in device) / units
+               for k, tag in KERNEL_TRACE_NAMES.items()}
+    return {"host_launches": {k: v / units for k, v in sorted(host.items())},
+            "replays": host.get("cudaGraphLaunch", 0) / units,
+            "other_host_launches": sum(v for k, v in host.items()
+                                       if k != "cudaGraphLaunch") / units,
+            "device_events": len(device) / units,
+            "device_busy_ms": busy_union_s(
+                [(e.time_range.start, e.time_range.end)
+                 for e in device]) * 1e3 / units,
+            "kernels": kernels}
+
+
+def traced_launches(fn, what: str, card: str) -> dict:
+    """Run ``fn()`` once under the profiler and hold B1–B3's launches as
+    ``perf.step_graph.kernel_launches`` counts them (the wrappers' counts
+    corrected for captures and replays) against the kernels the card's
+    trace shows; returns the count."""
+    reset_launch_counts()
+    traced = profiled(fn, 1)["kernels"]
+    counted = launch_counts()
+    print(f"{what}: B1-B3 launches counted={counted} traced={traced} "
+          f"[{card}]")
+    if any(traced[k] != n for k, n in counted.items()):
+        raise AssertionError(f"{what}: the launch count {counted} differs "
+                             f"from the card's trace {traced}")
+    return counted
+
+
+def idle_share(prof: dict, wall_ms: float) -> float:
+    """The card's idle share of an unprofiled run whose device work the
+    profiled run measured."""
+    return 1.0 - prof["device_busy_ms"] / wall_ms
+
+
+def same_state(a, b) -> bool:
+    """Bitwise equality of two networks' params, updater and net state."""
+    import torch
+    from deeplearning4j_tpu_torch.dtypes import tree_leaves
+
+    la = tree_leaves((a.params, a.updater_state, a.net_state))
+    lb = tree_leaves((b.params, b.updater_state, b.net_state))
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def max_state_err(a, b) -> float:
+    return float(abs(flat((a.params, a.updater_state, a.net_state))
+                     - flat((b.params, b.updater_state, b.net_state))).max())
+
+
+def epoch_data(batch=None, n_batches=None, poison=None):
+    """bench_epoch's draw: ``default_rng(0)`` features in [0, 1) and
+    one-hot labels over 10 classes; ``poison`` sets one row of that
+    batch to NaN."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    batch = batch or EPOCH_BATCH
+    n = batch * (n_batches or EPOCH_BATCHES)
+    rng = np.random.default_rng(0)
+    x = rng.random((n, 784), np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, n)]
+    if poison is not None:
+        x[poison * batch + 7] = np.nan
+    return DataSet(x, y)
+
+
+def timed(fn, sync=True):
+    """``(wall s, host s)`` of ``fn()``: host is the time to return."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fn()
+    host = time.monotonic() - t0
+    if sync:
+        torch.cuda.synchronize()
+    return time.monotonic() - t0, host
+
+
+@contextlib.contextmanager
+def captured(graphs: bool):
+    """Inside the block the fused paths replay CUDA graphs (True) or run
+    the same steps eagerly (False): the comparison's switch."""
+    from deeplearning4j_tpu_torch.perf import step_graph
+
+    step_graph._capture = graphs
+    try:
+        yield
+    finally:
+        step_graph._capture = True
+
+
+def memory_mark():
+    """Start a memory reading: cached blocks released, the peak reset."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def memory_since(mark) -> dict:
+    """Device memory since ``mark``: the peak allocated, and what stays
+    reserved once cached blocks are released (live tensors and the
+    graphs' pools, which cannot be released)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    allocated, reserved = mark
+    return {"peak_mem_bytes": torch.cuda.max_memory_allocated() - allocated,
+            "resident_bytes": torch.cuda.memory_reserved() - reserved}
+
+
+def fused_epochs(card: str) -> None:
+    """The epoch cell: streaming ``fit`` against ``fit_epochs`` with chunks
+    of 1 and of 5 epochs, replayed against the same run eagerly."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+
+    ds = epoch_data()
+    total = EPOCH_BATCH * EPOCH_BATCHES * EPOCH_EPOCHS
+    it = ListDataSetIterator(ds, EPOCH_BATCH)
+
+    net = build_network("mnist_mlp", "bf16", "cuda")
+    net.fit(it)  # warm-up: the first epoch of the streaming loop
+    d0 = net._train_dispatches
+    wall, host = timed(lambda: net.fit(it, num_epochs=EPOCH_EPOCHS))
+    stream = {"samples_per_sec": total / wall,
+              "ms_per_epoch": wall / EPOCH_EPOCHS * 1e3,
+              "host_ms_per_epoch": host / EPOCH_EPOCHS * 1e3,
+              "dispatches_per_epoch": (net._train_dispatches - d0)
+              / EPOCH_EPOCHS}
+    prof = profiled(lambda: net.fit(it), 1)
+    stream.update(prof, device_idle_share=idle_share(
+        prof, stream["ms_per_epoch"]))
+    del net
+
+    runs = {}
+    for chunk in (1, EPOCH_EPOCHS):
+        for graphs in (True, False):
+            with captured(graphs):
+                mark = memory_mark()
+                net = build_network("mnist_mlp", "bf16", "cuda")
+                cache = net.build_epoch_cache(it)
+                net.fit_epochs(cache, chunk, chunk_epochs=chunk)  # warm-up
+                d0 = net._train_dispatches
+                out = {}
+                wall, host = timed(lambda: out.setdefault(
+                    "hist", net.fit_epochs(cache, EPOCH_EPOCHS,
+                                           chunk_epochs=chunk)))
+                r = {"samples_per_sec": total / wall,
+                     "ms_per_epoch": wall / EPOCH_EPOCHS * 1e3,
+                     "host_ms_per_epoch": host / EPOCH_EPOCHS * 1e3,
+                     "dispatches_per_epoch": (net._train_dispatches - d0)
+                     / EPOCH_EPOCHS, **memory_since(mark)}
+                prog = next(iter(net._programs.values()))
+                r.update(captures=prog.graph.captures,
+                         replays=prog.graph.replays)
+                prof = profiled(lambda: net.fit_epochs(
+                    cache, EPOCH_EPOCHS, chunk_epochs=chunk), EPOCH_EPOCHS)
+                r.update(prof, device_idle_share=idle_share(
+                    prof, r["ms_per_epoch"]))
+                runs[(chunk, graphs)] = (net, out["hist"], r)
+    for chunk in (1, EPOCH_EPOCHS):
+        (g, hg, rg), (e, he, re_) = runs[(chunk, True)], runs[(chunk, False)]
+        bitwise = torch.equal(hg, he) and same_state(g, e)
+        print(f"fused epoch mnist_mlp [{EPOCH_BATCHES} x {EPOCH_BATCH}, 784] "
+              f"bf16 x{EPOCH_EPOCHS} epochs, chunk {chunk}: "
+              f"replayed={json.dumps(rg)} eager={json.dumps(re_)} "
+              f"replay_equals_eager={bitwise} "
+              f"(max_abs_err {max_state_err(g, e):.3e}) [{card}]")
+        if not bitwise:
+            raise AssertionError(f"fit_epochs chunk {chunk}: the replayed "
+                                 "run differs from the eager one")
+        if not bool(torch.isfinite(hg).all()):
+            raise AssertionError(f"fit_epochs: losses {hg.tolist()}")
+    print(f"fused epoch mnist_mlp streaming fit: {json.dumps(stream)} "
+          f"[{card}]")
+
+
+def fused_guard(card: str) -> None:
+    """The guard cell: a NaN batch under ``skip`` trips once an epoch, at
+    that batch's place in the epoch's order, and params stay finite;
+    ``off`` and ``skip`` are bitwise equal on clean data; ``raise``
+    names the batch."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.dtypes import tree_leaves
+    from deeplearning4j_tpu_torch.perf.epoch_cache import (
+        clone_generator, epoch_schedule)
+    from deeplearning4j_tpu_torch.resilience import TrainingDivergedError
+
+    it = ListDataSetIterator(epoch_data(poison=EPOCH_POISON), EPOCH_BATCH)
+    net = build_network("mnist_mlp", "bf16", "cuda")
+    cache = net.build_epoch_cache(it)
+    gen = clone_generator(net._rng)
+    net.fit_epochs(cache, EPOCH_EPOCHS, guard="skip")
+    trips = net._last_sentinel
+    where = [epoch_schedule(gen, EPOCH_BATCHES, True).tolist().index(
+        EPOCH_POISON) for _ in range(EPOCH_EPOCHS)]
+    want = [[j == w for j in range(EPOCH_BATCHES)] for w in where]
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in tree_leaves((net.params, net.updater_state)))
+    clean = ListDataSetIterator(epoch_data(), EPOCH_BATCH)
+    off, skip = (build_network("mnist_mlp", "bf16", "cuda")
+                 for _ in range(2))
+    h_off = off.fit_epochs(clean, 2, guard="off")
+    h_skip = skip.fit_epochs(clean, 2, guard="skip")
+    off_eq_skip = torch.equal(h_off, h_skip) and same_state(off, skip)
+    raising = build_network("mnist_mlp", "bf16", "cuda")
+    named = None
+    try:
+        raising.fit_epochs(cache, 1, guard="raise")
+    except TrainingDivergedError as e:
+        named = (e.epoch, e.step, e.batch_index)
+    print(f"fused guard mnist_mlp bf16, batch {EPOCH_POISON} poisoned: "
+          f"skip trips per epoch {trips.sum(axis=1).tolist()} at "
+          f"{[row.nonzero()[0].tolist() for row in trips]} (its places in "
+          f"the orders: {where}) params_finite={finite}; clean data: "
+          f"off_equals_skip={off_eq_skip}; raise names (epoch, step, "
+          f"batch)={named} [{card}]")
+    if trips.tolist() != want or not finite or not off_eq_skip \
+            or named is None or named[2] != EPOCH_POISON:
+        raise AssertionError("the guard cell failed")
+
+
+def fused_steps(name: str, card: str) -> None:
+    """A ``fit_steps`` cell: replayed against eager at the bench's size."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    batch = NETWORKS[name][0]
+    x, y = network_data(name, batch)
+    ds = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    nets, rows = {}, {}
+    for graphs in (True, False):
+        with captured(graphs):
+            mark = memory_mark()
+            net = build_network(name, "bf16", "cuda")
+            net.fit_steps(ds, FUSED_WARMUP)
+            wall, host = timed(lambda: net.fit_steps(ds, FUSED_STEPS))
+            r = {"ms_per_step": wall / FUSED_STEPS * 1e3,
+                 "host_ms_per_step": host / FUSED_STEPS * 1e3,
+                 "samples_per_sec": batch * FUSED_STEPS / wall,
+                 "loss": net.score_value, **memory_since(mark)}
+            prof = profiled(lambda: net.fit_steps(ds, FUSED_STEPS),
+                            FUSED_STEPS)
+            r.update(prof, device_idle_share=idle_share(prof,
+                                                        r["ms_per_step"]))
+            nets[graphs], rows[graphs] = net, r
+    bitwise = same_state(nets[True], nets[False])
+    print(f"fused fit_steps {name} [{batch}, "
+          f"{', '.join(map(str, NETWORKS[name][1]))}] bf16: "
+          f"replayed={json.dumps(rows[True])} eager={json.dumps(rows[False])} "
+          f"replay_equals_eager={bitwise} (max_abs_err "
+          f"{max_state_err(nets[True], nets[False]):.3e}) [{card}]")
+    if not bitwise:
+        raise AssertionError(f"{name}: fit_steps replayed differs from "
+                             "eager")
+    if not math.isfinite(rows[True]["loss"]):
+        raise AssertionError(f"{name}: non-finite loss")
+
+
+def fused_char_lstm(card: str) -> None:
+    """The char-LSTM cell: ``fit`` with its full TBPTT windows replayed
+    against the same windows eagerly."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    x, y = char_lstm_data(RNN_BATCH)
+    ds = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    nets, rows = {}, {}
+    for graphs in (True, False):
+        with captured(graphs):
+            net = build_char_lstm("bf16", "cuda")
+            net.fit(ds)  # warm-up: the first window runs eagerly, then capture
+            ms, hosts = [], []
+            for _ in range(RNN_FITS):
+                wall, host = timed(lambda: net.fit(ds))
+                ms.append(wall * 1e3)
+                hosts.append(host * 1e3)
+            r = {"ms_per_fit": sum(ms) / RNN_FITS,
+                 "ms_per_fit_each": ms,
+                 "host_ms_per_fit": sum(hosts) / RNN_FITS,
+                 "loss": net.score_value}
+            prof = profiled(lambda: net.fit(ds), 1)
+            r.update(prof, device_idle_share=idle_share(prof,
+                                                        r["ms_per_fit"]))
+            nets[graphs], rows[graphs] = net, r
+    bitwise = same_state(nets[True], nets[False])
+    print(f"fused char_lstm [{RNN_BATCH}, {RNN_T}, {RNN_CFG['vocab_size']}] "
+          f"tbptt {RNN_CFG['tbptt_length']} bf16, a fit = 4 windows: "
+          f"replayed={json.dumps(rows[True])} eager={json.dumps(rows[False])} "
+          f"replay_equals_eager={bitwise} (max_abs_err "
+          f"{max_state_err(nets[True], nets[False]):.3e}) [{card}]")
+    if not bitwise:
+        raise AssertionError("char_lstm: replayed windows differ from eager")
+
+
+def fused_lm(card: str) -> dict:
+    """The LM cell: ``fit_batch_multi`` with a captured step against the
+    same steps eagerly; returns B1–B3's launches in the replayed run."""
+    import torch
+    from deeplearning4j_tpu_torch.dtypes import tree_leaves
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+    from deeplearning4j_tpu_torch.perf import step_graph
+
+    tok = torch.as_tensor(train_tokens(), device="cuda")
+    rows, models, launches, traced = {}, {}, {}, {}
+    for graphs in (True, False):
+        with captured(graphs):
+            lm = TransformerLM(**TRAIN_CFG).init()
+            multi = lm.make_multi_train_step(LM_FUSED_K)
+            warm = lm.fit_batch_multi(tok, multi_step=multi, k=LM_FUSED_K)
+            step_graph.reset_kernel_launches()
+            losses = []
+            wall, host = timed(lambda: losses.extend(
+                lm.fit_batch_multi(tok, multi_step=multi, k=LM_FUSED_K,
+                                   block=False)
+                for _ in range(LM_FUSED_CALLS)))
+            steps = LM_FUSED_K * LM_FUSED_CALLS
+            launches[graphs] = step_graph.kernel_launches()
+            prog = next(iter(multi.programs.values()))
+            rows[graphs] = {"ms_per_step": wall / steps * 1e3,
+                            "host_ms_per_step": host / steps * 1e3,
+                            "tokens_per_sec": TRAIN_BATCH * TRAIN_T * steps
+                            / wall,
+                            "warmup_loss": warm,
+                            "losses": [float(v) for v in losses],
+                            "captures": prog.graph.captures,
+                            "replays": prog.graph.replays,
+                            "launches": launches[graphs]}
+            # one more call (k steps) under the profiler, in both runs
+            traced[graphs] = traced_launches(
+                lambda: lm.fit_batch_multi(tok, multi_step=multi,
+                                           k=LM_FUSED_K),
+                f"fused lm fit_batch_multi k={LM_FUSED_K} "
+                f"{'replayed' if graphs else 'eager'}", card)
+            models[graphs] = lm
+    a, b = models[True], models[False]
+    la, lb = (tree_leaves((m.params, m.opt_state)) for m in (a, b))
+    bitwise = all(torch.equal(x, y) for x, y in zip(la, lb))
+    err = max(float((x - y).abs().max()) for x, y in zip(la, lb))
+    steps = LM_FUSED_K * LM_FUSED_CALLS
+    want = {k: a.num_layers * steps for k in launches[True]}
+    print(f"fused lm d{TRAIN_CFG['d_model']} L{TRAIN_CFG['num_layers']} "
+          f"[{TRAIN_BATCH}, {TRAIN_T}] mixed_bf16 fit_batch_multi k="
+          f"{LM_FUSED_K} x{LM_FUSED_CALLS}: replayed={json.dumps(rows[True])} "
+          f"eager={json.dumps(rows[False])} replay_equals_eager={bitwise} "
+          f"(max_abs_err {err:.3e}) [{card}]")
+    if launches[True] != want or launches[False] != want:
+        raise AssertionError(f"B1-B3 launches {launches}, expected {want}")
+    want_one = {k: a.num_layers * LM_FUSED_K for k in launches[True]}
+    if traced[True] != want_one or traced[False] != want_one:
+        raise AssertionError(f"traced B1-B3 launches {traced}, expected "
+                             f"{want_one}")
+    if not bitwise:
+        raise AssertionError("the LM's replayed steps differ from eager")
+    return launches[True]
+
+
+def fused_programs(card: str) -> None:
+    """The programs cell: one ResNet-18 keeps a program per key, and its
+    graphs share one memory pool. Six fused calls of five keys
+    (``fit_epochs`` under ``skip``, ``off``, telemetry and in order,
+    ``fit_steps``, then the first key again, so that a graph replays
+    after others were captured into the pool) against the same calls
+    eagerly, bitwise; the resident memory after each call; then the
+    cache is dropped, and its memory must come back while the network
+    keeps its programs."""
+    import gc
+
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+
+    batch = NETWORKS[PROGRAMS_NET][0]
+    x, y = network_data(PROGRAMS_NET, batch * PROGRAMS_BATCHES)
+    it = ListDataSetIterator(DataSet(x, y), batch)
+    step_ds = DataSet(torch.from_numpy(x[:batch]).cuda(),
+                      torch.from_numpy(y[:batch]).cuda())
+    calls = (
+        ("fit_epochs skip", lambda n, c: n.fit_epochs(c, 1, guard="skip")),
+        ("fit_epochs off", lambda n, c: n.fit_epochs(c, 1, guard="off")),
+        ("fit_epochs telemetry", lambda n, c: n.fit_epochs(
+            c, 1, guard="off", telemetry=True)),
+        ("fit_epochs in order", lambda n, c: n.fit_epochs(
+            c, 1, guard="off", shuffle=False)),
+        ("fit_steps", lambda n, c: n.fit_steps(step_ds, 3)),
+        ("fit_epochs skip again", lambda n, c: n.fit_epochs(
+            c, 1, guard="skip")))
+    nets, hists, rows = {}, {}, {}
+    for graphs in (True, False):
+        with captured(graphs):
+            mark = memory_mark()
+            net = build_network(PROGRAMS_NET, "bf16", "cuda")
+            cache = net.build_epoch_cache(it)
+            row = {"resident_bytes_with_cache":
+                   memory_since(mark)["resident_bytes"]}
+            hists[graphs], resident = [], []
+            for _, call in calls:
+                out = call(net, cache)
+                hists[graphs].append(out.clone() if isinstance(
+                    out, torch.Tensor) else None)  # fit_steps: no history
+                resident.append(memory_since(mark)["resident_bytes"])
+            row.update(resident_bytes_after_each=resident,
+                       peak_mem_bytes=memory_since(mark)["peak_mem_bytes"],
+                       programs=len(net._programs),
+                       captures=sum(p.graph.captures
+                                    for p in net._programs.values()))
+            cache_bytes = cache.nbytes
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            del cache
+            gc.collect()
+            row.update(cache_bytes=cache_bytes,
+                       freed_bytes_on_cache_drop=before
+                       - torch.cuda.memory_allocated())
+            nets[graphs], rows[graphs] = net, row
+    bitwise = same_state(nets[True], nets[False]) and all(
+        (a is None and b is None) or torch.equal(a, b)
+        for a, b in zip(hists[True], hists[False]))
+    print(f"fused programs {PROGRAMS_NET} [{batch}, "
+          f"{', '.join(map(str, NETWORKS[PROGRAMS_NET][1]))}] bf16, "
+          f"{PROGRAMS_BATCHES} batches, calls "
+          f"{[name for name, _ in calls]}: replayed={json.dumps(rows[True])} "
+          f"eager={json.dumps(rows[False])} replay_equals_eager={bitwise} "
+          f"(max_abs_err {max_state_err(nets[True], nets[False]):.3e}) "
+          f"[{card}]")
+    if not bitwise:
+        raise AssertionError("programs cell: the replayed calls differ from "
+                             "the eager ones")
+    if rows[True]["programs"] != 5 or rows[True]["captures"] != 5:
+        raise AssertionError(f"programs cell: {rows[True]['programs']} "
+                             f"programs, {rows[True]['captures']} captures; "
+                             "expected 5 of each")
+    for graphs in (True, False):
+        if rows[graphs]["freed_bytes_on_cache_drop"] < \
+                rows[graphs]["cache_bytes"]:
+            raise AssertionError("programs cell: dropping the cache did not "
+                                 "free it; a program keeps it alive")
+
+
+def fused_parity(card: str) -> None:
+    """The card's fused runs against the CPU's, at the earlier phases'
+    gates: ``fit_epochs`` of the MLP (4 batches of 64, 2 epochs, in order)
+    under float32 with TF32 off (rtol 2e-3, atol 1e-3) and ``bf16`` (loss
+    2e-2, params 1e-2); ``fit_steps(ds, 3)`` of LeNet-5 and ResNet-18 at
+    the networks phase's parity batches under ``bf16`` (ResNet-18 at
+    ``NET_PARITY_LR``)."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch, n_batches, epochs = EPOCH_PARITY
+    it = ListDataSetIterator(epoch_data(batch, n_batches), batch)
+    failures = []
+    for policy, tol in (("float32", (2e-3, 1e-3)), ("bf16", None)):
+        got = {}
+        for device in ("cuda", "cpu"):
+            net = build_network("mnist_mlp", policy, device)
+            hist = net.fit_epochs(it, epochs, shuffle=False)
+            got[device] = (hist.float().cpu(), flat(net.params))
+        (hc, pc), (hh, ph) = got["cuda"], got["cpu"]
+        if tol is None:
+            ok = (float((hc - hh).abs().max()) <= 2e-2
+                  and float(abs(pc - ph).max()) <= 1e-2)
+        else:
+            rtol, atol = tol
+            ok = (bool(((hc - hh).abs() <= atol + rtol * hh.abs()).all())
+                  and bool((abs(pc - ph) <= atol + rtol * abs(ph)).all()))
+        print(f"fused parity mnist_mlp fit_epochs {policy} [{n_batches} x "
+              f"{batch}] x{epochs} card vs cpu: loss_err="
+              f"{float((hc - hh).abs().max()):.3e} param_err="
+              f"{float(abs(pc - ph).max()):.3e} "
+              f"({'rtol 2e-3, atol 1e-3' if tol else 'loss 2e-2, params 1e-2'})"
+              f" {'ok' if ok else 'MISMATCH'} [{card}]")
+        if not ok:
+            failures.append(f"mnist_mlp {policy}")
+    for name in FUSED_NETS:
+        pbatch = NET_PARITY_BATCH[name]
+        x, y = network_data(name, pbatch)
+        lr = NET_PARITY_LR.get(name)
+        got = {}
+        for device in ("cuda", "cpu"):
+            net = build_network(name, "bf16", device,
+                                **({} if lr is None else {"lr": lr}))
+            net.fit_steps(DataSet(torch.from_numpy(x).to(device),
+                                  torch.from_numpy(y).to(device)), 3)
+            got[device] = (net.score_value, flat(net.params),
+                           [flat(s) for s in net.net_state.values() if s])
+        (lc, pc, sc), (lh, ph, sh) = got["cuda"], got["cpu"]
+        excess_s = max((float(abs(a - b).max() - 1e-2 - 2e-2 * abs(b).max())
+                        for a, b in zip(sc, sh)), default=0.0)
+        ok = (abs(lc - lh) <= 2e-2 and float(abs(pc - ph).max()) <= 1e-2
+              and excess_s <= 0.0)
+        print(f"fused parity {name} fit_steps(3) bf16 [{pbatch}]"
+              f"{'' if lr is None else f' (lr {lr})'} card vs cpu: loss "
+              f"{lc} vs {lh} param_err={float(abs(pc - ph).max()):.3e} "
+              f"(loss 2e-2, params 1e-2; running statistics atol 1e-2 + "
+              f"2e-2 x a layer's largest) {'ok' if ok else 'MISMATCH'} "
+              f"[{card}]")
+        if not ok:
+            failures.append(name)
+    if failures:
+        raise AssertionError(f"the card's fused runs disagree with the "
+                             f"CPU's: {failures}")
+
+
+def fused(card: str) -> dict:
+    """Phase 8: every fused path by graph replay, against its eager run
+    and against the CPU. Returns B1–B3's launches in the LM cell."""
+    import torch
+
+    fused_epochs(card)
+    fused_guard(card)
+    for name in FUSED_NETS:
+        fused_steps(name, card)
+        torch.cuda.empty_cache()
+    fused_programs(card)
+    torch.cuda.empty_cache()
+    fused_char_lstm(card)
+    torch.cuda.empty_cache()
+    launches = fused_lm(card)
+    torch.cuda.empty_cache()
+    fused_parity(card)
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -1266,9 +1909,9 @@ def main() -> None:
         fail("kernel build failed")
 
     entries = {}
-    serve_launches, train_launches = None, None
+    serve_launches = train_launches = fused_launches = None
     for phase in ("flash", "flash_bwd", "serve", "train", "networks",
-                  "recurrent"):
+                  "recurrent", "fused"):
         try:
             if phase == "flash":
                 entries["flash_attention_fwd"] = check_flash(card)
@@ -1287,8 +1930,10 @@ def main() -> None:
                 check_train_parity(card)
             elif phase == "networks":
                 networks(card)
-            else:
+            elif phase == "recurrent":
                 recurrent(card)
+            else:
+                fused_launches = fused(card)
         except Exception:
             traceback.print_exc()
             failed.append(phase)
@@ -1299,6 +1944,8 @@ def main() -> None:
         e["launches"] = train_launches[name]
         if not e["launches"]:
             fail(f"{name} was not launched on the train path")
+    for name, e in entries.items():
+        e["launches_fused_lm"] = fused_launches[name]
     entries["flash_attention_fwd"]["launches_serve"] = serve_launches
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)

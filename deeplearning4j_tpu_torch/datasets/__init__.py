@@ -5,6 +5,7 @@ from deeplearning4j_tpu_torch.datasets.dataset import (  # noqa: F401
     MultiDataSet,
 )
 from deeplearning4j_tpu_torch.datasets.iterator import (  # noqa: F401
+    BucketedDataSetIterator,
     DataSetIterator,
     ListDataSetIterator,
 )

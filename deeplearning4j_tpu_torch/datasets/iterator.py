@@ -1,9 +1,10 @@
-"""DataSetIterator protocol and ``ListDataSetIterator``.
+"""DataSetIterator protocol, ``ListDataSetIterator`` and
+``BucketedDataSetIterator``.
 
 Port of the part of ``deeplearning4j_tpu/datasets/iterator.py`` that the
 network surface needs (the reference's DataSetIterator.java:53 and
 ListDataSetIterator). The prefetching, sampling and multi-epoch
-iterators are not ported yet.
+iterators are not ported yet (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -82,3 +83,40 @@ class ListDataSetIterator(DataSetIterator):
 
     def total_outcomes(self):
         return int(self._batches[0].labels.shape[-1])
+
+
+class BucketedDataSetIterator(DataSetIterator):
+    """Pads every batch up the batch-bucket ladder with a labels mask that
+    is zero on the pad rows (``perf.bucketing.pad_dataset``). On the card
+    each distinct batch shape of a fused training path costs one CUDA-graph
+    capture, so an epoch's ragged tail (100/100/56 at batch 100) would
+    otherwise cost a capture of its own. BatchNorm in train mode takes its
+    statistics over all rows, pad rows included: do not wrap the training
+    stream of a BatchNorm network (inference uses the stored statistics)."""
+
+    def __init__(self, underlying: DataSetIterator, buckets=None):
+        self.underlying = underlying
+        self.buckets = buckets
+
+    def has_next(self):
+        return self.underlying.has_next()
+
+    def next(self, num=None):
+        from deeplearning4j_tpu_torch.perf.bucketing import pad_dataset
+
+        return pad_dataset(self.underlying.next(num), buckets=self.buckets)
+
+    def reset(self):
+        self.underlying.reset()
+
+    def batch(self):
+        return self.underlying.batch()
+
+    def total_examples(self):
+        return self.underlying.total_examples()
+
+    def input_columns(self):
+        return self.underlying.input_columns()
+
+    def total_outcomes(self):
+        return self.underlying.total_outcomes()

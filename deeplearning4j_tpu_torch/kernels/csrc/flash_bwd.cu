@@ -86,6 +86,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "smem_attr.cuh"
 
 namespace {
 
@@ -394,9 +395,8 @@ struct Args {
 template <int D>
 int launch_dkdv(const Args& a, void* dk, void* dv) {
   const size_t bytes = dkdv_smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaError_t err = dl4j_smem::set_max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_bwd_dkdv_kernel<D>), (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.tkv + kBK - 1) / kBK, a.batch * a.heads);
   flash_bwd_dkdv_kernel<D><<<grid, kThreads, bytes, a.stream>>>(
@@ -411,9 +411,8 @@ int launch_dkdv(const Args& a, void* dk, void* dv) {
 template <int D>
 int launch_dq(const Args& a, void* dq) {
   const size_t bytes = dq_smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+  cudaError_t err = dl4j_smem::set_max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_bwd_dq_kernel<D>), (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.tq + kBQ - 1) / kBQ, a.batch * a.heads);
   flash_bwd_dq_kernel<D><<<grid, kThreads, bytes, a.stream>>>(
@@ -823,8 +822,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
 template <int D>
 int launch_dq_mma(const Args& a, void* dq) {
   const size_t bytes = dq_mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = dl4j_smem::set_max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_bwd_dq_mma_kernel<D>),
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(a.batch * a.heads, (a.tq + kBQ - 1) / kBQ);
@@ -840,9 +839,9 @@ int launch_dq_mma(const Args& a, void* dq) {
 template <int D>
 int launch_dkdv_mma(const Args& a, void* dk, void* dv) {
   const size_t bytes = dkdv_mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_mma_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaError_t err = dl4j_smem::set_max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_bwd_dkdv_mma_kernel<D>),
+      (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(a.batch * a.heads, (a.tkv + kBK - 1) / kBK);
   flash_bwd_dkdv_mma_kernel<D><<<grid, kMmaThreads, bytes, a.stream>>>(

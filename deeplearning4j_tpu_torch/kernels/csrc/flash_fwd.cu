@@ -56,6 +56,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "smem_attr.cuh"
 
 namespace {
 
@@ -255,9 +256,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
            void* lse, int batch, int heads, int tq, int tkv, int causal,
            int window, float scale, cudaStream_t stream) {
   const size_t bytes = smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+  cudaError_t err = dl4j_smem::set_max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_fwd_kernel<T, D>), (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((tq + kBQ - 1) / kBQ, batch * heads);
   flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
@@ -457,9 +457,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
                void* lse, int batch, int heads, int tq, int tkv, int causal,
                int window, float scale, cudaStream_t stream) {
   const size_t bytes = mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+  cudaError_t err = dl4j_smem::set_max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_fwd_mma_kernel<D>), (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(batch * heads, (tq + kBQ - 1) / kBQ);
   flash_fwd_mma_kernel<D><<<grid, kMmaThreads, bytes, stream>>>(

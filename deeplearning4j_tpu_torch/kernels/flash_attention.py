@@ -35,7 +35,13 @@ Entry points:
 - :func:`flash_attention_fwd` (B1), :func:`flash_attention_bwd_dkdv`
   (B2) and :func:`flash_attention_bwd_dq` (B3) — the wrappers. CPU
   tensors take the plain versions; CUDA tensors launch the kernels or
-  raise. Each counts its launches in its ``launches`` attribute.
+  raise. Each counts its launches in its ``launches`` attribute
+  (:func:`launch_counts`). A launch made while a CUDA graph is captured
+  is counted there too but only recorded; ``perf.step_graph
+  .kernel_launches`` gives the launches that ran, replays included.
+  Launches are capture-safe: each goes to the current stream, and the
+  kernels' shared-memory attribute is set on their first (eager) launch
+  on each device only (``csrc/smem_attr.cuh``).
   :func:`flash_attention_bwd` computes ``delta`` and runs B2 then B3;
   :func:`flash_attention_fwd_reference` and
   :func:`flash_attention_bwd_reference` are the plain versions of the
@@ -426,6 +432,19 @@ def flash_attention(
 ) -> torch.Tensor:
     """Differentiable flash attention, [b, tq, h, d] → [b, tq, h, d]."""
     return _Flash.apply(q, k, v, causal, scale, window)
+
+
+def launch_counts() -> dict:
+    """Each wrapper's launch count, by wrapper name."""
+    return {"flash_attention_fwd": flash_attention_fwd.launches,
+            "flash_attention_bwd_dkdv": flash_attention_bwd_dkdv.launches,
+            "flash_attention_bwd_dq": flash_attention_bwd_dq.launches}
+
+
+def reset_launch_counts() -> None:
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd_dkdv.launches = 0
+    flash_attention_bwd_dq.launches = 0
 
 
 def visible_keys(tq: int, tkv: int, *, causal: bool,

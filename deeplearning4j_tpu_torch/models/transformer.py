@@ -20,8 +20,13 @@ Training: ``loss``, the hand-written Adam step (``_step_body``,
 ``make_train_step``, ``make_multi_train_step``, ``fit_batch``,
 ``fit_batch_multi``) and ``evaluate_perplexity``; under ``train=True``
 attention goes through the differentiable flash kernels (forward B1,
-backward B2 and B3) whenever head_dim tiles. Not ported yet:
-``generate_beam`` and sequence parallelism (``mesh=``).
+backward B2 and B3) whenever head_dim tiles. The step functions that
+``make_train_step`` and ``make_multi_train_step`` return run K steps as
+replays of one captured CUDA graph of the step (``perf/step_graph.py``),
+B1–B3 launched inside it; the step counter and Adam's bias corrections
+are device tensors, so the captured step is the eager one; the LM's
+graphs share one memory pool. On the CPU the same step runs eagerly.
+Not ported yet: ``generate_beam`` and sequence parallelism (``mesh=``).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from __future__ import annotations
 import functools
 import math
 import os
+import types
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -39,6 +45,12 @@ from deeplearning4j_tpu_torch import dtypes as dtypes_mod
 from deeplearning4j_tpu_torch._device import resolve_device
 from deeplearning4j_tpu_torch.kernels.flash_attention import flash_attention
 from deeplearning4j_tpu_torch.ops.attention import grouped_query_attention
+from deeplearning4j_tpu_torch.perf.step_graph import (
+    GraphPool,
+    StepGraph,
+    copy_tree_,
+    static_clone,
+)
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor,
@@ -186,6 +198,8 @@ class TransformerLM:
         self.params: Optional[Dict[str, Any]] = None
         self.opt_state: Optional[Dict[str, Any]] = None
         self.step_count = 0
+        # one memory pool for the graphs of every captured step function
+        self._graph_pool = GraphPool()
 
     # ------------------------------------------------------------------
     def init(self) -> "TransformerLM":
@@ -394,7 +408,10 @@ class TransformerLM:
         f32 moments. Unlike the reference's pure function, the step
         updates the masters and moments IN PLACE (under ``no_grad``) and
         returns the same objects; the masters never require grad, so the
-        serve path builds no graph."""
+        serve path builds no graph. ``step_count`` is an int32 device
+        tensor (an int is filled into one): ``t``, ``1 − b1**t`` and
+        ``1 − b2**t`` are float32 device scalars, as in the reference, so
+        a captured step reads the counter it is given at every replay."""
         if mesh is not None or sequence_parallel:
             raise NotImplementedError(
                 "sequence parallelism (mesh=, sequence_parallel=True) is "
@@ -403,17 +420,17 @@ class TransformerLM:
         b1, b2, eps = 0.9, 0.999, 1e-8
 
         def step(params, opt_state, tokens, step_count):
+            if not isinstance(step_count, torch.Tensor):
+                step_count = torch.full((), step_count, dtype=torch.int32,
+                                        device=self.device)
             fwd = dtypes_mod.tree_map(lambda p: p.detach().requires_grad_(),
                                       self.policy.compute_copy(params))
             leaves = dtypes_mod.tree_leaves(fwd)
             loss = self.loss(fwd, tokens, train=True)
             grads = torch.autograd.grad(loss, leaves)
             grads = [self.policy.master_grads(g) for g in grads]
-            # t in f32 as in the reference, on the host: a device scalar
-            # made here would be copied in with a synchronisation that
-            # stalls the host in the middle of every step
-            t = torch.tensor(step_count + 1, dtype=torch.float32)
-            bc1, bc2 = float(1 - b1 ** t), float(1 - b2 ** t)
+            t = step_count.to(torch.float32) + 1.0
+            bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
             states = _state_leaves(params, opt_state)
             ms, vs = [s["m"] for s in states], [s["v"] for s in states]
             # the reference's per-leaf Adam, operation for operation, on
@@ -436,25 +453,18 @@ class TransformerLM:
         return step
 
     def make_train_step(self, *, mesh=None, sequence_parallel: bool = False):
-        """The step function (it updates the masters and moments in
-        place, see ``_step_body``)."""
-        return self._step_body(mesh=mesh,
-                               sequence_parallel=sequence_parallel)
+        """The step function (one step per call; see
+        :class:`_CapturedSteps`)."""
+        return _CapturedSteps(self, self._step_body(
+            mesh=mesh, sequence_parallel=sequence_parallel), 1)
 
     def make_multi_train_step(self, k: int, *, mesh=None,
                               sequence_parallel: bool = False):
-        """K optimizer steps in one call (a Python loop over the shared
-        step body); returns the last step's loss."""
-        step = self._step_body(mesh=mesh,
-                               sequence_parallel=sequence_parallel)
-
-        def multi(params, opt_state, tokens, step_count):
-            for i in range(k):
-                params, opt_state, loss = step(params, opt_state, tokens,
-                                               step_count + i)
-            return params, opt_state, loss
-
-        return multi
+        """K optimizer steps in one call, replays of one captured step on
+        the card (the reference's ``lax.scan`` program); returns the last
+        step's loss."""
+        return _CapturedSteps(self, self._step_body(
+            mesh=mesh, sequence_parallel=sequence_parallel), k)
 
     def fit_batch(self, tokens, train_step=None, block: bool = True):
         """One optimizer step on [b, t] tokens. ``block=False`` returns the
@@ -633,3 +643,65 @@ class TransformerLM:
                                 top_k, gen)
             out.append(tok)
         return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+
+
+class _CapturedSteps:
+    """``k`` steps of ``step`` (a ``_step_body``) per call:
+    ``(params, opt_state, tokens, step_count) -> (params, opt_state,
+    loss)``.
+
+    One program per token shape holds
+    static params, moments, tokens and an int32 step counter, and a
+    :class:`StepGraph` of the step, which updates them in place and
+    advances the counter. A call copies what it
+    is given into the program (the params and moments only when they are
+    not the program's own, which is what the last call returned), runs
+    ``k`` steps (on the card: replays), and returns the program's trees
+    and a copy of the last loss, still on the device."""
+
+    def __init__(self, lm: "TransformerLM", step, k: int):
+        self.lm = lm
+        self.step = step
+        self.k = int(k)
+        self.programs: Dict[Any, Any] = {}
+
+    def __call__(self, params, opt_state, tokens, step_count):
+        tokens = self.lm._tokens(tokens)
+        key = (tuple(tokens.shape), tokens.dtype)
+        prog = self.programs.get(key)
+        if prog is None:
+            prog = self.programs[key] = self._build(params, opt_state,
+                                                    tokens)
+        if not _same_leaves(params, prog.params):
+            copy_tree_(prog.params, params)
+        if not _same_leaves(opt_state, prog.opt_state):
+            copy_tree_(prog.opt_state, opt_state)
+        prog.tokens.copy_(tokens)
+        prog.step.fill_(step_count)
+        for _ in range(self.k):
+            prog.graph()
+        return prog.params, prog.opt_state, prog.loss.clone()
+
+    def _build(self, params, opt_state, tokens):
+        lm = self.lm
+        prog = types.SimpleNamespace(
+            params=static_clone(params), opt_state=static_clone(opt_state),
+            tokens=torch.empty_like(tokens),
+            step=torch.zeros((), dtype=torch.int32, device=lm.device),
+            loss=None)
+
+        def body():
+            _, _, loss = self.step(prog.params, prog.opt_state, prog.tokens,
+                                   prog.step)
+            if prog.loss is None:  # shaped by the first (eager) step
+                prog.loss = torch.empty_like(loss)
+            prog.loss.copy_(loss)
+            prog.step.add_(1)
+
+        prog.graph = StepGraph(body, lm.device, pool=lm._graph_pool)
+        return prog
+
+
+def _same_leaves(a, b) -> bool:
+    la, lb = dtypes_mod.tree_leaves(a), dtypes_mod.tree_leaves(b)
+    return len(la) == len(lb) and all(x is y for x, y in zip(la, lb))

@@ -1,16 +1,22 @@
-"""The smallest metrics registry and span tracer the decode server needs.
+"""The metrics registry, span tracer and telemetry knobs the port uses.
 
 Counterpart of the parts of ``deeplearning4j_tpu/monitor`` that
-``serving/server.py`` calls: labelled counters, gauges and histograms in
-one process-wide registry (:func:`metrics`), and a tracer
-(:func:`tracer`) whose spans time a ``with`` block on the host clock and
-whose events are kept in a bounded ring. Exporters, the flight recorder
-and the ledger are not ported yet.
+``serving/server.py`` and the fused training paths call: labelled
+counters, gauges and histograms in one process-wide registry
+(:func:`metrics`, :func:`record_counter`), a tracer (:func:`tracer`)
+whose spans time a ``with`` block on the host clock and whose events are
+kept in a bounded ring, and the ``DL4J_TELEMETRY`` /
+``DL4J_TELEMETRY_STRIDE`` resolution of the in-program metrics pack
+(:func:`fused_metrics_stride`, the pack itself in :mod:`.pack`).
+Exporters, the flight recorder, the run ledger and device-memory
+watermarks are not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
 
 import bisect
+import logging
+import os
 import threading
 import time
 from collections import deque
@@ -142,3 +148,51 @@ def tracer() -> SpanTracer:
 def set_tracer(t: SpanTracer) -> None:
     global _TRACER
     _TRACER = t
+
+
+def record_counter(name: str, amount: float = 1.0, **labels) -> None:
+    """Bump the named counter of the global registry."""
+    metrics().counter(name).inc(amount, **labels)
+
+
+# ---------------------------------------------------------------------------
+# telemetry knobs (copies of deeplearning4j_tpu/monitor/__init__.py)
+# ---------------------------------------------------------------------------
+_ON = ("1", "on", "true", "yes")
+_OFF = ("", "0", "off", "false", "no")
+
+
+def telemetry_enabled() -> bool:
+    """``DL4J_TELEMETRY``: ``on`` puts the in-program metrics pack into
+    the fused epoch step. Default off: the step is then exactly the
+    step without telemetry."""
+    raw = os.environ.get("DL4J_TELEMETRY", "").strip().lower()
+    if raw in _ON:
+        return True
+    if raw not in _OFF:
+        logging.getLogger(__name__).warning(
+            "DL4J_TELEMETRY=%r is not on/off; treating as off", raw)
+    return False
+
+
+def metrics_stride() -> int:
+    """``DL4J_TELEMETRY_STRIDE`` (default 1): the metrics pack is kept on
+    every stride-th iteration; the other rows are NaN."""
+    raw = os.environ.get("DL4J_TELEMETRY_STRIDE", "")
+    try:
+        return max(1, int(raw)) if raw else 1
+    except ValueError:
+        return 1
+
+
+def fused_metrics_stride(override=None) -> int:
+    """Resolve ``fit_epochs(telemetry=...)`` to the stride of the fused
+    step, 0 meaning no pack: ``None`` reads the environment, ``False``
+    gives 0, ``True`` the environment's stride, an int that stride."""
+    if override is None:
+        return metrics_stride() if telemetry_enabled() else 0
+    if override is False:
+        return 0
+    if override is True:
+        return metrics_stride()
+    return max(0, int(override))

@@ -10,14 +10,21 @@ under master weights), every output head's loss plus L1/L2,
 ``torch.autograd.grad``, the grads upcast once, and the updaters on
 multi-tensor kernels (``grouped_apply_updaters`` over ``(name, spec)``).
 BatchNorm's new running statistics replace ``net_state``. The iteration
-and the LR scale are device tensors, so the step reads nothing back.
+and the LR scale are device tensors, so the step reads nothing back; the
+host LR scale (``_lr_scale_host``, which the ``halve_lr`` guard policy
+halves) enters the LR product of the guarded step, as in the reference.
 Truncated BPTT and ``rnn_time_step`` are the MLN's, with the carries
 keyed by layer name; static 2-D inputs go whole to every window.
 
+The fused paths are the MLN's (``nn/fused.py``): ``fit_steps``,
+``fit_epochs`` over ``DeviceMultiDataSetCache`` with the sentinel,
+telemetry and accumulation, and the TBPTT window scan, each replaying one
+captured CUDA graph per step on the card.
+
 The graph runs on the CUDA card unless it is given ``device="cpu"``;
-with no card and no device it raises. What the slice leaves out raises
-``NotImplementedError`` naming its ROADMAP item: the fused epoch cache
-with its guard, telemetry, accumulation and mesh (A10.5).
+with no card and no device it raises. Training over a device mesh
+(``mesh=``, ``request_reshard``) raises ``NotImplementedError`` naming
+ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -50,23 +57,20 @@ from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
 )
 from deeplearning4j_tpu_torch.nn.layers import get_layer_impl
 from deeplearning4j_tpu_torch.nn.layers.recurrent import zero_rnn_state
+from deeplearning4j_tpu_torch.nn.fused import FusedTraining
 from deeplearning4j_tpu_torch.nn.multilayer import (
     _as_batches,
     _host,
     _is_temporal,
     _named_leaves,
-    _not_ported,
     copy_model_state,
     to_device,
 )
-from deeplearning4j_tpu_torch.nn.updater import (
-    UpdaterSpec,
-    grouped_apply_updaters,
-    init_updater_state,
-    lr_policy_scale,
-)
+from deeplearning4j_tpu_torch.nn.conf.enums import LearningRatePolicy
+from deeplearning4j_tpu_torch.nn.updater import UpdaterSpec, init_updater_state
 from deeplearning4j_tpu_torch.ops.losses import compute_loss
 from deeplearning4j_tpu_torch.perf.device_eval import confusion_update
+from deeplearning4j_tpu_torch.perf.epoch_cache import DeviceMultiDataSetCache
 
 
 def _as_mds(data) -> MultiDataSet:
@@ -89,7 +93,12 @@ def _slice_time(batch, start: int, end: int):
             cut_masks(fms), cut_masks(lms))
 
 
-class ComputationGraph:
+class ComputationGraph(FusedTraining):
+    _CACHE = DeviceMultiDataSetCache
+    _FALLBACKS = "TBPTT / iterations > 1"
+    # the reference's unguarded graph step leaves the host LR scale out
+    _PLAIN_STEP_HOST_LR = False
+
     def __init__(self, conf: ComputationGraphConfiguration,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
@@ -104,6 +113,7 @@ class ComputationGraph:
         self.iteration_count = 0
         self._score: Any = float("nan")
         self.listeners: List[Any] = []
+        self._init_fused()
         self._initialized = False
         # dropout draws, on the graph's device
         self._rng = torch.Generator(device=self.device).manual_seed(
@@ -297,37 +307,49 @@ class ComputationGraph:
                                          materialize_grads=True))
         return loss.detach(), states, tree_map(lambda _: next(grads), fwd)
 
-    def _apply_updaters(self, params, updater_state, grads, iteration):
-        gc = self.conf.global_conf
-        scale = lr_policy_scale(
-            gc.lr_policy, iteration, gc.lr_policy_decay_rate,
-            gc.lr_policy_steps, gc.lr_policy_power, gc.lr_schedule,
-            base_lr=gc.learning_rate)
-        # the reference takes per_layer_apply_updaters where GSPMD would
-        # miscompile the grouped apply (flat_apply_safe); torch has no
-        # such fault, so the grouped apply always runs
-        return grouped_apply_updaters(list(self.updater_specs.items()),
-                                      params, updater_state, grads, scale,
-                                      iteration + 1)
+    def _update_items(self):
+        return list(self.updater_specs.items())
+
+    def _state_key_order(self):
+        return (list(self.updater_specs),
+                [n for n in self.conf.topological_order
+                 if n in self.layer_impls])
+
+    def _accum_loss_grads(self, params, net_state, batch, rng, k: int):
+        """Loss and gradients of one step as ``k`` accumulated
+        microbatches: every head's loss is its masked mean scaled by the
+        microbatch's share of that head's full-batch mask, plus 1/k of the
+        L1/L2 penalty. Returns ``(grads, loss, new net state)``."""
+        d_full = [torch.clamp(m.sum(), min=1.0) for m in batch[3]]
+
+        def micro_loss(p, nst, mb, rng):
+            inputs, labels, fms, lms = mb
+            outs, st, _ = self._forward(p, nst, inputs, train=True, rng=rng,
+                                        feature_masks=fms)
+            total = 0.0
+            for i, out_name in enumerate(self.conf.outputs):
+                lc = self.conf.layers.get(out_name)
+                if lc is None or not hasattr(lc, "loss_function"):
+                    continue
+                core = compute_loss(lc.loss_function, outs[i], labels[i],
+                                    lms[i])
+                total = total + core * (torch.clamp(lms[i].sum(), min=1.0)
+                                        / d_full[i])
+            for name, impl in self.layer_impls.items():
+                penalty = impl.l1_l2_penalty(p[name])
+                if penalty is not None:
+                    total = total + penalty / k
+            return total, st
+
+        return self._accum_micro(params, net_state, batch, rng, k,
+                                 micro_loss)
 
     def _sgd_step(self, inputs, labels, feature_masks=None,
                   label_masks=None, rnn_state=None):
-        """One optimizer step on device tensors; returns the recurrent
-        layers' new carries (``None`` without ``rnn_state``). The iteration
-        reaches the device as a fill kernel, so the step never waits for
-        the card."""
-        pol = self._policy
-        iteration = torch.full((), self.iteration_count, dtype=torch.int32,
-                               device=self.device)
-        loss, (new_state, new_rnn), grads = self._loss_grads(
-            pol.compute_copy(self.params), self.net_state, inputs, labels,
-            feature_masks, label_masks, self._rng, rnn_state)
-        self.params, self.updater_state = self._apply_updaters(
-            self.params, self.updater_state, pol.master_grads(grads),
-            iteration)
-        self.net_state = new_state
-        self._score = loss  # device scalar; no sync (see score_value)
-        return new_rnn
+        """One eager optimizer step on device tensors; returns the
+        recurrent layers' new carries (``None`` without ``rnn_state``)."""
+        return self._sgd_step_batch((inputs, labels, feature_masks,
+                                     label_masks), rnn_state)
 
     def _post_iteration(self):
         self.iteration_count += 1
@@ -371,13 +393,22 @@ class ComputationGraph:
 
     def _fit_tbptt(self, mds: MultiDataSet):
         """Truncated BPTT over the DAG (ComputationGraph.java:489-534): the
-        MLN's window loop. The time length is the longest 3-D input's."""
-        iterations = max(1, self.conf.global_conf.iterations)
+        MLN's window loop, its full windows replayed under the same
+        condition. The time length is the longest 3-D input's."""
+        gc = self.conf.global_conf
+        iterations = max(1, gc.iterations)
         window = self.conf.tbptt_fwd_length
         batch = self._batch(mds)
         t = max(f.shape[1] for f in batch[0] if _is_temporal(f))
         rnn_state = self._zero_rnn_state(mds.num_examples())
-        for start in range(0, t, window):
+        n_full = t // window
+        start = 0
+        if (rnn_state is not None and n_full > 1 and iterations == 1
+                and gc.lr_policy != LearningRatePolicy.SCORE
+                and not self.listeners):
+            rnn_state = self._fused_tbptt(batch, n_full, window)
+            start = n_full * window
+        for start in range(start, t, window):
             sub = _slice_time(batch, start, min(start + window, t))
             for _ in range(iterations):
                 new_rnn = self._sgd_step(*sub, rnn_state)
@@ -391,40 +422,31 @@ class ComputationGraph:
 
     def fit_steps(self, data, n_steps: int):
         """``fit(data)`` called ``n_steps`` times: the batch moves to the
-        device once, then ``n_steps · conf.iterations`` steps run in a
-        Python loop of the same step (the reference fuses them into one
-        XLA program). Listeners fire once, after the block. TBPTT falls
-        back to a plain ``fit`` loop."""
+        device once, then ``n_steps · conf.iterations`` steps replay one
+        captured step (the reference fuses them into one XLA program).
+        Listeners fire once, after the block. TBPTT falls back to a plain
+        ``fit`` loop."""
         self._ensure_init()
         mds = _as_mds(data)
         if self._is_tbptt(mds):
             for _ in range(n_steps):
                 self.fit(mds)
             return self
-        batch = self._batch(mds)
-        for _ in range(n_steps * max(1, self.conf.global_conf.iterations)):
-            self._sgd_step(*batch)
-            self.iteration_count += 1
+        self._fused_fit_steps(
+            self._batch(mds),
+            n_steps * max(1, self.conf.global_conf.iterations))
         for listener in self.listeners:
             listener.iteration_done(self, self.iteration_count)
         return self
 
     # ------------------------------------------------------------------
-    # not in this slice
+    # the fused epoch path (fit_epochs, build_epoch_cache: nn/fused.py)
     # ------------------------------------------------------------------
     def fused_epochs_supported(self) -> bool:
-        """The fused epoch program is not ported (ROADMAP A10.5)."""
-        return False
-
-    def fit_epochs(self, data, num_epochs: int, **kwargs):
-        raise _not_ported("fit_epochs (the fused epoch cache, guard, "
-                          "telemetry and accumulation)", "A10.5")
-
-    def build_epoch_cache(self, data, mesh=None, **kwargs):
-        raise _not_ported("build_epoch_cache", "A10.5")
-
-    def request_reshard(self, mesh) -> None:
-        raise _not_ported("request_reshard (the mesh)", "A10.5")
+        """The graph's per-step path has no solver or SCORE handling, so
+        only TBPTT and ``iterations > 1`` fall back, as in the reference."""
+        return (self.conf.backprop_type != BackpropType.TRUNCATED_BPTT
+                and max(1, self.conf.global_conf.iterations) == 1)
 
     # ------------------------------------------------------------------
     # rnnTimeStep (ComputationGraph.java:1285): stateful stepping
@@ -457,8 +479,10 @@ class ComputationGraph:
     # inference / scoring
     #
     # The reference pads every batch up a bucket ladder so that XLA
-    # compiles once per bucket; eager torch compiles nothing per shape,
-    # and pad rows drop out of every result, so the port does not pad.
+    # compiles once per bucket. Inference here is eager and compiles
+    # nothing per shape, so it does not pad; on the fused training paths
+    # each batch shape is one CUDA-graph capture, and the epoch cache
+    # pads every batch to one bucket.
     # ------------------------------------------------------------------
     def _infer(self, inputs, collect: bool = False):
         with torch.no_grad():

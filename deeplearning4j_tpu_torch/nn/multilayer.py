@@ -2,14 +2,21 @@
 
 Port of ``deeplearning4j_tpu/nn/multilayer.py`` (the reference's
 ``nn/multilayer/MultiLayerNetwork.java``). A step is the reference's
-``_step_impl`` in eager torch: forward through the preprocessors and
-layers, loss plus L1/L2, ``torch.autograd.grad``, per-layer gradient
+``_step_impl`` in torch: forward through the preprocessors and layers,
+loss plus L1/L2, ``torch.autograd.grad``, per-layer gradient
 normalization and the updaters on multi-tensor kernels
 (``grouped_apply_updaters``). Params, updater state and the batch stay
 on the network's device; the step reads nothing back to the host, and
 ``score_value`` keeps the loss as a device scalar until it is read.
 
-Truncated BPTT (``_fit_tbptt``) is the reference's per-window loop: one
+``fit`` runs one eager step per batch. The fused paths the reference
+compiles into one XLA program each (``fit_steps``, ``fit_epochs`` over
+the device cache with its sentinel, telemetry and accumulation, and the
+full windows of truncated BPTT) replay one captured CUDA graph per step
+on the card (``nn/fused.py``, ``perf/step_graph.py``); on the CPU the
+same step runs eagerly in the same loop.
+
+Truncated BPTT (``_fit_tbptt``) is the reference's window loop: one
 step per window of ``tbptt_fwd_length`` timesteps, the recurrent layers'
 ``h``/``c`` carried from window to window and detached at each boundary.
 ``rnn_time_step`` carries the same state across calls for generation.
@@ -17,8 +24,8 @@ step per window of ``tbptt_fwd_length`` timesteps, the recurrent layers'
 The network runs on the CUDA card unless it is given ``device="cpu"``;
 with no card and no device it raises. What the port leaves out raises
 ``NotImplementedError`` naming its ROADMAP item: pretraining (A10.3),
-solvers for a non-SGD ``optimization_algo`` (A10.4), and the fused epoch
-cache with its guard, telemetry, accumulation and mesh (A10.5).
+solvers for a non-SGD ``optimization_algo`` (A10.4), and training over a
+device mesh (``mesh=``, ``request_reshard``: A14).
 """
 
 from __future__ import annotations
@@ -39,14 +46,11 @@ from deeplearning4j_tpu_torch.nn.conf.enums import (
 from deeplearning4j_tpu_torch.nn.conf.neural_net import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import apply_preprocessor
 from deeplearning4j_tpu_torch.nn.layers import get_layer_impl
+from deeplearning4j_tpu_torch.nn.fused import FusedTraining
 from deeplearning4j_tpu_torch.nn.layers.recurrent import zero_rnn_state
-from deeplearning4j_tpu_torch.nn.updater import (
-    UpdaterSpec,
-    grouped_apply_updaters,
-    init_updater_state,
-    lr_policy_scale,
-)
+from deeplearning4j_tpu_torch.nn.updater import UpdaterSpec, init_updater_state
 from deeplearning4j_tpu_torch.ops.losses import compute_loss, per_example_loss
+from deeplearning4j_tpu_torch.perf.epoch_cache import DeviceDataSetCache
 from deeplearning4j_tpu_torch.perf.device_eval import (
     RegressionStats,
     confusion_update,
@@ -59,7 +63,11 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
-class MultiLayerNetwork:
+class MultiLayerNetwork(FusedTraining):
+    _CACHE = DeviceDataSetCache
+    _FALLBACKS = ("non-SGD solver / TBPTT / pretraining / SCORE policy / "
+                  "iterations > 1")
+
     def __init__(self, conf: MultiLayerConfiguration,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
@@ -73,7 +81,7 @@ class MultiLayerNetwork:
         self.iteration_count = 0
         self._score: Any = float("nan")
         self.listeners: List[Any] = []
-        self._lr_scale_host = 1.0  # SCORE-policy decay, adjusted host-side
+        self._init_fused()
         self._best_score = None
         self._initialized = False
         # dropout and sampling draws, on the network's device
@@ -196,46 +204,41 @@ class MultiLayerNetwork:
         grads = iter(torch.autograd.grad(loss, tree_leaves(fwd)))
         return loss.detach(), states, tree_map(lambda _: next(grads), fwd)
 
-    def _lr_scale(self, iteration, lr_scale_host):
-        """The LR policy's factor at ``iteration`` times the host scale."""
-        gc = self.conf.global_conf
-        return lr_policy_scale(
-            gc.lr_policy, iteration, gc.lr_policy_decay_rate,
-            gc.lr_policy_steps, gc.lr_policy_power, gc.lr_schedule,
-            base_lr=gc.learning_rate) * lr_scale_host
+    def _update_items(self):
+        return [(str(i), spec) for i, spec in enumerate(self.updater_specs)]
 
-    def _apply_updaters(self, params, updater_state, grads, iteration,
-                        lr_scale_host):
-        """LR schedule + updater math + parameter update, grouped by (spec,
-        lr, dtype) on multi-tensor kernels. Under master weights ``params``
-        are the f32 masters and ``grads`` arrive upcast to f32."""
-        scale = self._lr_scale(iteration, lr_scale_host)
-        items = [(str(i), spec) for i, spec in enumerate(self.updater_specs)]
-        return grouped_apply_updaters(items, params, updater_state, grads,
-                                      scale, iteration + 1)
+    def _state_key_order(self):
+        keys = [str(i) for i in range(len(self.layers))]
+        return keys, keys
+
+    def _accum_loss_grads(self, params, net_state, batch, rng, k: int):
+        """Loss and gradients of one step as ``k`` accumulated
+        microbatches: each microbatch's loss is its masked mean scaled by
+        its share of the full batch's mask (``d_mb / d_full``) plus 1/k
+        of the L1/L2 penalty. Returns ``(grads, loss, new net state)``."""
+        d_full = torch.clamp(batch[3].sum(), min=1.0)
+
+        def micro_loss(p, nst, mb, rng):
+            x, y, fm, lm = mb
+            out, st, _, _ = self._forward(p, nst, x, train=True, rng=rng,
+                                          feature_mask=fm)
+            core = compute_loss(self._output_conf.loss_function, out, y, lm)
+            loss = core * (torch.clamp(lm.sum(), min=1.0) / d_full)
+            for i, impl in enumerate(self.layers):
+                penalty = impl.l1_l2_penalty(p[str(i)])
+                if penalty is not None:
+                    loss = loss + penalty / k
+            return loss, st
+
+        return self._accum_micro(params, net_state, batch, rng, k,
+                                 micro_loss)
 
     def _sgd_step(self, x, y, feature_mask=None, label_mask=None,
                   rnn_state=None):
-        """One optimizer step on device tensors; returns the recurrent
-        layers' new carries (``None`` without ``rnn_state``). The iteration
-        and the host LR scale reach the device as fill kernels, not
-        copies, so the step never waits for the card."""
-        pol = self._policy
-        iteration = torch.full((), self.iteration_count, dtype=torch.int32,
-                               device=self.device)
-        lr_scale_host = torch.full((), self._lr_scale_host,
-                                   dtype=torch.float32, device=self.device)
-        # master weights: one bf16 copy for forward/backward, grads upcast
-        # once, the updater applies to the f32 masters
-        loss, (new_state, new_rnn), grads = self._loss_grads(
-            pol.compute_copy(self.params), self.net_state, x, y,
-            feature_mask, label_mask, self._rng, rnn_state)
-        self.params, self.updater_state = self._apply_updaters(
-            self.params, self.updater_state, pol.master_grads(grads),
-            iteration, lr_scale_host)
-        self.net_state = new_state
-        self._score = loss  # device scalar; no sync (see score_value)
-        return new_rnn
+        """One eager optimizer step on device tensors; returns the
+        recurrent layers' new carries (``None`` without ``rnn_state``)."""
+        return self._sgd_step_batch((x, y, feature_mask, label_mask),
+                                    rnn_state)
 
     # ------------------------------------------------------------------
     # fit
@@ -282,15 +285,28 @@ class MultiLayerNetwork:
         shorter) takes ``conf.iterations`` steps from the carry the last
         window left, detached at the boundary. A 2-D label stays whole for
         every window. The reference ignores ``tbptt_back_length``, and so
-        does the port. (The reference fuses the full windows into one XLA
-        program only where that cannot be told apart from this loop.)"""
-        iterations = max(1, self.conf.global_conf.iterations)
+        does the port. Where the reference fuses the full windows into one
+        program (carries present, more than one full window, one
+        iteration, not SCORE, no listeners: then the loop cannot be told
+        apart), the port replays one captured window step per full
+        window; the short tail runs eagerly, as in the reference."""
+        gc = self.conf.global_conf
+        iterations = max(1, gc.iterations)
         window = self.conf.tbptt_fwd_length
         ds = DataSet(self._dev(ds.features), self._dev(ds.labels),
                      self._dev(ds.features_mask), self._dev(ds.labels_mask))
         t = ds.features.shape[1]
         rnn_state = self._zero_rnn_state(ds.num_examples())
-        for start in range(0, t, window):
+        n_full = t // window
+        start = 0
+        if (rnn_state is not None and n_full > 1 and iterations == 1
+                and gc.lr_policy != LearningRatePolicy.SCORE
+                and not self.listeners):
+            rnn_state = self._fused_tbptt(
+                (ds.features, ds.labels, ds.features_mask, ds.labels_mask),
+                n_full, window)
+            start = n_full * window
+        for start in range(start, t, window):
             sub = ds.slice_time(start, min(start + window, t))
             for _ in range(iterations):
                 new_rnn = self._sgd_step(sub.features, sub.labels,
@@ -307,11 +323,11 @@ class MultiLayerNetwork:
 
     def fit_steps(self, ds, n_steps: int):
         """``fit(ds)`` called ``n_steps`` times: the batch moves to the
-        device once, then ``n_steps · conf.iterations`` steps run in a
-        Python loop of the same step (the reference fuses them into one
-        XLA program). Listeners fire once, after the block. Falls back to
-        a plain ``fit`` loop for the score-reactive LR policy (a host
-        decision per step) and for what ``fit`` itself falls back on."""
+        device once, then ``n_steps · conf.iterations`` steps replay one
+        captured step (the reference fuses them into one XLA program).
+        Listeners fire once, after the block. Falls back to a plain
+        ``fit`` loop for the score-reactive LR policy (a host decision per
+        step) and for what ``fit`` itself falls back on."""
         self._ensure_init()
         gc = self.conf.global_conf
         if not self.conf.backprop and not self.conf.pretrain:
@@ -324,11 +340,9 @@ class MultiLayerNetwork:
             for _ in range(n_steps):
                 self.fit(ds)
             return self
-        x, y = self._dev(ds.features), self._dev(ds.labels)
-        fm, lm = self._dev(ds.features_mask), self._dev(ds.labels_mask)
-        for _ in range(n_steps * max(1, gc.iterations)):
-            self._sgd_step(x, y, fm, lm)
-            self.iteration_count += 1
+        batch = (self._dev(ds.features), self._dev(ds.labels),
+                 self._dev(ds.features_mask), self._dev(ds.labels_mask))
+        self._fused_fit_steps(batch, n_steps * max(1, gc.iterations))
         for listener in self.listeners:
             listener.iteration_done(self, self.iteration_count)
         return self
@@ -346,21 +360,21 @@ class MultiLayerNetwork:
             listener.iteration_done(self, self.iteration_count)
 
     # ------------------------------------------------------------------
-    # not in this slice
+    # the fused epoch path (fit_epochs, build_epoch_cache: nn/fused.py)
     # ------------------------------------------------------------------
     def fused_epochs_supported(self) -> bool:
-        """The fused epoch program is not ported (ROADMAP A10.5)."""
-        return False
+        """Whether this configuration can run the fused epoch path: the
+        ``fit_steps`` fallback matrix plus ``iterations == 1``."""
+        gc = self.conf.global_conf
+        return (gc.optimization_algo
+                == OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT
+                and self.conf.backprop_type != BackpropType.TRUNCATED_BPTT
+                and not self.conf.pretrain
+                and gc.lr_policy != LearningRatePolicy.SCORE
+                and max(1, gc.iterations) == 1)
 
-    def fit_epochs(self, data, num_epochs: int, **kwargs):
-        raise _not_ported("fit_epochs (the fused epoch cache, guard, "
-                          "telemetry and accumulation)", "A10.5")
-
-    def build_epoch_cache(self, data, mesh=None, **kwargs):
-        raise _not_ported("build_epoch_cache", "A10.5")
-
-    def request_reshard(self, mesh) -> None:
-        raise _not_ported("request_reshard (the mesh)", "A10.5")
+    def _fit_trains_nothing(self) -> bool:
+        return not self.conf.backprop and not self.conf.pretrain
 
     def pretrain(self, batches):
         raise _not_ported("layerwise pretraining", "A10.3")
@@ -396,8 +410,11 @@ class MultiLayerNetwork:
     # inference / scoring
     #
     # The reference pads every batch up a bucket ladder so that XLA
-    # compiles once per bucket; eager torch compiles nothing per shape,
-    # and pad rows drop out of every result, so the port does not pad.
+    # compiles once per bucket. Inference here is eager and compiles
+    # nothing per shape, so it does not pad. Shapes cost something only
+    # on the fused training paths, where each distinct batch shape is one
+    # CUDA-graph capture: the epoch cache pads every batch to one bucket,
+    # and ``BucketedDataSetIterator`` pads a stream's ragged tail.
     # ------------------------------------------------------------------
     def _infer(self, x) -> torch.Tensor:
         with torch.no_grad():

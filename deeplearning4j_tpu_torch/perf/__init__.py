@@ -1,1 +1,3 @@
-"""Host-side performance helpers of the port."""
+"""Performance helpers of the port: shape buckets, device evaluation, the
+epoch cache with its chunk driver, and CUDA-graph capture of training
+steps."""

@@ -33,11 +33,19 @@ synchronise), then runs ``--steps`` calls under ``torch.profiler`` (CPU
   ``clone``, ``contiguous``, ``copy_``, ``constant_pad_nd``) and the
   layout views (``permute``) ran per step;
 - how many synchronising CUDA operations one ``fit`` makes, as PyTorch's
-  sync debug mode detects them (it does not detect all of them).
+  sync debug mode detects them (it does not detect all of them), and the
+  host's launch calls per step by CUDA runtime API (``cudaGraphLaunch``
+  being one graph replay).
+
+Without ``--fused`` every step runs eagerly (``perf.step_graph._capture``
+off, the char-LSTM's TBPTT windows too). ``--fused`` profiles the
+replayed step instead: for the CNNs and the MLP a step is one replay inside
+``fit_steps(ds, steps)``; for the char-LSTM a ``fit`` whose 4 windows
+are replays.
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 scripts/torch_mln_profile.py --model lenet5|mnist_mlp|resnet18|char_lstm [--steps 5] [--trace DIR]
+    python3 scripts/torch_mln_profile.py --model lenet5|mnist_mlp|resnet18|char_lstm [--fused] [--steps 5] [--trace DIR]
 
 ``--trace`` also writes the Chrome trace into DIR. The last line is one
 JSON object with the numbers above. Without a card it exits 1.
@@ -90,8 +98,8 @@ def group_of(name: str) -> str:
     return "elementwise, BatchNorm, pooling, reductions"
 
 
-def sync_ops(net, ds) -> int:
-    """Synchronising CUDA operations in one ``fit``, as PyTorch's sync
+def sync_ops(step) -> int:
+    """Synchronising CUDA operations in one ``step()``, as PyTorch's sync
     debug mode reports them."""
     import warnings
 
@@ -101,7 +109,7 @@ def sync_ops(net, ds) -> int:
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            net.fit(ds)
+            step()
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -114,6 +122,8 @@ def main(argv=None) -> int:
     ap.add_argument("--model", choices=tuple(cs.NETWORKS) + ("char_lstm",),
                     default="lenet5")
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--fused", action="store_true",
+                    help="profile the replayed step (CUDA graphs)")
     ap.add_argument("--trace", default=None,
                     help="directory for the Chrome trace")
     args = ap.parse_args(argv)
@@ -128,7 +138,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from deeplearning4j_tpu_torch.datasets import DataSet
-    from torch_serve_profile import _busy_us
+    from deeplearning4j_tpu_torch.perf import step_graph
 
     card = cs.card_line()
     rnn = args.model == "char_lstm"
@@ -142,24 +152,34 @@ def main(argv=None) -> int:
         net = cs.build_network(args.model, "bf16", "cuda")
         x, y = cs.network_data(args.model, batch)
     ds = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    step_graph._capture = args.fused  # the seam: eager steps on the card
+    steps_call = args.fused and not rnn
+
+    def run(n: int) -> float:
+        """``n`` steps; returns the host's seconds to issue them."""
+        if steps_call:
+            t = time.monotonic()
+            net.fit_steps(ds, n)
+            return time.monotonic() - t
+        host = 0.0
+        for _ in range(n):
+            t = time.monotonic()
+            net.fit(ds)
+            host += time.monotonic() - t
+        return host
+
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(cs.NET_WARMUP + 1):
-        net.fit(ds)
+    run(cs.NET_WARMUP + 1)
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    for _ in range(args.steps):
-        net.fit(ds)
+    run(args.steps)
     torch.cuda.synchronize()
     plain_s = (time.monotonic() - t0) / args.steps
 
-    host_s = []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        for _ in range(args.steps):
-            t = time.monotonic()
-            net.fit(ds)
-            host_s.append(time.monotonic() - t)
+        host_s = run(args.steps)
         torch.cuda.synchronize()
         wall_s = time.monotonic() - t0
     if args.trace:
@@ -176,8 +196,8 @@ def main(argv=None) -> int:
         g = group_of(e.name)
         n, c = by_group.get(g, (0.0, 0))
         by_group[g] = (n + t, c + 1)
-    busy_s = _busy_us([(e.time_range.start, e.time_range.end)
-                       for e in device]) / 1e6
+    busy_s = cs.busy_union_s([(e.time_range.start, e.time_range.end)
+                              for e in device])
     kernel_s = sum(t for t, _ in by_name.values()) / 1e6
     steps = args.steps
     groups = {g: {"s_per_step": t / 1e6 / steps,
@@ -192,7 +212,11 @@ def main(argv=None) -> int:
     # the host operators behind those copies, per step
     copy_ops = {e.key: e.count / steps for e in prof.key_averages()
                 if e.key in _COPY_OPS}
-    syncs = sync_ops(net, ds)
+    syncs = sync_ops(lambda: run(1))
+    host_launches = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in cs.HOST_LAUNCH_APIS:
+            host_launches[e.name] = host_launches.get(e.name, 0) + 1 / steps
     peak_mem = torch.cuda.max_memory_allocated()
     share = per_timestep_layer = tokens_per_sec = None
     if args.model in cs.NET_FWD_FLOPS:
@@ -207,6 +231,7 @@ def main(argv=None) -> int:
     result = {
         "card": card,
         "model": args.model,
+        "fused": args.fused,
         "shape": [batch, *shape],
         "steps": steps,
         "loss": net.score_value,
@@ -218,7 +243,8 @@ def main(argv=None) -> int:
                                          if device else None),
         "share_of_bf16_peak": share,
         "peak_mem_bytes": peak_mem,
-        "host_s_per_step": sum(host_s) / steps,
+        "host_s_per_step": host_s / steps,
+        "host_launches_per_step": host_launches,
         "device_events_per_step": len(device) / steps,
         "device_events_per_timestep_layer": per_timestep_layer,
         "device_busy_s_per_step": busy_s / steps,
@@ -234,14 +260,16 @@ def main(argv=None) -> int:
                          for n, (t, c) in copies],
         "copy_ops_per_step": copy_ops,
     }
-    print(f"{args.model} {result['shape']} bf16 under the profiler: "
+    print(f"{args.model} {result['shape']} bf16"
+          f"{' replayed' if args.fused else ' eager'} under the profiler: "
           f"wall_s_per_step={result['wall_s_per_step']} "
           f"host_s_per_step={result['host_s_per_step']} "
           f"device_busy_s_per_step={result['device_busy_s_per_step']} "
           f"device_idle_share={result['device_idle_share']} "
           f"launches_per_step={result['device_events_per_step']} "
           f"launches_per_timestep_layer={per_timestep_layer} "
-          f"sync_ops_per_step={syncs} [{card}]")
+          f"sync_ops_per_step={syncs} "
+          f"host_launches_per_step={host_launches} [{card}]")
     print(f"{args.model} unprofiled: wall_s_per_step={plain_s} "
           f"samples_per_sec={batch / plain_s} "
           f"tokens_per_sec={tokens_per_sec} device_idle_share="

@@ -37,21 +37,6 @@ sys.path.insert(0, os.path.dirname(HERE))
 FLASH_KERNEL = "flash_fwd_"
 
 
-def _busy_us(intervals):
-    """Length of the union of ``(start, end)`` intervals (µs)."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
-
-
 def profile_run(lm, sched, fuse_steps: int, trace_dir):
     import torch
     from torch.autograd import DeviceType
@@ -84,8 +69,8 @@ def profile_run(lm, sched, fuse_steps: int, trace_dir):
         t = e.time_range.end - e.time_range.start
         n, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (n + t, c + 1)
-    busy_s = _busy_us([(e.time_range.start, e.time_range.end)
-                       for e in device]) / 1e6
+    busy_s = cs.busy_union_s([(e.time_range.start, e.time_range.end)
+                              for e in device])
     kernel_s = sum(t for t, _ in by_name.values()) / 1e6
     flash_s = sum(t for name, (t, _) in by_name.items()
                   if FLASH_KERNEL in name) / 1e6

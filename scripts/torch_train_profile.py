@@ -20,11 +20,18 @@ prints:
   (f64 sums) at the same shape, both timed with CUDA events outside the
   profiler;
 - how many synchronising CUDA operations one step makes, as PyTorch's
-  sync debug mode detects them (it does not detect all of them).
+  sync debug mode detects them (it does not detect all of them), and the
+  host's launch calls per step by CUDA runtime API (``cudaGraphLaunch``
+  being one graph replay).
+
+Without ``--fused`` the step runs eagerly (``perf.step_graph._capture``
+off);
+with it, every step after the warm-up is a replay of the captured step,
+B1–B3 inside it.
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 scripts/torch_train_profile.py [--steps 3] [--trace DIR]
+    python3 scripts/torch_train_profile.py [--fused] [--steps 3] [--trace DIR]
 
 ``--trace`` also writes the Chrome trace into DIR. The last line is one
 JSON object with the numbers above. Without a card it exits 1.
@@ -93,6 +100,8 @@ def sync_ops(lm, tok) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--fused", action="store_true",
+                    help="profile the replayed step (CUDA graphs)")
     ap.add_argument("--trace", default=None,
                     help="directory for the Chrome trace")
     args = ap.parse_args(argv)
@@ -109,11 +118,12 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from deeplearning4j_tpu_torch.kernels import _build, KERNEL_SOURCES
     from deeplearning4j_tpu_torch.models.transformer import TransformerLM
-    from torch_serve_profile import _busy_us
+    from deeplearning4j_tpu_torch.perf import step_graph
 
     card = cs.card_line()
     _build.build_all(KERNEL_SOURCES)
     lm = TransformerLM(**cs.TRAIN_CFG).init()
+    step_graph._capture = args.fused  # the seam: eager steps on the card
     tok = torch.as_tensor(cs.train_tokens(), device="cuda")
     for _ in range(cs.TRAIN_WARMUP):
         lm.fit_batch(tok)
@@ -142,8 +152,8 @@ def main(argv=None) -> int:
         g = group_of(e.name)
         n, c = by_group.get(g, (0.0, 0))
         by_group[g] = (n + t, c + 1)
-    busy_s = _busy_us([(e.time_range.start, e.time_range.end)
-                       for e in device]) / 1e6
+    busy_s = cs.busy_union_s([(e.time_range.start, e.time_range.end)
+                              for e in device])
     kernel_s = sum(t for t, _ in by_name.values()) / 1e6
     steps = args.steps
     groups = {g: {"s_per_step": t / 1e6 / steps,
@@ -156,10 +166,16 @@ def main(argv=None) -> int:
     unembed = cs.unembed_ms(lm, rows, train=True)
     unembed_f64 = cs.unembed_ms(lm, rows, train=False)
     syncs = sync_ops(lm, tok)
+    host_launches = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in cs.HOST_LAUNCH_APIS:
+            host_launches[e.name] = host_launches.get(e.name, 0) + 1 / steps
     step_s = wall_s / steps
     result = {
         "card": card,
         "shape": [cs.TRAIN_BATCH, cs.TRAIN_T],
+        "fused": args.fused,
+        "host_launches_per_step": host_launches,
         "steps": steps,
         "loss": float(loss),
         "wall_s_per_step": step_s,
@@ -177,12 +193,14 @@ def main(argv=None) -> int:
                          "launches_per_step": c / steps}
                         for n, (t, c) in top],
     }
-    print(f"train [{cs.TRAIN_BATCH}, {cs.TRAIN_T}] under the profiler: "
+    print(f"train [{cs.TRAIN_BATCH}, {cs.TRAIN_T}]"
+          f"{' replayed' if args.fused else ' eager'} under the profiler: "
           f"wall_s_per_step={step_s} "
           f"host_s_per_step={result['host_s_per_step']} "
           f"device_busy_s_per_step={result['device_busy_s_per_step']} "
           f"device_idle_share={result['device_idle_share']} "
-          f"sync_ops_per_step={syncs} [{card}]")
+          f"sync_ops_per_step={syncs} "
+          f"host_launches_per_step={host_launches} [{card}]")
     for g, v in groups.items():
         print(f"  {v['s_per_step']:.6f} s/step  "
               f"share={v['share_of_device']:.4f}  "

@@ -1,6 +1,7 @@
 """The port stands alone: ``deeplearning4j_tpu_torch`` and every one of
 its submodules import without pulling in ``jax`` or any module of the
-JAX package, its entry points refuse to fall back to the CPU silently,
+JAX package, its entry points (the fused epoch path's included) refuse
+to fall back to the CPU silently,
 and its kernel module imports on a machine without ``nvcc``."""
 
 import os
@@ -64,6 +65,37 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         DecodeEngine(lm, 1)
     assert DecodeServer(lm, slots=1, device="cpu").engine.device == \
         torch.device("cpu")
+
+
+def test_fused_epoch_paths_raise_without_a_card(monkeypatch):
+    """``fit_epochs`` and ``build_epoch_cache`` do not train on the CPU
+    unless the CPU is asked for."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet,
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.perf.epoch_cache import (
+        DeviceDataSetCache,
+        DeviceMultiDataSetCache,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.zeros((8, 784), np.float32)
+    y = np.eye(10, dtype=np.float32)[np.zeros(8, int)]
+    it = ListDataSetIterator(DataSet(x, y), 4)
+    for cls in (DeviceDataSetCache, DeviceMultiDataSetCache):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls.build(it)  # no device means the card, and there is none
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        zoo.mnist_mlp(hidden=8).fit_epochs(it, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        zoo.resnet18().build_epoch_cache(it)
+    net = zoo.mnist_mlp(hidden=8, device="cpu").init()
+    assert net.build_epoch_cache(it).device == torch.device("cpu")
+    assert net.fit_epochs(it, 1).shape == (1, 2)
 
 
 def test_kernel_module_imports_without_nvcc(tmp_path):
