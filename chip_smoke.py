@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Eight phases; any failure exits non-zero and prints no result line.
+Nine phases; any failure exits non-zero and prints no result line.
 
 1. Build and device: compile every CUDA kernel from ``csrc/`` (one
    ``nvcc`` per source, all at once), print ptxas's registers and spill
@@ -140,13 +140,37 @@ Eight phases; any failure exits non-zero and prints no result line.
    (loss 2e-2, params 1e-2), and ``fit_steps(ds, 3)`` of LeNet-5 and
    ResNet-18 at phase 6's parity batches under ``bf16`` (ResNet-18 at
    ``NET_PARITY_LR``).
+9. The front door: the MNIST deep-belief net of the DL4J 0.4 examples
+   (RBMs 784-500-250-200 with binary units and CD-1, softmax 10,
+   MCXENT; ``pretrain`` and ``backprop``, LBFGS with 5 iterations a
+   batch) as a reference-format (Jackson) JSON document, and a 13 MB CSV
+   of 8 batches of 1024 rows of 784 binary pixels from
+   ``default_rng(0)`` with a linear teacher's labels. In child processes
+   that run ``python -m deeplearning4j_tpu_torch.cli`` on the card:
+   ``train`` for 2 epochs with ``--checkpoint-dir``, ``train --resume``
+   to 3, ``test`` and ``predict``. Asserts that each RBM's
+   reconstruction error falls over its batches, the finetune score
+   falls over the epochs, ``test`` accuracy is above the majority-class
+   share, ``predict``'s labels are the restored network's argmax, the
+   zip restored on the CPU gives the card's outputs (rtol 2e-3, atol
+   1e-3), and no process launched B1–B3. Prints the ``train`` wall time,
+   its CSV parse and peak allocated memory, ms per CD-1 step per layer
+   and ms per solver iteration split into the card's score and
+   gradient, the line search's probes and the host's float64 algebra,
+   with the bytes each iteration moves. At batch 64 the card is held
+   against the CPU on the same weights, float32 with TF32 off (rtol
+   2e-3, atol 1e-3): one CD-1 step of the first RBM and one AutoEncoder
+   step with the same injected draws (zero flipped samples), and 3
+   iterations each of LBFGS, conjugate gradient and line gradient
+   descent (score history and params).
 
 Output: metric lines, then a ``{"kernels": [...]}`` JSON line (each
 kernel's ``variant`` and ``launches`` counted over the train phase's
 timed steps, replays included; over phase 8's LM cell as
 ``launches_fused_lm``; B1's over the serve phase too, as
-``launches_serve``, and its train-shape numbers under ``train``) and
-the ``nvidia-smi`` line,
+``launches_serve``; over phase 9 as ``launches_cli``, which must be 0;
+and its train-shape numbers under ``train``) and the ``nvidia-smi``
+line,
 then ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -1880,6 +1904,391 @@ def fused(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the DL4J front door — the CLI over a reference-format document
+# ---------------------------------------------------------------------------
+# The MNIST deep-belief net of the DL4J 0.4 examples: RBMs 784-500-250-200
+# (binary visible and hidden units, CD-1) under a softmax output of 10,
+# MCXENT; pretrained layer by layer, then finetuned by LBFGS, 5 iterations
+# a batch; nothing cut. The data: 8 batches of 1024 rows of 784 binary
+# pixels, each pixel on with its own probability (u^3, u uniform: most
+# pixels are mostly off, as in MNIST), labels from a fixed linear teacher.
+DBN_WIDTHS = (784, 500, 250, 200, 10)
+DBN_ITERATIONS = 5
+DBN_LR = 0.1
+DBN_STYLES = 30
+DBN_SEED = 123
+DBN_BATCH, DBN_BATCHES = 1024, 8
+DBN_EPOCHS = 2  # then --resume to one more
+DBN_PARITY_BATCH = 64
+SOLVER_PARITY_ITERATIONS = 3
+CLI_TIMEOUT_S = 300
+CLI_DEVICE = "cuda"  # the CLI's default; "cpu" only to rehearse the phase
+# runs the CLI module as ``python -m`` does, then reports what the process
+# ran on the card: B1-B3's launches and the peak of allocated memory, and
+# the seconds of its start-up (torch's import and, on the card, the CUDA
+# context) and of the whole CLI command, start-up included
+CLI_RUNNER = """
+import json, runpy, sys, time
+t0 = time.perf_counter()
+import torch
+if "--device" not in sys.argv:  # the CLI's default device, the card
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+startup_s = time.perf_counter() - t0
+code = 0
+try:
+    runpy.run_module("deeplearning4j_tpu_torch.cli", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as e:
+    code = e.code if isinstance(e.code, int) else (0 if e.code is None else 1)
+from deeplearning4j_tpu_torch.perf import step_graph
+print("CLI_RUN " + json.dumps({
+    "startup_s": startup_s,
+    "wall_s": time.perf_counter() - t0,
+    "launches": step_graph.kernel_launches(),
+    "peak_mem_bytes": (torch.cuda.max_memory_allocated()
+                       if torch.cuda.is_initialized() else 0)}))
+sys.exit(code)
+"""
+
+
+def dbn_document(algo: str = "LBFGS") -> str:
+    """The DBN as the reference's Jackson ``toJson()`` writes it."""
+    conf = {"seed": DBN_SEED, "numIterations": DBN_ITERATIONS,
+            "optimizationAlgo": algo}
+    confs = [{"layer": {"RBM": {
+        "nIn": a, "nOut": b, "k": 1, "hiddenUnit": "BINARY",
+        "visibleUnit": "BINARY", "weightInit": "XAVIER",
+        "activationFunction": "sigmoid", "learningRate": DBN_LR}}, **conf}
+        for a, b in zip(DBN_WIDTHS[:-2], DBN_WIDTHS[1:-1])]
+    confs.append({"layer": {"output": {
+        "nIn": DBN_WIDTHS[-2], "nOut": DBN_WIDTHS[-1],
+        "activationFunction": "softmax", "lossFunction": "MCXENT",
+        "weightInit": "XAVIER", "learningRate": DBN_LR}}, **conf})
+    return json.dumps({"backprop": True, "pretrain": True, "confs": confs},
+                      indent=2)
+
+
+def dbn_data(rows: int, seed: int = 0):
+    """``rows`` binary pixel rows and their teacher's labels. Each row
+    draws its pixels from one of ``DBN_STYLES`` stroke patterns (per-pixel
+    on-probabilities, mostly off as in MNIST), so pixels are correlated as
+    a digit's are; the labels are a fixed linear teacher's argmax."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_in, n_out = DBN_WIDTHS[0], DBN_WIDTHS[-1]
+    styles = rng.random((DBN_STYLES, n_in)) ** 3
+    teacher = rng.normal(size=(n_in, n_out))
+    ink = styles[rng.integers(0, DBN_STYLES, rows)]
+    x = (rng.random((rows, n_in)) < ink).astype(np.float32)
+    return x, ((x - styles.mean(0)) @ teacher).argmax(1)
+
+
+def write_csv(path: str, x, labels) -> None:
+    with open(path, "w") as f:
+        for row, label in zip(x.astype("int8").tolist(), labels.tolist()):
+            f.write(",".join(map(str, row)) + f",{label}\n")
+
+
+def run_cli(argv, label: str) -> tuple:
+    """``python -m deeplearning4j_tpu_torch.cli <argv>`` in a child process
+    from this checkout: (its standard output, its ``CLI_RUN`` report)."""
+    if CLI_DEVICE != "cuda":
+        argv = [*argv, "--device", CLI_DEVICE]
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_RUNNER, *argv], cwd=HERE,
+        capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
+        env={**os.environ, "PYTHONPATH": HERE})
+    process_s = time.monotonic() - t0
+    report = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("CLI_RUN "):
+            report = {**json.loads(line[len("CLI_RUN "):]),
+                      "process_s": process_s}
+    if proc.returncode != 0 or report is None:
+        raise AssertionError(f"cli {label} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    if any(report["launches"].values()):
+        raise AssertionError(f"cli {label} launched a flash kernel: "
+                             f"{report['launches']}")
+    return proc.stdout, report
+
+
+def epoch_lines(out: str) -> tuple:
+    """The per-epoch lines of ``train``: {epoch: {layer: scores}} and
+    {epoch: finetune score}."""
+    pre, score = {}, {}
+    for line in out.splitlines():
+        m = re.match(r"epoch (\d+)/\d+ pretrain layer (\d+) scores: (.*)",
+                     line)
+        if m:
+            pre.setdefault(int(m.group(1)), {})[int(m.group(2))] = [
+                float(v) for v in m.group(3).split()]
+        m = re.match(r"epoch (\d+)/\d+ score: (\S+)", line)
+        if m:
+            score[int(m.group(1))] = float(m.group(2))
+    return pre, score
+
+
+def cli_cycle(card: str, tmp: str) -> None:
+    """train (2 epochs, checkpoints), --resume to 3, test and predict, each
+    a child process on the card; then the zip restored here on the card
+    and on the CPU."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.cli import driver
+    from deeplearning4j_tpu_torch.utils import ModelSerializer
+
+    x, labels = dbn_data(DBN_BATCH * DBN_BATCHES)
+    csv_path, doc_path = os.path.join(tmp, "train.csv"), os.path.join(
+        tmp, "dbn.json")
+    model, ckpt = os.path.join(tmp, "dbn.zip"), os.path.join(tmp, "ckpt")
+    write_csv(csv_path, x, labels)
+    with open(doc_path, "w") as f:
+        f.write(dbn_document())
+    data = ["-input", csv_path, "--num-classes", str(DBN_WIDTHS[-1]),
+            "--batch-size", str(DBN_BATCH)]
+    t0 = time.monotonic()
+    it = driver._build_iterator(driver.build_parser().parse_args(
+        ["test", "-model", model, *data]), {})
+    n_batches = sum(1 for _ in it)
+    parse_s = time.monotonic() - t0
+    train = ["train", "-model", doc_path, "-output", model,
+             "--checkpoint-dir", ckpt, *data]
+    out, rep = run_cli(train + ["--epochs", str(DBN_EPOCHS)], "train")
+    out2, rep2 = run_cli(train + ["--epochs", str(DBN_EPOCHS + 1),
+                                  "--resume"], "train --resume")
+    if f"resumed from checkpoint epoch {DBN_EPOCHS}" not in out2:
+        raise AssertionError(f"train --resume did not resume:\n{out2}")
+    pre, score = epoch_lines(out + out2)
+    print(f"cli train {'-'.join(map(str, DBN_WIDTHS))} [{DBN_BATCH} x "
+          f"{n_batches} batches, {DBN_EPOCHS} epochs + 1 resumed]: process "
+          f"{rep['process_s']:.3f} s + {rep2['process_s']:.3f} s, of which "
+          f"the command {rep['wall_s']:.3f} s + {rep2['wall_s']:.3f} s, of "
+          f"which start-up (torch import, CUDA context) "
+          f"{rep['startup_s']:.3f} s + {rep2['startup_s']:.3f} s; CSV parse "
+          f"{parse_s:.3f} s of {os.path.getsize(csv_path)} bytes (here, "
+          f"once), peak_mem_bytes={rep['peak_mem_bytes']} [{card}]")
+    failures = []
+    for epoch in sorted(pre):
+        for layer, scores in sorted(pre[epoch].items()):
+            print(f"cli pretrain epoch {epoch} layer {layer} recon error "
+                  f"per batch: {' '.join(f'{v:.4f}' for v in scores)}")
+            if epoch == 1 and not scores[-1] < scores[0]:
+                failures.append(f"layer {layer}'s recon error did not fall")
+    if sorted(pre.get(1, {})) != list(range(len(DBN_WIDTHS) - 2)):
+        failures.append(f"not every RBM pretrained: {pre}")
+    scores = [score[e] for e in sorted(score)]
+    print(f"cli finetune LBFGS score per epoch (last batch): {scores}")
+    if len(scores) != DBN_EPOCHS + 1 or not scores[-1] < scores[0]:
+        failures.append(f"the finetune score did not fall: {scores}")
+
+    out3, rep3 = run_cli(["test", "-model", model, *data], "test")
+    acc = float(re.search(r"Accuracy:\s+(\S+)", out3).group(1))
+    chance = float(np.bincount(labels).max()) / len(labels)
+    print(f"cli test accuracy={acc} (chance {chance:.4f}): process "
+          f"{rep3['process_s']:.3f} s, of which start-up "
+          f"{rep3['startup_s']:.3f} s [{card}]")
+    if not acc > chance:
+        failures.append(f"test accuracy {acc} is not above chance {chance}")
+    preds_path = os.path.join(tmp, "preds.txt")
+    run_cli(["predict", "-model", model, "-output", preds_path, *data],
+            "predict")
+    preds = np.loadtxt(preds_path, dtype=np.int64)
+
+    card_net = ModelSerializer.restore(
+        model, device=None if CLI_DEVICE == "cuda" else CLI_DEVICE)
+    cpu_net = ModelSerializer.restore(model, device="cpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    on_card = card_net.output(torch.from_numpy(x).to(CLI_DEVICE))
+    same = bool((on_card.argmax(-1).cpu().numpy() == preds).all())
+    on_cpu = cpu_net.output(torch.from_numpy(x))
+    err = float((on_card.cpu() - on_cpu).abs().max())
+    excess = float(((on_card.cpu() - on_cpu).abs()
+                    - (1e-3 + 2e-3 * on_cpu.abs())).max())
+    print(f"cli predict: {len(preds)} labels equal the restored network's "
+          f"argmax on the card: {same}; the zip on the CPU against the card: "
+          f"output max_abs_err={err:.3e} (rtol 2e-3, atol 1e-3) "
+          f"{'ok' if excess <= 0 else 'MISMATCH'} [{card}]")
+    if not same:
+        failures.append("predict's labels are not the output's argmax")
+    if excess > 0:
+        failures.append("the zip restored on the CPU disagrees")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    time_dbn(card, card_net, x)
+
+
+def time_dbn(card: str, net, x) -> None:
+    """ms per CD-1 step of each RBM at the CLI's batch, and ms per solver
+    iteration split into the card's score and gradient, the line search's
+    probes and the host's float64 algebra, with the bytes each iteration
+    moves each way."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.layers.pretrain import RBMImpl
+    from deeplearning4j_tpu_torch.nn.updater import _sub_tree, apply_updater
+    from deeplearning4j_tpu_torch.optimize import Solver
+    from deeplearning4j_tpu_torch.optimize.solver import new_solver_stats
+
+    dev = CLI_DEVICE
+    xb = torch.from_numpy(x[:DBN_BATCH]).to(dev)
+    one = torch.ones((), device=dev)
+    first = torch.ones((), dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        for i, impl in enumerate(net.layers):
+            if not isinstance(impl, RBMImpl):
+                continue
+            xi, p = net._activate_to_layer(xb, i), net.params[str(i)]
+            s, spec = net.updater_state[str(i)], net.updater_specs[i]
+
+            def step():
+                grads, _ = impl.pretrain_grads(p, xi, gen)
+                steps, _ = apply_updater(spec, grads, s, one, first)
+                return _sub_tree(p, steps)
+            print(f"cli cd1 layer {i} [{DBN_BATCH}, {impl.conf.n_in}->"
+                  f"{impl.conf.n_out}]: {cuda_ms(step):.4f} ms per CD-1 step "
+                  f"[{card}]")
+    _, labels = dbn_data(DBN_BATCH * DBN_BATCHES)
+    y = torch.nn.functional.one_hot(torch.from_numpy(labels),
+                                    DBN_WIDTHS[-1]).float()
+    net.solver_stats = new_solver_stats()
+    for b in range(DBN_BATCHES):
+        rows = slice(b * DBN_BATCH, (b + 1) * DBN_BATCH)
+        Solver(net).optimize(DataSet(torch.from_numpy(x[rows]).to(dev),
+                                     y[rows].to(dev)))
+    st = net.solver_stats
+    n = st["iterations"]
+    vg, probe = st["value_and_grad_s"] / n, st["score_s"] / n
+    host = (st["total_s"] - st["value_and_grad_s"] - st["score_s"]) / n
+    print(f"cli solver LBFGS [{DBN_BATCH}] {n} iterations over "
+          f"{DBN_BATCHES} batches: {1e3 * st['total_s'] / n:.4f} ms per "
+          f"iteration = score+grad {1e3 * vg:.4f} ms + line-search probes "
+          f"{1e3 * probe:.4f} ms ({st['score_calls'] / n:.2f} per iteration)"
+          f" + host f64 algebra {1e3 * host:.4f} ms; bytes per iteration "
+          f"to the card {st['bytes_to_device'] / n:.0f}, from the card "
+          f"{st['bytes_from_device'] / n:.0f} ({net.num_params()} params) "
+          f"[{card}]")
+
+
+def check_dbn_parity(card: str) -> None:
+    """The card against the CPU at batch 64 on the same weights, float32
+    with TF32 off (rtol 2e-3, atol 1e-3): one CD-1 step of the first RBM
+    and one AutoEncoder step with the same injected draws (zero flipped
+    samples), and 3 iterations each of LBFGS, conjugate gradient and line
+    gradient descent from the same params (score history and params)."""
+    import torch
+    from deeplearning4j_tpu_torch.cli import driver
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.dtypes import tree_leaves
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.layers import get_layer_impl
+    from deeplearning4j_tpu_torch.optimize import Solver
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresIterationListener)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, labels = dbn_data(DBN_PARITY_BATCH, seed=1)
+    y = torch.nn.functional.one_hot(torch.from_numpy(labels),
+                                    DBN_WIDTHS[-1]).float()
+    failures = []
+
+    def close(a, b):
+        a, b = a.cpu(), b.cpu()
+        return (float((a - b).abs().max()),
+                float(((a - b).abs() - (1e-3 + 2e-3 * b.abs())).max()) <= 0)
+
+    # one CD-1 step of the first RBM, and one AutoEncoder step
+    gen = torch.Generator().manual_seed(7)
+    rbm = get_layer_impl(L.RBM(n_in=DBN_WIDTHS[0], n_out=DBN_WIDTHS[1]))
+    ae = get_layer_impl(L.AutoEncoder(
+        n_in=DBN_WIDTHS[0], n_out=DBN_WIDTHS[1], corruption_level=0.3,
+        activation="sigmoid", loss_function="RMSE_XENT"))
+    for name, impl in (("cd1", rbm), ("autoencoder", ae)):
+        params = impl.init_params(torch.Generator().manual_seed(3))
+        shapes = (impl.draw_shapes(DBN_PARITY_BATCH) if name == "cd1"
+                  else [("uniform", x.shape)])
+        draws = [torch.rand(s, generator=gen) for _, s in shapes]
+        got = {}
+        for dev in (CLI_DEVICE, "cpu"):
+            p = {k: v.to(dev) for k, v in params.items()}
+            v0, d = torch.from_numpy(x).to(dev), [t.to(dev) for t in draws]
+            if name == "cd1":
+                grads, score = impl.pretrain_grads(p, v0, draws=d)
+                h0, steps = impl.gibbs_chain(p, v0, draws=d)
+                samples = [h0, steps[0][1], steps[0][3]]
+            else:
+                pg = {k: t.requires_grad_() for k, t in p.items()}
+                score = impl.pretrain_loss(pg, v0, draws=d)
+                grads = dict(zip(pg, torch.autograd.grad(
+                    score, list(pg.values()))))
+                samples = []
+            got[dev] = ([score.detach()] + tree_leaves(grads), samples)
+        (card_out, card_samples), (cpu_out, cpu_samples) = (
+            got[CLI_DEVICE], got["cpu"])
+        flipped = sum(int((a.cpu() != b).sum())
+                      for a, b in zip(card_samples, cpu_samples))
+        errs = [close(a, b) for a, b in zip(card_out, cpu_out)]
+        ok = all(e[1] for e in errs) and flipped == 0
+        print(f"cli parity {name} float32 [{DBN_PARITY_BATCH}, "
+              f"{DBN_WIDTHS[0]}->{DBN_WIDTHS[1]}] card vs cpu, same draws: "
+              f"score {float(card_out[0])} vs {float(cpu_out[0])} grad "
+              f"max_abs_err={max(e[0] for e in errs):.3e} (rtol 2e-3, "
+              f"atol 1e-3), flipped samples {flipped} of "
+              f"{sum(t.numel() for t in cpu_samples)} "
+              f"{'ok' if ok else 'MISMATCH'} [{card}]")
+        if not ok:
+            failures.append(name)
+
+    # 3 solver iterations from the same params
+    for algo in ("LBFGS", "CONJUGATE_GRADIENT", "LINE_GRADIENT_DESCENT"):
+        got = {}
+        for dev in (CLI_DEVICE, "cpu"):
+            net = driver._net_from_document(dbn_document(algo), dev)
+            scores = CollectScoresIterationListener()
+            net.set_listeners(scores)
+            Solver(net).optimize(DataSet(torch.from_numpy(x).to(dev),
+                                         y.to(dev)),
+                                 iterations=SOLVER_PARITY_ITERATIONS)
+            got[dev] = (torch.tensor([s for _, s in scores.scores]),
+                        torch.from_numpy(net.get_flat_params()))
+        (sc, pc), (sh, ph) = got[CLI_DEVICE], got["cpu"]
+        e_s, ok_s = close(sc, sh)
+        e_p, ok_p = close(pc, ph)
+        ok = ok_s and ok_p and len(sc) == len(sh) == SOLVER_PARITY_ITERATIONS
+        print(f"cli parity {algo} float32 [{DBN_PARITY_BATCH}] "
+              f"{SOLVER_PARITY_ITERATIONS} iterations card vs cpu: scores "
+              f"{sc.tolist()} vs {sh.tolist()} score_err={e_s:.3e} "
+              f"param_max_abs_err={e_p:.3e} (rtol 2e-3, atol 1e-3) "
+              f"{'ok' if ok else 'MISMATCH'} [{card}]")
+        if not ok:
+            failures.append(algo)
+    if failures:
+        raise AssertionError(f"the card disagrees with the CPU: {failures}")
+
+
+def front_door(card: str) -> dict:
+    """Phase 9: the CLI trains, checkpoints, resumes, tests and predicts
+    with the DBN of a reference-format document; the card is held against
+    the CPU. Returns B1–B3's launches in this process (none expected; the
+    children check their own)."""
+    import tempfile
+
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_cycle(card, tmp)
+    check_dbn_parity(card)
+    launches = launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the cli phase launched a flash kernel: "
+                             f"{launches}")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -1909,9 +2318,9 @@ def main() -> None:
         fail("kernel build failed")
 
     entries = {}
-    serve_launches = train_launches = fused_launches = None
+    serve_launches = train_launches = fused_launches = cli_launches = None
     for phase in ("flash", "flash_bwd", "serve", "train", "networks",
-                  "recurrent", "fused"):
+                  "recurrent", "fused", "cli"):
         try:
             if phase == "flash":
                 entries["flash_attention_fwd"] = check_flash(card)
@@ -1932,8 +2341,10 @@ def main() -> None:
                 networks(card)
             elif phase == "recurrent":
                 recurrent(card)
-            else:
+            elif phase == "fused":
                 fused_launches = fused(card)
+            else:
+                cli_launches = front_door(card)
         except Exception:
             traceback.print_exc()
             failed.append(phase)
@@ -1946,6 +2357,7 @@ def main() -> None:
             fail(f"{name} was not launched on the train path")
     for name, e in entries.items():
         e["launches_fused_lm"] = fused_launches[name]
+        e["launches_cli"] = cli_launches[name]
     entries["flash_attention_fwd"]["launches_serve"] = serve_launches
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)

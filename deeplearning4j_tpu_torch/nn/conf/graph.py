@@ -3,8 +3,8 @@
 Copy of ``deeplearning4j_tpu/nn/conf/graph.py`` on the port's ``nn/conf``
 modules: the same vertices, builder, shape inference and JSON (``to_dict``
 is key for key the reference's, so a graph JSON written by either package
-loads in the other). YAML and the reference-format JSON are not ported
-yet (ROADMAP A10.6).
+loads in the other), its YAML and the reference-format JSON and YAML
+(``nn/conf/compat.py``).
 
 Mirror of ``nn/conf/ComputationGraphConfiguration.java:446`` — GraphBuilder
 (addLayer :569, addInputs :605, addVertex :649, setOutputs :633, validate
@@ -25,7 +25,6 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import LayerConf
 from deeplearning4j_tpu_torch.nn.conf.neural_net import (
     GlobalConf,
-    _compat_not_ported,
     apply_layer_defaults,
 )
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import InputPreProcessor
@@ -263,32 +262,53 @@ class ComputationGraphConfiguration:
     def from_json(s: str) -> "ComputationGraphConfiguration":
         return ComputationGraphConfiguration.from_dict(json.loads(s))
 
-    # YAML and the reference's Jackson JSON (``nn/conf/compat.py`` and
-    # ``utils/yamlio.py`` in the JAX package) are not ported yet
     @staticmethod
     def from_reference_json(s: str) -> "ComputationGraphConfiguration":
-        raise _compat_not_ported("from_reference_json")
+        """Load a reference-format ``ComputationGraphConfiguration.toJson()``
+        document (ComputationGraphConfiguration.java:113,129)."""
+        from deeplearning4j_tpu_torch.nn.conf.compat import (
+            graph_from_reference_json)
+
+        return graph_from_reference_json(s)
 
     @staticmethod
     def from_reference_yaml(s: str) -> "ComputationGraphConfiguration":
-        raise _compat_not_ported("from_reference_yaml")
+        """Load a reference-format ``toYaml()`` document
+        (ComputationGraphConfiguration.java:86-96)."""
+        from deeplearning4j_tpu_torch.nn.conf.compat import (
+            graph_from_reference_yaml)
+
+        return graph_from_reference_yaml(s)
 
     def to_reference_json(self) -> str:
-        raise _compat_not_ported("to_reference_json")
+        """Export as a reference-format ``toJson()`` document (vertices
+        with no reference tag raise)."""
+        from deeplearning4j_tpu_torch.nn.conf.compat import (
+            graph_to_reference_json)
+
+        return graph_to_reference_json(self)
 
     def to_reference_yaml(self) -> str:
-        raise _compat_not_ported("to_reference_yaml")
+        """Export as a reference-format YAML document (block style)."""
+        from deeplearning4j_tpu_torch.utils.yamlio import dump
+
+        return "---\n" + dump(json.loads(self.to_reference_json()))
 
     def to_yaml(self) -> str:
-        raise _compat_not_ported("to_yaml")
+        """Block-style YAML of ``to_dict``."""
+        from deeplearning4j_tpu_torch.utils.yamlio import dump
+
+        return dump(self.to_dict())
 
     @staticmethod
     def from_yaml(s: str) -> "ComputationGraphConfiguration":
-        """Accepts JSON (valid YAML); block-style YAML is not ported yet."""
         try:
             return ComputationGraphConfiguration.from_json(s)
         except json.JSONDecodeError:
-            raise _compat_not_ported("from_yaml of block-style YAML") from None
+            pass
+        from deeplearning4j_tpu_torch.utils.yamlio import load
+
+        return ComputationGraphConfiguration.from_dict(load(s))
 
     def __eq__(self, other):
         return (

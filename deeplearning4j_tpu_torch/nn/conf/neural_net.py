@@ -99,12 +99,6 @@ class GlobalConf:
         return GlobalConf(**kwargs)
 
 
-def _compat_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the YAML and reference-format JSON of configurations are "
-        "not ported yet (ROADMAP A10.6)")
-
-
 class MultiLayerConfiguration:
     """Sequential-network configuration: global conf + ordered layer confs +
     preprocessor map + backprop/pretrain/TBPTT flags."""
@@ -176,33 +170,53 @@ class MultiLayerConfiguration:
     def from_json(s: str) -> "MultiLayerConfiguration":
         return MultiLayerConfiguration.from_dict(json.loads(s))
 
-    # YAML and the reference's Jackson JSON (``nn/conf/compat.py`` and
-    # ``utils/yamlio.py`` in the JAX package) are not ported yet
     def to_yaml(self) -> str:
-        raise _compat_not_ported("to_yaml")
+        """Block-style YAML of ``to_dict`` (reference toYaml parity,
+        NeuralNetConfiguration.java:214-227), from the in-tree emitter."""
+        from deeplearning4j_tpu_torch.utils.yamlio import dump
+
+        return dump(self.to_dict())
 
     @staticmethod
     def from_yaml(s: str) -> "MultiLayerConfiguration":
-        """Accepts JSON (valid YAML, and this method's historical input);
-        block-style YAML is not ported yet."""
+        """Parse ``to_yaml`` output (plain JSON, which is valid YAML, is
+        accepted too)."""
         try:
             return MultiLayerConfiguration.from_json(s)
         except json.JSONDecodeError:
-            raise _compat_not_ported("from_yaml of block-style YAML") from None
+            pass
+        from deeplearning4j_tpu_torch.utils.yamlio import load
+
+        return MultiLayerConfiguration.from_dict(load(s))
 
     @staticmethod
     def from_reference_json(s: str) -> "MultiLayerConfiguration":
-        raise _compat_not_ported("from_reference_json")
+        """Load a document written by the reference's Jackson
+        ``MultiLayerConfiguration.toJson()`` (``nn/conf/compat.py``)."""
+        from deeplearning4j_tpu_torch.nn.conf.compat import from_reference_json
+
+        return from_reference_json(s)
 
     @staticmethod
     def from_reference_yaml(s: str) -> "MultiLayerConfiguration":
-        raise _compat_not_ported("from_reference_yaml")
+        """Load a document written by the reference's SnakeYAML
+        ``MultiLayerConfiguration.toYaml()``."""
+        from deeplearning4j_tpu_torch.nn.conf.compat import from_reference_yaml
+
+        return from_reference_yaml(s)
 
     def to_reference_json(self) -> str:
-        raise _compat_not_ported("to_reference_json")
+        """Export as a reference-format ``toJson()`` document, the inverse
+        of :meth:`from_reference_json`."""
+        from deeplearning4j_tpu_torch.nn.conf.compat import to_reference_json
+
+        return to_reference_json(self)
 
     def to_reference_yaml(self) -> str:
-        raise _compat_not_ported("to_reference_yaml")
+        """Export as a reference-format YAML document (block style)."""
+        from deeplearning4j_tpu_torch.utils.yamlio import dump
+
+        return "---\n" + dump(json.loads(self.to_reference_json()))
 
     def __eq__(self, other):
         return (

@@ -14,8 +14,6 @@ holds its conf and the network's dtype policy:
 
 Dropout on the layer *input* (the reference's per-layer ``dropOut``) is
 inverted dropout drawn from the generator the network passes as ``rng``.
-Pretrain layers are not registered yet: a conf that uses one raises
-``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,12 +34,6 @@ State = Dict[str, torch.Tensor]
 # exact leaf names treated as biases (unregularized; bias_learning_rate)
 _BIAS_PARAM_NAMES = frozenset({"b", "vb", "hb", "be", "bd", "beta", "bias"})
 
-# layer families of the reference that later slices port
-_NOT_PORTED = {
-    L.AutoEncoder: "A10.3", L.RecursiveAutoEncoder: "A10.3", L.RBM: "A10.3",
-}
-
-
 def is_bias_param(name: str) -> bool:
     return name in _BIAS_PARAM_NAMES
 
@@ -59,10 +51,6 @@ def register_layer_impl(conf_cls: Type[LayerConf]):
 
 def get_layer_impl(conf: LayerConf,
                    policy: DtypePolicy = FLOAT32) -> "LayerImpl":
-    item = _NOT_PORTED.get(type(conf))
-    if item is not None:
-        raise NotImplementedError(
-            f"{type(conf).__name__} is not ported yet (ROADMAP {item})")
     impl_cls = None
     for cls in type(conf).__mro__:  # closest registered base class
         if cls in _IMPL_REGISTRY:

@@ -16,16 +16,22 @@ full windows of truncated BPTT) replay one captured CUDA graph per step
 on the card (``nn/fused.py``, ``perf/step_graph.py``); on the CPU the
 same step runs eagerly in the same loop.
 
+With ``pretrain=True`` each ``fit`` first pretrains the RBM and
+AutoEncoder layers one by one (``pretrain``: CD-k or the denoising loss,
+each layer on the activations of the stack below it). A non-SGD
+``optimization_algo`` (line gradient descent, conjugate gradient, LBFGS)
+trains each batch through ``optimize.Solver``: score and gradient on the
+device, the search on the host in float64, as in the reference.
+
 Truncated BPTT (``_fit_tbptt``) is the reference's window loop: one
 step per window of ``tbptt_fwd_length`` timesteps, the recurrent layers'
 ``h``/``c`` carried from window to window and detached at each boundary.
 ``rnn_time_step`` carries the same state across calls for generation.
 
 The network runs on the CUDA card unless it is given ``device="cpu"``;
-with no card and no device it raises. What the port leaves out raises
-``NotImplementedError`` naming its ROADMAP item: pretraining (A10.3),
-solvers for a non-SGD ``optimization_algo`` (A10.4), and training over a
-device mesh (``mesh=``, ``request_reshard``: A14).
+with no card and no device it raises. Training over a device mesh
+(``mesh=``, ``request_reshard``) raises ``NotImplementedError`` naming
+ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch
 from deeplearning4j_tpu_torch._device import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.dtypes import policy_from_name, tree_leaves, tree_map
+from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.conf.enums import (
     BackpropType,
     LearningRatePolicy,
@@ -47,8 +54,14 @@ from deeplearning4j_tpu_torch.nn.conf.neural_net import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import apply_preprocessor
 from deeplearning4j_tpu_torch.nn.layers import get_layer_impl
 from deeplearning4j_tpu_torch.nn.fused import FusedTraining
+from deeplearning4j_tpu_torch.nn.layers.pretrain import RBMImpl
 from deeplearning4j_tpu_torch.nn.layers.recurrent import zero_rnn_state
-from deeplearning4j_tpu_torch.nn.updater import UpdaterSpec, init_updater_state
+from deeplearning4j_tpu_torch.nn.updater import (
+    UpdaterSpec,
+    _sub_tree,
+    apply_updater,
+    init_updater_state,
+)
 from deeplearning4j_tpu_torch.ops.losses import compute_loss, per_example_loss
 from deeplearning4j_tpu_torch.perf.epoch_cache import DeviceDataSetCache
 from deeplearning4j_tpu_torch.perf.device_eval import (
@@ -59,8 +72,7 @@ from deeplearning4j_tpu_torch.perf.device_eval import (
 )
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+_PRETRAIN_CONFS = (L.RBM, L.AutoEncoder, L.RecursiveAutoEncoder)
 
 
 class MultiLayerNetwork(FusedTraining):
@@ -89,6 +101,15 @@ class MultiLayerNetwork(FusedTraining):
             conf.global_conf.seed)
         self._eval_readbacks = 0  # host transfers made by evaluate() calls
         self._rnn_state: Dict[str, Any] = {}  # rnn_time_step's carries
+        # pretraining: each layer's per-batch scores from the last
+        # ``pretrain`` (device scalars); ``_pretrain_draws`` is the draws
+        # ``fit`` hands it (None: the network's generator), a seam for
+        # replaying another stream of draws
+        self.pretrain_scores: Dict[int, List[Any]] = {}
+        self._pretrain_draws = None
+        from deeplearning4j_tpu_torch.optimize.solver import new_solver_stats
+
+        self.solver_stats = new_solver_stats()  # what the solvers cost
 
     @property
     def score_value(self) -> float:
@@ -201,7 +222,11 @@ class MultiLayerNetwork(FusedTraining):
         loss, states = self._loss_and_state(
             fwd, net_state, x, y, feature_mask, label_mask, rng, train=True,
             rnn_state=rnn_state)
-        grads = iter(torch.autograd.grad(loss, tree_leaves(fwd)))
+        # a param the loss does not reach (an RBM's visible bias) gets a
+        # zero gradient, as under ``jax.grad``
+        grads = iter(torch.autograd.grad(loss, tree_leaves(fwd),
+                                         allow_unused=True,
+                                         materialize_grads=True))
         return loss.detach(), states, tree_map(lambda _: next(grads), fwd)
 
     def _update_items(self):
@@ -259,25 +284,33 @@ class MultiLayerNetwork(FusedTraining):
         return self
 
     def _fit_batches(self, batches):
-        # pretrain layers are not registered (ROADMAP A10.3), so a conf
-        # with ``pretrain=True`` has no layer to pretrain
         gc = self.conf.global_conf
+        if self.conf.pretrain:
+            self.pretrain(batches, draws=self._pretrain_draws)
+            if hasattr(batches, "reset"):
+                batches.reset()
         if not self.conf.backprop:
             return
+        use_solver = (gc.optimization_algo
+                      != OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT)
         for ds in batches:
             if (self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
                     and _is_temporal(ds.features)):
                 self._fit_tbptt(ds)
                 continue
-            if (gc.optimization_algo
-                    != OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT):
-                raise _not_ported(f"the {gc.optimization_algo.value} solver",
-                                  "A10.4")
+            if use_solver:
+                self._solver_step(ds)  # runs gc.iterations internally
+                continue
             x, y = self._dev(ds.features), self._dev(ds.labels)
             fm, lm = self._dev(ds.features_mask), self._dev(ds.labels_mask)
             for _ in range(max(1, gc.iterations)):
                 self._sgd_step(x, y, fm, lm)
                 self._post_iteration()
+
+    def _solver_step(self, ds):
+        from deeplearning4j_tpu_torch.optimize.solver import Solver
+
+        Solver(self).optimize(ds)
 
     def _fit_tbptt(self, ds):
         """Truncated BPTT (doTruncatedBPTT): the batch moves to the device
@@ -376,8 +409,69 @@ class MultiLayerNetwork(FusedTraining):
     def _fit_trains_nothing(self) -> bool:
         return not self.conf.backprop and not self.conf.pretrain
 
-    def pretrain(self, batches):
-        raise _not_ported("layerwise pretraining", "A10.3")
+    # ------------------------------------------------------------------
+    # layerwise pretraining (pretrain :159)
+    # ------------------------------------------------------------------
+    def pretrain(self, batches, draws=None):
+        """Pretrain every RBM/AutoEncoder layer in turn, one step per batch,
+        each on the activations of the stack below it (the layers already
+        pretrained). An RBM steps by its CD-k gradients, an AutoEncoder by
+        the gradient of its denoising loss; both through the layer's
+        updater with LR scale 1 and iteration 1 on every step, as the
+        reference does (so Adam's bias correction is always the first
+        step's). ``pretrain_scores[i]`` keeps layer ``i``'s score per batch
+        (the RBM's reconstruction error), as device scalars.
+
+        ``draws``: None samples from the network's generator; otherwise a
+        callable ``draws(layer_index, impl, x)`` returning one step's draws
+        (see ``nn/layers/pretrain.py``), called once per layer and batch in
+        that order."""
+        self._ensure_init()
+        batch_list = list(batches)
+        one = torch.ones((), dtype=torch.float32, device=self.device)
+        first = torch.ones((), dtype=torch.int32, device=self.device)
+        self.pretrain_scores = {}
+        for i, impl in enumerate(self.layers):
+            if not isinstance(self.conf.layers[i], _PRETRAIN_CONFS):
+                continue
+            spec, si = self.updater_specs[i], str(i)
+            p, s = self.params[si], self.updater_state[si]
+            scores = self.pretrain_scores.setdefault(i, [])
+            for ds in batch_list:
+                x = self._activate_to_layer(self._dev(ds.features), i)
+                d = None if draws is None else draws(i, impl, x)
+                if isinstance(impl, RBMImpl):
+                    with torch.no_grad():
+                        grads, score = impl.pretrain_grads(p, x, self._rng, d)
+                else:
+                    fwd = tree_map(lambda t: t.detach().requires_grad_(), p)
+                    score = impl.pretrain_loss(fwd, x, self._rng, d)
+                    g = iter(torch.autograd.grad(score, tree_leaves(fwd)))
+                    grads = tree_map(lambda _: next(g), fwd)
+                    score = score.detach()
+                with torch.no_grad():
+                    steps, s = apply_updater(spec, grads, s, one, first)
+                    p = _sub_tree(p, steps)
+                scores.append(score)
+                self._score = score
+            self.params[si], self.updater_state[si] = p, s
+
+    def _activate_to_layer(self, x, stop: int):
+        """Forward through layers ``[0, stop)`` without training and with
+        no generator. Preprocessors take the entry batch size, not
+        ``h.shape[0]``: a mid-stack FF→RNN unfold needs the original
+        batch."""
+        h, batch = x, x.shape[0]
+        with torch.no_grad():
+            for i in range(stop):
+                pre = self.conf.input_preprocessors.get(i)
+                if pre is not None:
+                    h, _ = apply_preprocessor(pre, h, batch=batch)
+                h, _ = self.layers[i].forward(
+                    self.params[str(i)], h,
+                    dict(self.net_state.get(str(i), {})), train=False,
+                    rng=None)
+        return h
 
     # ------------------------------------------------------------------
     # rnnTimeStep (:1208): stateful stepping for generation

@@ -96,23 +96,39 @@ def test_builder_defaults_apply_as_in_jax():
     assert json.loads(json.dumps(b)) == json.loads(json.dumps(a))
 
 
+def _outcome(fn):
+    """What ``fn()`` gives: its text (a configuration as its JSON), or the
+    type and message of what it raised."""
+    try:
+        out = fn()
+    except Exception as e:  # the reference's errors are part of the API
+        return type(e).__name__, str(e)
+    return out if isinstance(out, str) else out.to_json()
+
+
 @pytest.mark.parametrize("call", [
-    lambda c: c.to_yaml(),
-    lambda c: c.to_reference_json(),
-    lambda c: c.to_reference_yaml(),
-    lambda c: MultiLayerConfiguration.from_reference_json("{}"),
-    lambda c: MultiLayerConfiguration.from_reference_yaml("a: 1"),
-    lambda c: MultiLayerConfiguration.from_yaml("global:\n  seed: 1\n"),
+    lambda C, c: c.to_yaml(),
+    lambda C, c: c.to_reference_json(),
+    lambda C, c: c.to_reference_yaml(),
+    lambda C, c: C.from_reference_json("{}"),
+    lambda C, c: C.from_reference_yaml("a: 1"),
+    lambda C, c: C.from_yaml("global:\n  seed: 1\n"),
+    lambda C, c: C.from_yaml(c.to_yaml()),
 ], ids=["to_yaml", "to_reference_json", "to_reference_yaml",
-        "from_reference_json", "from_reference_yaml", "from_yaml_block"])
+        "from_reference_json", "from_reference_yaml", "from_yaml_block",
+        "from_yaml_round_trip"])
 def test_compat_formats_raise_with_their_item(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.6"):
-        call(_zoo_conf(zoo, "mnist_mlp"))
+    """The YAML and reference-format methods (ROADMAP A10.6, ported): each
+    gives the JAX package's text, or raises what it raises."""
+    ours = _outcome(lambda: call(MultiLayerConfiguration,
+                                 _zoo_conf(zoo, "mnist_mlp")))
+    theirs = _outcome(lambda: call(JaxMLC, _zoo_conf(jax_zoo, "mnist_mlp")))
+    assert ours == theirs
 
 
 def test_graph_builder_raises_with_its_item():
     """``graph_builder()`` builds a graph configuration (ROADMAP A10.1 is
-    done); its YAML and reference-format JSON raise naming A10.6."""
+    done); its YAML round-trips (A10.6 is done too)."""
     from deeplearning4j_tpu_torch.nn.conf import (
         GraphBuilder,
         NeuralNetConfiguration,
@@ -125,5 +141,4 @@ def test_graph_builder_raises_with_its_item():
             .add_layer("out", L.OutputLayer(n_in=4, n_out=2), "in")
             .set_outputs("out").build())
     assert conf.topological_order == ["in", "out"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.6"):
-        conf.to_yaml()
+    assert type(conf).from_yaml(conf.to_yaml()) == conf

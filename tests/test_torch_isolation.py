@@ -37,11 +37,25 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                         or m == "jaxlib" or m.startswith("jaxlib.")
                         or m == "deeplearning4j_tpu"
                         or m.startswith("deeplearning4j_tpu."))
-        print(len(names), leaked)
+        new = [n for n in names if n.split(".")[1] in ("optimize", "utils",
+                                                      "cli")]
+        print(len(names), len(new), leaked)
     """)
-    count, leaked = out.split(" ", 1)
+    count, new, leaked = out.split(" ", 2)
     assert int(count) >= 15
+    # optimize (4 modules), utils (3) and cli (2) are walked too
+    assert int(new) >= 9
     assert leaked.strip() == "[]"
+
+
+@pytest.mark.parametrize("module", [
+    "deeplearning4j_tpu_torch.optimize", "deeplearning4j_tpu_torch.utils",
+    "deeplearning4j_tpu_torch.cli", "deeplearning4j_tpu_torch.datasets.records",
+    "deeplearning4j_tpu_torch.nn.conf.compat"])
+def test_front_door_modules_import_first(module):
+    """Each imports on its own in a fresh interpreter (no import cycle
+    through ``nn``)."""
+    assert _run(f"import {module}; print('ok')").strip() == "ok"
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -111,3 +125,31 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
         print(fa.flash_attention_fwd.launches)
     """, env={"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path)})
     assert out.split() == ["no", "nvcc", "0"]
+
+
+def test_front_door_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """The CLI, ``ModelSerializer.restore`` and the networks it builds run
+    on the card unless told ``cpu``."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.cli import main
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.utils import ModelSerializer
+
+    path = str(tmp_path / "m.zip")
+    ModelSerializer.write_model(zoo.mnist_mlp(hidden=8, device="cpu"), path)
+    data = tmp_path / "d.csv"
+    data.write_text("\n".join(",".join(["0.5"] * 784 + ["1"])
+                              for _ in range(4)) + "\n")
+    conf = tmp_path / "c.json"
+    conf.write_text(zoo.mnist_mlp(hidden=8, device="cpu").conf.to_json())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ModelSerializer.restore(path)
+    for argv in (["train", "-model", str(conf), "-output", path],
+                 ["test", "-model", path], ["predict", "-model", path]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv + ["-input", str(data), "--num-classes", "10"])
+    net = ModelSerializer.restore(path, device="cpu")
+    assert net.device == torch.device("cpu")
+    assert net.predict(np.full((2, 784), 0.5, np.float32)).shape == (2,)

@@ -403,5 +403,11 @@ def test_dropout_keep_rate_and_scale():
     ("AutoEncoder", "A10.3"), ("RBM", "A10.3"),
 ])
 def test_unported_layers_raise_with_their_item(cls_name, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        get_layer_impl(getattr(L, cls_name)(n_in=4, n_out=4))
+    """The pretrain layers of ROADMAP A10.3 are ported: each builds, counts
+    its pretrain params (W, b or hb, vb) and runs forward
+    (``tests/test_torch_pretrain.py`` holds them against the reference)."""
+    impl = get_layer_impl(getattr(L, cls_name)(n_in=4, n_out=3))
+    assert impl.num_params() == 4 * 3 + 3 + 4
+    params = impl.init_params(torch.Generator().manual_seed(0))
+    y, _ = impl.forward(params, torch.ones(2, 4), {})
+    assert y.shape == (2, 3) and torch.isfinite(y).all()

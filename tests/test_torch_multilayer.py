@@ -315,26 +315,43 @@ def test_lenet_counts_its_params_without_drawing_them():
     (lambda n, ds: n.fit_epochs(ds, 1, mesh=object()), "A14"),
     (lambda n, ds: n.build_epoch_cache(ds, mesh=object()), "A14"),
     (lambda n, ds: n.request_reshard(None), "A14"),
-    (lambda n, ds: n.pretrain([ds]), "A10.3"),
+    (lambda n, ds: n.pretrain([ds]), None),
 ], ids=["fit_epochs", "build_epoch_cache", "request_reshard", "pretrain"])
 def test_features_outside_the_slice_raise(call, item):
+    """The mesh (A14) raises; pretraining (A10.3) is ported, and on a
+    network without pretrain layers it changes nothing."""
     net = zoo.mnist_mlp(hidden=8, device="cpu").init()
     x, y = _data("mnist_mlp")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    if item is None:
+        before = net.get_flat_params()
         call(net, DataSet(x, y))
+        assert np.array_equal(net.get_flat_params(), before)
+        assert net.pretrain_scores == {}
+    else:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            call(net, DataSet(x, y))
     # the fused epoch path itself is ported; only the mesh is not
     assert net.fused_epochs_supported()
 
 
 def test_solver_raises_with_its_item():
+    """A non-SGD ``optimization_algo`` (ROADMAP A10.4, ported) trains
+    through the solver, ``iterations`` steps a batch; ``fit_steps`` and
+    ``fit_epochs`` fall back to it (``tests/test_torch_solvers.py`` holds
+    it against the reference)."""
     from deeplearning4j_tpu_torch.nn.conf import OptimizationAlgorithm
 
-    conf = (NeuralNetConfiguration.Builder()
+    conf = (NeuralNetConfiguration.Builder().iterations(2)
             .optimization_algo(OptimizationAlgorithm.LBFGS).list()
             .layer(0, L.OutputLayer(n_in=784, n_out=10)).build())
     x, y = _data("mnist_mlp")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.4"):
-        MultiLayerNetwork(conf, device="cpu").fit(DataSet(x, y))
+    net = MultiLayerNetwork(conf, device="cpu")
+    s0 = net.init().score(DataSet(x, y))
+    net.fit(DataSet(x, y))
+    assert net.iteration_count == 2 and net.score(DataSet(x, y)) < s0
+    assert not net.fused_epochs_supported()
+    net.fit_steps(DataSet(x, y), 2)
+    assert net.iteration_count == 6
 
 
 def test_no_card_and_no_device_raises(monkeypatch):
