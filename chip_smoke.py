@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Nine phases; any failure exits non-zero and prints no result line.
+Ten phases; any failure exits non-zero and prints no result line.
 
 1. Build and device: compile every CUDA kernel from ``csrc/`` (one
    ``nvcc`` per source, all at once), print ptxas's registers and spill
@@ -51,9 +51,10 @@ Nine phases; any failure exits non-zero and prints no result line.
    CUDA graph, and every later step is a replay with B1–B3 inside it.
    Asserts finite, falling losses, B1, B2 and B3 each launched
    ``num_layers`` times per step (counted as the launches that ran:
-   ``perf.step_graph.kernel_launches``, replays included; one more
-   replayed step under ``torch.profiler`` must show the card running as
-   many of each kernel as that count says), and f32 masters and Adam
+   ``perf.step_graph.kernel_launches``, replays included; two more
+   replayed steps, each under ``torch.profiler``, must show the card
+   running as many of each kernel as that count says, see
+   ``traced_launches``), and f32 masters and Adam
    moments;
    prints ms/step, host time per step, tokens/s and the share of the
    bf16 peak. Holds the training unembedding (bf16 GEMMs with f32
@@ -127,8 +128,8 @@ Nine phases; any failure exits non-zero and prints no result line.
    steps. The char-LSTM cell: phase 7's ``fit``, 5 timed. The LM cell: the
    train phase's model, ``fit_batch_multi`` with a captured step (k 4, 3
    timed calls); B1–B3 must launch ``num_layers`` times a step under
-   replay and eagerly, and one more call under ``torch.profiler`` must
-   show the card running what the count says. The programs cell runs six
+   replay and eagerly, and two more calls, each under ``torch.profiler``,
+   must show the card running what the count says. The programs cell runs six
    fused calls of five keys on one ResNet-18 at ``[256, 32, 32, 3]``, 4
    batches (``fit_epochs`` under ``skip``, ``off``, telemetry and in
    order, ``fit_steps``, then the first key again) against the same calls
@@ -164,11 +165,45 @@ Nine phases; any failure exits non-zero and prints no result line.
    iterations each of LBFGS, conjugate gradient and line gradient
    descent (score history and params).
 
+10. Serving extras, on phase 4's model (``mixed_bf16``) and its float32
+   twin from the same seed: ``make_generate(77, 64)`` equals
+   ``generate``; ``generate_beam`` at ``[2, 77]`` with 32 new tokens at
+   beam 1 equals greedy ``generate``, and at beam 4 under float32 with
+   TF32 off the card's best beam equals the CPU's (scores rtol 2e-3,
+   atol 1e-3). Phase 4's stream behind ``DecodeServer(slots=8,
+   max_len=1024, draft_layers=1, spec_tokens=3)`` at ``fuse_steps`` 1
+   and 4, each after the plain server on the same stream (tokens/s,
+   TTFT p50, dispatches per token): every greedy stream equals
+   ``lm.generate`` (a divergence
+   prints its index and the target's top-2 margin there), B1 launches
+   ``num_layers + 1`` times per admission (and ``num_layers`` times a
+   ``make_generate`` call: both counts held against ``torch.profiler``
+   as phase 5's are); prints tokens/s, TTFT p50,
+   the accept rate, tokens per slot-dispatch, dispatches per token and
+   the pools' bytes, then one dispatch of eight live slots under
+   ``torch.profiler`` (launches, busy time, idle share, device time by
+   kernel); ``draft_layers=8`` accepts every proposal. Sampled rounds
+   (T 0.8, top-k 50, 2 slots, 4 rounds) under float32 with TF32 off:
+   the card's ``[K, S, G+2]`` block equals the CPU's with the same
+   injected draws (no flipped accept). A split fleet (one prefill-role,
+   one decode-role replica): streams equal ``lm.generate``, each
+   handoff carries ``kv_per_slot_bytes``; prints the export and install
+   ms. ``FleetLoadDriver`` (measured step costs, ``fuse_steps=4``) over
+   1 and 2 replicas on 16 requests, then 2 with ``r0`` killed halfway:
+   nothing lost or diverged; prints tokens/s, TTFT, balance, scaling and
+   the failed-over requests' recovery seconds. Two threaded replicas,
+   ``r0`` killed at its third step: nothing lost. Two child processes
+   with ``DL4J_COMPILE_CACHE_DIR`` on a temporary directory: the first
+   builds B1–B3 there, the second runs ``nvcc`` zero times; prints each
+   one's seconds to kernels-ready and ``compile_cache_stats()``. B2 and
+   B3 must not launch; prints the phase's wall time.
+
 Output: metric lines, then a ``{"kernels": [...]}`` JSON line (each
 kernel's ``variant`` and ``launches`` counted over the train phase's
 timed steps, replays included; over phase 8's LM cell as
 ``launches_fused_lm``; B1's over the serve phase too, as
 ``launches_serve``; over phase 9 as ``launches_cli``, which must be 0;
+over phase 10 as ``launches_serve_extras``;
 and its train-shape numbers under ``train``) and the ``nvidia-smi``
 line,
 then ``{"ok": true, "device": {...}}`` last.
@@ -1384,19 +1419,46 @@ def profiled(fn, units: int) -> dict:
             "kernels": kernels}
 
 
-def traced_launches(fn, what: str, card: str) -> dict:
-    """Run ``fn()`` once under the profiler and hold B1–B3's launches as
-    ``perf.step_graph.kernel_launches`` counts them (the wrappers' counts
-    corrected for captures and replays) against the kernels the card's
-    trace shows; returns the count."""
-    reset_launch_counts()
-    traced = profiled(fn, 1)["kernels"]
-    counted = launch_counts()
-    print(f"{what}: B1-B3 launches counted={counted} traced={traced} "
-          f"[{card}]")
-    if any(traced[k] != n for k, n in counted.items()):
-        raise AssertionError(f"{what}: the launch count {counted} differs "
-                             f"from the card's trace {traced}")
+def traced_launches(fn, what: str, card: str, calls: int = 2) -> dict:
+    """Run ``fn()`` ``calls`` times, each under the profiler, and hold
+    B1–B3's launches as ``perf.step_graph.kernel_launches`` counts them
+    (the wrappers' counts corrected for captures and replays) against the
+    kernels the card's trace shows; returns one call's count.
+
+    ``fn()`` must do the same work each time. A trace can lose an
+    activity record (once on the H100, one B1 of a 4-step replay's 5,208
+    device events), so a call whose trace shows fewer of a kernel than
+    counted passes only when its trace also holds fewer device events
+    than a call whose trace agrees, by at least as many. A trace showing
+    more than counted, calls counting differently, or no call whose trace
+    agrees fails. Counts are taken as differences, so the caller's own
+    count runs on through the calls."""
+    runs = []
+    for _ in range(calls):
+        before = launch_counts()
+        prof = profiled(fn, 1)
+        after = launch_counts()
+        counted = {k: after[k] - before[k] for k in after}
+        traced = {k: int(v) for k, v in prof["kernels"].items()}
+        runs.append((counted, traced, int(prof["device_events"])))
+        print(f"{what}: B1-B3 launches counted={counted} traced={traced} "
+              f"device_events={runs[-1][2]} [{card}]")
+    counted = runs[0][0]
+    full = [n for c, t, n in runs if t == c]
+    if any(c != counted for c, _, _ in runs) or not full:
+        raise AssertionError(f"{what}: the launch counts "
+                             f"{[c for c, _, _ in runs]} differ from each "
+                             f"other or from the card's traces "
+                             f"{[t for _, t, _ in runs]}")
+    for c, t, n in runs:
+        lost = sum(c[k] - t[k] for k in c)
+        if any(t[k] > c[k] for k in c) or (lost and n > min(full) - lost):
+            raise AssertionError(f"{what}: the launch count {c} differs "
+                                 f"from the card's trace {t} ({n} device "
+                                 f"events, {min(full)} in a full trace)")
+        if lost:
+            print(f"{what}: a trace lost {min(full) - n} device event(s), "
+                  f"{lost} of them B1-B3 launches [{card}]")
     return counted
 
 
@@ -1707,7 +1769,8 @@ def fused_lm(card: str) -> dict:
                             "captures": prog.graph.captures,
                             "replays": prog.graph.replays,
                             "launches": launches[graphs]}
-            # one more call (k steps) under the profiler, in both runs
+            # two more calls (k steps each) under the profiler, in both
+            # runs
             traced[graphs] = traced_launches(
                 lambda: lm.fit_batch_multi(tok, multi_step=multi,
                                            k=LM_FUSED_K),
@@ -2289,6 +2352,582 @@ def front_door(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the serving extras
+# ---------------------------------------------------------------------------
+EXTRAS_DEVICE = "cuda"  # "cpu" only to rehearse the phase
+GEN_PROMPT, GEN_NEW = 77, 64          # make_generate against generate
+TRACE_NEW = 4                         # new tokens of the traced call
+BEAM_BATCH, BEAM_NEW, BEAM_K = 2, 32, 4
+SPEC_DRAFT, SPEC_TOKENS = 1, 3
+SPEC_SAMPLED = dict(temperature=0.8, top_k=50, slots=2, rounds=4,
+                    max_len=256, prompt_lens=(20, 75))
+FLEET_REQUESTS, FLEET_RATE, FLEET_FUSE = 16, 200.0, 4
+HANDOFF_REPS = 10
+BEAM_TOL = dict(rtol=2e-3, atol=1e-3)
+
+
+def _sync() -> None:
+    import torch
+
+    if EXTRAS_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def _b1_launches() -> int:
+    from deeplearning4j_tpu_torch.kernels.flash_attention import (
+        flash_attention_fwd)
+
+    return flash_attention_fwd.launches
+
+
+def serve_schedule(n=SERVE_REQUESTS, rate=20.0, seed=7):
+    """Phase 4's seeded Poisson stream (or a longer one of the same
+    prompts)."""
+    from deeplearning4j_tpu_torch.serving import poisson_schedule
+
+    return poisson_schedule(
+        n, rate, vocab_size=SERVE_CFG["vocab_size"],
+        prompt_lens=SERVE_PROMPT_LENS, max_new_tokens=(16, 32, 64),
+        seed=seed)
+
+
+def first_divergence(got, want, lm, prompt) -> str:
+    """Where a stream leaves ``lm.generate`` and the target's top-2 logit
+    margin there (how close to a tie the flipped token was)."""
+    import numpy as np
+    import torch
+
+    i = int(np.argmax(got != want))
+    logits = lm.forward(lm.params, want[None, :i])[0, -1].float()
+    top = torch.topk(logits, 2).values
+    return (f"index {i} (new token {i - prompt.shape[0]}): got {got[i]}, "
+            f"generate {want[i]}, top-2 margin {float(top[0] - top[1]):.3e}")
+
+
+def check_streams(what: str, finished, refs, lm) -> None:
+    import numpy as np
+
+    for req in finished:
+        want = refs[req.prompt.tobytes()]
+        if not np.array_equal(req.output, want):
+            raise AssertionError(f"{what}: a {req.prompt.shape[0]}-token "
+                                 f"stream differs from lm.generate at "
+                                 + first_divergence(req.output, want, lm,
+                                                    req.prompt))
+
+
+def f32_pair():
+    """The served model's widths under float32 on the card and its copy
+    on the CPU (same seeded weights)."""
+    from deeplearning4j_tpu_torch.dtypes import tree_map
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+
+    cfg = {**SERVE_CFG, "dtype_policy": "float32"}
+    card = TransformerLM(**cfg, device=EXTRAS_DEVICE).init()
+    cpu = TransformerLM(**cfg, device="cpu")
+    cpu.params = tree_map(lambda p: p.cpu(), card.params)
+    return card, cpu
+
+
+def extras_generate(lm, pair, card: str) -> None:
+    """make_generate against generate; beam 1 against greedy generate
+    under mixed_bf16; beam 4 under float32 on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(21)
+    prompt = rng.integers(0, SERVE_CFG["vocab_size"], (1, GEN_PROMPT))
+    b0 = _b1_launches()
+    got = lm.make_generate(GEN_PROMPT, GEN_NEW)(lm.params, prompt)
+    if _b1_launches() - b0 != lm.num_layers:
+        raise AssertionError("make_generate's prefill did not launch B1 "
+                             "num_layers times")
+    want = lm.generate(prompt, GEN_NEW)
+    if not torch.equal(got, want):
+        raise AssertionError("make_generate differs from generate")
+    prompts = rng.integers(0, SERVE_CFG["vocab_size"],
+                           (BEAM_BATCH, GEN_PROMPT))
+    _sync()
+    t0 = time.monotonic()
+    seqs, scores = lm.generate_beam(prompts, BEAM_NEW, beam_size=1)
+    _sync()
+    beam1_ms = (time.monotonic() - t0) * 1e3
+    greedy = lm.generate(prompts, BEAM_NEW)
+    if not torch.equal(seqs[:, 0], greedy):
+        raise AssertionError("beam 1 differs from greedy generate")
+    print(f"extras make_generate [1, {GEN_PROMPT}] +{GEN_NEW} equals "
+          f"generate; generate_beam [{BEAM_BATCH}, {GEN_PROMPT}] "
+          f"+{BEAM_NEW} beam 1 equals greedy generate ({beam1_ms:.1f} ms) "
+          f"[{card}]")
+    f32, cpu = pair
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _sync()
+    t0 = time.monotonic()
+    cs, csc = f32.generate_beam(prompts, BEAM_NEW, beam_size=BEAM_K)
+    _sync()
+    beam_ms = (time.monotonic() - t0) * 1e3
+    ws, wsc = cpu.generate_beam(prompts, BEAM_NEW, beam_size=BEAM_K)
+    cs, csc = cs.cpu(), csc.cpu()
+    best_same = torch.equal(cs[:, 0], ws[:, 0])
+    beams_same = int((cs == ws).all(dim=2).sum())
+    err = float((csc - wsc).abs().max())
+    ok = best_same and torch.allclose(csc, wsc, **BEAM_TOL)
+    print(f"extras generate_beam float32 beam {BEAM_K} card vs cpu: best "
+          f"beam {'identical' if best_same else 'DIFFERS'}, {beams_same} of "
+          f"{BEAM_BATCH * BEAM_K} beams identical, scores max_abs_err="
+          f"{err:.3e} (rtol {BEAM_TOL['rtol']}, atol {BEAM_TOL['atol']}), "
+          f"{beam_ms:.1f} ms [{card}]")
+    if not ok:
+        raise AssertionError("float32 beam search: the card disagrees with "
+                             "the CPU")
+
+
+def spec_dispatch_profile(srv, card: str) -> None:
+    """One speculative dispatch of a full batch: its wall time, then the
+    same step under torch.profiler: launches, busy time, idle share and
+    device time by kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync()
+    t0 = time.monotonic()
+    srv.step()
+    _sync()
+    wall_ms = (time.monotonic() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        srv.step()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = busy_union_s([(e.time_range.start, e.time_range.end)
+                            for e in device]) * 1e3
+    by_name = {}
+    for e in device:
+        key = e.name[:48]
+        by_name[key] = by_name.get(key, 0.0) + (e.time_range.end
+                                                - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"extras spec dispatch [{srv.engine.slots} live, "
+          f"{srv.fuse_steps} round(s), G={srv.engine.spec_tokens}]: "
+          f"wall_ms={wall_ms:.2f} device_events={len(device)} "
+          f"device_busy_ms={busy_ms:.2f} idle_share="
+          f"{1.0 - busy_ms / wall_ms:.3f} [{card}]")
+    print("extras spec dispatch by kernel (ms): "
+          + "; ".join(f"{k} {v:.3f}" for k, v in top))
+
+
+def extras_spec(lm, refs, card: str) -> None:
+    """The speculative server on phase 4's stream at fuse_steps 1 and 4,
+    its dispatch under the profiler, the full-depth self-draft."""
+    from deeplearning4j_tpu_torch.serving import DecodeServer, run_open_loop
+
+    sched = serve_schedule()
+    for k in (1, 4):
+        # the plain server on the same stream, the speculative one's
+        # yardstick in this call
+        plain = DecodeServer(lm, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                             fuse_steps=k, device=EXTRAS_DEVICE)
+        s = run_open_loop(plain, sched).summary()
+        print(f"extras plain fuse_steps={k}: tokens_per_sec="
+              f"{s['tokens_per_sec']} ttft_p50_ms={s['ttft_p50_ms']} "
+              f"dispatches_per_token="
+              f"{plain.stats()['dispatches_per_token']} [{card}]")
+        check_streams(f"plain fuse_steps={k}", plain.finished, refs, lm)
+        srv = DecodeServer(lm, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                           draft_layers=SPEC_DRAFT, spec_tokens=SPEC_TOKENS,
+                           fuse_steps=k, device=EXTRAS_DEVICE)
+        b0 = _b1_launches()
+        report = run_open_loop(srv, sched)
+        _sync()
+        launches = _b1_launches() - b0
+        s, st = report.summary(), srv.stats()
+        print(f"extras spec fuse_steps={k} draft_layers={SPEC_DRAFT} "
+              f"spec_tokens={SPEC_TOKENS}: finished={s['finished']} "
+              f"tokens={s['tokens']} tokens_per_sec={s['tokens_per_sec']} "
+              f"ttft_p50_ms={s['ttft_p50_ms']} "
+              f"spec_accept_rate={st['spec_accept_rate']} "
+              f"tokens_per_slot_dispatch={st['tokens_per_slot_dispatch']} "
+              f"dispatches_per_token={st['dispatches_per_token']} "
+              f"kv_pool_bytes={st['kv_pool_bytes']} "
+              f"flash_launches={launches} [{card}]")
+        if s["finished"] != len(sched):
+            raise AssertionError(f"spec fuse_steps={k}: {s['finished']} of "
+                                 f"{len(sched)} requests finished")
+        want = (lm.num_layers + SPEC_DRAFT) * len(sched)
+        if launches != want:
+            raise AssertionError(
+                f"spec fuse_steps={k}: B1 launched {launches} times, "
+                f"expected (num_layers + draft_layers) x admissions = "
+                f"{want}")
+        check_streams(f"spec fuse_steps={k}", srv.finished, refs, lm)
+    # one dispatch of a full batch, measured
+    srv = DecodeServer(lm, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                       draft_layers=SPEC_DRAFT, spec_tokens=SPEC_TOKENS,
+                       device=EXTRAS_DEVICE)
+    for a in sched:
+        srv.submit(a.prompt, 64)
+    srv.step()                                # admits all eight
+    if EXTRAS_DEVICE != "cpu":
+        spec_dispatch_profile(srv, card)
+    srv.drain()
+    # a full-depth self-draft is the target: every proposal verifies
+    full = DecodeServer(lm, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                        draft_layers=lm.num_layers, spec_tokens=SPEC_TOKENS,
+                        device=EXTRAS_DEVICE)
+    s = run_open_loop(full, sched).summary()
+    st = full.stats()
+    print(f"extras spec draft_layers={lm.num_layers}: spec_accept_rate="
+          f"{st['spec_accept_rate']} tokens_per_slot_dispatch="
+          f"{st['tokens_per_slot_dispatch']} tokens_per_sec="
+          f"{s['tokens_per_sec']} ttft_p50_ms={s['ttft_p50_ms']} [{card}]")
+    if st["spec_accept_rate"] != 1.0:
+        raise AssertionError("the full-depth self-draft was rejected")
+    check_streams("spec full-depth draft", full.finished, refs, lm)
+    print(f"extras spec: {len(refs)} greedy streams equal lm.generate at "
+          f"fuse_steps 1 and 4 and under the full-depth draft [{card}]")
+
+
+def spec_draws(rounds: int, slots: int, gamma: int, vocab: int, seed=3):
+    """Explicit draws for ``decode_spec``'s seam: Gumbel noise and
+    uniforms from a seeded numpy generator."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def gumbel(*shape):
+        u = np.maximum(rng.random(shape, np.float32),
+                       np.finfo(np.float32).tiny)
+        return torch.from_numpy(-np.log(-np.log(u)))
+
+    return {"draft": gumbel(rounds, gamma + 1, slots, vocab),
+            "uniform": torch.from_numpy(rng.random((rounds, slots, gamma),
+                                                   np.float32)),
+            "correction": gumbel(rounds, slots, vocab)}
+
+
+def extras_traced(lm, card: str) -> None:
+    """B1's launches on the phase's new paths held against the card's
+    trace, as phase 5 holds the train step's: a ``make_generate`` call
+    (``num_layers``) and a speculative admission on a fresh server
+    (``num_layers + draft_layers``); B2 and B3 launch 0 times."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.serving import DecodeServer
+
+    prompt = np.random.default_rng(23).integers(
+        0, SERVE_CFG["vocab_size"], (1, GEN_PROMPT))
+    gen = lm.make_generate(GEN_PROMPT, TRACE_NEW)
+
+    def generate():
+        gen(lm.params, prompt)
+
+    def admit():
+        srv = DecodeServer(lm, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                           draft_layers=SPEC_DRAFT, spec_tokens=SPEC_TOKENS,
+                           device=EXTRAS_DEVICE)
+        srv.submit(prompt[0], GEN_NEW)
+        srv.step()
+
+    # an untraced first call of each, so that every traced call is alike
+    generate()
+    admit()
+    for what, fn, b1 in (
+            ("make_generate", generate, lm.num_layers),
+            ("speculative admission", admit, lm.num_layers + SPEC_DRAFT)):
+        got = traced_launches(fn, f"extras {what}", card)
+        want = {"flash_attention_fwd": b1, "flash_attention_bwd_dkdv": 0,
+                "flash_attention_bwd_dq": 0}
+        if got != want:
+            raise AssertionError(f"extras {what}: B1-B3 launched {got}, "
+                                 f"expected {want}")
+
+
+def extras_spec_sampled(pair, card: str) -> None:
+    """Sampled speculative rounds under float32 with TF32 off: the card
+    against the CPU with the same injected draws."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+
+    cfg = SPEC_SAMPLED
+    f32, cpu = pair
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(max_len=cfg["max_len"], temperature=cfg["temperature"],
+              top_k=cfg["top_k"], draft_layers=SPEC_DRAFT,
+              spec_tokens=SPEC_TOKENS)
+    engines = [DecodeEngine(f32, cfg["slots"], device=EXTRAS_DEVICE, **kw),
+               DecodeEngine(cpu, cfg["slots"], device="cpu", **kw)]
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, SERVE_CFG["vocab_size"], n)
+               for n in cfg["prompt_lens"]]
+    toks = [int(engines[1].prefill(p, s)) for s, p in enumerate(prompts)]
+    for s, p in enumerate(prompts):
+        engines[0].prefill(p, s)
+    draws = spec_draws(cfg["rounds"], cfg["slots"], SPEC_TOKENS,
+                       SERVE_CFG["vocab_size"])
+    remaining = np.full(cfg["slots"], cfg["rounds"] * (SPEC_TOKENS + 1))
+    blocks = []
+    for eng in engines:
+        d = {k: v.to(eng.device) for k, v in draws.items()}
+        blocks.append(eng.decode_spec(np.asarray(toks), remaining,
+                                      [None] * cfg["slots"],
+                                      [None] * cfg["slots"], cfg["rounds"],
+                                      _draws=d).cpu())
+    got, want = blocks
+    counts = want[:, :, 0]
+    flipped = int((got[:, :, 0] != counts).sum())
+    same = torch.equal(got, want)
+    print(f"extras spec sampled float32 T={cfg['temperature']} "
+          f"top_k={cfg['top_k']} [{cfg['slots']} slots x {cfg['rounds']} "
+          f"rounds] card vs cpu, same draws: blocks "
+          f"{'identical' if same else 'DIFFER'}, accepted "
+          f"{int((counts - 1).sum())} of "
+          f"{cfg['slots'] * cfg['rounds'] * SPEC_TOKENS} proposals, "
+          f"flipped accept counts={flipped} [{card}]")
+    if not same:
+        raise AssertionError(f"sampled speculative rounds differ between "
+                             f"the card and the CPU:\n{got}\n{want}")
+
+
+def extras_split(lm, refs, card: str) -> None:
+    """A prefill-role and a decode-role replica: greedy streams equal
+    lm.generate, each handoff carries kv_per_slot_bytes, and the export
+    and install timed."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.serving.fleet import (
+        FleetRouter, ServeReplica, export_slot, install_slot)
+    from deeplearning4j_tpu_torch.serving.fleet.handoff import SlotHandoff
+
+    kw = dict(slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, device=EXTRAS_DEVICE)
+    pre = ServeReplica("p0", lm, role="prefill", **kw)
+    dec = ServeReplica("d0", lm, role="decode", fuse_steps=4, **kw)
+    router = FleetRouter([pre, dec])
+    sizes = {}                          # bytes of each request's slab
+    place = router.place_handoff
+
+    def recording(freq, handoff):
+        sizes[freq.id] = handoff.nbytes
+        return place(freq, handoff)
+
+    router.place_handoff = recording
+    sched = serve_schedule()
+    b0 = _b1_launches()
+    frs = [router.submit(a.prompt, a.max_new_tokens) for a in sched]
+    while router.unfinished():
+        pre.step_once()
+        dec.step_once()
+        router.retry_pending()          # parked slabs (the tick's job)
+    _sync()
+    per_slot = dec.server.stats()["kv_per_slot_bytes"]
+    if sorted(sizes.values()) != [per_slot] * len(sched):
+        raise AssertionError(f"handoff sizes {sorted(sizes.values())} != "
+                             f"kv_per_slot_bytes {per_slot}")
+    for fr in frs:
+        want = refs[fr.prompt.tobytes()]
+        if not np.array_equal(fr.output, want):
+            raise AssertionError(
+                "split fleet: stream differs from lm.generate at "
+                + first_divergence(fr.output, want, lm, fr.prompt))
+    if _b1_launches() - b0 != lm.num_layers * len(sched):
+        raise AssertionError("split fleet: B1 did not run num_layers "
+                             "times per prefill")
+    eng_p, eng_d = pre.server.engine, dec.server.engine
+    export_ms = install_ms = 0.0
+    for _ in range(HANDOFF_REPS):
+        _sync()
+        t0 = time.monotonic()
+        slabs = export_slot(eng_p, 0)
+        t1 = time.monotonic()
+        install_slot(eng_d, 1, SlotHandoff(
+            slabs=slabs, cursor=1, key=None, first_token=0,
+            kv_dtype=eng_d.kv_dtype, max_len=eng_d.max_len,
+            device=eng_d.device.type))
+        _sync()
+        t2 = time.monotonic()
+        export_ms += (t1 - t0) * 1e3 / HANDOFF_REPS
+        install_ms += (t2 - t1) * 1e3 / HANDOFF_REPS
+    print(f"extras split fleet (1 prefill + 1 decode replica): "
+          f"{len(frs)} greedy streams equal lm.generate; handoff_bytes="
+          f"{per_slot} (= kv_per_slot_bytes) export_ms={export_ms:.3f} "
+          f"install_ms={install_ms:.3f} [{card}]")
+
+
+def extras_fleet(lm, card: str) -> None:
+    """FleetLoadDriver over 1 and 2 replicas and a kill of r0, then two
+    threaded replicas with one killed."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.resilience import faults
+    from deeplearning4j_tpu_torch.serving.fleet import (
+        FleetController, FleetLoadDriver, FleetRouter, ServeReplica)
+
+    sched = serve_schedule(FLEET_REQUESTS, FLEET_RATE, seed=8)
+    refs = {a.prompt.tobytes(): lm.generate(
+        a.prompt[None], a.max_new_tokens)[0].cpu().numpy() for a in sched}
+
+    def fleet(n):
+        reps = [ServeReplica(f"r{i}", lm, slots=SERVE_SLOTS,
+                             max_len=SERVE_MAX_LEN, fuse_steps=FLEET_FUSE,
+                             device=EXTRAS_DEVICE) for i in range(n)]
+        router = FleetRouter(reps)
+        controller = FleetController(router, None, evict_timeout_s=5.0)
+        return router, controller, FleetLoadDriver(router, controller)
+
+    def zero_lost(what, router, report):
+        if report.finished != len(sched):
+            raise AssertionError(f"{what}: {report.finished} of "
+                                 f"{len(sched)} finished")
+        for fr in router.requests:
+            if not np.array_equal(fr.output, refs[fr.prompt.tobytes()]):
+                raise AssertionError(
+                    f"{what}: a stream diverged from lm.generate at "
+                    + first_divergence(fr.output, refs[fr.prompt.tobytes()],
+                                       lm, fr.prompt))
+
+    out = {}
+    for n in (1, 2):
+        router, _, driver = fleet(n)
+        report = driver.run(sched)
+        zero_lost(f"fleet of {n}", router, report)
+        busy = driver.busy_seconds()
+        out[n] = report.summary()
+        print(f"extras fleet driver replicas={n} fuse_steps={FLEET_FUSE}: "
+              f"tokens_per_sec={out[n]['tokens_per_sec']} "
+              f"ttft_p50_ms={out[n]['ttft_p50_ms']} "
+              f"p50_latency_ms={out[n]['p50_latency_ms']} busy_s="
+              f"{ {k: round(v, 3) for k, v in busy.items()} } "
+              f"balance={min(busy.values()) / max(busy.values()):.3f} "
+              f"[{card}]")
+    router, controller, driver = fleet(2)
+    kill_at = sched[len(sched) // 2].arrival_s
+    report = driver.run(sched, kill_at_s=kill_at, kill_replica="r0")
+    zero_lost("fleet with r0 killed", router, report)
+    recovery = (None if driver.failover_done_s is None
+                else driver.failover_done_s - driver.kill_time_s)
+    print(f"extras fleet driver replicas=2 kill r0 at {kill_at:.3f} s: "
+          f"finished={report.finished} lost=0 diverged=0 evicted="
+          f"{controller.evicted} failover_victims_recovery_s="
+          f"{recovery if recovery is None else round(recovery, 4)} "
+          f"tokens_per_sec={report.summary()['tokens_per_sec']} "
+          f"scaling_2_over_1="
+          f"{out[2]['tokens_per_sec'] / out[1]['tokens_per_sec']:.3f} "
+          f"[{card}]")
+    # two threaded replicas, r0 killed at its third loop iteration
+    router, controller, _ = fleet(2)
+    frs = [router.submit(a.prompt, a.max_new_tokens) for a in sched]
+    t0 = time.monotonic()
+    try:
+        faults.install("serve.replica.step.r0", faults.fail_nth(3))
+        for r in router.replicas:
+            r.start()
+        controller.start(interval_s=0.05)
+        while time.monotonic() - t0 < 120 and router.unfinished():
+            time.sleep(0.05)
+    finally:
+        faults.uninstall("serve.replica.step.r0")
+        controller.stop()
+        for r in router.replicas:
+            r.stop()
+    lost = sum(1 for fr in frs if not fr.finished)
+    diverged = sum(1 for fr in frs if fr.finished and not np.array_equal(
+        fr.output, refs[fr.prompt.tobytes()]))
+    print(f"extras fleet threaded replicas=2, r0 killed: finished="
+          f"{len(frs) - lost} lost={lost} diverged={diverged} evicted="
+          f"{controller.evicted} wall_s={time.monotonic() - t0:.2f} "
+          f"[{card}]")
+    if lost or diverged or controller.evicted != ["r0"]:
+        raise AssertionError("threaded fleet lost or diverged a request")
+
+
+COMPILE_CHILD = """
+import json, os, sys, time
+t0 = time.monotonic()
+sys.path.insert(0, os.getcwd())
+import torch
+from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+from deeplearning4j_tpu_torch.serving import (
+    DecodeEngine, compile_cache_stats)
+from deeplearning4j_tpu_torch.kernels import KERNEL_SOURCES, _build
+lm = TransformerLM(vocab_size=64, d_model=128, num_heads=2, num_layers=1,
+                   max_len=64)
+DecodeEngine(lm, 1)                       # points the build at the cache
+for name in KERNEL_SOURCES:
+    _build.load(name)
+torch.cuda.synchronize()
+print(json.dumps({"ready_s": round(time.monotonic() - t0, 3),
+                  "nvcc_runs": len(_build.LOGS),
+                  "build_dir": _build.BUILD_DIR,
+                  "stats": compile_cache_stats()}))
+"""
+
+
+def extras_compile_cache(card: str) -> None:
+    """A cold child builds B1-B3 into DL4J_COMPILE_CACHE_DIR; a second,
+    warm child loads them from there and runs nvcc zero times."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {**os.environ, "DL4J_COMPILE_CACHE_DIR": tmp}
+        runs = []
+        for label in ("cold", "warm"):
+            proc = subprocess.run(
+                [sys.executable, "-c", COMPILE_CHILD], cwd=HERE, env=env,
+                capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise AssertionError(f"{label} compile-cache child failed:"
+                                     f"\n{proc.stderr[-3000:]}")
+            run = json.loads(proc.stdout.strip().splitlines()[-1])
+            runs.append(run)
+            print(f"extras compile cache {label} child: ready_s="
+                  f"{run['ready_s']} nvcc_runs={run['nvcc_runs']} "
+                  f"stats={run['stats']} [{card}]")
+        cold, warm = runs
+        from deeplearning4j_tpu_torch.kernels import KERNEL_SOURCES
+
+        if cold["nvcc_runs"] != len(KERNEL_SOURCES) or warm["nvcc_runs"]:
+            raise AssertionError("the warm child ran nvcc, or the cold one "
+                                 "did not build every kernel")
+        if cold["build_dir"] != os.path.abspath(tmp) or \
+                not warm["stats"]["configured"]:
+            raise AssertionError("the children did not build into "
+                                 "DL4J_COMPILE_CACHE_DIR")
+
+
+def serve_extras(card: str) -> int:
+    """Phase 10: beam search and make_generate, speculative decoding, the
+    prefill/decode split, the fleet and the compile cache on the served
+    model. Returns B1's launches over the phase; B2 and B3 must not
+    launch."""
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+
+    t0 = time.monotonic()
+    reset_launch_counts()
+    lm = TransformerLM(**SERVE_CFG, device=EXTRAS_DEVICE).init()
+    sched = serve_schedule()
+    refs = {a.prompt.tobytes(): lm.generate(
+        a.prompt[None], a.max_new_tokens)[0].cpu().numpy() for a in sched}
+    pair = f32_pair()
+    extras_generate(lm, pair, card)
+    extras_spec(lm, refs, card)
+    if EXTRAS_DEVICE != "cpu":
+        extras_traced(lm, card)
+    extras_spec_sampled(pair, card)
+    del pair
+    extras_split(lm, refs, card)
+    extras_fleet(lm, card)
+    if EXTRAS_DEVICE != "cpu":
+        extras_compile_cache(card)
+    launches = launch_counts()
+    if launches["flash_attention_bwd_dkdv"] or \
+            launches["flash_attention_bwd_dq"]:
+        raise AssertionError(f"the serving extras launched a backward "
+                             f"kernel: {launches}")
+    print(f"extras: phase wall {time.monotonic() - t0:.1f} s, B1 launches "
+          f"{launches['flash_attention_fwd']} [{card}]")
+    return launches["flash_attention_fwd"]
+
+
 def main() -> None:
     try:
         import torch
@@ -2319,8 +2958,9 @@ def main() -> None:
 
     entries = {}
     serve_launches = train_launches = fused_launches = cli_launches = None
+    extras_launches = None
     for phase in ("flash", "flash_bwd", "serve", "train", "networks",
-                  "recurrent", "fused", "cli"):
+                  "recurrent", "fused", "cli", "serve_extras"):
         try:
             if phase == "flash":
                 entries["flash_attention_fwd"] = check_flash(card)
@@ -2343,8 +2983,10 @@ def main() -> None:
                 recurrent(card)
             elif phase == "fused":
                 fused_launches = fused(card)
-            else:
+            elif phase == "cli":
                 cli_launches = front_door(card)
+            else:
+                extras_launches = serve_extras(card)
         except Exception:
             traceback.print_exc()
             failed.append(phase)
@@ -2358,7 +3000,9 @@ def main() -> None:
     for name, e in entries.items():
         e["launches_fused_lm"] = fused_launches[name]
         e["launches_cli"] = cli_launches[name]
+        e["launches_serve_extras"] = 0
     entries["flash_attention_fwd"]["launches_serve"] = serve_launches
+    entries["flash_attention_fwd"]["launches_serve_extras"] = extras_launches
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,10 @@ result that is never rounded to bf16. Training sums it in f32, as the
 reference does (``_unembed_train``); every other caller sums it in f64
 and rounds once (``_unembed``), so that decode rows are batch-invariant.
 
-Serving: ``forward``, ``generate`` (greedy and sampled) and the
+Serving: ``forward``, ``generate`` (greedy and sampled) and its builder
+``make_generate``, beam search (``generate_beam``, ``make_generate_beam``;
+beams ride the batch dimension and ties rank as ``lax.top_k`` ranks them),
+the per-signature decoder cache (``GEN_CACHE_MAX``, LRU) and the
 ``_prefill``/``_decode_token``/``_block`` pieces ``serving/`` builds on.
 Training: ``loss``, the hand-written Adam step (``_step_body``,
 ``make_train_step``, ``make_multi_train_step``, ``fit_batch``,
@@ -26,7 +29,7 @@ replays of one captured CUDA graph of the step (``perf/step_graph.py``),
 B1–B3 launched inside it; the step counter and Adam's bias corrections
 are device tensors, so the captured step is the eager one; the LM's
 graphs share one memory pool. On the CPU the same step runs eagerly.
-Not ported yet: ``generate_beam`` and sequence parallelism (``mesh=``).
+Not ported yet: sequence parallelism (``mesh=``, ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ import functools
 import math
 import os
 import types
-from typing import Any, Dict, List, Optional
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -74,9 +78,19 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def _layernorm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    """Statistics in >= f32 (population variance), result in x's dtype."""
-    st = torch.promote_types(x.dtype, torch.float32)
+               eps: float = 1e-5, exact: bool = False) -> torch.Tensor:
+    """Statistics in >= f32 (population variance), result in x's dtype.
+
+    ``exact``: statistics and normalisation in float64, rounded once to
+    x's dtype, so that a row's result does not depend on how many rows
+    the reduction kernels are given: PyTorch picks their f32 summation
+    order from the shape, and on an H100 a d512 row normalised alone
+    (``generate``'s decode) and beside seven others (the server's)
+    rounded one bf16 element apart, which flipped a greedy token 21 steps
+    later (``scripts/torch_serve_invariance.py``). Every path but
+    training takes it."""
+    st = (torch.float64 if exact
+          else torch.promote_types(x.dtype, torch.float32))
     xs = x.to(st)
     mean = xs.mean(dim=-1, keepdim=True)
     var = xs.var(dim=-1, keepdim=True, unbiased=False)
@@ -95,12 +109,31 @@ def sample_logits(logits: torch.Tensor, temperature: float,
     consume the same random numbers."""
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(filter_logits(logits, temperature, top_k), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def filter_logits(logits: torch.Tensor, temperature: float,
+                  top_k: Optional[int]) -> torch.Tensor:
+    """``logits [..., V] / temperature`` in f32 with every entry below the
+    ``top_k``-th largest set to -inf: the distribution every sampled path
+    draws from (``sample_logits``, the speculative draft and its accept
+    ratio)."""
     scaled = logits.float() / temperature
     if top_k is not None:
-        kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
+        kth = torch.topk(scaled, top_k, dim=-1).values[..., -1:]
         scaled = torch.where(scaled >= kth, scaled, -math.inf)
-    probs = torch.softmax(scaled, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return scaled
+
+
+def top_k_first_index(x: torch.Tensor, k: int) -> Tuple[torch.Tensor,
+                                                          torch.Tensor]:
+    """``(values, indices)`` of the ``k`` largest entries of the last
+    axis, largest first, and among equal values the lower index first, as
+    ``lax.top_k`` ranks them (``torch.topk`` promises no order for ties):
+    a stable descending sort, cut to ``k``."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
 
 
 def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -305,7 +338,7 @@ class TransformerLM:
         attends against the cache)."""
         policy = self.policy
         b, t = h.shape[0], h.shape[1]
-        x = _layernorm(h, blk["ln1"]["g"], blk["ln1"]["b"])
+        x = _layernorm(h, blk["ln1"]["g"], blk["ln1"]["b"], exact=not train)
         q = (x @ policy.cast_compute(blk["attn"]["wq"])).reshape(
             b, t, self.num_heads, -1)
         k = (x @ policy.cast_compute(blk["attn"]["wk"])).reshape(
@@ -326,7 +359,7 @@ class TransformerLM:
             o = grouped_query_attention(q, k, v, causal=True,
                                         window=self.attn_window)
         h = h + o.reshape(b, t, -1) @ policy.cast_compute(blk["attn"]["wo"])
-        x = _layernorm(h, blk["ln2"]["g"], blk["ln2"]["b"])
+        x = _layernorm(h, blk["ln2"]["g"], blk["ln2"]["b"], exact=not train)
         x = F.gelu(x @ policy.cast_compute(blk["mlp"]["w1"])
                    + policy.cast_compute(blk["mlp"]["b1"]),
                    approximate="tanh")
@@ -525,7 +558,8 @@ class TransformerLM:
         ``forward``, ``evaluate_perplexity``, ``generate`` and the
         serving engine."""
         policy = self.policy
-        hf = _layernorm(h, params["ln_f"]["g"], params["ln_f"]["b"])
+        hf = _layernorm(h, params["ln_f"]["g"], params["ln_f"]["b"],
+                        exact=True)
         return (policy.cast_compute(hf).double()
                 @ policy.cast_compute(params["embed"]).double().T).float()
 
@@ -610,39 +644,153 @@ class TransformerLM:
                 f"pos_encoding='rope' to decode past it)")
         return total
 
-    @torch.no_grad()
-    def generate(self, prompt, max_new_tokens: int, *,
-                 temperature: float = 0.0, top_k: Optional[int] = None,
-                 seed: int = 0) -> torch.Tensor:
-        """Decode ``max_new_tokens`` past ``prompt`` ([b, t] int): one
-        parallel prefill, then one token per step against the cache.
-        ``temperature=0`` decodes greedily; otherwise samples with a
-        ``torch.Generator`` seeded from ``seed`` (greedy streams equal the
-        reference's; sampled streams cannot, as ``jax.random`` bits are
-        not reproducible here). Returns ``[b, t + max_new_tokens]``."""
-        self._ensure_init()
-        prompt = self._tokens(prompt)
-        prompt_len = prompt.shape[1]
-        total = self._validate_decode_args(prompt_len, max_new_tokens)
+    def _check_sampling(self, temperature: float,
+                        top_k: Optional[int]) -> None:
         if top_k is not None and not 1 <= top_k <= self.vocab_size:
             raise ValueError(
                 f"top_k={top_k} must be in [1, vocab_size={self.vocab_size}]")
         if temperature < 0.0:
             raise ValueError(f"temperature={temperature} must be >= 0")
+
+    def make_generate(self, prompt_len: int, max_new_tokens: int, *,
+                      temperature: float = 0.0, top_k: Optional[int] = None):
+        """Build ``gen(params, prompt, generator=None) -> [b, total]``: one
+        parallel prefill of the ``[b, prompt_len]`` prompt into a KV cache,
+        then one token per step against it. ``temperature=0`` decodes
+        greedily; otherwise each step draws from ``softmax(logits /
+        temperature)`` filtered to ``top_k`` with ``generator`` (one
+        ``torch.multinomial`` call a step). Arguments are validated here,
+        as the reference validates them when it builds its program."""
+        total = self._validate_decode_args(prompt_len, max_new_tokens)
+        self._check_sampling(temperature, top_k)
+
+        @torch.no_grad()
+        def gen(params, prompt, generator: Optional[torch.Generator] = None):
+            prompt = self._tokens(prompt)
+            if prompt.ndim != 2 or prompt.shape[1] != prompt_len:
+                raise ValueError(
+                    f"prompt must be [b, {prompt_len}] (got "
+                    f"{tuple(prompt.shape)})")
+            h_last, cache = self._prefill(params, prompt, max_new_tokens)
+            tok = sample_logits(self._unembed(params, h_last), temperature,
+                                top_k, generator)
+            out = [tok]
+            # steps consume generated tokens at positions p .. total-2,
+            # each emitting the NEXT token; the first is position p itself
+            for t in range(prompt_len, total - 1):
+                h_last = self._decode_token(params, cache, tok, t, total)
+                tok = sample_logits(self._unembed(params, h_last),
+                                    temperature, top_k, generator)
+                out.append(tok)
+            return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+
+        return gen
+
+    def make_generate_beam(self, prompt_len: int, max_new_tokens: int,
+                           beam_size: int):
+        """Build ``gen(params, prompt) -> (seqs, scores)``: beam search
+        with ``seqs`` ``[b, beam, prompt_len + max_new]`` (best beam first)
+        and ``scores`` ``[b, beam]``, summed token log-probs.
+
+        Beams ride the batch dimension, batch-major (row = batch·K +
+        beam): each step extends every beam, takes the top K of the
+        ``b × (K·V)`` candidates (ties to the lower index, as the
+        reference's ``lax.top_k``) and reorders the cache rows by parent
+        beam with one gather."""
+        total = self._validate_decode_args(prompt_len, max_new_tokens)
+        K, V = beam_size, self.vocab_size
+        if not 1 <= K <= V:
+            raise ValueError(f"beam_size={K} must be in [1, vocab={V}]")
+
+        @torch.no_grad()
+        def gen(params, prompt):
+            prompt = self._tokens(prompt)
+            if prompt.ndim != 2 or prompt.shape[1] != prompt_len:
+                raise ValueError(
+                    f"prompt must be [b, {prompt_len}] (got "
+                    f"{tuple(prompt.shape)})")
+            b = prompt.shape[0]
+            h_last, cache = self._prefill(params, prompt, max_new_tokens)
+            logp0 = torch.log_softmax(self._unembed(params, h_last), dim=-1)
+            scores, tok = top_k_first_index(logp0, K)          # [b, K]
+            cache = [{"k": c["k"].repeat_interleave(K, dim=0),
+                      "v": c["v"].repeat_interleave(K, dim=0)}
+                     for c in cache]
+            seqs = tok.new_zeros((b, K, max_new_tokens))
+            seqs[:, :, 0] = tok
+            base = torch.arange(b, device=prompt.device)[:, None] * K
+            for i, t in enumerate(range(prompt_len, total - 1), start=1):
+                h_last = self._decode_token(params, cache, tok.reshape(-1),
+                                            t, total)
+                logp = torch.log_softmax(self._unembed(params, h_last),
+                                         dim=-1)
+                cand = scores[:, :, None] + logp.reshape(b, K, V)
+                scores, idx = top_k_first_index(cand.reshape(b, K * V), K)
+                parent = idx // V                              # [b, K]
+                tok = idx % V
+                rows = (base + parent).reshape(-1)
+                cache = [{"k": c["k"][rows], "v": c["v"][rows]}
+                         for c in cache]
+                seqs = seqs.gather(1, parent[..., None].expand_as(seqs))
+                seqs[:, :, i] = tok
+            out = torch.cat([prompt[:, None].expand(b, K, prompt_len),
+                             seqs], dim=2)
+            return out, scores
+
+        return gen
+
+    #: a serving loop with varying prompt lengths builds one decoder per
+    #: (shape, sampling) signature; the cache of them is LRU-bounded
+    GEN_CACHE_MAX = 16
+
+    def _cached_decoder(self, sig, factory):
+        """The decoder of signature ``sig``, built by ``factory()`` on
+        first use; shared by the decode APIs and LRU-bounded at
+        ``GEN_CACHE_MAX`` signatures."""
+        self._ensure_init()
+        cache = getattr(self, "_gen_cache", None)
+        if cache is None:
+            cache = self._gen_cache = OrderedDict()
+        fn = cache.get(sig)
+        if fn is None:
+            fn = cache[sig] = factory()
+            while len(cache) > self.GEN_CACHE_MAX:
+                cache.popitem(last=False)
+        else:
+            cache.move_to_end(sig)
+        return fn
+
+    def generate_beam(self, prompt, max_new_tokens: int,
+                      beam_size: int = 4):
+        """Beam-search ``max_new_tokens`` past ``prompt`` ([b, t]).
+        Returns ``(seqs [b, beam, t + max_new], scores [b, beam])``, best
+        beam first."""
+        prompt = self._tokens(prompt)
+        fn = self._cached_decoder(
+            ("beam", tuple(prompt.shape), max_new_tokens, beam_size),
+            lambda: self.make_generate_beam(
+                prompt.shape[1], max_new_tokens, beam_size))
+        return fn(self.params, prompt)
+
+    def generate(self, prompt, max_new_tokens: int, *,
+                 temperature: float = 0.0, top_k: Optional[int] = None,
+                 seed: int = 0) -> torch.Tensor:
+        """Decode ``max_new_tokens`` past ``prompt`` ([b, t] int) with the
+        decoder :meth:`make_generate` builds for this signature.
+        ``temperature=0`` decodes greedily; otherwise samples with a
+        ``torch.Generator`` seeded from ``seed`` (greedy streams equal the
+        reference's; sampled streams cannot, as ``jax.random`` bits are
+        not reproducible here). Returns ``[b, t + max_new_tokens]``."""
+        prompt = self._tokens(prompt)
+        fn = self._cached_decoder(
+            (tuple(prompt.shape), max_new_tokens, temperature, top_k),
+            lambda: self.make_generate(
+                prompt.shape[1], max_new_tokens, temperature=temperature,
+                top_k=top_k))
         gen = None
         if temperature > 0.0:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-        params = self.params
-        h_last, cache = self._prefill(params, prompt, max_new_tokens)
-        tok = sample_logits(self._unembed(params, h_last), temperature,
-                            top_k, gen)
-        out = [tok]
-        for t in range(prompt_len, total - 1):
-            h_last = self._decode_token(params, cache, tok, t, total)
-            tok = sample_logits(self._unembed(params, h_last), temperature,
-                                top_k, gen)
-            out.append(tok)
-        return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+        return fn(self.params, prompt, gen)
 
 
 class _CapturedSteps:

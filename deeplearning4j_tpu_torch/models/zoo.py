@@ -1,7 +1,7 @@
-"""Model zoo of the port: the MNIST MLP, LeNet-5, the char-LSTM and
-ResNet-18.
+"""Model zoo of the port: the MNIST MLP, LeNet-5, the char-LSTM,
+ResNet-18 and the transformer LM.
 
-Port of ``deeplearning4j_tpu/models/zoo.py:21-144``, built with the same
+Port of ``deeplearning4j_tpu/models/zoo.py``, built with the same
 config DSL calls and the same layer and vertex names; each builder also
 takes ``device=`` (``None`` is the CUDA card).
 """
@@ -149,3 +149,17 @@ def resnet18(num_classes: int = 10, lr: float = 1e-3, seed: int = 12345,
                                      loss_function=LossFunction.MCXENT), "gap")
     g.set_outputs("out")
     return ComputationGraph(g.build(), device=device)
+
+
+def transformer_lm(vocab_size: int = 1024, d_model: int = 256,
+                   num_heads: int = 8, num_layers: int = 4,
+                   max_len: int = 512, lr: float = 3e-4,
+                   seed: int = 12345, device: DeviceLike = None):
+    """Decoder-only transformer LM, built on the functional transformer
+    module (not the DSL), as the reference builds it."""
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerLM)
+
+    return TransformerLM(vocab_size=vocab_size, d_model=d_model,
+                         num_heads=num_heads, num_layers=num_layers,
+                         max_len=max_len, lr=lr, seed=seed, device=device)

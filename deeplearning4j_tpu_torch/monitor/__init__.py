@@ -46,12 +46,22 @@ class Counter:
 class Gauge:
     def __init__(self):
         self._v: Dict[Tuple, float] = {}
+        self._lock = threading.Lock()
 
     def set(self, v: float, **labels) -> None:
-        self._v[_key(labels)] = float(v)
+        with self._lock:
+            self._v[_key(labels)] = float(v)
 
-    def value(self, **labels) -> Optional[float]:
-        return self._v.get(_key(labels))
+    def value(self, **labels) -> float:
+        """The labelled series' value; 0.0 for one never set (or
+        removed), as the reference's registry reads it."""
+        return self._v.get(_key(labels), 0.0)
+
+    def remove(self, **labels) -> bool:
+        """Drop one labelled series (a dead replica stops reporting as
+        current); returns whether it existed."""
+        with self._lock:
+            return self._v.pop(_key(labels), None) is not None
 
 
 class Histogram:
@@ -86,7 +96,7 @@ class Registry:
     def counter(self, name: str) -> Counter:
         return self._get("counter", name, Counter)
 
-    def gauge(self, name: str) -> Gauge:
+    def gauge(self, name: str, help: str = "") -> Gauge:
         return self._get("gauge", name, Gauge)
 
     def histogram(self, name: str,

@@ -139,3 +139,24 @@ def grouped_query_attention(
     weights = _softmax_weights(logits, v.dtype)
     o = _mm_f32("bhrqk,bkhd->bqhrd", weights, v).to(v.dtype)
     return o.reshape(b, tq, H, d)
+
+
+def multi_head_attention(
+    x: torch.Tensor,
+    wq: torch.Tensor,
+    wk: torch.Tensor,
+    wv: torch.Tensor,
+    wo: torch.Tensor,
+    *,
+    num_heads: int,
+    causal: bool = False,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Full MHA block: project, attend, merge. x: [b, t, f]."""
+    b, t, _ = x.shape
+    d = wq.shape[-1] // num_heads
+    q = (x @ wq).reshape(b, t, num_heads, d)
+    k = (x @ wk).reshape(b, t, num_heads, d)
+    v = (x @ wv).reshape(b, t, num_heads, d)
+    o = dot_product_attention(q, k, v, causal=causal, mask=mask)
+    return o.reshape(b, t, num_heads * d) @ wo

@@ -28,6 +28,8 @@ so every fused path follows the same rules:
 
 On the CPU every call runs the same step function eagerly. On the card
 a failed capture or replay raises: nothing falls back to the eager loop.
+No cyclic garbage collection runs during a capture (it could destroy
+another graph mid-capture, which the driver refuses).
 
 All the graphs of one network (or one LM) capture into one shared
 memory pool (:class:`GraphPool`): they never run at the same time, and
@@ -45,6 +47,7 @@ captures recorded, plus what replays ran.
 from __future__ import annotations
 
 import collections
+import gc
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
@@ -152,8 +155,19 @@ class StepGraph:
         for gen in self.generators:
             graph.register_generator_state(gen)
         before = _wrapper_counts()
-        with torch.cuda.graph(graph, pool=self.pool.get()):
-            self.fn()
+        # A graph dropped in a reference cycle (a network's programs hold
+        # closures over the network) is destroyed when the cycle collector
+        # runs, and destroying a graph while a stream captures invalidates
+        # the capture. So dead cycles go first, and the collector waits.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool.get()):
+                self.fn()
+        finally:
+            if collecting:
+                gc.enable()
         after = _wrapper_counts()
         self.recorded = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}

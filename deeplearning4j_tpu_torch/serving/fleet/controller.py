@@ -1,0 +1,256 @@
+"""FleetController: the master tick for the serve fleet.
+
+Copy of ``deeplearning4j_tpu/serving/fleet/controller.py`` on the port's
+modules. The port has no ``StateTracker`` or heartbeat channel yet
+(ROADMAP A14), so ``tracker=`` raises and every tick reads the in-process
+replicas' payloads directly; the goodput autopilot (``DL4J_AUTOPILOT``,
+``autopilot=``) is ROADMAP A15 and raises too. The reference closes the
+loop the way ``DistributedTrainer``'s master tick does for training
+workers, on the heartbeat channel:
+
+- **aggregate** — every tick reads each replica's newest beat payload
+  and publishes the fleet gauges (``fleet_serve_replicas``, per-replica
+  ``fleet_serve_occupancy`` / ``fleet_serve_queue_depth`` /
+  ``fleet_serve_free_slots`` / ``fleet_serve_ttft_p50_s`` /
+  ``fleet_serve_tokens_per_sec``).
+- **flag stragglers** — a replica whose TPOT exceeds
+  ``straggler_ratio`` x the fleet median (≥3 reporting) is flagged via
+  the SAME outlier rule the training master uses
+  (``parallel/workrouter.update_straggler_flags``), with the evidence
+  on the timeline (``serve.straggler`` event).
+- **evict + requeue** — a replica silent past ``DL4J_SERVE_EVICT_S``
+  (wedged: beats stopped, nobody told us why) or one whose in-process
+  loop died (crashed: the dead flag is honest local knowledge) is
+  evicted with the decision's evidence — silence, timeout, last
+  payload — appended to ``controller.eviction_log`` exactly like the
+  training master's eviction log, its per-replica gauges dropped (a
+  dead replica must stop reporting as current), and its unfinished
+  requests requeued onto survivors through
+  :meth:`FleetRouter.failover` (``serve.failover`` span). The
+  correctness contract rides on deterministic prefill: a killed
+  replica's requests complete token-identical to an unfailed run.
+- **drain** — :meth:`FleetController.drain` is the PLANNED way out:
+  quiesce admission, stop the step loop, migrate in-flight streams to
+  survivors wholesale (KV slab + cursor + RNG via the handoff path —
+  zero recompute, zero lost tokens), retire the replica. Eviction is
+  for corpses; drain is for maintenance.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import Dict, List, Optional
+
+from deeplearning4j_tpu_torch.monitor import metrics, record_counter, tracer
+from deeplearning4j_tpu_torch.parallel.workrouter import update_straggler_flags
+from deeplearning4j_tpu_torch.serving.fleet.router import FleetRouter
+from deeplearning4j_tpu_torch.serving.scheduler import serve_evict_s
+
+__all__ = ["FleetController"]
+
+def _autopilot_requested() -> bool:
+    """Whether ``DL4J_AUTOPILOT`` opts the goodput autopilot in
+    (``1``/``on``/``true``, as the reference's ``autopilot_enabled``)."""
+    return os.environ.get("DL4J_AUTOPILOT", "").strip().lower() in (
+        "1", "on", "true")
+
+
+#: per-replica gauges the controller owns (published on tick, removed
+#: on eviction so a dead replica stops reporting as current)
+_REPLICA_GAUGES = {
+    "fleet_serve_occupancy": "occupancy",
+    "fleet_serve_queue_depth": "queue_depth",
+    "fleet_serve_free_slots": "free_slots",
+    "fleet_serve_ttft_p50_s": "ttft_p50",
+    "fleet_serve_tokens_per_sec": "tokens_per_sec",
+}
+
+
+class FleetController:
+    """Aggregate, flag, evict, requeue — one tick at a time."""
+
+    def __init__(self, router: FleetRouter, tracker=None, *,
+                 evict_timeout_s: Optional[float] = None,
+                 straggler_ratio: float = 3.0,
+                 clock=time.time, autopilot=None):
+        if tracker is not None:
+            raise NotImplementedError(
+                "a fleet wired to a StateTracker needs "
+                "parallel/statetracker.py and parallel/cluster.py, which "
+                "are not ported yet (ROADMAP A14)")
+        if autopilot is not None or _autopilot_requested():
+            raise NotImplementedError(
+                "the serve autopilot (DL4J_AUTOPILOT, autopilot=) needs "
+                "resilience/autopilot.py, which is not ported yet "
+                "(ROADMAP A15)")
+        self.router = router
+        self.evict_timeout_s = (evict_timeout_s
+                                if evict_timeout_s is not None
+                                else serve_evict_s())
+        self.straggler_ratio = float(straggler_ratio)
+        self.clock = clock
+        self.stragglers: set = set()
+        self.evicted: List[str] = []
+        self.eviction_log: List[dict] = []
+        self.drained: List[str] = []
+        self.drain_log: List[dict] = []
+        # tick-skip set: drained replicas join it too (retired is not
+        # crashed, but neither reports as current)
+        self._evicted_set: set = set()
+        self._stop: Optional[threading.Event] = None
+        self._thread: Optional[threading.Thread] = None
+        self._reg = metrics()
+
+    # ------------------------------------------------------------------
+    def _payload(self, replica) -> Optional[dict]:
+        """Newest payload, straight from the in-process replica (the
+        reference reads the same dict off its heartbeat when a tracker
+        is wired)."""
+        return replica.heartbeat_payload() if replica.alive else None
+
+    def tick(self) -> Dict[str, dict]:
+        """One aggregation + health pass; returns the per-replica
+        payload map (tests and dashboards read it)."""
+        fleet: Dict[str, dict] = {}
+        for r in self.router.replicas:
+            if r.replica_id in self._evicted_set:
+                continue
+            m = self._payload(r)
+            if m:
+                fleet[r.replica_id] = m
+                for gauge, key in _REPLICA_GAUGES.items():
+                    if isinstance(m.get(key), (int, float)):
+                        self._reg.gauge(gauge).set(float(m[key]),
+                                                   replica=r.replica_id)
+        tpots = {rid: float(m["tpot_s"]) for rid, m in fleet.items()
+                 if isinstance(m.get("tpot_s"), (int, float))}
+        update_straggler_flags(
+            tpots, self.stragglers, self.straggler_ratio,
+            id_label="replica", value_key="tpot_s",
+            counter_name="fleet_serve_stragglers_total",
+            event_name="serve.straggler")
+        self._evict_pass(fleet)
+        alive = [r for r in self.router.replicas
+                 if r.replica_id not in self._evicted_set and r.alive]
+        self._reg.gauge("fleet_serve_replicas",
+                        "decode-serving replicas currently alive"
+                        ).set(float(len(alive)))
+        self._reg.gauge("fleet_serve_stragglers").set(
+            float(len(self.stragglers)))
+        self.router.retry_pending()
+        self.router.maybe_hedge()
+        return fleet
+
+    # ------------------------------------------------------------------
+    def _evict_pass(self, fleet: Dict[str, dict]) -> None:
+        """Evict the in-process replicas whose loop died (the dead flag
+        is honest local knowledge). The reference also evicts replicas
+        silent past ``evict_timeout_s`` on the tracker's heartbeats,
+        which the port does not have yet (ROADMAP A14)."""
+        for r in list(self.router.replicas):
+            rid = r.replica_id
+            if rid not in self._evicted_set and r.dead:
+                self.evict(rid, reason=f"crashed: {r.dead_reason}",
+                           silent_s=None, last_metrics=fleet.get(rid))
+
+    def evict(self, replica_id: str, *, reason: str,
+              silent_s: Optional[float] = None,
+              last_metrics: Optional[dict] = None) -> dict:
+        """Evict one replica: evidence-logged decision, gauges dropped,
+        in-flight requests failed over. Also the bench/dryrun's forced-
+        eviction hook. Idempotent: only the first eviction of a replica
+        acts."""
+        if replica_id in self._evicted_set:
+            return {"replica": replica_id, "reason": "already_evicted"}
+        replica = self.router._by_id[replica_id]
+        # kill, don't just flag: a silence-evicted replica may still be
+        # RUNNING (stalled beats, live loop) — leaving its loop up would
+        # have a zombie decoding the same requests the survivors now own
+        replica.kill(reason)
+        self._evicted_set.add(replica_id)
+        self.evicted.append(replica_id)
+        self.stragglers.discard(replica_id)
+        for gauge in _REPLICA_GAUGES:
+            self._reg.gauge(gauge).remove(replica=replica_id)
+        decision = {"replica": replica_id, "reason": reason,
+                    "silent_s": silent_s,
+                    "timeout_s": self.evict_timeout_s,
+                    "t_wall": self.clock(),
+                    "last_metrics": last_metrics}
+        record_counter("fleet_serve_evictions_total", replica=replica_id)
+        # the tracer event forwards into the flight ring on its own
+        # (span forwarding) — no explicit flight write
+        tracer().event("serve.evict", **decision)
+        summary = self.router.failover(replica_id, reason=reason)
+        decision["failover"] = summary
+        self.eviction_log.append(decision)
+        return decision
+
+    def drain(self, replica_id: str, *,
+              reason: str = "operator_drain") -> dict:
+        """Gracefully retire one replica: quiesce admission, stop its
+        step loop, migrate every in-flight stream to survivors via
+        KV-slab handoff (zero recompute, zero lost tokens — contrast
+        :meth:`evict`, which re-prefills because a dead replica's KV is
+        gone), and mark it retired. Evidence-logged like an eviction;
+        idempotent against evict/drain races the same way."""
+        if replica_id in self._evicted_set:
+            return {"replica": replica_id, "reason": "already_evicted"}
+        replica = self.router._by_id.get(replica_id)
+        if replica is None:
+            raise KeyError(f"unknown replica {replica_id!r}")
+        self._evicted_set.add(replica_id)
+        self.drained.append(replica_id)
+        self.stragglers.discard(replica_id)
+        # 1) no new work lands on it (placement, spill, hedges,
+        #    affinity all skip a quiesced replica)
+        self.router.quiesce(replica_id)
+        # 2) stop the step loop CLEANLY before touching device state —
+        #    migrate_out exports live cursors a concurrent step would
+        #    advance; retired is not dead, so no failover fires
+        replica.retire()
+        # 3) move everything off with zero recompute
+        summary = self.router.migrate_out(replica_id)
+        for gauge in _REPLICA_GAUGES:
+            self._reg.gauge(gauge).remove(replica=replica_id)
+        migrated = (summary["handoffs"] + summary["queued"]
+                    + summary["live"])
+        decision = {"replica": replica_id, "reason": reason,
+                    "t_wall": self.clock(), "migrated": migrated,
+                    **summary}
+        record_counter("fleet_serve_drains_total", replica=replica_id)
+        self._reg.gauge("serve_drain_migrated").set(
+            float(migrated), replica=replica_id)
+        tracer().event("serve.drain", **decision)
+        self.drain_log.append(decision)
+        return decision
+
+    # ------------------------------------------------------------------
+    # real-time loop (the in-process fleet's master thread)
+    # ------------------------------------------------------------------
+    def start(self, interval_s: Optional[float] = None
+              ) -> "FleetController":
+        if self._thread is not None and self._thread.is_alive():
+            return self
+        interval = (interval_s if interval_s is not None
+                    else max(0.05, self.evict_timeout_s / 4))
+        stop = threading.Event()
+        self._stop = stop
+
+        def run():
+            while not stop.wait(interval):
+                self.tick()
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name="serve-fleet-controller")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        if self._stop is not None:
+            self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None

@@ -177,6 +177,22 @@ class SlotKVCache:
         self.cursors += torch.as_tensor(
             np.asarray(live_mask, np.int64), device=self.cursors.device)
 
+    def slot_view(self, slot: int) -> "SlotKVCache":
+        """A one-slot cache whose tensors are views of this pool's slot
+        ``slot``: a decode step on it writes into the pool and leaves the
+        other slots alone."""
+        view = object.__new__(SlotKVCache)
+        view.slots, view.max_len, view.kv_dtype = 1, self.max_len, \
+            self.kv_dtype
+        pick = slice(slot, slot + 1)
+        view.k, view.v = self.k[:, pick], self.v[:, pick]
+        view.k_scale = view.v_scale = None
+        if self.quantized:
+            view.k_scale = self.k_scale[:, pick]
+            view.v_scale = self.v_scale[:, pick]
+        view.cursors = self.cursors[pick]
+        return view
+
     @property
     def nbytes(self) -> int:
         """Device footprint of the pool state, scales included."""

@@ -1,7 +1,8 @@
 """Open-loop Poisson load generator + latency report for the serve bench
-(port of ``deeplearning4j_tpu/serving/loadgen.py`` for one
-``DecodeServer``, without the fleet's retry and hedge accounting; the
-schedule is numpy-seeded, so both packages replay the same stream).
+(port of ``deeplearning4j_tpu/serving/loadgen.py``; the fleet's driver,
+``serving/fleet/driver.py``, fills the same report with its retry and
+hedge accounting; the schedule is numpy-seeded, so both packages replay
+the same stream).
 
 Open loop means arrivals come from a schedule, not from completions —
 the load a server actually faces (users do not wait for each other), and
@@ -110,6 +111,10 @@ class LoadReport:
     submitted_by_class: dict = field(default_factory=dict)
     finished_by_class: dict = field(default_factory=dict)
     ttfts_by_class: dict = field(default_factory=dict)
+    # retry-amplification evidence (the fleet driver's): total placements
+    # (first and re-dispatch) and hedges across the run
+    placements: int = 0
+    hedges: int = 0
 
     @staticmethod
     def _pct(xs: List[float], q: float) -> Optional[float]:
@@ -147,6 +152,12 @@ class LoadReport:
             "ttft_p50_ms_by_class": {
                 c: _r(self._pct(xs, 50), ms)
                 for c, xs in self.ttfts_by_class.items()},
+            # placements + hedges over submissions: the amplification
+            # the retry budget bounds (1.0 = no retries at all)
+            "retry_amplification": (
+                round((self.placements + self.hedges)
+                      / self.submitted, 3)
+                if self.submitted else None),
         }
 
 

@@ -342,6 +342,10 @@ class ServeRequest:   # field-wise eq would compare prompt arrays
     # a hedged duplicate that lost the race: the server retires it
     # without counting it finished the next time it looks at it
     canceled: bool = False
+    # a greedy failover continuation: the last ``replay`` prompt tokens
+    # are tokens the stream already emitted, which the admission feeds
+    # through the decode step, as the stream first consumed them
+    replay: int = 0
 
     def expired(self, now: float) -> bool:
         return self.deadline_s is not None and now > self.deadline_s

@@ -1,25 +1,34 @@
 """DecodeServer: continuous batching over the slot pool.
 
-Port of ``deeplearning4j_tpu/serving/server.py`` (without the fleet's
-slab handoff, speculative decoding and ``mesh=``, which are later
-slices). The loop, per ``step()`` (a step is a fusion boundary):
+Port of ``deeplearning4j_tpu/serving/server.py`` (``mesh=`` raises,
+naming ROADMAP A14). The loop, per ``step()`` (a step is a fusion
+boundary):
 
-1. **admit** — pop queued requests into free slots; each admission runs
-   the bucket-padded prefill (``serve.prefill`` span), records TTFT, and
-   may retire at once when ``max_new_tokens == 1``.
+1. **admit** — handed-off slabs first (``admit_external``: their prefill
+   ran on another replica), then queued requests into free slots; each
+   admission runs the bucket-padded prefill (``serve.prefill`` span),
+   records TTFT, and may retire at once when ``max_new_tokens == 1``.
 2. **decode** — if any slot is live, run ONE decode dispatch: the single
-   step (``fuse_steps=1``) or K fused steps. Every live slot appends up to
-   its remaining tokens; finished requests retire and free their slots.
+   step (``fuse_steps=1``), K fused steps, or K speculative rounds when a
+   draft is configured. Every live slot appends up to its remaining
+   tokens; finished requests retire and free their slots.
 
 The host reads back one token block per dispatch ([S] at K=1, [K, S]
-fused); that readback is the loop's synchronisation point. Deadlines,
-criticality shedding and the bounded queue behave as in the reference.
+fused, [K, S, G+2] speculative); that readback is the loop's
+synchronisation point. Deadlines, criticality shedding and the bounded
+queue behave as in the reference.
+
+Randomness: a sampled request draws from a ``torch.Generator`` seeded
+with its seed; a speculative server gives it a second one for the draft's
+proposals, seeded with :func:`draft_seed` of the same seed (the reference
+folds ``0x5bec`` into the request's key instead).
 """
 
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Sequence
+from collections import deque
+from typing import Callable, Deque, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,11 +40,24 @@ from deeplearning4j_tpu_torch.serving.scheduler import (
     criticality_rank, serve_deadline_s, serve_draft_layers,
     serve_fuse_steps, serve_kv_dtype, serve_max_queue, serve_slots)
 
-__all__ = ["DecodeServer"]
+__all__ = ["DecodeServer", "draft_seed"]
+
+_MASK64 = (1 << 64) - 1
 
 _LATENCY_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
                     0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
                     float("inf"))
+
+
+def draft_seed(seed: int) -> int:
+    """The seed of a request's draft generator: splitmix64's finaliser of
+    the request's seed plus ``0x5bec`` golden-ratio increments, in
+    [0, 2**63). A fixed function of the seed, so a sampled speculative
+    stream is a pure function of the request's seed."""
+    z = (int(seed) + 0x5bec * 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
 
 
 class DecodeServer:
@@ -63,7 +85,8 @@ class DecodeServer:
             kv_dtype=kv_dtype if kv_dtype is not None else serve_kv_dtype(),
             draft_model=draft_model,
             draft_layers=(draft_layers if draft_layers is not None
-                          else serve_draft_layers()),
+                          else (0 if draft_model is not None
+                                else serve_draft_layers())),
             spec_tokens=spec_tokens, mesh=mesh, device=device)
         self.model = model
         self.slots = self.engine.slots
@@ -76,6 +99,13 @@ class DecodeServer:
         self._last_tok_s = np.zeros(self.slots, np.float64)
         # per-slot sampling streams (None for greedy servers and free slots)
         self._gens: List[Optional[torch.Generator]] = [None] * self.slots
+        self._draft_gens: List[Optional[torch.Generator]] = \
+            [None] * self.slots
+        # externally prefilled requests waiting for a free slot: each entry
+        # carries an ``install(engine, slot) -> (last_tok, generator)``
+        # that lands the handed-off slab and cursor in the slot
+        # (serving/fleet/handoff.py builds these)
+        self._handoffs: Deque[Tuple[ServeRequest, Callable]] = deque()
         self.finished: List[ServeRequest] = []
         self.shed: List[ServeRequest] = []
         self.shed_log: List[dict] = []
@@ -85,6 +115,8 @@ class DecodeServer:
         self.steps = 0
         self.decode_tokens = 0
         self.slot_dispatches = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
         self._reg = metrics()
 
     # ------------------------------------------------------------------
@@ -107,12 +139,15 @@ class DecodeServer:
                    seed: int = 0,
                    deadline_s: Optional[float] = None,
                    criticality: str = "interactive",
-                   displace: bool = True) -> AdmissionVerdict:
+                   displace: bool = True,
+                   replay: int = 0) -> AdmissionVerdict:
         """Non-blocking ``submit`` returning an :class:`AdmissionVerdict`.
         Malformed requests raise. ``deadline_s`` is the ABSOLUTE expiry
         on this server's clock (None: ``DL4J_SERVE_DEADLINE_S`` as a
         budget from now); at the queue bound ``displace=True`` sheds the
-        costliest queued request of a strictly lower class."""
+        costliest queued request of a strictly lower class. ``replay``:
+        the prompt's last tokens were emitted by the stream already (a
+        greedy failover continuation, see :meth:`DecodeEngine.prefill`)."""
         criticality_rank(criticality)
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.shape[0] < 1:
@@ -120,17 +155,22 @@ class DecodeServer:
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         total = int(prompt.shape[0]) + max_new_tokens
-        if total > self.max_len:
+        # the speculative verify writes up to spec_tokens candidate K/V
+        # past the live cursor, so the slot needs that slack in the pool
+        slack = self.engine.spec_tokens if self.engine.spec else 0
+        if total + slack > self.max_len:
             raise ValueError(
-                f"prompt_len + max_new_tokens = {total} exceeds the "
-                f"server's slot capacity max_len={self.max_len}")
+                f"prompt_len + max_new_tokens = {total}"
+                + (f" (+ {slack} speculative slack)" if slack else "")
+                + f" exceeds the server's slot capacity "
+                f"max_len={self.max_len}")
         now = self.clock()
         if deadline_s is None:
             budget = serve_deadline_s()
             deadline_s = None if budget is None else now + budget
         req = ServeRequest(prompt=prompt, max_new_tokens=max_new_tokens,
                            seed=seed, deadline_s=deadline_s,
-                           criticality=criticality)
+                           criticality=criticality, replay=int(replay))
         req.submit_s = now
         if req.expired(now):
             self._shed(req, where="admission", reason="deadline", now=now)
@@ -183,6 +223,30 @@ class DecodeServer:
             criticality=req.criticality)
         tracer().event("serve.shed", **decision)
 
+    def admit_external(self, req: ServeRequest,
+                       install: Callable) -> None:
+        """Queue an externally prefilled request (prefill/decode split):
+        at the next step boundary a free slot is claimed and
+        ``install(engine, slot) -> (last_token, generator)`` lands the
+        handed-off slab and cursor in it; the request then decodes like a
+        locally prefilled one. ``req`` must already carry its first token
+        (sampled by the prefill replica, which recorded its TTFT)."""
+        if self.engine.spec:
+            raise ValueError(
+                "handoff into a speculative decode server is "
+                "unsupported: the draft pool holds no prompt K/V for "
+                "the handed-off slot")
+        if not req.tokens:
+            raise ValueError(
+                "admit_external needs a prefilled request (its first "
+                "token sampled by the prefill replica)")
+        self._handoffs.append((req, install))
+
+    def handoff_headroom(self) -> int:
+        """Free slots not yet spoken for by queued handoffs: the router's
+        can-this-replica-take-a-slab signal."""
+        return self.free_slot_count() - len(self._handoffs)
+
     # ------------------------------------------------------------------
     # the serve loop
     # ------------------------------------------------------------------
@@ -199,7 +263,8 @@ class DecodeServer:
         return len(self._live_slots()) / self.slots
 
     def busy(self) -> bool:
-        return bool(self._live_slots()) or len(self.queue) > 0
+        return (bool(self._live_slots()) or len(self.queue) > 0
+                or bool(self._handoffs))
 
     def _pop_live_request(self) -> Optional[ServeRequest]:
         """Next queued request, shedding expired and dropping canceled
@@ -216,19 +281,52 @@ class DecodeServer:
             req = self.queue.pop()
         return None
 
+    def _admit_handoff(self, slot: int) -> None:
+        req, install = self._handoffs.popleft()
+        with tracer().span("serve.handoff.install", request=req.id,
+                           slot=slot):
+            last_tok, gen = install(self.engine, slot)
+        now = self.clock()
+        req.state = "running"
+        req.handoff = True
+        req.slot = slot
+        self._slot_req[slot] = req
+        self._gens[slot] = gen
+        self._last_tok[slot] = int(last_tok)
+        self._last_tok_s[slot] = now
+        # TTFT was recorded by the prefill replica; the installed slab
+        # covers every emitted token, so a request that arrived complete
+        # just retires
+        if len(req.tokens) >= req.max_new_tokens:
+            self._retire(slot, now)
+
+    def _generator(self, seed: int) -> Optional[torch.Generator]:
+        """A sampled request's stream (None on a greedy server)."""
+        if self.engine.temperature == 0.0:
+            return None
+        return torch.Generator(device=self.engine.device).manual_seed(seed)
+
     def _admit(self) -> int:
         admitted = 0
         for slot in self._free_slots():
+            # handed-off slabs first: their prefill compute is already
+            # spent, and a queued prompt admitted ahead of them would idle
+            # a finished prefill while burning a slot on new work
+            if self._handoffs:
+                self._admit_handoff(slot)
+                admitted += 1
+                continue
             req = self._pop_live_request()
             if req is None:
                 break
             with tracer().span("serve.prefill", request=req.id, slot=slot,
                                prompt_len=int(req.prompt.shape[0])):
-                gen = None
-                if self.engine.temperature > 0.0:
-                    gen = torch.Generator(
-                        device=self.engine.device).manual_seed(req.seed)
-                tok = int(self.engine.prefill(req.prompt, slot, gen))
+                gen = self._generator(req.seed)
+                if self.engine.spec:
+                    self._draft_gens[slot] = self._generator(
+                        draft_seed(req.seed))
+                tok = int(self.engine.prefill(req.prompt, slot, gen,
+                                              replay=req.replay))
             now = self.clock()
             req.state = "running"
             req.slot = slot
@@ -251,6 +349,7 @@ class DecodeServer:
     def _free(self, slot: int) -> None:
         self._slot_req[slot] = None
         self._gens[slot] = None
+        self._draft_gens[slot] = None
 
     def _retire(self, slot: int, now: float) -> None:
         req = self._slot_req[slot]
@@ -264,24 +363,30 @@ class DecodeServer:
                                 buckets=_LATENCY_BUCKETS
                                 ).observe(req.latency_s)
 
-    def _dispatch(self, live: List[int]) -> np.ndarray:
-        """ONE decode dispatch for the current live set; returns the
-        ``[K, S]`` token block as a host array (the loop's one
-        readback)."""
+    def _dispatch(self, live: List[int]):
+        """ONE decode dispatch for the current live set. Returns
+        ``(toks [K, S], counts [K, S] or None)`` as host arrays (the
+        loop's one readback); ``counts`` is None outside the speculative
+        path, where every row emits exactly one token."""
+        remaining = np.zeros(self.slots, np.int64)
+        for slot in live:
+            req = self._slot_req[slot]
+            remaining[slot] = req.max_new_tokens - len(req.tokens)
+        if self.engine.spec:
+            block = self.engine.decode_spec(
+                self._last_tok, remaining, self._gens, self._draft_gens,
+                self.fuse_steps).cpu().numpy()       # [K, S, G+2]
+            return block[:, :, 1:], block[:, :, 0]
         if self.fuse_steps > 1:
-            remaining = np.zeros(self.slots, np.int64)
-            for slot in live:
-                req = self._slot_req[slot]
-                remaining[slot] = req.max_new_tokens - len(req.tokens)
             toks = self.engine.decode_fused(self._last_tok, remaining,
                                             self._gens, self.fuse_steps)
-            return toks.cpu().numpy()
+            return toks.cpu().numpy(), None
         toks = self.engine.decode(self._last_tok, self.engine.cache.cursors,
                                   self._gens)
         live_mask = np.zeros(self.slots, bool)
         live_mask[live] = True
         self.engine.cache.advance(live_mask)
-        return toks.cpu().numpy()[None]
+        return toks.cpu().numpy()[None], None
 
     def _sweep_expired(self) -> None:
         """Free the slots of canceled and expired in-flight requests."""
@@ -310,7 +415,7 @@ class DecodeServer:
                 len(live) / self.slots)
             if not live:
                 return False
-            toks = self._dispatch(live)
+            toks, counts = self._dispatch(live)
             now = self.clock()
             self.steps += 1
             self.slot_dispatches += len(live)
@@ -319,11 +424,25 @@ class DecodeServer:
             tpot = self._reg.histogram("serve_tpot_seconds",
                                        buckets=_LATENCY_BUCKETS)
             emitted_total = 0
+            proposed0, accepted0 = self.spec_proposed, self.spec_accepted
             for slot in live:
                 req = self._slot_req[slot]
                 rem = req.max_new_tokens - len(req.tokens)
-                got = [int(toks[r, slot])
-                       for r in range(min(toks.shape[0], rem))]
+                got: List[int] = []
+                if counts is None:
+                    got = [int(toks[r, slot])
+                           for r in range(min(toks.shape[0], rem))]
+                else:
+                    for r in range(toks.shape[0]):
+                        c = int(counts[r, slot])
+                        if c <= 0:
+                            continue
+                        take = min(c, rem - len(got))
+                        got.extend(int(t) for t in toks[r, slot, :take])
+                        self.spec_proposed += self.engine.spec_tokens
+                        self.spec_accepted += c - 1
+                        if len(got) >= rem:
+                            break
                 req.tokens.extend(got)
                 emitted_total += len(got)
                 # fused tokens land together: spread the interval evenly
@@ -336,6 +455,12 @@ class DecodeServer:
                     self._retire(slot, now)
             self.decode_tokens += emitted_total
             self._reg.counter("serve_tokens_total").inc(emitted_total)
+            if self.spec_proposed > proposed0:
+                self._reg.counter("serve_spec_proposed_total").inc(
+                    self.spec_proposed - proposed0)
+            if self.spec_accepted > accepted0:
+                self._reg.counter("serve_spec_accepted_total").inc(
+                    self.spec_accepted - accepted0)
             self._reg.gauge("serve_slot_occupancy").set(self.occupancy())
             return True
 
@@ -351,9 +476,15 @@ class DecodeServer:
 
     # ------------------------------------------------------------------
     def stats(self) -> dict:
-        """Snapshot: shape counts, pool footprint, request/dispatch
-        totals and the dispatch ratios."""
-        return {
+        """Snapshot: shape counts, pool footprint (the draft pool's
+        included), request/dispatch totals, the dispatch ratios and, when
+        speculative, the proposal and acceptance counts."""
+        pool_bytes = self.engine.cache.nbytes
+        per_slot = self.engine.cache.per_slot_nbytes
+        if self.engine.draft_cache is not None:
+            pool_bytes += self.engine.draft_cache.nbytes
+            per_slot += self.engine.draft_cache.per_slot_nbytes
+        out = {
             "slots": self.slots,
             "max_len": self.max_len,
             "queue_depth": len(self.queue),
@@ -366,8 +497,10 @@ class DecodeServer:
             "expired_in_flight": self.expired_in_flight,
             "fuse_steps": self.fuse_steps,
             "kv_dtype": self.engine.kv_dtype,
-            "kv_pool_bytes": self.engine.cache.nbytes,
-            "kv_per_slot_bytes": self.engine.cache.per_slot_nbytes,
+            "kv_pool_bytes": pool_bytes,
+            # one concurrent request's share of the pools (the draft's
+            # included): kv_per_slot_bytes * slots == kv_pool_bytes
+            "kv_per_slot_bytes": per_slot,
             "kv_shards": self.engine.cache.n_shard,
             "decode_dispatches": self.steps,
             "decode_tokens": self.decode_tokens,
@@ -380,6 +513,14 @@ class DecodeServer:
             "tokens_per_slot_dispatch": (
                 round(self.decode_tokens / self.slot_dispatches, 4)
                 if self.slot_dispatches else None),
-            "speculative": False,
+            "speculative": self.engine.spec,
             "compiles": self.engine.compile_counts(),
         }
+        if self.engine.spec:
+            out["spec_tokens"] = self.engine.spec_tokens
+            out["spec_proposed"] = self.spec_proposed
+            out["spec_accepted"] = self.spec_accepted
+            out["spec_accept_rate"] = (
+                round(self.spec_accepted / self.spec_proposed, 4)
+                if self.spec_proposed else None)
+        return out

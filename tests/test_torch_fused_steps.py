@@ -12,6 +12,7 @@ warm-up, capture and replay sequence and its kernel-launch accounting
 are exercised with a stand-in for the CUDA graph API."""
 
 import contextlib
+import gc
 
 import jax
 import numpy as np
@@ -356,6 +357,66 @@ def test_step_graph_warms_up_captures_once_and_replays(monkeypatch):
     monkeypatch.setattr(step_graph, "_capture", False)
     g()
     assert len(ran) == 3 and g.eager_calls == 2 and g.replays == 4
+
+
+def test_capture_collects_dead_graphs_first_and_pauses_the_collector(
+        monkeypatch):
+    """Destroying a CUDA graph while a stream captures invalidates the
+    capture, and a dropped network's graphs die with its reference cycle
+    whenever the collector runs. The capture collects such cycles before
+    it begins and keeps the collector off until it ends (also when the
+    step raises), restoring its earlier state."""
+    seen = []
+
+    class Doomed:  # a graph held in a cycle, as a dropped network's are
+        def __init__(self):
+            self.me = self
+
+        def __del__(self):
+            seen.append(("destroyed", capturing[0]))
+
+    capturing = [False]
+
+    @contextlib.contextmanager
+    def graph(g, pool=None):
+        capturing[0] = True
+        try:
+            yield
+        finally:
+            capturing[0] = False
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: ("pool",))
+    calls = []
+
+    def step():
+        calls.append(1)
+        if len(calls) == 1:  # the capture (the warm-up is skipped)
+            seen.append(("collector on", gc.isenabled()))
+            gc.collect()  # what an allocation-triggered collection does
+            if raising:
+                raise RuntimeError("the step failed")
+
+    for raising, was_on in ((False, True), (True, True), (False, False)):
+        calls.clear(), seen.clear()
+        (gc.enable if was_on else gc.disable)()
+        try:
+            g = step_graph.StepGraph(step, "cpu")
+            g.graphed, g.warmed = True, True  # as on a card, warmed up
+            Doomed()
+            if raising:
+                with pytest.raises(RuntimeError, match="the step failed"):
+                    g()
+            else:
+                g()
+            # gc.collect() inside the capture still collects, so the
+            # doomed cycle must have died before the capture began
+            assert seen[0] == ("destroyed", False)
+            assert seen[1] == ("collector on", False)
+            assert gc.isenabled() == was_on
+        finally:
+            gc.enable()
 
 
 def test_static_tree_helpers():

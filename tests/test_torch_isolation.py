@@ -39,12 +39,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                         or m.startswith("deeplearning4j_tpu."))
         new = [n for n in names if n.split(".")[1] in ("optimize", "utils",
                                                       "cli")]
-        print(len(names), len(new), leaked)
+        fleet = [n for n in names if n.startswith(
+            ("deeplearning4j_tpu_torch.serving.fleet",
+             "deeplearning4j_tpu_torch.parallel",
+             "deeplearning4j_tpu_torch.serving.compile_cache"))]
+        print(len(names), len(new), len(fleet), leaked)
     """)
-    count, new, leaked = out.split(" ", 2)
+    count, new, fleet, leaked = out.split(" ", 3)
     assert int(count) >= 15
     # optimize (4 modules), utils (3) and cli (2) are walked too
     assert int(new) >= 9
+    # and the serve fleet (6), parallel (2) and the compile cache
+    assert int(fleet) >= 9
     assert leaked.strip() == "[]"
 
 
@@ -79,6 +85,17 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         DecodeEngine(lm, 1)
     assert DecodeServer(lm, slots=1, device="cpu").engine.device == \
         torch.device("cpu")
+    # the fleet's replicas and the speculative engine likewise
+    from deeplearning4j_tpu_torch.serving.fleet import (
+        FleetRouter, ServeReplica)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeReplica("r0", lm, slots=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FleetRouter.build(lm, replicas=1, slots=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DecodeEngine(lm, 1, draft_layers=1)
+    assert ServeReplica("r0", lm, slots=1, device="cpu").server.engine \
+        .device == torch.device("cpu")
 
 
 def test_fused_epoch_paths_raise_without_a_card(monkeypatch):

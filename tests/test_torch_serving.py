@@ -145,12 +145,12 @@ def test_engine_steps_and_counts():
     assert torch.equal(block[3], block[2])       # frozen after 3 steps
     assert eng.compile_counts() == {"decode": 2, "prefill_buckets": [16],
                                     "total": 3}
-    with pytest.raises(NotImplementedError):
-        DecodeEngine(lm, 2, draft_layers=1, device="cpu")
-    with pytest.raises(NotImplementedError):
+    # speculative decoding needs a draft; mesh= is ROADMAP A14
+    assert DecodeEngine(lm, 2, draft_layers=1, device="cpu").spec
+    with pytest.raises(NotImplementedError, match="A14"):
         DecodeEngine(lm, 2, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.decode_spec()
+    with pytest.raises(ValueError, match="draft"):
+        eng.decode_spec(np.zeros(2), np.zeros(2), [None] * 2, [None] * 2, 1)
 
 
 @pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
