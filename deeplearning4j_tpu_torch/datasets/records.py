@@ -11,11 +11,12 @@ one place: readers yield records (lists of values); iterators assemble
 padded/masked DataSet/MultiDataSet batches of numpy arrays, which the
 networks move to their device.
 
-Port of ``deeplearning4j_tpu/datasets/records.py`` (which imports no jax)
-on its numpy path: the JAX package parses all-numeric CSV and SVMLight
-files with its C++ library when that builds (``native/dl4j_host.cpp``);
-the port parses them with numpy and ``csv``, which give the same records.
-The port's binding of that library is ROADMAP A11.
+Port of ``deeplearning4j_tpu/datasets/records.py`` (which imports no
+jax). All-numeric CSV and SVMLight files go through the C++ host parser
+(``native/dl4j_host.cpp``, bound by :mod:`deeplearning4j_tpu_torch.native`)
+when it builds; otherwise numpy and ``csv`` parse them by the native
+parser's number grammar, which gives the same records. Each parse counts
+its path in ``native_parse_total``.
 """
 
 from __future__ import annotations
@@ -119,11 +120,22 @@ class CSVRecordReader(RecordReader):
     def _load(self):
         if self._rows is not None or self._matrix is not None:
             return
-        # All-numeric rectangular files parse to a float32 matrix; files
-        # with string cells or ragged rows stay lists of strings.
+        # All-numeric rectangular files parse to a float32 matrix (the
+        # native parser when it builds, numpy otherwise: the same result);
+        # files with string cells or ragged rows stay lists of strings.
+        from deeplearning4j_tpu_torch import native
+
+        self._matrix = native.csv_to_array(self.path, self.delimiter,
+                                           self.skip_lines)
+        if self._matrix is not None:
+            return
         with open(self.path, newline="") as f:
             text = f.read()
-        self._matrix = _numeric_matrix(text, self.delimiter, self.skip_lines)
+        if not native.is_available():
+            # the native parser, when it runs, has already said no
+            self._matrix = _numeric_matrix(text, self.delimiter,
+                                           self.skip_lines)
+            native.count_parse("numpy", "csv")
         if self._matrix is None:
             rows = list(csv.reader(io.StringIO(text, newline=""),
                                    delimiter=self.delimiter))
@@ -159,17 +171,26 @@ class SVMLightRecordReader(RecordReader):
         self.num_features = num_features
         self.zero_based = zero_based
         self._lines: Optional[List[str]] = None
+        self._native: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self._pos = 0
 
     def _load(self):
-        if self._lines is not None:
+        if self._lines is not None or self._native is not None:
             return
+        from deeplearning4j_tpu_torch import native
+
+        self._native = native.svmlight_to_arrays(
+            self.path, self.num_features, self.zero_based)
+        if self._native is not None:
+            return
+        native.count_parse("numpy", "svmlight")
         with open(self.path) as f:
             self._lines = [l.strip() for l in f if l.strip()
                            and not l.startswith("#")]
 
     def _count(self) -> int:
-        return len(self._lines)
+        return (len(self._native[1]) if self._native is not None
+                else len(self._lines))
 
     def has_next(self):
         self._load()
@@ -177,6 +198,11 @@ class SVMLightRecordReader(RecordReader):
 
     def next(self) -> Tuple[float, np.ndarray]:
         self._load()
+        if self._native is not None:
+            feats, labels = self._native
+            i = self._pos
+            self._pos += 1
+            return float(labels[i]), feats[i]
         parts = self._lines[self._pos].split()
         self._pos += 1
         label = float(parts[0])

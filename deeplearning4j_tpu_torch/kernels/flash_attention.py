@@ -189,6 +189,7 @@ def flash_attention_fwd(
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error "
                            f"{err}")
     flash_attention_fwd.launches += 1
+    _note_work("fwd", q, k, causal, window)
     return out, lse
 
 
@@ -356,6 +357,7 @@ def flash_attention_bwd_dkdv(
     _bwd_launch("dl4j_flash_bwd_dkdv", q, k, v, do, lse, delta, (dk, dv),
                 causal, scale, window)
     flash_attention_bwd_dkdv.launches += 1
+    _note_work("dkdv", q, k, causal, window)
     return dk, dv
 
 
@@ -379,6 +381,7 @@ def flash_attention_bwd_dq(
     _bwd_launch("dl4j_flash_bwd_dq", q, k, v, do, lse, delta, (dq,),
                 causal, scale, window)
     flash_attention_bwd_dq.launches += 1
+    _note_work("dq", q, k, causal, window)
     return dq
 
 
@@ -432,6 +435,25 @@ def flash_attention(
 ) -> torch.Tensor:
     """Differentiable flash attention, [b, tq, h, d] → [b, tq, h, d]."""
     return _Flash.apply(q, k, v, causal, scale, window)
+
+
+# Callables ``sink(kernel, flops, bytes)`` told of every kernel launch:
+# ``monitor.profile`` counts a program's work with the aten flop counter,
+# which does not see these kernels (they launch through ctypes), and adds
+# theirs from the bounds' formulas.
+work_sinks: list = []
+
+
+def _note_work(kernel: str, q, k, causal, window) -> None:
+    if not work_sinks:
+        return
+    b, tq, h, d = q.shape
+    args = (b, tq, k.shape[1], h, d, q.dtype)
+    bound = (flash_bound(*args, causal=causal, window=window)
+             if kernel == "fwd" else
+             flash_bwd_bound(*args, causal=causal, window=window)[kernel])
+    for sink in list(work_sinks):
+        sink(kernel, bound["flops"], bound["bytes"])
 
 
 def launch_counts() -> dict:

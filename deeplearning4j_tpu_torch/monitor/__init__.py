@@ -1,173 +1,110 @@
-"""The metrics registry, span tracer and telemetry knobs the port uses.
+"""Telemetry: metrics registry, span tracer, exporters, flight recorder,
+run ledger, device-memory watermarks, program profiles and the
+in-program metrics pack.
 
-Counterpart of the parts of ``deeplearning4j_tpu/monitor`` that
-``serving/server.py`` and the fused training paths call: labelled
-counters, gauges and histograms in one process-wide registry
-(:func:`metrics`, :func:`record_counter`), a tracer (:func:`tracer`)
-whose spans time a ``with`` block on the host clock and whose events are
-kept in a bounded ring, and the ``DL4J_TELEMETRY`` /
-``DL4J_TELEMETRY_STRIDE`` resolution of the in-program metrics pack
-(:func:`fused_metrics_stride`, the pack itself in :mod:`.pack`).
-Exporters, the flight recorder, the run ledger and device-memory
-watermarks are not ported yet (ROADMAP A12).
+Port of ``deeplearning4j_tpu/monitor``:
+
+- :mod:`.registry` — ``MetricsRegistry`` (counters, gauges and
+  histograms with labels); ``metrics()`` is the process-wide instance.
+- :mod:`.trace` — ``SpanTracer`` (``with`` spans on a monotonic clock,
+  parent ids, an injectable clock, a sink and the flight hook);
+  ``tracer()`` is the process-wide instance.
+- :mod:`.exporters` — the JSONL event log and the Prometheus textfile
+  under ``DL4J_TELEMETRY_DIR``, and ``telemetry_summary()``.
+- :mod:`.flight` — the crash-surviving flight recorder (``DL4J_FLIGHT``).
+- :mod:`.ledger` — the run ledger: a fused run's wall time classified by
+  state from the spans and the chunk driver's boundary marks.
+- :mod:`.memory` — device-memory watermarks from ``torch.cuda``'s
+  allocator statistics, and the epoch cache's priced bytes against the
+  storage its tensors hold.
+- :mod:`.profile` — program profiles (FLOPs from
+  ``torch.utils.flop_counter``, the allocator's peak, CUDA-event times)
+  and the step-time decomposition against the H100's peaks.
+- :mod:`.pack` — the per-step metrics pack of the fused epoch step,
+  imported by the networks.
+
+Env surface: ``DL4J_TELEMETRY`` (``on`` puts the metrics pack into the
+fused step; default off), ``DL4J_TELEMETRY_STRIDE``,
+``DL4J_TELEMETRY_DIR`` (file exporters), ``DL4J_PROFILE`` (profiles and
+watermarks) and ``DL4J_FLIGHT``. The registry and the tracer are always
+live: they are host-side and cheap.
 """
 
 from __future__ import annotations
 
-import bisect
 import logging
 import os
-import threading
-import time
-from collections import deque
-from typing import Deque, Dict, Optional, Sequence, Tuple
 
-_DEFAULT_BUCKETS = (0.001, 0.01, 0.1, 1.0, 10.0, float("inf"))
+from deeplearning4j_tpu_torch.monitor.registry import (  # noqa: F401
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    metrics,
+)
+from deeplearning4j_tpu_torch.monitor.trace import (  # noqa: F401
+    Span,
+    SpanTracer,
+    set_tracer,
+    tracer,
+)
+from deeplearning4j_tpu_torch.monitor.exporters import (  # noqa: F401
+    JsonlExporter,
+    export_metrics_jsonl,
+    telemetry_dir,
+    telemetry_summary,
+    write_prometheus_textfile,
+)
+from deeplearning4j_tpu_torch.monitor.profile import (  # noqa: F401
+    ProfiledProgram,
+    ProgramProfile,
+    capture_program_profile,
+    classify_boundedness,
+    flops_divergence_pct,
+    profile_enabled,
+    profiles,
+)
+from deeplearning4j_tpu_torch.monitor.memory import (  # noqa: F401
+    sample_hbm_watermark,
+    validate_cache_budget,
+)
+from deeplearning4j_tpu_torch.monitor.ledger import (  # noqa: F401
+    RunLedger,
+    ledger_chunk_done,
+    ledger_chunk_start,
+    ledger_run_end,
+    ledger_run_start,
+    run_ledger,
+    set_run_ledger,
+)
+from deeplearning4j_tpu_torch.monitor.flight import (  # noqa: F401
+    FlightRecorder,
+    classify_end_state,
+    flight,
+    flight_record,
+    load_flight_records,
+    set_flight,
+)
 
+# the registry's name in the port before it took the reference's
+Registry = MetricsRegistry
 
-def _key(labels: dict) -> Tuple:
-    return tuple(sorted(labels.items()))
+__all__ = [
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "metrics",
+    "Span", "SpanTracer", "set_tracer", "tracer",
+    "JsonlExporter", "export_metrics_jsonl", "telemetry_dir",
+    "telemetry_summary", "write_prometheus_textfile",
+    "telemetry_enabled", "metrics_stride", "fused_metrics_stride",
+    "record_counter",
+    "ProfiledProgram", "ProgramProfile", "capture_program_profile",
+    "classify_boundedness", "flops_divergence_pct", "profile_enabled",
+    "profiles", "sample_hbm_watermark", "validate_cache_budget",
+    "RunLedger", "ledger_chunk_done", "ledger_chunk_start",
+    "ledger_run_end", "ledger_run_start", "run_ledger", "set_run_ledger",
+    "FlightRecorder", "classify_end_state", "flight", "flight_record",
+    "load_flight_records", "set_flight",
+]
 
-
-class Counter:
-    def __init__(self):
-        self._v: Dict[Tuple, float] = {}
-        self._lock = threading.Lock()
-
-    def inc(self, n: float = 1.0, **labels) -> None:
-        k = _key(labels)
-        with self._lock:
-            self._v[k] = self._v.get(k, 0.0) + n
-
-    def value(self, **labels) -> float:
-        return self._v.get(_key(labels), 0.0)
-
-
-class Gauge:
-    def __init__(self):
-        self._v: Dict[Tuple, float] = {}
-        self._lock = threading.Lock()
-
-    def set(self, v: float, **labels) -> None:
-        with self._lock:
-            self._v[_key(labels)] = float(v)
-
-    def value(self, **labels) -> float:
-        """The labelled series' value; 0.0 for one never set (or
-        removed), as the reference's registry reads it."""
-        return self._v.get(_key(labels), 0.0)
-
-    def remove(self, **labels) -> bool:
-        """Drop one labelled series (a dead replica stops reporting as
-        current); returns whether it existed."""
-        with self._lock:
-            return self._v.pop(_key(labels), None) is not None
-
-
-class Histogram:
-    def __init__(self, buckets: Sequence[float]):
-        self.buckets = tuple(buckets)
-        self.counts = [0] * len(self.buckets)
-        self.count = 0
-        self.sum = 0.0
-        self._lock = threading.Lock()
-
-    def observe(self, v: float) -> None:
-        with self._lock:
-            i = min(bisect.bisect_left(self.buckets, v),
-                    len(self.buckets) - 1)
-            self.counts[i] += 1
-            self.count += 1
-            self.sum += v
-
-
-class Registry:
-    def __init__(self):
-        self._metrics: Dict[Tuple[str, str], object] = {}
-        self._lock = threading.Lock()
-
-    def _get(self, kind: str, name: str, factory):
-        with self._lock:
-            m = self._metrics.get((kind, name))
-            if m is None:
-                m = self._metrics[(kind, name)] = factory()
-            return m
-
-    def counter(self, name: str) -> Counter:
-        return self._get("counter", name, Counter)
-
-    def gauge(self, name: str, help: str = "") -> Gauge:
-        return self._get("gauge", name, Gauge)
-
-    def histogram(self, name: str,
-                  buckets: Sequence[float] = _DEFAULT_BUCKETS) -> Histogram:
-        return self._get("histogram", name, lambda: Histogram(buckets))
-
-
-class Span:
-    def __init__(self, name: str, attrs: dict):
-        self.name = name
-        self.attrs = attrs
-        self.start_s = 0.0
-        self.duration_s: Optional[float] = None
-
-
-class SpanTracer:
-    """Records finished spans and events (newest ``capacity`` kept)."""
-
-    def __init__(self, capacity: int = 4096):
-        self.records: Deque[dict] = deque(maxlen=capacity)
-
-    def span(self, name: str, **attrs) -> "_SpanContext":
-        return _SpanContext(self, Span(name, attrs))
-
-    def event(self, name: str, **attrs) -> None:
-        self.records.append({"event": name, "t": time.monotonic(),
-                             **attrs})
-
-
-class _SpanContext:
-    def __init__(self, tracer: SpanTracer, span: Span):
-        self.tracer = tracer
-        self.span = span
-
-    def __enter__(self) -> Span:
-        self.span.start_s = time.monotonic()
-        return self.span
-
-    def __exit__(self, *exc) -> None:
-        sp = self.span
-        sp.duration_s = time.monotonic() - sp.start_s
-        self.tracer.records.append({"span": sp.name, "t": sp.start_s,
-                                    "duration_s": sp.duration_s,
-                                    **sp.attrs})
-
-
-_REGISTRY = Registry()
-_TRACER = SpanTracer()
-
-
-def metrics() -> Registry:
-    return _REGISTRY
-
-
-def tracer() -> SpanTracer:
-    return _TRACER
-
-
-def set_tracer(t: SpanTracer) -> None:
-    global _TRACER
-    _TRACER = t
-
-
-def record_counter(name: str, amount: float = 1.0, **labels) -> None:
-    """Bump the named counter of the global registry."""
-    metrics().counter(name).inc(amount, **labels)
-
-
-# ---------------------------------------------------------------------------
-# telemetry knobs (copies of deeplearning4j_tpu/monitor/__init__.py)
-# ---------------------------------------------------------------------------
 _ON = ("1", "on", "true", "yes")
 _OFF = ("", "0", "off", "false", "no")
 
@@ -206,3 +143,8 @@ def fused_metrics_stride(override=None) -> int:
     if override is True:
         return metrics_stride()
     return max(0, int(override))
+
+
+def record_counter(name: str, amount: float = 1.0, **labels) -> None:
+    """Bump the named counter of the global registry."""
+    metrics().counter(name).inc(amount, **labels)

@@ -49,6 +49,7 @@ import torch
 
 from deeplearning4j_tpu_torch.dtypes import tree_leaves, tree_map
 from deeplearning4j_tpu_torch.monitor import fused_metrics_stride
+from deeplearning4j_tpu_torch.monitor.profile import ProfiledProgram
 from deeplearning4j_tpu_torch.nn.updater import (
     grouped_apply_updaters,
     lr_policy_scale,
@@ -530,7 +531,11 @@ class FusedTraining:
                         if stride else None)
                 return hist, trips, mets
 
-            prog.launch = launch
+            # DL4J_PROFILE: the first launch runs eagerly under the
+            # counters and leaves a ProgramProfile (monitor.profile)
+            prog.launch = ProfiledProgram(
+                launch, name=f"{type(self).__name__}.fit_epochs",
+                key=(shuffle, accum, guarded, stride))
             return prog
 
         key = ("fit_epochs", tree_signature(stacks), shuffle, accum,

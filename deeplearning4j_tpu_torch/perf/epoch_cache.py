@@ -25,10 +25,16 @@ Pad rows drop out of every mask-weighted loss (the labels mask is always
 materialised, zero on pad rows). Train-mode BatchNorm takes its
 statistics over all rows, pad rows included, as in the reference.
 
+The streaming fallback (:func:`stream_epochs`) runs ``fit`` once per
+epoch through an ``AsyncDataSetIterator`` whose producer copies each
+batch to the card on a stream of its own, ``DL4J_PREFETCH_DEPTH``
+batches ahead (default 8). The chunk driver marks the run ledger's run
+and chunk boundaries (``monitor.ledger``) and, under ``DL4J_PROFILE``,
+samples device-memory watermarks after every chunk
+(``net._hbm_watermarks``).
+
 Not ported: ``mesh=`` and ``respec`` (sharding the stacks over a device
-mesh, and the elastic reshard that re-places them; ROADMAP A14), the
-asynchronous device prefetch of the streaming fallback (A11) and the run
-ledger's chunk hooks and device-memory watermarks (A12).
+mesh, and the elastic reshard that re-places them; ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from deeplearning4j_tpu_torch._device import resolve_device
 from deeplearning4j_tpu_torch.perf.bucketing import bucket_size, pad_axis0
 
 DEFAULT_CACHE_MB = 2048
+DEFAULT_PREFETCH_DEPTH = 8
 
 
 def mesh_not_ported(what: str) -> NotImplementedError:
@@ -61,6 +68,17 @@ def cache_budget_mb() -> float:
         return float(raw) if raw else float(DEFAULT_CACHE_MB)
     except ValueError:
         return float(DEFAULT_CACHE_MB)
+
+
+def prefetch_depth() -> int:
+    """Device-prefetch depth of the streaming fallback
+    (``DL4J_PREFETCH_DEPTH``, default 8): how many batches the producer
+    keeps on the card ahead of the consumer."""
+    raw = os.environ.get("DL4J_PREFETCH_DEPTH", "")
+    try:
+        return max(1, int(raw)) if raw else DEFAULT_PREFETCH_DEPTH
+    except ValueError:
+        return DEFAULT_PREFETCH_DEPTH
 
 
 def cache_dtype() -> Optional[torch.dtype]:
@@ -472,8 +490,22 @@ def drive_epoch_chunks(net, cache, num_epochs: int,
     whose deadline scales with its steps; ``epoch.chunk`` is a fault
     site. A pending elastic reshard is applied through ``reshard`` or,
     without it, logged and dropped (the port has no mesh, ROADMAP A14).
+
+    The run ledger (and the flight recorder, when on) hears from the
+    driver at the reference's points only: the run's start, each chunk's
+    launch and completion, and the run's end with its status (``clean``,
+    ``stopped`` by ``on_chunk``, or ``error:<type>``). Under
+    ``DL4J_PROFILE`` a device-memory watermark is sampled after each
+    chunk into ``net._hbm_watermarks``.
     """
     from deeplearning4j_tpu_torch.monitor import record_counter, tracer
+    from deeplearning4j_tpu_torch.monitor.ledger import (
+        ledger_chunk_done,
+        ledger_chunk_start,
+        ledger_run_end,
+        ledger_run_start,
+    )
+    from deeplearning4j_tpu_torch.monitor.profile import profile_enabled
     from deeplearning4j_tpu_torch.resilience import faults
     from deeplearning4j_tpu_torch.resilience.watchdog import StepWatchdog
 
@@ -486,10 +518,18 @@ def drive_epoch_chunks(net, cache, num_epochs: int,
     metrics_chunks = []
     net._last_sentinel = None
     net._last_metrics = None
+    # watermarks only at chunk boundaries, and only under DL4J_PROFILE
+    profiling = profile_enabled()
+    net._hbm_watermarks = [] if profiling else None
     defer_inspect = guard not in ("halve_lr", "raise")
     done = 0
+    stopped = False
+    run_error = None
     watchdog = StepWatchdog(chunk_deadline_s(chunk_epochs * cache.n_batches))
     net._chunk_watchdog = watchdog
+    ledger_run_start(model=model_name, epochs=num_epochs,
+                     steps=num_epochs * cache.n_batches,
+                     chunk_epochs=chunk_epochs, guard=guard)
     try:
         with watchdog:
             while done < num_epochs:
@@ -518,13 +558,22 @@ def drive_epoch_chunks(net, cache, num_epochs: int,
                                                  net.updater_state,
                                                  net.net_state))
                     gen_state = net._rng.get_state()
+                ledger_chunk_start(model=model_name, epoch0=done,
+                                   epochs=k)
                 with tracer().span("epoch.chunk", model=model_name,
                                    epochs=k, steps=k * cache.n_batches,
                                    epoch0=done):
                     hist, trips, mets = launch_chunk(k)
                 watchdog.beat()
+                ledger_chunk_done(model=model_name, epoch0=done, epochs=k)
                 record_counter("train_chunk_dispatches_total",
                                model=model_name)
+                if profiling:
+                    from deeplearning4j_tpu_torch.monitor.memory import (
+                        sample_hbm_watermark)
+
+                    net._hbm_watermarks.append(
+                        sample_hbm_watermark(tag="epoch.chunk"))
                 net.iteration_count += k * cache.n_batches
                 net._score = hist[-1, -1]  # device scalar
                 if mets is not None:
@@ -550,7 +599,11 @@ def drive_epoch_chunks(net, cache, num_epochs: int,
                     else:
                         listener.iteration_done(net, net.iteration_count)
                 if on_chunk is not None and on_chunk(done):
+                    stopped = True
                     break
+    except BaseException as e:
+        run_error = e
+        raise
     finally:
         # flushed even when ``raise`` aborts the run: a handler of
         # TrainingDivergedError reads the history that tripped it
@@ -565,6 +618,13 @@ def drive_epoch_chunks(net, cache, num_epochs: int,
             if defer_inspect and full.any():
                 _enforce_nan_guard(net, guard, full, 0, None, shuffle,
                                    cache.n_batches, None, 0, None)
+        # the ledger window closes last, so that the sentinel flush
+        # above stays inside the run it belongs to
+        ledger_run_end(
+            status=(f"error:{type(run_error).__name__}"
+                    if run_error is not None
+                    else ("stopped" if stopped else "clean")),
+            model=model_name, epochs_done=done)
     return _concat_chunks(history)
 
 
@@ -640,11 +700,22 @@ def _replay_localize(replay_step, snapshot, gen_state, device,
 
 
 def stream_epochs(net, data, num_epochs: int) -> None:
-    """The over-budget fallback: ``net.fit`` once per epoch. The
-    reference streams through ``AsyncDataSetIterator`` with device
-    prefetch (A11); the results are the same either way."""
+    """The over-budget fallback: ``net.fit`` once per epoch, a plain
+    ``DataSetIterator`` wrapped in an ``AsyncDataSetIterator`` that copies
+    ``prefetch_depth()`` batches ahead to the network's device on a
+    stream of its own (the identity on the CPU). The steps are the same
+    as ``fit``'s on the same batches."""
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        AsyncDataSetIterator, DataSetIterator)
+
+    stream = data
+    if (isinstance(data, DataSetIterator)
+            and not isinstance(data, AsyncDataSetIterator)):
+        stream = AsyncDataSetIterator(data, queue_size=prefetch_depth(),
+                                      device_prefetch=True,
+                                      device=net.device)
     for _ in range(num_epochs):
-        net.fit(data)
+        net.fit(stream)
 
 
 def _mask_or_ones(mds, i):

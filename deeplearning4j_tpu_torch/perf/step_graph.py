@@ -29,7 +29,11 @@ so every fused path follows the same rules:
 On the CPU every call runs the same step function eagerly. On the card
 a failed capture or replay raises: nothing falls back to the eager loop.
 No cyclic garbage collection runs during a capture (it could destroy
-another graph mid-capture, which the driver refuses).
+another graph mid-capture, which the driver refuses), and a capture
+holds :data:`CAPTURE_LOCK`, which every thread that makes CUDA calls
+beside the training thread (``AsyncDataSetIterator``'s device prefetch)
+holds around them: under the default global capture mode an allocation
+or a synchronising call from another thread invalidates the capture.
 
 All the graphs of one network (or one LM) capture into one shared
 memory pool (:class:`GraphPool`): they never run at the same time, and
@@ -47,7 +51,10 @@ captures recorded, plus what replays ran.
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
 import gc
+import threading
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
@@ -59,9 +66,24 @@ from deeplearning4j_tpu_torch.dtypes import tree_map
 _RECORDED: collections.Counter = collections.Counter()
 _REPLAYED: collections.Counter = collections.Counter()
 
-# Test seam, not a user option: False runs every step eagerly on the card
-# too, which the comparison of replayed against eager runs needs.
-_capture = True
+# Held by a capture, and by other threads around their CUDA calls.
+CAPTURE_LOCK = threading.Lock()
+
+_EAGER = contextvars.ContextVar("eager_steps", default=False)
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """Every step this thread calls inside the block runs eagerly, on the
+    card too: the same step, so what it computes equals a replay bitwise.
+    The comparison of replayed against eager runs needs it, and the
+    program profiler counts such a call (a replay dispatches nothing its
+    counters could see); other threads keep replaying."""
+    token = _EAGER.set(True)
+    try:
+        yield
+    finally:
+        _EAGER.reset(token)
 
 
 def _wrapper_counts() -> Dict[str, int]:
@@ -126,7 +148,7 @@ class StepGraph:
         self.recorded: Dict[str, int] = {}
 
     def __call__(self) -> None:
-        if not (self.graphed and _capture):
+        if not self.graphed or _EAGER.get():
             self.fn()
             self.eager_calls += 1
         elif not self.warmed:
@@ -163,7 +185,7 @@ class StepGraph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self.pool.get()):
+            with CAPTURE_LOCK, torch.cuda.graph(graph, pool=self.pool.get()):
                 self.fn()
         finally:
             if collecting:

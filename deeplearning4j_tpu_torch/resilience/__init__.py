@@ -8,9 +8,14 @@ Port of the parts of ``deeplearning4j_tpu/resilience`` that
 - :mod:`~deeplearning4j_tpu_torch.resilience.watchdog` — ``StepWatchdog``
   flags a chunk that does not finish within its deadline;
 - :mod:`~deeplearning4j_tpu_torch.resilience.faults` — named injection
-  sites (``epoch.chunk``) for chaos tests.
+  sites (``epoch.chunk``, ``preempt.chunk``, ``checkpoint.save``, ...)
+  for chaos tests;
+- :mod:`~deeplearning4j_tpu_torch.resilience.retry` — ``RetryPolicy``
+  (the fetchers' downloads);
+- :mod:`~deeplearning4j_tpu_torch.resilience.preemption` —
+  ``PreemptionGuard`` (``FaultTolerantTrainer``).
 
-Preemption, leases, retries and the autopilot are not ported yet.
+Leases and the autopilot are not ported yet (ROADMAP A15).
 """
 
 from deeplearning4j_tpu_torch.resilience.faults import (  # noqa: F401
@@ -33,6 +38,16 @@ from deeplearning4j_tpu_torch.resilience.guard import (  # noqa: F401
     TrainingDivergedError,
     nan_guard_policy,
     tree_all_finite,
+)
+from deeplearning4j_tpu_torch.resilience.preemption import (  # noqa: F401
+    PREEMPT_CHUNK_SITE,
+    PreemptionGuard,
+)
+from deeplearning4j_tpu_torch.resilience.retry import (  # noqa: F401
+    RetryError,
+    RetryPolicy,
+    is_retryable,
+    no_jitter,
 )
 from deeplearning4j_tpu_torch.resilience.watchdog import StepWatchdog  # noqa: F401
 

@@ -2,7 +2,8 @@
 
 Copy of ``deeplearning4j_tpu/resilience/faults.py``, which imports no
 JAX; the port keeps its own so that it imports nothing of that package.
-Only ``epoch.chunk`` is a site of the port so far.
+The port's sites are ``epoch.chunk``, ``preempt.chunk``,
+``checkpoint.save``, ``checkpoint.restore`` and ``fetcher.download``.
 
 The reference dl4j's distributed story was *tested* by real failures (Akka
 kills actors, YARN restarts containers). Our control plane

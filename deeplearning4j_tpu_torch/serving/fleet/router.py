@@ -1,8 +1,8 @@
 """FleetRouter: the admission frontend in front of N replicas.
 
 Copy of ``deeplearning4j_tpu/serving/fleet/router.py`` on the port's
-modules (its replicas are port replicas; the flight recorder the spans
-feed in the reference is ROADMAP A12).
+modules (its replicas are port replicas; its spans feed the port's
+flight recorder when ``DL4J_FLIGHT`` is on).
 
 The serving counterpart of ``parallel/workrouter.py``'s dispatch
 policies: where the training router decides when worker updates become

@@ -37,9 +37,9 @@ synchronise), then runs ``--steps`` calls under ``torch.profiler`` (CPU
   host's launch calls per step by CUDA runtime API (``cudaGraphLaunch``
   being one graph replay).
 
-Without ``--fused`` every step runs eagerly (``perf.step_graph._capture``
-off, the char-LSTM's TBPTT windows too). ``--fused`` profiles the
-replayed step instead: for the CNNs and the MLP a step is one replay inside
+Without ``--fused`` every step runs eagerly (inside
+``perf.step_graph.eager_steps()``, the char-LSTM's TBPTT windows too).
+``--fused`` profiles the replayed step instead: for the CNNs and the MLP a step is one replay inside
 ``fit_steps(ds, steps)``; for the char-LSTM a ``fit`` whose 4 windows
 are replays.
 
@@ -54,6 +54,7 @@ JSON object with the numbers above. Without a card it exits 1.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -152,7 +153,9 @@ def main(argv=None) -> int:
         net = cs.build_network(args.model, "bf16", "cuda")
         x, y = cs.network_data(args.model, batch)
     ds = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
-    step_graph._capture = args.fused  # the seam: eager steps on the card
+    eager = contextlib.ExitStack()  # entered for the rest of the run
+    if not args.fused:  # the seam: eager steps on the card
+        eager.enter_context(step_graph.eager_steps())
     steps_call = args.fused and not rnn
 
     def run(n: int) -> float:

@@ -75,9 +75,8 @@ def profile_run(lm, sched, fuse_steps: int, trace_dir):
     flash_s = sum(t for name, (t, _) in by_name.items()
                   if FLASH_KERNEL in name) / 1e6
     spans = {}
-    for r in tracer.records:
-        if "span" in r:
-            spans[r["span"]] = spans.get(r["span"], 0.0) + r["duration_s"]
+    for sp in tracer.spans():
+        spans[sp.name] = spans.get(sp.name, 0.0) + sp.duration_s
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {
         "fuse_steps": fuse_steps,

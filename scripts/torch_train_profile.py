@@ -24,9 +24,8 @@ prints:
   host's launch calls per step by CUDA runtime API (``cudaGraphLaunch``
   being one graph replay).
 
-Without ``--fused`` the step runs eagerly (``perf.step_graph._capture``
-off);
-with it, every step after the warm-up is a replay of the captured step,
+Without ``--fused`` the step runs eagerly (inside
+``perf.step_graph.eager_steps()``); with it, every step after the warm-up is a replay of the captured step,
 B1–B3 inside it.
 
 Run from the repository root on a machine with one CUDA card:
@@ -40,6 +39,7 @@ JSON object with the numbers above. Without a card it exits 1.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -123,7 +123,9 @@ def main(argv=None) -> int:
     card = cs.card_line()
     _build.build_all(KERNEL_SOURCES)
     lm = TransformerLM(**cs.TRAIN_CFG).init()
-    step_graph._capture = args.fused  # the seam: eager steps on the card
+    eager = contextlib.ExitStack()  # entered for the rest of the run
+    if not args.fused:  # the seam: eager steps on the card
+        eager.enter_context(step_graph.eager_steps())
     tok = torch.as_tensor(cs.train_tokens(), device="cuda")
     for _ in range(cs.TRAIN_WARMUP):
         lm.fit_batch(tok)

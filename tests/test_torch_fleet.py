@@ -105,7 +105,8 @@ class _Tracer:
 
 
 def _events(tr, name):
-    return [r for r in tr.records if r.get("event") == name]
+    return [{"event": sp.name, **sp.attrs} for sp in tr.spans()
+            if sp.name == name]
 
 
 # ---------------------------------------------------------------------------

@@ -353,9 +353,9 @@ def test_step_graph_warms_up_captures_once_and_replays(monkeypatch):
         "flash_attention_bwd_dq": 10}
     step_graph.reset_kernel_launches()
     assert set(step_graph.kernel_launches().values()) == {0}
-    # the test seam: every call of a card's graph runs eagerly
-    monkeypatch.setattr(step_graph, "_capture", False)
-    g()
+    # the seam: every call of a card's graph runs eagerly
+    with step_graph.eager_steps():
+        g()
     assert len(ran) == 3 and g.eager_calls == 2 and g.replays == 4
 
 

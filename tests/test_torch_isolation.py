@@ -57,7 +57,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 @pytest.mark.parametrize("module", [
     "deeplearning4j_tpu_torch.optimize", "deeplearning4j_tpu_torch.utils",
     "deeplearning4j_tpu_torch.cli", "deeplearning4j_tpu_torch.datasets.records",
-    "deeplearning4j_tpu_torch.nn.conf.compat"])
+    "deeplearning4j_tpu_torch.nn.conf.compat",
+    "deeplearning4j_tpu_torch.native", "deeplearning4j_tpu_torch.earlystopping",
+    "deeplearning4j_tpu_torch.gradientcheck",
+    "deeplearning4j_tpu_torch.parallel.cluster",
+    "deeplearning4j_tpu_torch.monitor",
+    "deeplearning4j_tpu_torch.datasets.fetchers"])
 def test_front_door_modules_import_first(module):
     """Each imports on its own in a fresh interpreter (no import cycle
     through ``nn``)."""
