@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Twelve phases; any failure exits non-zero and prints no result line.
+Thirteen phases; any failure exits non-zero and prints no result line.
 
 1. Build and device: compile every CUDA kernel from ``csrc/`` (one
    ``nvcc`` per source, all at once), print ptxas's registers and spill
@@ -249,6 +249,27 @@ Twelve phases; any failure exits non-zero and prints no result line.
    analytic model (6 per matmul parameter a token, plus 18·b·h·d·Σvisible
    a layer for B1–B3), the measured time and ``classify_boundedness``
    against the H100's peaks; B1–B3 launch ``num_layers`` times a step.
+13. Embeddings (no kernel of its own: plain PyTorch steps, the fused
+   ones replayed as CUDA graphs). E1, ``bench_word2vec``'s model and
+   corpus (2000 seeded Zipf sentences of 40 tokens over 5000 words;
+   d128, window 5, 5 negatives): ``Word2Vec.fit`` cold and warm
+   (words/s), then ``fit_epochs`` (a warm-up epoch that captures, 3
+   timed epochs: one chunk call, a ``[3, N]`` history, N replays an
+   epoch, the plan's ms and ``torch.profiler``'s busy time and idle
+   share); two epochs replayed against eager and against a second
+   replayed run, bitwise; the card against the CPU with TF32 off at
+   rtol 2e-3 / atol 1e-3 for a fused epoch fed one plan, a ``fit``
+   epoch with the same numpy draws and ``similarity`` on 20 pairs; and
+   ``Word2VecDataSetIterator`` batches on the card bitwise the host's.
+   E2, text8's scale (``TEXT8_TOKENS`` tokens as sentences of 40 over
+   71,290 words, min count 5), fused only: it must not fall back; a
+   warm-up and a timed epoch (words/s, host ms for the corpus, vocab
+   and cache, the plan's ms, peak memory against the priced budget,
+   ms a replay and the idle share over 256 replays). E3, card against
+   CPU at the same gate: GloVe (d32, 3 epochs, the same orders; replay
+   against eager bitwise), SequenceVectors, ParagraphVectors (200
+   documents, 2 epochs; ``infer_vector`` and ``predict``) and DeepWalk
+   (2000 vertices, walks of 8, window 4). No B1–B3 launch.
 
 Output: metric lines, then a ``{"kernels": [...]}`` JSON line (each
 kernel's ``variant`` and ``launches`` counted over the train phase's
@@ -257,7 +278,8 @@ timed steps, replays included; over phase 8's LM cell as
 ``launches_serve``; over phase 9 as ``launches_cli``, which must be 0;
 over phase 10 as ``launches_serve_extras``; over phase 11 as
 ``launches_data``, which must be 0; over phase 12's profiled step,
-replays included, as ``launches_profile``; and its train-shape numbers under ``train``) and the ``nvidia-smi``
+replays included, as ``launches_profile``; over phase 13 as
+``launches_embeddings``, which must be 0; and its train-shape numbers under ``train``) and the ``nvidia-smi``
 line,
 then ``{"ok": true, "device": {...}}`` last.
 """
@@ -3712,6 +3734,459 @@ def monitor_phase(card: str) -> dict:
     return monitor_profile(card)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: embeddings — word2vec (host loop and fused epoch), GloVe,
+# SequenceVectors, ParagraphVectors, DeepWalk
+# ---------------------------------------------------------------------------
+EMBED_DEVICE = "cuda"  # "cpu" only to rehearse the phase
+# E1, bench.py's bench_word2vec (bench.py:344-392), nothing cut: 2000
+# sentences of 40 tokens drawn as zipf(1.3) % 5000 from default_rng(0)
+W2V_VOCAB, W2V_SENTENCES, W2V_LEN = 5000, 2000, 40
+W2V_CFG = dict(layer_size=128, window_size=5, min_word_frequency=1,
+               negative=5, iterations=1, epochs=1)
+W2V_TIMED_EPOCHS = 3
+# E2, text8's scale: its 17,005,207 tokens as sentences of 40, drawn as
+# zipf(1.3) % 71,290 (text8's vocabulary at min_count 5)
+TEXT8_TOKENS, TEXT8_VOCAB, TEXT8_MIN_COUNT = 17_005_207, 71_290, 5
+TEXT8_BUDGET_MB = 16384  # the plan prices at ~8.7 GiB, over the default
+TEXT8_REPLAY_WINDOW = 256  # replays profiled for the idle share
+# E3, small cells held against the CPU
+GLOVE_CFG = dict(layer_size=32, window_size=5, min_word_frequency=1,
+                 epochs=3, seed=5)
+PV_DOCS, PV_EPOCHS = 200, 2
+DEEPWALK_VERTICES, DEEPWALK_WALK, DEEPWALK_WINDOW = 2000, 8, 4
+SIMILARITY_PAIRS = 20
+EMBED_TOL = dict(rtol=2e-3, atol=1e-3)  # the train phase's float32 gate
+
+
+def _embed_sync() -> None:
+    import torch
+
+    if EMBED_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def zipf_corpus(n_sentences: int, vocab: int, length: int = W2V_LEN):
+    """bench_word2vec's draw: ``zipf(1.3, (S, L)) % vocab`` from
+    ``default_rng(0)``, tokens ``w<t>``; returns the sentences and the
+    index array."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    ids = rng.zipf(1.3, size=(n_sentences, length)) % vocab
+    names = [f"w{i}" for i in range(vocab)]
+    return [" ".join(map(names.__getitem__, row)) for row in ids.tolist()], ids
+
+
+def make_w2v(sentences, seed: int, device: str, **kw):
+    from deeplearning4j_tpu_torch.nlp import (
+        CollectionSentenceIterator, Word2Vec)
+
+    return Word2Vec(CollectionSentenceIterator(sentences), seed=seed,
+                    device=device, **{**W2V_CFG, **kw})
+
+
+def _w2v_state(m):
+    return (m.syn0, m.syn1neg)
+
+
+def _tables_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _tables_err(card, host) -> float:
+    return max(float((c.cpu() - h).abs().max()) for c, h in zip(card, host))
+
+
+def _check_close(what: str, card, host, card_line_: str) -> None:
+    import torch
+
+    ok = all(torch.allclose(c.cpu(), h, **EMBED_TOL)
+             for c, h in zip(card, host))
+    print(f"embeddings parity {what}: max_abs_err {_tables_err(card, host):.3e}"
+          f" gate rtol {EMBED_TOL['rtol']} atol {EMBED_TOL['atol']} "
+          f"ok={ok} [{card_line_}]")
+    if not ok:
+        raise AssertionError(f"{what}: the card differs from the CPU")
+
+
+def e1_word2vec(card: str, sentences) -> dict:
+    """E1: the host loop cold and warm, the fused path (warm-up, then 3
+    timed epochs and a profiled one), replay against eager bitwise."""
+    import torch
+    from deeplearning4j_tpu_torch.nlp import epoch_kernels as ek
+
+    words = W2V_SENTENCES * W2V_LEN
+    out = {}
+    for name, seed in (("host_cold", 42), ("host_warm", 43)):
+        m = make_w2v(sentences, seed, EMBED_DEVICE)
+        _embed_sync()
+        t0 = time.perf_counter()
+        m.fit()
+        _embed_sync()
+        out[f"{name}_words_per_sec"] = words / (time.perf_counter() - t0)
+        if not bool(torch.isfinite(m.syn0).all()):
+            raise AssertionError(f"{name}: non-finite tables")
+    fused = make_w2v(sentences, 44, EMBED_DEVICE)
+    fused.build_vocab()
+    fused.reset_weights()
+    t0 = time.perf_counter()
+    cache = fused.build_corpus_cache()
+    out["cache_build_ms"] = (time.perf_counter() - t0) * 1e3
+    fused.fit_epochs(1)  # warm-up: the first epoch warms up and captures
+    prog = fused._skipgram_program(cache)
+    base, r0 = fused._train_dispatches, prog.graph.replays
+    res = {}
+    wall, host = _embed_timed(lambda: res.setdefault(
+        "hist", fused.fit_epochs(W2V_TIMED_EPOCHS)))
+    hist = res["hist"]
+    if hist is None or tuple(hist.shape) != (W2V_TIMED_EPOCHS,
+                                             cache.n_batches):
+        raise AssertionError(f"fit_epochs returned {hist}: the fused path "
+                             "did not run")
+    if fused._train_dispatches - base != 1:
+        raise AssertionError(f"{fused._train_dispatches - base} chunk calls "
+                             f"for one fit_epochs({W2V_TIMED_EPOCHS})")
+    if not bool(torch.isfinite(hist).all()):
+        raise AssertionError("non-finite fused losses")
+    out.update(fused_words_per_sec=W2V_TIMED_EPOCHS * cache.n_words / wall,
+               fused_ms_per_epoch=wall / W2V_TIMED_EPOCHS * 1e3,
+               fused_host_ms_per_epoch=host / W2V_TIMED_EPOCHS * 1e3,
+               chunk_calls=fused._train_dispatches - base,
+               batches_per_epoch=cache.n_batches, batch=cache.batch,
+               replays=prog.graph.replays - r0,
+               captures=prog.graph.captures,
+               loss_first_last=[float(hist[0, 0]), float(hist[-1, -1])],
+               table_bytes=sum(t.numel() * t.element_size()
+                               for t in _w2v_state(fused)),
+               cache=cache.describe())
+    if EMBED_DEVICE != "cpu":
+        plan_ms = cuda_ms(lambda: cache.plan(ek.epoch_generator(1, "cuda"),
+                                             out=prog.plan), iters=3)
+        prof = profiled(lambda: fused.fit_epochs(1), 1)
+        out.update(plan_ms=plan_ms, device_busy_ms=prof["device_busy_ms"],
+                   device_idle_share=idle_share(prof,
+                                                out["fused_ms_per_epoch"]),
+                   host_launches=prof["host_launches"])
+    print(f"embeddings e1 word2vec [{W2V_SENTENCES} x {W2V_LEN}] "
+          f"zipf(1.3)%{W2V_VOCAB} d{W2V_CFG['layer_size']} w"
+          f"{W2V_CFG['window_size']} neg{W2V_CFG['negative']}: "
+          f"{json.dumps(out)} [{card}]")
+
+    # replay against eager: the same seed's epoch, graphed and eager, and
+    # a second graphed run (two card runs must agree bitwise too)
+    runs = []
+    for graphs in (True, False, True):
+        with captured(graphs):
+            m = make_w2v(sentences, 44, EMBED_DEVICE)
+            m.build_vocab()
+            m.reset_weights()
+            m.build_corpus_cache()
+            h = m.fit_epochs(2)
+            runs.append((h, _w2v_state(m)))
+    (hg, sg), (he, se), (hg2, sg2) = runs
+    bitwise = torch.equal(hg, he) and _tables_equal(sg, se)
+    again = torch.equal(hg, hg2) and _tables_equal(sg, sg2)
+    print(f"embeddings e1 fused replay_equals_eager={bitwise} "
+          f"two_replayed_runs_equal={again} (2 epochs, max_abs_err "
+          f"{max(float((a - b).abs().max()) for a, b in zip(sg, se)):.3e})"
+          f" [{card}]")
+    if not (bitwise and again):
+        raise AssertionError("the fused skip-gram's replays differ from "
+                             "its eager steps or from each other")
+    return out
+
+
+def _embed_timed(fn):
+    """``timed`` on the card; the host clock when rehearsing on the CPU."""
+    if EMBED_DEVICE != "cpu":
+        return timed(fn)
+    t0 = time.monotonic()
+    fn()
+    s = time.monotonic() - t0
+    return s, s
+
+
+def e1_parity(card: str, sentences) -> None:
+    """E1 card against CPU, TF32 off: one fused epoch fed the same plan,
+    one host-loop epoch with the same numpy draws, and ``similarity`` on
+    20 fixed pairs."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.nlp import epoch_kernels as ek
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card_m = make_w2v(sentences, 45, EMBED_DEVICE)
+    host_m = make_w2v(sentences, 45, "cpu")
+    for m in (card_m, host_m):
+        m.build_vocab()
+        m.reset_weights()
+    cache = card_m.build_corpus_cache()
+    plan = [tuple(p.cpu() for p in cache.plan(
+        ek.epoch_generator(ek.epoch_keys_for(45, 0, 1)[0], cache.device)))]
+    host_m.build_corpus_cache()
+    hc = card_m.fit_epochs(1, _plan=plan)
+    hh = host_m.fit_epochs(1, _plan=plan)
+    _check_close("e1 fused epoch (same plan)", (*_w2v_state(card_m), hc),
+                 (*_w2v_state(host_m), hh), card)
+
+    card_h = make_w2v(sentences, 46, EMBED_DEVICE)
+    host_h = make_w2v(sentences, 46, "cpu")
+    card_h.fit()
+    host_h.fit()
+    _check_close("e1 host loop (same draws)", _w2v_state(card_h),
+                 _w2v_state(host_h), card)
+    rng = np.random.default_rng(1)
+    words = card_h.vocab.words()
+    pairs = [tuple(words[i] for i in rng.integers(0, len(words), 2))
+             for _ in range(SIMILARITY_PAIRS)]
+    sims = np.asarray([[card_h.similarity(a, b), host_h.similarity(a, b)]
+                       for a, b in pairs])
+    _check_close(f"e1 similarity ({SIMILARITY_PAIRS} pairs)",
+                 (torch.from_numpy(sims[:, 0]),),
+                 (torch.from_numpy(sims[:, 1]),), card)
+    e1_dataset_iterator(card, card_h, host_h, sentences)
+
+
+def e1_dataset_iterator(card: str, card_m, host_m, sentences) -> None:
+    """``Word2VecDataSetIterator`` over the card model's table against the
+    same table on the CPU: bitwise (a gather)."""
+    import torch
+    from deeplearning4j_tpu_torch.nlp import Word2VecDataSetIterator
+
+    host_m.syn0 = card_m.syn0.cpu()
+    labeled = [(s.split(), "ab"[i % 2]) for i, s in enumerate(
+        sentences[:200])]
+    ic = Word2VecDataSetIterator(card_m, labeled, ["a", "b"], 5, batch=512)
+    ih = Word2VecDataSetIterator(host_m, labeled, ["a", "b"], 5, batch=512)
+    n, same = 0, True
+    while ih.has_next():
+        a, b = ic.next(), ih.next()
+        same &= (a.features.device.type == EMBED_DEVICE
+                 and torch.equal(a.features.cpu(), b.features)
+                 and torch.equal(a.labels.cpu(), b.labels))
+        n += 1
+    print(f"embeddings e1 word2vec_iterator: {n} batches of 512, features "
+          f"{ic.input_columns()}, card_equals_host={same} [{card}]")
+    if not same or ic.has_next():
+        raise AssertionError("Word2VecDataSetIterator: the card's batches "
+                             "differ from the host's")
+
+
+def e2_text8(card: str) -> dict:
+    """E2: text8's scale, fused only: a warm-up and a timed epoch."""
+    import torch
+    from deeplearning4j_tpu_torch.nlp import epoch_kernels as ek
+
+    t_phase = time.monotonic()
+    n_sent = -(-TEXT8_TOKENS // W2V_LEN)
+    t0 = time.perf_counter()
+    sentences, _ = zipf_corpus(n_sent, TEXT8_VOCAB)
+    corpus_ms = (time.perf_counter() - t0) * 1e3
+    m = make_w2v(sentences, 47, EMBED_DEVICE,
+                 min_word_frequency=TEXT8_MIN_COUNT, epochs=2)
+    t0 = time.perf_counter()
+    m.build_vocab()
+    vocab_ms = (time.perf_counter() - t0) * 1e3
+    m.reset_weights()
+    if EMBED_DEVICE != "cpu":
+        mark = memory_mark()
+    t0 = time.perf_counter()
+    cache = m.build_corpus_cache(budget_mb=TEXT8_BUDGET_MB)
+    _embed_sync()
+    cache_ms = (time.perf_counter() - t0) * 1e3
+    del sentences
+    if cache is None:
+        raise AssertionError("E2: the corpus cache fell back to the host "
+                             "loop")
+    h = m.fit_epochs(1)  # warm-up epoch (warm-up step and capture)
+    if h is None:
+        raise AssertionError("E2: fit_epochs fell back to the host loop")
+    res = {}
+    wall, host = _embed_timed(lambda: res.setdefault("hist",
+                                                     m.fit_epochs(1)))
+    hist = res["hist"]
+    if hist is None or not bool(torch.isfinite(hist).all()):
+        raise AssertionError(f"E2: fused epoch gave {hist}")
+    prog = m._skipgram_program(cache)
+    out = dict(sentences=n_sent, tokens=n_sent * W2V_LEN,
+               vocab=m.vocab.num_words(), words=cache.n_words,
+               batches_per_epoch=cache.n_batches, batch=cache.batch,
+               words_per_sec=cache.n_words / wall,
+               epoch_ms=wall * 1e3, epoch_host_ms=host * 1e3,
+               corpus_text_ms=corpus_ms, vocab_ms=vocab_ms,
+               cache_build_ms=cache_ms, priced_bytes=cache.nbytes,
+               replays=prog.graph.replays, captures=prog.graph.captures,
+               loss_first_last=[float(hist[0, 0]), float(hist[0, -1])],
+               cache=cache.describe())
+    if EMBED_DEVICE != "cpu":
+        out.update(memory_since(mark))
+        gen = ek.epoch_generator(ek.epoch_keys_for(47, 5, 1)[0], "cuda")
+        plan_s, _ = timed(lambda: cache.plan(gen, out=prog.plan))
+        window = min(TEXT8_REPLAY_WINDOW, cache.n_batches)
+        w_s, _ = timed(lambda: [prog.graph() for _ in range(window)])
+        prof = profiled(lambda: [prog.graph() for _ in range(window)],
+                        window)
+        out.update(plan_ms=plan_s * 1e3,
+                   epoch_less_plan_ms=(wall - plan_s) * 1e3,
+                   ms_per_replay=w_s / window * 1e3,
+                   device_busy_ms_per_replay=prof["device_busy_ms"],
+                   device_idle_share=idle_share(prof, w_s / window * 1e3),
+                   peak_over_priced=out["peak_mem_bytes"] / cache.nbytes)
+    out["phase_s"] = time.monotonic() - t_phase
+    print(f"embeddings e2 text8-scale word2vec d{W2V_CFG['layer_size']} "
+          f"min_count {TEXT8_MIN_COUNT}: {json.dumps(out)} [{card}]")
+    return out
+
+
+def e3_glove(card: str, sentences) -> None:
+    """GloVe on E1's corpus, the same per-epoch orders on both sides:
+    replay against eager bitwise, card against CPU."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.nlp import CollectionSentenceIterator, Glove
+    from deeplearning4j_tpu_torch.nlp.vocab import build_vocab
+
+    def make(device):
+        return Glove(CollectionSentenceIterator(sentences), device=device,
+                     **GLOVE_CFG)
+
+    probe = make("cpu")
+    probe.vocab = build_vocab(probe._sentences_tokens(),
+                              probe.min_word_frequency)
+    n = len(probe.count_cooccurrences()[0])
+    batch = min(probe.batch_size, max(32, n // 8))
+    total = -(-n // batch) * batch
+    rng = np.random.default_rng(3)
+    orders = [rng.permutation(total) for _ in range(GLOVE_CFG["epochs"])]
+    runs = {}
+    for name, device, graphs in (("replayed", EMBED_DEVICE, True),
+                                 ("eager", EMBED_DEVICE, False),
+                                 ("cpu", "cpu", False)):
+        with captured(graphs):
+            g = make(device)
+            _embed_sync()
+            t0 = time.perf_counter()
+            g.fit(_orders=orders)
+            _embed_sync()
+            runs[name] = (g, time.perf_counter() - t0)
+    (g, tg), (e, te), (c, _) = runs["replayed"], runs["eager"], runs["cpu"]
+    run = next(iter(g._runs.values()))
+    bitwise = torch.equal(g.syn0, e.syn0) and torch.equal(g._history,
+                                                          e._history)
+    print(f"embeddings e3 glove [{n} triples, {run.n_batches} x {batch}] "
+          f"d{GLOVE_CFG['layer_size']} x{GLOVE_CFG['epochs']}: fit_s "
+          f"replayed {tg:.3f} eager {te:.3f}, replays {run.graph.replays}, "
+          f"loss {g._loss:.6f}, replay_equals_eager={bitwise} [{card}]")
+    if not bitwise:
+        raise AssertionError("GloVe: the replayed fit differs from eager")
+    _check_close("e3 glove (same orders)", (g.syn0, g._history),
+                 (c.syn0, c._history), card)
+
+
+def e3_sequences(card: str, ids) -> None:
+    """SequenceVectors on E1's corpus as sequences, one epoch."""
+    from deeplearning4j_tpu_torch.nlp import SequenceVectors
+
+    seqs = [[f"e{t}" for t in row] for row in ids.tolist()]
+    kw = dict(layer_size=W2V_CFG["layer_size"], window_size=5, negative=5,
+              epochs=1, seed=8)
+    ms = []
+    for device in (EMBED_DEVICE, "cpu"):
+        m = SequenceVectors(seqs, device=device, **kw)
+        m.fit()
+        ms.append(m)
+    _check_close("e3 sequence_vectors", _w2v_state(ms[0]),
+                 _w2v_state(ms[1]), card)
+
+
+def e3_paragraphs(card: str, ids) -> None:
+    """ParagraphVectors (PV-DBOW) on 200 labelled documents, 2 epochs;
+    ``infer_vector`` and ``predict`` on the host from each side's tables."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.nlp import ParagraphVectors
+    from deeplearning4j_tpu_torch.nlp.sentence_iterator import (
+        LabelAwareSentenceIterator)
+
+    docs = [" ".join(f"w{t % 500}" for t in row)
+            for row in ids[:PV_DOCS].tolist()]
+    labels = [f"L{i % 10}_{i}" for i in range(PV_DOCS)]
+    kw = dict(min_word_frequency=1, layer_size=64, epochs=PV_EPOCHS,
+              seed=9, learning_rate=0.05)
+    ms = []
+    for device in (EMBED_DEVICE, "cpu"):
+        m = ParagraphVectors(sentence_iterator=LabelAwareSentenceIterator(
+            docs, labels), device=device, **kw)
+        m.fit()
+        ms.append(m)
+    _check_close("e3 paragraph_vectors", _w2v_state(ms[0]),
+                 _w2v_state(ms[1]), card)
+    text = docs[3]
+    inferred = [torch.from_numpy(m.infer_vector(text)) for m in ms]
+    _check_close("e3 paragraph_vectors infer_vector", inferred[:1],
+                 inferred[1:], card)
+    sims = [np.asarray([m.similarity_to_label(text, l) for l in labels])
+            for m in ms]
+    preds = [m.predict(text) for m in ms]
+    top2 = np.sort(sims[1])[-2:]
+    tie = top2[1] - top2[0] < EMBED_TOL["atol"]
+    print(f"embeddings e3 paragraph_vectors predict card={preds[0]} "
+          f"cpu={preds[1]} (top-2 gap {top2[1] - top2[0]:.3e}) [{card}]")
+    if preds[0] != preds[1] and not tie:
+        raise AssertionError(f"predict: card {preds[0]}, CPU {preds[1]}")
+
+
+def e3_deepwalk(card: str) -> None:
+    """DeepWalk (vector size 32) on a seeded 2000-vertex graph, walks of
+    8, window 4, one epoch."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.graph import (
+        DeepWalk, Graph, RandomWalkIterator)
+
+    rng = np.random.default_rng(10)
+    g = Graph(DEEPWALK_VERTICES)
+    for a in range(DEEPWALK_VERTICES):
+        g.add_edge(a, (a + 1) % DEEPWALK_VERTICES)
+        for b in rng.integers(0, DEEPWALK_VERTICES, 3):
+            if int(b) != a:
+                g.add_edge(a, int(b))
+    ms = []
+    for device in (EMBED_DEVICE, "cpu"):
+        dw = (DeepWalk.Builder().vector_size(32)
+              .window_size(DEEPWALK_WINDOW).seed(11).device(device).build())
+        dw.initialize(g)
+        dw.fit(RandomWalkIterator(g, DEEPWALK_WALK, seed=12))
+        ms.append(dw)
+    _check_close("e3 deepwalk", (ms[0].syn0, ms[0].syn1),
+                 (ms[1].syn0, ms[1].syn1), card)
+
+
+def embeddings(card: str) -> dict:
+    """Phase 13; returns B1–B3's launches over it (all must be 0)."""
+    import torch
+    from deeplearning4j_tpu_torch.perf import step_graph
+
+    step_graph.reset_kernel_launches()
+    sentences, ids = zipf_corpus(W2V_SENTENCES, W2V_VOCAB)
+    for part, args in ((e1_word2vec, (sentences,)),
+                       (e1_parity, (sentences,)), (e2_text8, ()),
+                       (e3_glove, (sentences,)), (e3_sequences, (ids,)),
+                       (e3_paragraphs, (ids,)), (e3_deepwalk, ())):
+        t0 = time.monotonic()
+        part(card, *args)
+        print(f"embeddings {part.__name__}: {time.monotonic() - t0:.1f} s")
+        if EMBED_DEVICE != "cpu":
+            torch.cuda.empty_cache()
+    launches = step_graph.kernel_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the embeddings phase launched a flash kernel:"
+                             f" {launches}")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -3743,9 +4218,10 @@ def main() -> None:
     entries = {}
     serve_launches = train_launches = fused_launches = cli_launches = None
     extras_launches = data_launches = profile_launches = None
+    embed_launches = None
     for phase in ("flash", "flash_bwd", "serve", "train", "networks",
                   "recurrent", "fused", "cli", "serve_extras", "data",
-                  "monitor"):
+                  "monitor", "embeddings"):
         try:
             if phase == "flash":
                 entries["flash_attention_fwd"] = check_flash(card)
@@ -3774,8 +4250,10 @@ def main() -> None:
                 extras_launches = serve_extras(card)
             elif phase == "data":
                 data_launches = data(card)
-            else:
+            elif phase == "monitor":
                 profile_launches = monitor_phase(card)
+            else:
+                embed_launches = embeddings(card)
         except Exception:
             traceback.print_exc()
             failed.append(phase)
@@ -3792,6 +4270,7 @@ def main() -> None:
         e["launches_serve_extras"] = 0
         e["launches_data"] = data_launches[name]
         e["launches_profile"] = profile_launches[name]
+        e["launches_embeddings"] = embed_launches[name]
     entries["flash_attention_fwd"]["launches_serve"] = serve_launches
     entries["flash_attention_fwd"]["launches_serve_extras"] = extras_launches
     print(json.dumps({"kernels": list(entries.values())}))

@@ -43,14 +43,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             ("deeplearning4j_tpu_torch.serving.fleet",
              "deeplearning4j_tpu_torch.parallel",
              "deeplearning4j_tpu_torch.serving.compile_cache"))]
-        print(len(names), len(new), len(fleet), leaked)
+        embeddings = [n for n in names if n.split(".")[1] in ("nlp",
+                                                             "graph")]
+        print(len(names), len(new), len(fleet), len(embeddings), leaked)
     """)
-    count, new, fleet, leaked = out.split(" ", 3)
+    count, new, fleet, embeddings, leaked = out.split(" ", 4)
     assert int(count) >= 15
     # optimize (4 modules), utils (3) and cli (2) are walked too
     assert int(new) >= 9
     # and the serve fleet (6), parallel (2) and the compile cache
     assert int(fleet) >= 9
+    # and the embeddings: nlp (13 modules) and graph (4)
+    assert int(embeddings) >= 17
     assert leaked.strip() == "[]"
 
 
@@ -62,7 +66,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     "deeplearning4j_tpu_torch.gradientcheck",
     "deeplearning4j_tpu_torch.parallel.cluster",
     "deeplearning4j_tpu_torch.monitor",
-    "deeplearning4j_tpu_torch.datasets.fetchers"])
+    "deeplearning4j_tpu_torch.datasets.fetchers",
+    "deeplearning4j_tpu_torch.nlp", "deeplearning4j_tpu_torch.nlp.epoch_kernels",
+    "deeplearning4j_tpu_torch.graph"])
 def test_front_door_modules_import_first(module):
     """Each imports on its own in a fresh interpreter (no import cycle
     through ``nn``)."""
@@ -175,3 +181,41 @@ def test_front_door_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     net = ModelSerializer.restore(path, device="cpu")
     assert net.device == torch.device("cpu")
     assert net.predict(np.full((2, 784), 0.5, np.float32)).shape == (2,)
+
+
+def test_embedding_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """Word2Vec, SequenceVectors, ParagraphVectors, Glove, DeepWalk and
+    the word-vector loader train or load on the card unless told ``cpu``;
+    the fused path over a mesh raises naming A14."""
+    from deeplearning4j_tpu_torch.graph import DeepWalk
+    from deeplearning4j_tpu_torch.nlp import (
+        CollectionSentenceIterator,
+        Glove,
+        ParagraphVectors,
+        SequenceVectors,
+        Word2Vec,
+    )
+    from deeplearning4j_tpu_torch.nlp.serializer import (
+        load_word_vectors,
+        write_word_vectors,
+    )
+
+    it = CollectionSentenceIterator(["a b c a b", "b c a"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: Word2Vec(it), lambda: Glove(it),
+                 lambda: ParagraphVectors(sentence_iterator=it),
+                 lambda: SequenceVectors([["a", "b"]]), lambda: DeepWalk(),
+                 lambda: Word2Vec.Builder().iterate(it).build(),
+                 lambda: DeepWalk.Builder().build()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    w = Word2Vec(it, min_word_frequency=1, layer_size=4, device="cpu")
+    assert w.device == torch.device("cpu")
+    with pytest.raises(NotImplementedError, match="A14"):
+        w.fit_epochs(1, mesh=object())
+    assert w.fit_epochs(1).shape[0] == 1
+    path = str(tmp_path / "v.txt")
+    write_word_vectors(w, path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_word_vectors(path)
+    assert load_word_vectors(path, device="cpu").syn0.shape == (3, 4)
