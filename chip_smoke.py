@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Thirteen phases; any failure exits non-zero and prints no result line.
+Fourteen phases; any failure exits non-zero and prints no result line.
 
 1. Build and device: compile every CUDA kernel from ``csrc/`` (one
    ``nvcc`` per source, all at once), print ptxas's registers and spill
@@ -270,6 +270,37 @@ Thirteen phases; any failure exits non-zero and prints no result line.
    against eager bitwise), SequenceVectors, ParagraphVectors (200
    documents, 2 epochs; ``infer_vector`` and ``predict``) and DeepWalk
    (2000 vertices, walks of 8, window 4). No B1–B3 launch.
+14. Trees, tagging, clustering and t-SNE (no kernel of its own: plain
+   PyTorch). T1: the RNTN at the JAX defaults (d25, 5 classes, tensors,
+   AdaGrad 0.01, l2 1e-4, batch 32) for one epoch on an SST-scale
+   treebank (8,544 / 1,101 seeded trees in SST's format, lengths
+   clip(round(normal(19, 9)), 2, 56), ``zipf(1.3) % 21,701`` words,
+   random bracketing, labels on every node by a fixed rule), read back
+   through ``Tree.parse``: finite losses, the last 20 batches' mean
+   below the first 20's, ms a step, trees/s, nodes/s, peak memory; its
+   first 64 batches again on a fresh model; 10 pre-planned steps' host
+   and card time, launches and idle share under ``torch.profiler``; dev
+   ``score`` and ``predict``, node accuracy above the majority label's
+   share (root accuracy printed). T2: ``HmmPosTagger`` fitted on a
+   seeded 45-tag HMM's 39,832 sentences (44,000 words), ``tag_tokens``
+   on 2,416 (ms a sentence), ``decode_batch`` at ``[2416, 64, 45]``,
+   ``TreebankParser`` fitted on T1's trees parsing 100 raw dev
+   sentences, and T1's ``predict_root`` on the parses. T3:
+   ``KMeansClustering(k=100)`` on a mixture of 100 Gaussians at
+   ``[69,849, 128]`` (Euclidean) and ``[4,260, 128]`` (cosine,
+   Manhattan), twice each (bitwise), with the device step's time
+   (CUDA events). T4: ``Tsne()`` at the JAX defaults on a seeded
+   ``[4,260, 128]`` table (ms an iteration, ``compute_gaussian_p``'s
+   seconds), the KL falling after the exaggeration. Then, beside the
+   CPU's whole t-SNE run in a thread, with TF32 off (rtol 2e-3 / atol
+   1e-3 unless said): one RNTN step's loss and gradients and the params
+   and AdaGrad state after 3 steps card against CPU, two card runs of
+   10 steps bitwise; every sentence's Viterbi decode and the padded
+   batch's (paths equal, scores 1e-5 relative); k-means' first 5
+   iterations from one init (costs 1e-4 relative, assignments equal
+   outside near-ties: points whose two nearest centroids are within
+   1e-5); t-SNE's first 10 iterations, and the final KL within 5 % of
+   the CPU's. No B1–B3 launch.
 
 Output: metric lines, then a ``{"kernels": [...]}`` JSON line (each
 kernel's ``variant`` and ``launches`` counted over the train phase's
@@ -279,7 +310,9 @@ timed steps, replays included; over phase 8's LM cell as
 over phase 10 as ``launches_serve_extras``; over phase 11 as
 ``launches_data``, which must be 0; over phase 12's profiled step,
 replays included, as ``launches_profile``; over phase 13 as
-``launches_embeddings``, which must be 0; and its train-shape numbers under ``train``) and the ``nvidia-smi``
+``launches_embeddings``, which must be 0; over phase 14 as
+``launches_trees``, which must be 0; and its train-shape numbers under
+``train``) and the ``nvidia-smi``
 line,
 then ``{"ok": true, "device": {...}}`` last.
 """
@@ -4187,6 +4220,596 @@ def embeddings(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: trees, tagging, clustering and t-SNE
+# ---------------------------------------------------------------------------
+TREES_DEVICE = "cuda"  # "cpu" only to rehearse the phase
+# T1, an SST-scale treebank: SST's split sizes (8,544 / 1,101 trees) and
+# vocabulary (21,701 words); lengths clip(round(normal(19, 9)), 2, 56),
+# tokens zipf(1.3) % vocabulary, random binary bracketing
+SST_TRAIN, SST_DEV, SST_VOCAB = 8544, 1101, 21_701
+SST_LEN = (19.0, 9.0, 2, 56)  # mean, sd, shortest, longest
+RNTN_CFG = dict(num_hidden=25, num_classes=5, use_tensors=True,
+                learning_rate=0.01, l2=1e-4, seed=123)  # the JAX defaults
+RNTN_BATCH = 32
+RNTN_PARITY_STEPS, RNTN_DET_STEPS, RNTN_PROFILE_STEPS = 3, 10, 10
+RNTN_WARM_STEPS = 64
+# T2, WSJ's scale: sections 02-21 (39,832 sentences, mean length 24) to fit
+# and section 23 (2,416) to tag, drawn from a seeded 45-tag HMM over a
+# 44,000-word zipf(1.3) vocabulary
+WSJ_TRAIN, WSJ_TEST, WSJ_TAGS, WSJ_VOCAB = 39_832, 2_416, 45, 44_000
+WSJ_LEN = (24.0, 11.0, 1, 120)
+DECODE_T = 64  # decode_batch's padded length
+PARSE_SENTENCES = 100
+VITERBI_RTOL = 1e-5
+# T3, k-means over a mixture of 100 Gaussians at phase 13's table shapes
+KMEANS_K, KMEANS_ITERATIONS, KMEANS_DIM = 100, 100, 128
+KMEANS_CELLS = (("euclidean", 69_849), ("cosine", 4_260),
+                ("manhattan", 4_260))
+KMEANS_PARITY_ITERATIONS, KMEANS_COST_RTOL, KMEANS_TIE = 5, 1e-4, 1e-5
+# T4, exact t-SNE at the JAX defaults over bench_word2vec's vocabulary
+TSNE_N, TSNE_DIM, TSNE_PERPLEXITY = 4_260, 128, 30.0
+TSNE_PARITY_ITERATIONS, TSNE_KL_RTOL = 10, 0.05
+TREES_TOL = dict(rtol=2e-3, atol=1e-3)  # the train phase's float32 gate
+
+
+def _trees_sync() -> None:
+    import torch
+
+    if TREES_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def _trees_timed(fn):
+    """``(result, seconds)`` of ``fn()`` with the card synchronised on
+    both sides."""
+    _trees_sync()
+    t0 = time.perf_counter()
+    out = fn()
+    _trees_sync()
+    return out, time.perf_counter() - t0
+
+
+def _lengths(rng, n: int, spec) -> list:
+    import numpy as np
+
+    mean, sd, lo, hi = spec
+    return np.clip(np.rint(rng.normal(mean, sd, n)), lo, hi).astype(
+        int).tolist()
+
+
+def sst_strings(n: int, rng) -> list:
+    """SST-format trees with a label on every node: a leaf takes its word
+    id mod 5, an inner node the mean of its children's labels rounded
+    half up, so the loss can fall."""
+
+    def rec(ids, lo, hi):
+        if hi - lo == 1:
+            return f"({ids[lo] % 5} w{ids[lo]})", ids[lo] % 5
+        split = int(rng.integers(lo + 1, hi))
+        left, a = rec(ids, lo, split)
+        right, b = rec(ids, split, hi)
+        label = (a + b + 1) // 2
+        return f"({label} {left} {right})", label
+
+    return [rec((rng.zipf(1.3, n_words) % SST_VOCAB).tolist(), 0,
+                n_words)[0] for n_words in _lengths(rng, n, SST_LEN)]
+
+
+def _node_labels(tree) -> list:
+    return [n.label for n in tree.binarize().post_order()]
+
+
+def t1_rntn(card: str) -> dict:
+    """T1: one epoch of ``fit`` at the JAX defaults on the SST-scale
+    treebank, the step's launches and idle share, dev ``score`` and
+    ``predict``."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models import RNTN
+    from deeplearning4j_tpu_torch.nlp import Tree
+
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    train = Tree.parse_many("\n".join(sst_strings(SST_TRAIN, rng)))
+    dev = Tree.parse_many("\n".join(sst_strings(SST_DEV, rng)))
+    nodes = sum(t.num_nodes() for t in train)
+    print(f"trees t1 treebank: {len(train)} train and {len(dev)} dev trees,"
+          f" {nodes} train nodes, made and parsed in "
+          f"{time.perf_counter() - t0:.2f} s")
+    model = RNTN(**RNTN_CFG, device=TREES_DEVICE).init(train)
+    steps = -(-len(train) // RNTN_BATCH)
+    base = 0
+    if TREES_DEVICE != "cpu":  # the peak above what earlier phases hold
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    _, wall = _trees_timed(lambda: model.fit(train, batch_size=RNTN_BATCH))
+    peak = (torch.cuda.max_memory_allocated() - base
+            if TREES_DEVICE != "cpu" else 0)
+    losses = model.loss_history
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"rntn: {len(losses)} losses for {steps} steps"
+                             f", finite={np.isfinite(losses).all()}")
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    print(f"trees t1 rntn fit: {steps} steps, {wall * 1e3 / steps:.3f} ms a "
+          f"step, {len(train) / wall:.1f} trees/s, {nodes / wall:.0f} "
+          f"nodes/s, loss first 20 {first:.4f} last 20 {last:.4f}, "
+          f"peak_mem_bytes {peak} [{card}]")
+    if not last < first:
+        raise AssertionError(f"rntn: the loss did not fall ({first} -> "
+                             f"{last})")
+    # the epoch's first batches again, on a fresh model: the same shapes
+    # a second time in the process
+    again = RNTN(**RNTN_CFG, device=TREES_DEVICE).init(train)
+    warm = train[:RNTN_WARM_STEPS * RNTN_BATCH]
+    _, warm_s = _trees_timed(lambda: again.fit(warm, batch_size=RNTN_BATCH))
+    print(f"trees t1 rntn fit again: the first {RNTN_WARM_STEPS} batches "
+          f"{warm_s * 1e3 / RNTN_WARM_STEPS:.3f} ms a step, "
+          f"{len(warm) / warm_s:.1f} trees/s [{card}]")
+    # one step's parts over pre-planned batches: planning (host), the
+    # step's time to return and to finish, launches and busy time
+    batches = [train[i:i + RNTN_BATCH] for i in
+               range(0, RNTN_PROFILE_STEPS * RNTN_BATCH, RNTN_BATCH)]
+    plans, plan_s = _trees_timed(lambda: [model._plan(b) for b in batches])
+
+    def run():
+        for plan in plans:
+            model._step(plan)
+
+    _trees_sync()
+    t0 = time.perf_counter()
+    run()
+    host = time.perf_counter() - t0
+    _trees_sync()
+    step_wall = time.perf_counter() - t0
+    line = (f"trees t1 rntn step: plan {plan_s * 1e3 / len(plans):.3f} ms, "
+            f"step {step_wall * 1e3 / len(plans):.3f} ms (host "
+            f"{host * 1e3 / len(plans):.3f})")
+    if TREES_DEVICE != "cpu":
+        prof = profiled(run, len(plans))
+        launches = sum(v for k, v in prof["host_launches"].items()
+                       if "Launch" in k)
+        line += (f", {launches:.1f} launches a step "
+                 f"{prof['host_launches']}, busy "
+                 f"{prof['device_busy_ms']:.3f} ms, idle share "
+                 f"{idle_share(prof, step_wall * 1e3 / len(plans)):.3f}")
+    print(f"{line} [{card}]")
+    # dev: score, and predict over every node
+    score, score_s = _trees_timed(lambda: model.score(dev))
+    preds, pred_s = _trees_timed(lambda: [model.predict(t) for t in dev])
+    gold = [_node_labels(t) for t in dev]
+    flat_gold = np.concatenate(gold)
+    hits = np.concatenate([p == np.asarray(g) for p, g in zip(preds, gold)])
+    node_major = np.bincount(flat_gold).max() / flat_gold.size
+    roots = np.asarray([g[-1] for g in gold])
+    root_acc = float(np.mean([p[-1] == r for p, r in zip(preds, roots)]))
+    root_major = np.bincount(roots).max() / roots.size
+    print(f"trees t1 rntn dev: score {score:.4f} ({score_s * 1e3:.1f} ms), "
+          f"node accuracy {hits.mean():.4f} (majority {node_major:.4f}), "
+          f"root accuracy {root_acc:.4f} (majority {root_major:.4f}), "
+          f"predict {pred_s * 1e3 / len(dev):.3f} ms a tree [{card}]")
+    if not np.isfinite(score) or not hits.mean() > node_major:
+        raise AssertionError(f"rntn: dev node accuracy {hits.mean()} not "
+                             f"above the majority share {node_major}")
+    return {"model": model, "train": train, "dev": dev}
+
+
+def _rntn_grads(model, trees):
+    import torch
+
+    plan = model._plan(trees)
+    leaves = {k: p.detach().requires_grad_(True)
+              for k, p in model.params.items()}
+    loss = model._loss(leaves, plan)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    return [loss] + [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves.values(), grads)]
+
+
+def _close(what: str, card_ts, host_ts, card: str, **tol) -> None:
+    import torch
+
+    tol = tol or TREES_TOL
+    err = max(float((c.detach().cpu() - h.detach()).abs().max())
+              for c, h in zip(card_ts, host_ts))
+    ok = all(torch.allclose(c.detach().cpu(), h.detach(), **tol)
+             for c, h in zip(card_ts, host_ts))
+    print(f"trees parity {what}: max_abs_err {err:.3e} gate rtol "
+          f"{tol['rtol']} atol {tol['atol']} ok={ok} [{card}]")
+    if not ok:
+        raise AssertionError(f"{what}: the card differs from the CPU")
+
+
+def t1_parity(card: str, t1: dict) -> None:
+    """The card against the CPU: one step's loss and gradients on the first
+    batch, then params and AdaGrad state after 3 steps; two card runs of
+    10 steps bitwise."""
+    import torch
+    from deeplearning4j_tpu_torch.models import RNTN
+
+    train = t1["train"]
+    pair = [RNTN(**RNTN_CFG, device=d).init(train)
+            for d in (TREES_DEVICE, "cpu")]
+    _close("t1 rntn step", *(_rntn_grads(m, train[:RNTN_BATCH])
+                             for m in pair), card)
+    for m in pair:
+        m.fit(train[:RNTN_PARITY_STEPS * RNTN_BATCH], batch_size=RNTN_BATCH)
+    names = list(pair[0].params)
+    _close(f"t1 rntn {RNTN_PARITY_STEPS} steps",
+           *([m.params[k] for k in names] + [m.updater_state[k]
+                                             for k in names]
+             for m in pair), card)
+    runs = [RNTN(**RNTN_CFG, device=TREES_DEVICE).init(train)
+            for _ in range(2)]
+    for m in runs:
+        m.fit(train[:RNTN_DET_STEPS * RNTN_BATCH], batch_size=RNTN_BATCH)
+    same = all(torch.equal(runs[0].params[k], runs[1].params[k])
+               and torch.equal(runs[0].updater_state[k],
+                               runs[1].updater_state[k]) for k in names)
+    print(f"trees t1 rntn determinism: two card runs of {RNTN_DET_STEPS} "
+          f"steps bitwise equal={same} [{card}]")
+    if not same:
+        raise AssertionError("rntn: two card runs differ")
+
+
+def wsj_hmm(rng):
+    """A seeded 45-tag HMM: transitions from a sparse Dirichlet, and each
+    tag's emissions Zipf(1.1)-ranked over its own words, 20 to 20,000 of
+    the 44,000 (closed and open classes), so words are shared between
+    tags. Returns the cdfs of the start, the transitions and the
+    emissions, and each tag's words by rank."""
+    import numpy as np
+
+    trans = rng.dirichlet(np.full(WSJ_TAGS, 0.3), WSJ_TAGS)
+    sizes = np.exp(rng.uniform(np.log(20), np.log(20_000), WSJ_TAGS))
+    ranks = np.arange(1, WSJ_VOCAB + 1, dtype=np.float64)
+    emit = np.where(ranks[None] <= sizes[:, None], ranks[None] ** -1.1, 0.0)
+    return (np.cumsum(rng.dirichlet(np.ones(WSJ_TAGS))),
+            np.cumsum(trans, axis=1),
+            np.cumsum(emit / emit.sum(axis=1, keepdims=True), axis=1),
+            np.stack([rng.permutation(WSJ_VOCAB) for _ in range(WSJ_TAGS)]))
+
+
+def wsj_corpus(n: int, rng, hmm) -> list:
+    """``n`` (word, tag) sentences drawn from the HMM ``hmm``."""
+    import numpy as np
+
+    init_cdf, trans_cdf, emit_cdf, perm = hmm
+    lengths = _lengths(rng, n, WSJ_LEN)
+    width = max(lengths)
+    tags = np.empty((n, width), np.int64)
+    last = WSJ_TAGS - 1  # a cdf's last entry may round below 1
+    tags[:, 0] = np.minimum(np.searchsorted(init_cdf, rng.random(n),
+                                            side="right"), last)
+    for t in range(1, width):
+        u = rng.random(n)
+        tags[:, t] = np.minimum(np.sum(trans_cdf[tags[:, t - 1]]
+                                       <= u[:, None], axis=1), last)
+    u = rng.random((n, width))
+    rank = np.empty((n, width), np.int64)
+    for k in range(WSJ_TAGS):
+        at = tags == k
+        rank[at] = np.searchsorted(emit_cdf[k], u[at], side="right")
+    words = perm[tags, np.minimum(rank, WSJ_VOCAB - 1)]
+    # letters, not digits: the tagger files every unknown word with a
+    # digit under one shape (*NUM*)
+    names = ["".join(chr(97 + i // 26 ** k % 26) for k in range(4))
+             for i in range(WSJ_VOCAB)]
+    tag_names = [f"T{i}" for i in range(WSJ_TAGS)]
+    return [[(names[w], tag_names[t]) for w, t in zip(ws[:k], ts[:k])]
+            for ws, ts, k in zip(words.tolist(), tags.tolist(), lengths)]
+
+
+def t2_tagging(card: str, t1: dict) -> dict:
+    """T2: the tagger fitted at WSJ's scale tags section 23's sentences
+    (one Viterbi decode each on the card), ``decode_batch`` once, the
+    treebank parser over 100 raw dev sentences and T1's ``predict_root``
+    on the parses."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nlp import HmmPosTagger, TreebankParser
+
+    rng = np.random.default_rng(1)
+    hmm = wsj_hmm(rng)
+    t0 = time.perf_counter()
+    fit_sents = wsj_corpus(WSJ_TRAIN, rng, hmm)
+    test_sents = wsj_corpus(WSJ_TEST, rng, hmm)
+    made = time.perf_counter() - t0
+    tagger, fit_s = _trees_timed(
+        lambda: HmmPosTagger(device=TREES_DEVICE).fit(fit_sents))
+    tokens = [[w for w, _ in s] for s in test_sents]
+    tagged, tag_s = _trees_timed(lambda: [tagger.tag_tokens(t)
+                                          for t in tokens])
+    gold = np.concatenate([[t for _, t in s] for s in test_sents])
+    acc = float(np.mean(np.concatenate([[t for _, t in s] for s in tagged])
+                        == gold))
+    print(f"trees t2 tagger: corpus {sum(map(len, fit_sents))} tokens made in"
+          f" {made:.2f} s, fit {fit_s:.2f} s, tag_tokens "
+          f"{tag_s * 1e3 / len(tokens):.3f} ms a sentence over "
+          f"{len(tokens)} ({gold.size} tokens), accuracy {acc:.4f} "
+          f"[{card}]")
+    padded = np.zeros((len(tokens), DECODE_T, WSJ_TAGS), np.float32)
+    for i, sent in enumerate(tokens):
+        e = tagger.emissions(sent[:DECODE_T])
+        padded[i, :len(e)] = e
+    batch, batch_s = _trees_timed(lambda: tagger._viterbi.decode_batch(
+        padded))
+    print(f"trees t2 decode_batch {list(padded.shape)}: "
+          f"{batch_s * 1e3:.2f} ms [{card}]")
+    parser, parse_fit_s = _trees_timed(
+        lambda: TreebankParser().fit(t1["train"]))
+    raw = [t.words() for t in t1["dev"][:PARSE_SENTENCES]]
+    parses, parse_s = _trees_timed(lambda: [parser.parse_tokens(s)
+                                            for s in raw])
+    if any(p.words() != s for p, s in zip(parses, raw)):
+        raise AssertionError("parser: a parse lost or reordered words")
+    roots, root_s = _trees_timed(lambda: [t1["model"].predict_root(p)
+                                          for p in parses])
+    if not all(0 <= r < RNTN_CFG["num_classes"] for r in roots):
+        raise AssertionError(f"predict_root gave {roots}")
+    agree = np.mean([r == t.label for r, t in
+                     zip(roots, t1["dev"][:PARSE_SENTENCES])])
+    print(f"trees t2 parser: fit {parse_fit_s:.2f} s on {len(t1['train'])} "
+          f"trees, {parse_s:.2f} s for {len(raw)} parses (CKY on the host), "
+          f"predict_root on the parses {root_s * 1e3:.1f} ms, roots "
+          f"{np.bincount(roots, minlength=5).tolist()}, agreeing with the "
+          f"gold roots {agree:.3f} [{card}]")
+    return {"tagger": tagger, "tokens": tokens, "tagged": tagged,
+            "padded": padded, "batch": batch}
+
+
+def t2_parity(card: str, t2: dict) -> None:
+    """Viterbi on the card against the CPU: every sentence's decode and
+    the padded ``decode_batch``."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nlp import HmmPosTagger
+
+    tagger = t2["tagger"]
+    cpu = HmmPosTagger.from_dict(tagger.to_dict(), device="cpu")
+    differ, worst = 0, 0.0
+    for sent, tagged in zip(t2["tokens"], t2["tagged"]):
+        e = tagger.emissions(sent)
+        path, score = tagger._viterbi.decode(e)
+        want, want_score = cpu._viterbi.decode(e)
+        differ += (not np.array_equal(path, want)
+                   or [t for _, t in tagged] != [tagger.tags[s]
+                                                for s in want])
+        worst = max(worst, abs(score - want_score) / abs(want_score))
+    paths, scores = t2["batch"]
+    want_paths, want_scores = cpu._viterbi.decode_batch(t2["padded"])
+    batch_differ = int(np.sum(np.any(paths != want_paths, axis=1)))
+    batch_worst = float(np.max(np.abs(scores - want_scores)
+                               / np.abs(want_scores)))
+    print(f"trees parity t2 viterbi: {differ} of {len(t2['tokens'])} paths "
+          f"differ, score rel err {worst:.3e}; decode_batch {batch_differ} "
+          f"paths differ, score rel err {batch_worst:.3e} (gate "
+          f"{VITERBI_RTOL}) [{card}]")
+    if differ or batch_differ or max(worst, batch_worst) > VITERBI_RTOL:
+        raise AssertionError("viterbi: the card differs from the CPU")
+
+
+def kmeans_points(n: int, seed: int):
+    """A seeded mixture of ``KMEANS_K`` Gaussians in ``KMEANS_DIM``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0.0, 3.0, (KMEANS_K, KMEANS_DIM))
+    return (centers[rng.integers(KMEANS_K, size=n)]
+            + rng.normal(0.0, 1.0, (n, KMEANS_DIM))).astype(np.float32)
+
+
+def t3_kmeans(card: str) -> list:
+    """T3: ``apply_to`` on the card for each distance's cell, twice
+    (bitwise); ms an iteration and the iterations to converge."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+
+    import torch
+    from deeplearning4j_tpu_torch.clustering import kmeans
+
+    cells = []
+    for seed, (distance, n) in enumerate(KMEANS_CELLS):
+        pts = kmeans_points(n, seed)
+        km = KMeansClustering(KMEANS_K, KMEANS_ITERATIONS, distance,
+                              device=TREES_DEVICE)
+        init, init_s = _trees_timed(lambda: km._init_centroids(pts))
+        runs = []
+        for _ in range(2):
+            cs, wall = _trees_timed(lambda: km.apply_to(pts))
+            runs.append((cs, wall, km.iterations))
+        (a, cold, iters), (b, wall, _) = runs
+        same = (np.array_equal(a.assignments, b.assignments)
+                and a.cost == b.cost
+                and all(np.array_equal(x.center, y.center)
+                        for x, y in zip(a.clusters, b.clusters)))
+        # an iteration of apply_to's loop (the step, the assignments'
+        # and the cost's readback) on the host clock, and the step alone
+        # on the device (CUDA events)
+        args = (torch.from_numpy(pts).to(TREES_DEVICE),
+                torch.from_numpy(init).to(TREES_DEVICE), distance)
+
+        def iteration():
+            _, assign, cost = kmeans._kmeans_step(*args)
+            return assign.cpu().numpy(), float(cost)
+
+        iteration()
+        _, iter_s = _trees_timed(lambda: [iteration() for _ in range(iters)])
+        if TREES_DEVICE != "cpu":
+            step_ms = cuda_ms(lambda: kmeans._kmeans_step(*args))
+        else:
+            step_ms = _trees_timed(lambda: kmeans._kmeans_step(*args))[1] * 1e3
+        print(f"trees t3 kmeans {distance} [{n}, {KMEANS_DIM}] k "
+              f"{KMEANS_K}: {iters} iterations, apply_to {wall:.3f} s "
+              f"({cold:.3f} s cold), its k-means++ init {init_s:.2f} s "
+              f"alone (host), {iter_s * 1e3 / iters:.3f} ms an iteration, "
+              f"the step {step_ms:.3f} ms on the device, cost "
+              f"{a.cost:.6g}, two card runs bitwise equal={same} [{card}]")
+        if not same or not np.isfinite(a.cost):
+            raise AssertionError(f"kmeans {distance}: two card runs differ")
+        cells.append((distance, pts, init))
+    return cells
+
+
+def t3_parity(card: str, cells: list) -> None:
+    """The card's first iterations against the CPU's from the same
+    init: costs within 1e-4 relative, assignments equal except at points
+    whose two nearest centroids are within 1e-5 relative."""
+    import torch
+    from deeplearning4j_tpu_torch.clustering import kmeans
+
+    for distance, pts, init in cells:
+        host_pts = torch.from_numpy(pts)
+        card_pts = host_pts.to(TREES_DEVICE)
+        c_card = torch.from_numpy(init).to(TREES_DEVICE)
+        c_host = torch.from_numpy(init)
+        for it in range(KMEANS_PARITY_ITERATIONS):
+            near = torch.topk(kmeans._distances(host_pts, c_host, distance),
+                              2, dim=1, largest=False).values
+            ties = (near[:, 1] - near[:, 0]).abs() <= \
+                KMEANS_TIE * near.abs().max(dim=1).values
+            c_card, a_card, cost_card = kmeans._kmeans_step(
+                card_pts, c_card, distance)
+            c_host, a_host, cost_host = kmeans._kmeans_step(
+                host_pts, c_host, distance)
+            flipped = a_card.cpu() != a_host
+            rel = abs(float(cost_card) - float(cost_host)) / abs(
+                float(cost_host))
+            outside = int((flipped & ~ties).sum())
+            print(f"trees parity t3 kmeans {distance} iteration {it + 1}: "
+                  f"cost rel err {rel:.3e} (gate {KMEANS_COST_RTOL}), "
+                  f"{int(flipped.sum())} assignments differ, {outside} "
+                  f"outside the {int(ties.sum())} near-ties [{card}]")
+            if rel > KMEANS_COST_RTOL or outside:
+                raise AssertionError(f"kmeans {distance}: the card differs "
+                                     f"from the CPU")
+
+
+def tsne_points():
+    """bench_word2vec's vocabulary as a seeded table: 20 clusters."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    centers = rng.normal(0.0, 1.0, (20, TSNE_DIM))
+    return (centers[rng.integers(20, size=TSNE_N)]
+            + rng.normal(0.0, 0.5, (TSNE_N, TSNE_DIM)))
+
+
+def t4_tsne(card: str) -> dict:
+    """T4: ``Tsne().fit_transform`` on the card at the JAX defaults, and
+    the affinities alone on the host (the CPU run's input later)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.plot import Tsne
+    from deeplearning4j_tpu_torch.plot.tsne import compute_gaussian_p
+
+    x = tsne_points()
+    tsne = Tsne(perplexity=TSNE_PERPLEXITY, device=TREES_DEVICE)
+    y, wall = _trees_timed(lambda: tsne.fit_transform(x))
+    kl = tsne.kl_history
+    # readings every 50 iterations: [1] at 100, the exaggeration's last
+    falls = kl[-1] < kl[2] < kl[1]
+    # its two parts apart: the affinities (host) and the descent
+    p, p_s = _trees_timed(lambda: compute_gaussian_p(x, TSNE_PERPLEXITY))
+    again = Tsne(perplexity=TSNE_PERPLEXITY, device=TREES_DEVICE)
+    _, descent_s = _trees_timed(lambda: again._descend(p))
+    print(f"trees t4 tsne [{TSNE_N}, {TSNE_DIM}]: fit_transform {wall:.2f} "
+          f"s, compute_gaussian_p {p_s:.2f} s (host), the descent "
+          f"{descent_s * 1e3 / tsne.max_iter:.3f} ms an iteration over "
+          f"{tsne.max_iter}, kl {[round(v, 4) for v in kl]} [{card}]")
+    if y.shape != (TSNE_N, 2) or not np.isfinite(y).all() or not falls:
+        raise AssertionError("tsne: the layout is not finite or the KL did "
+                             "not fall after the exaggeration")
+    return {"x": x, "p": p, "kl": kl}
+
+
+def t4_parity_start(t4: dict):
+    """Start the CPU's whole run (the KL gate's reference) in a thread;
+    returns the thread and the dict it fills with ``kl`` or ``error``."""
+    import threading
+    from deeplearning4j_tpu_torch.plot import Tsne
+
+    out = {}
+
+    def run():
+        try:
+            cpu = Tsne(perplexity=TSNE_PERPLEXITY, device="cpu")
+            cpu._descend(t4["p"])
+            out["kl"] = cpu.kl_history
+        except Exception as e:  # re-raised by t4_parity
+            out["error"] = e
+
+    thread = threading.Thread(target=run, name="cpu-tsne")
+    thread.start()
+    return thread, out
+
+
+def t4_parity(card: str, t4: dict, thread, out) -> None:
+    """The first iterations card against CPU, then the card's final KL
+    against the CPU's whole run."""
+    import torch
+    from deeplearning4j_tpu_torch.plot import Tsne
+    from deeplearning4j_tpu_torch.plot import tsne as tsne_mod
+
+    pair = [Tsne(perplexity=TSNE_PERPLEXITY, device=d)
+            for d in (TREES_DEVICE, "cpu")]
+    states = [list(m._start(t4["p"])) for m in pair]
+    for it in range(TSNE_PARITY_ITERATIONS):
+        momentum, lying = pair[0]._hyper(it)
+        for s in states:
+            y, p, lied, gains, vel = s
+            s[0], s[3], s[4], _ = tsne_mod._tsne_step(
+                y, lied if lying else p, p, gains, vel, momentum,
+                pair[0].learning_rate, with_kl=False)
+    _close(f"t4 tsne first {TSNE_PARITY_ITERATIONS} iterations (y, gains, "
+           f"velocity)", [states[0][i] for i in (0, 3, 4)],
+           [states[1][i] for i in (0, 3, 4)], card)
+    thread.join()
+    if "error" in out:
+        raise out["error"]
+    card_kl, cpu_kl = t4["kl"][-1], out["kl"][-1]
+    rel = abs(card_kl - cpu_kl) / abs(cpu_kl)
+    print(f"trees parity t4 tsne final kl: card {card_kl:.5f} cpu "
+          f"{cpu_kl:.5f} rel {rel:.4f} (gate {TSNE_KL_RTOL}) [{card}]")
+    if rel > TSNE_KL_RTOL:
+        raise AssertionError("tsne: the card's final KL is off the CPU's")
+
+
+def trees(card: str) -> dict:
+    """Phase 14; returns B1–B3's launches over it (all must be 0). The
+    timed cells run first, alone; the parity checks then run beside the
+    CPU's whole t-SNE run, which they wait for at the end."""
+    import torch
+    from deeplearning4j_tpu_torch.perf import step_graph
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    step_graph.reset_kernel_launches()
+    t_phase = time.monotonic()
+    state = {}
+    for name, part in (("t1", t1_rntn), ("t2", t2_tagging),
+                       ("t3", t3_kmeans), ("t4", t4_tsne)):
+        t0 = time.monotonic()
+        state[name] = (part(card, state["t1"]) if name == "t2"
+                       else part(card))
+        print(f"trees {part.__name__}: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    thread, out = t4_parity_start(state["t4"])
+    try:
+        t1_parity(card, state["t1"])
+        t2_parity(card, state["t2"])
+        t3_parity(card, state["t3"])
+    finally:
+        thread.join()
+    t4_parity(card, state["t4"], thread, out)
+    print(f"trees parity: {time.monotonic() - t0:.1f} s")
+    launches = step_graph.kernel_launches()
+    print(f"trees phase: {time.monotonic() - t_phase:.1f} s, B1-B3 launches "
+          f"{launches} [{card}]")
+    if any(launches.values()):
+        raise AssertionError(f"the trees phase launched a flash kernel: "
+                             f"{launches}")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -4218,10 +4841,10 @@ def main() -> None:
     entries = {}
     serve_launches = train_launches = fused_launches = cli_launches = None
     extras_launches = data_launches = profile_launches = None
-    embed_launches = None
+    embed_launches = trees_launches = None
     for phase in ("flash", "flash_bwd", "serve", "train", "networks",
                   "recurrent", "fused", "cli", "serve_extras", "data",
-                  "monitor", "embeddings"):
+                  "monitor", "embeddings", "trees"):
         try:
             if phase == "flash":
                 entries["flash_attention_fwd"] = check_flash(card)
@@ -4252,8 +4875,10 @@ def main() -> None:
                 data_launches = data(card)
             elif phase == "monitor":
                 profile_launches = monitor_phase(card)
-            else:
+            elif phase == "embeddings":
                 embed_launches = embeddings(card)
+            else:
+                trees_launches = trees(card)
         except Exception:
             traceback.print_exc()
             failed.append(phase)
@@ -4271,6 +4896,7 @@ def main() -> None:
         e["launches_data"] = data_launches[name]
         e["launches_profile"] = profile_launches[name]
         e["launches_embeddings"] = embed_launches[name]
+        e["launches_trees"] = trees_launches[name]
     entries["flash_attention_fwd"]["launches_serve"] = serve_launches
     entries["flash_attention_fwd"]["launches_serve_extras"] = extras_launches
     print(json.dumps({"kernels": list(entries.values())}))

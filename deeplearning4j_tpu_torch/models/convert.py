@@ -9,9 +9,10 @@ iteration count load into a port network of the same class, which then
 carries on the JAX run step for step. The embedding models (Word2Vec,
 SequenceVectors, ParagraphVectors, GloVe, DeepWalk) take the JAX model's
 vocab order and tables (:func:`load_embeddings_from_jax`): the reference
-initialises them with ``jax.random``, which torch cannot replay. This
-module imports neither jax nor the JAX package: it takes plain numpy (or
-objects whose attributes ``np.asarray`` turns into numpy).
+initialises them with ``jax.random``, which torch cannot replay. So does
+the RNTN, whose vocab, params and AdaGrad state :func:`load_rntn_from_jax`
+carries. This module imports neither jax nor the JAX package: it takes
+plain numpy (or objects whose attributes ``np.asarray`` turns into numpy).
 """
 
 from __future__ import annotations
@@ -122,4 +123,35 @@ def load_embeddings_from_jax(model, jax_model=None, **tables):
                 setattr(model, name, put(name))
         if hasattr(model, "_norm_cache"):
             model._norm_cache = None
+    return model
+
+
+def load_rntn_from_jax(model, jax_model=None, **params):
+    """Put a JAX ``RNTN``'s vocab, params, AdaGrad state and iteration
+    count into the port's ``RNTN`` ``model`` on ``model.device``, so both
+    carry on from the same state (the reference initialises with
+    ``jax.random``, which torch cannot replay). Returns ``model``.
+
+    From ``jax_model`` (any object with the reference's attributes; its
+    arrays are read with ``np.asarray``): ``vocab``, ``params``,
+    ``updater_state`` and ``iteration_count``. ``params`` (numpy, by the
+    reference's names ``L, W, b, T, Ws, bs``) override its params; where no
+    updater state is given, the state starts at zero."""
+    from deeplearning4j_tpu_torch.nn.updater import init_updater_state
+
+    src = {}
+    state = None
+    if jax_model is not None:
+        if getattr(jax_model, "vocab", None) is not None:
+            model.vocab = dict(jax_model.vocab)
+        src.update(getattr(jax_model, "params", None) or {})
+        state = getattr(jax_model, "updater_state", None)
+        model.iteration_count = int(getattr(jax_model, "iteration_count", 0))
+    src.update(params)
+    model.params = {k: _leaf(np.asarray(v, np.float32), model.device)
+                    for k, v in src.items()}
+    model.updater_state = (
+        init_updater_state(model._spec, model.params) if state is None
+        else {k: _leaf(np.asarray(v, np.float32), model.device)
+              for k, v in state.items()})
     return model

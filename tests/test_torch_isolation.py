@@ -45,9 +45,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
              "deeplearning4j_tpu_torch.serving.compile_cache"))]
         embeddings = [n for n in names if n.split(".")[1] in ("nlp",
                                                              "graph")]
-        print(len(names), len(new), len(fleet), len(embeddings), leaked)
+        trees = [n for n in names if n.split(".")[1] in ("clustering", "plot")
+                 or n == "deeplearning4j_tpu_torch.models.rntn"]
+        print(len(names), len(new), len(fleet), len(embeddings), len(trees),
+              leaked)
     """)
-    count, new, fleet, embeddings, leaked = out.split(" ", 4)
+    count, new, fleet, embeddings, trees, leaked = out.split(" ", 5)
     assert int(count) >= 15
     # optimize (4 modules), utils (3) and cli (2) are walked too
     assert int(new) >= 9
@@ -55,6 +58,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert int(fleet) >= 9
     # and the embeddings: nlp (13 modules) and graph (4)
     assert int(embeddings) >= 17
+    # and clustering (6 modules), plot (3) and the RNTN
+    assert int(trees) >= 10
     assert leaked.strip() == "[]"
 
 
@@ -68,7 +73,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     "deeplearning4j_tpu_torch.monitor",
     "deeplearning4j_tpu_torch.datasets.fetchers",
     "deeplearning4j_tpu_torch.nlp", "deeplearning4j_tpu_torch.nlp.epoch_kernels",
-    "deeplearning4j_tpu_torch.graph"])
+    "deeplearning4j_tpu_torch.graph", "deeplearning4j_tpu_torch.clustering",
+    "deeplearning4j_tpu_torch.plot", "deeplearning4j_tpu_torch.models.rntn"])
 def test_front_door_modules_import_first(module):
     """Each imports on its own in a fresh interpreter (no import cycle
     through ``nn``)."""
@@ -219,3 +225,30 @@ def test_embedding_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_word_vectors(path)
     assert load_word_vectors(path, device="cpu").syn0.shape == (3, 4)
+
+
+def test_tree_and_clustering_entry_points_raise_without_a_card(monkeypatch):
+    """The RNTN, the tagger's Viterbi, k-means and t-SNE run on the card
+    unless told ``cpu``."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.models import RNTN
+    from deeplearning4j_tpu_torch.nlp import HmmPosTagger, Tree, Viterbi
+    from deeplearning4j_tpu_torch.plot import Tsne
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.random.default_rng(0).normal(size=(12, 3)).astype(np.float32)
+    for make in (RNTN, lambda: KMeansClustering(2).apply_to(pts),
+                 lambda: Tsne(max_iter=2).fit_transform(pts),
+                 HmmPosTagger, lambda: Viterbi(3)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    trees = [Tree.parse("(1 (0 a) (1 b))")]
+    rntn = RNTN(num_hidden=3, num_classes=2, device="cpu").init(trees)
+    assert rntn.params["L"].device == torch.device("cpu")
+    assert rntn.predict(trees[0]).shape == (3,)
+    assert KMeansClustering(2, device="cpu").apply_to(pts) \
+        .assignments.shape == (12,)
+    assert Tsne(max_iter=2, perplexity=3.0, device="cpu") \
+        .fit_transform(pts).shape == (12, 2)
