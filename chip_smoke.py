@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Fourteen phases; any failure exits non-zero and prints no result line.
+Fifteen phases; any failure exits non-zero and prints no result line.
 
 1. Build and device: compile every CUDA kernel from ``csrc/`` (one
    ``nvcc`` per source, all at once), print ptxas's registers and spill
@@ -301,6 +301,36 @@ Fourteen phases; any failure exits non-zero and prints no result line.
    outside near-ties: points whose two nearest centroids are within
    1e-5); t-SNE's first 10 iterations, and the final KL within 5 % of
    the CPU's. No B1–B3 launch.
+15. Mesh (training over a device mesh; the card is one H100, so the
+   multi-rank worlds share it). An NCCL world of one rank (a
+   ``FileStore`` in a temporary directory): the d512·L8 LM's
+   ``make_train_step(mesh=, sequence_parallel=True)`` for 3 steps at
+   ``[16, 1024]`` bitwise the meshless (captured) step, and
+   ``ParallelWrapper`` (``fsdp`` off and on) fitting the MNIST MLP at
+   ``[4096, 784]`` bitwise ``net.fit``. A probe world of four gloo ranks
+   on the card reports which gloo collectives carry CUDA tensors (each
+   rank logs an op's start and outcome; an op that aborts a process ends
+   only that world). Then a world of four gloo ranks on the card, each
+   ``torch.cuda.set_device(0)``, every world killed past its timeout:
+   the flash ring over ``sequence=4`` at ``[16, 1024, 8, 64]`` (causal,
+   non-causal, window 128; f32 and bf16) against B1/B2/B3 on the whole
+   tensors (f32: out and lse 2e-5, gradients 1e-4; bf16: out 2e-2, and
+   the gradients against the f32 oracle within the single-device
+   kernels' own error there plus 2e-2, since the ring rounds each hop's
+   output to bf16 before its merge, as the reference does); the K/V
+   transport's ms per hop (one gloo ``all_to_all_single``: gloo has no
+   CUDA point-to-point); Ulysses against the plain path (bf16 2e-2);
+   the LM's sequence-parallel step, ring and Ulysses, 3 steps each
+   against the single-device step (loss 2e-2, params 1e-2), ms per step
+   and B1–B3 launches per step summed over the ranks (the ring: 8 layers
+   × 10 hops = 80 each; Ulysses: 0); ``ParallelWrapper`` over
+   ``data=4`` (replicated and FSDP) against single-device ``fit`` in
+   float32 (rtol 1e-4, atol 1e-6) with the params each rank holds; the
+   per-rank peak memory. Then B1/B2/B3 at one hop's shape (full and
+   diagonal) beside the single-device kernels over the same whole shape
+   (CUDA events), and ``ParameterAveragingTrainer`` with 4 replicas on
+   the one card, no process group, against 4 clones averaged (float32
+   rtol 1e-4, atol 1e-6).
 
 Output: metric lines, then a ``{"kernels": [...]}`` JSON line (each
 kernel's ``variant`` and ``launches`` counted over the train phase's
@@ -311,7 +341,8 @@ over phase 10 as ``launches_serve_extras``; over phase 11 as
 ``launches_data``, which must be 0; over phase 12's profiled step,
 replays included, as ``launches_profile``; over phase 13 as
 ``launches_embeddings``, which must be 0; over phase 14 as
-``launches_trees``, which must be 0; and its train-shape numbers under
+``launches_trees``, which must be 0; over phase 15's ring steps, summed
+over the four ranks, as ``launches_mesh``; and its train-shape numbers under
 ``train``) and the ``nvidia-smi``
 line,
 then ``{"ok": true, "device": {...}}`` last.
@@ -4810,6 +4841,727 @@ def trees(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training over a device mesh
+# ---------------------------------------------------------------------------
+MESH_RANKS = 4
+MESH_STEPS = 3
+MESH_JOIN_TIMEOUT_S = 180  # a collective that waits longer raises
+MESH_WORLD_TIMEOUT_S = 480  # the 4-rank world; every rank killed past it
+MESH_MLP_BATCH = 4096
+MESH_SHAPE = (TRAIN_BATCH, TRAIN_T, 8, 64)  # the ring checks' whole q/k/v
+MESH_WINDOW = 128
+MESH_LM_TOL = {"loss": 2e-2, "params": 1e-2}  # mixed_bf16, the train gate
+MESH_F32_TOL = dict(rtol=1e-4, atol=1e-6)
+MESH_HOP_ITERS = 10
+MESH_RUNNER = ("import sys; sys.path.insert(0, sys.argv[1]); "
+               "import chip_smoke; chip_smoke.%s(int(sys.argv[2]), "
+               "int(sys.argv[3]), sys.argv[4])")
+
+
+def mesh_batches(n: int = MESH_STEPS, batch: int = MESH_MLP_BATCH):
+    """``n`` seeded MNIST-shaped batches (features in [0, 1), one-hot
+    labels over 10 classes) as host DataSets."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    rng = np.random.default_rng(0)
+    return [DataSet(rng.random((batch, 784), np.float32),
+                    np.eye(10, dtype=np.float32)[rng.integers(0, 10, batch)])
+            for _ in range(n)]
+
+
+def tree_err(a, b) -> float:
+    """Largest |a − b| over two trees of one structure."""
+    from deeplearning4j_tpu_torch.dtypes import tree_leaves
+
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def tree_close(a, b, rtol: float, atol: float) -> bool:
+    import torch
+    from deeplearning4j_tpu_torch.dtypes import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.allclose(x.float(), y.float(), rtol=rtol, atol=atol)
+        for x, y in zip(la, lb))
+
+
+def tree_equal(a, b) -> bool:
+    import torch
+    from deeplearning4j_tpu_torch.dtypes import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def mesh_world_one(card: str, tmp: str) -> None:
+    """An NCCL world of one rank: the LM's mesh step and ParallelWrapper
+    (replicated and FSDP) against the meshless runs, bitwise."""
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+    from deeplearning4j_tpu_torch.parallel import (
+        ParallelWrapper, build_mesh, join_world, leave_world)
+
+    join_world(os.path.join(tmp, "nccl1"), 0, 1, backend="nccl",
+               timeout_s=MESH_JOIN_TIMEOUT_S)
+    try:
+        mesh = build_mesh(device="cuda")
+        backend = dist.get_backend()
+        tok = torch.as_tensor(train_tokens(), device="cuda")
+        runs = []
+        for m in (None, mesh):
+            lm = TransformerLM(**TRAIN_CFG).init()
+            step = lm.make_train_step(mesh=m, sequence_parallel=m is not None)
+            losses = torch.stack([lm.fit_batch(tok, train_step=step,
+                                               block=False)
+                                  for _ in range(MESH_STEPS)])
+            runs.append((losses, lm.params, lm.opt_state, step.captured))
+            del lm, step
+        same = (torch.equal(runs[0][0], runs[1][0])
+                and tree_equal(runs[0][1:3], runs[1][1:3]))
+        print(f"mesh world1 {backend} lm [{TRAIN_BATCH}, {TRAIN_T}] "
+              f"mixed_bf16 make_train_step(mesh, sequence_parallel=True) "
+              f"{MESH_STEPS} steps: losses "
+              f"{[float(x) for x in runs[1][0]]}, captured "
+              f"{runs[1][3]}, bitwise the meshless step: {same} [{card}]")
+        if not same:
+            raise AssertionError("the world-1 mesh LM step differs from the "
+                                 "meshless step")
+        del runs
+        torch.cuda.empty_cache()
+        batches = mesh_batches()
+        for fsdp in (False, True):
+            a = build_network("mnist_mlp", "bf16", "cuda")
+            b = build_network("mnist_mlp", "bf16", "cuda")
+            ParallelWrapper(a, mesh=mesh, fsdp=fsdp).fit(batches)
+            b.fit(batches)
+            same = same_state(a, b)
+            print(f"mesh world1 {backend} ParallelWrapper(fsdp={fsdp}) "
+                  f"mnist_mlp bf16 [{MESH_MLP_BATCH}, 784] {MESH_STEPS} "
+                  f"fits: bitwise net.fit: {same} [{card}]")
+            if not same:
+                raise AssertionError(f"ParallelWrapper(fsdp={fsdp}) on a "
+                                     "world of one differs from net.fit")
+    finally:
+        leave_world()
+
+
+MESH_PROBE_OPS = ("all_reduce", "broadcast", "all_gather",
+                  "all_to_all_single", "all_to_all_single uneven",
+                  "isend/irecv")
+
+
+def mesh_probe_rank(rank: int, n: int, tmp: str) -> None:
+    """One rank of the probe world: each gloo collective of CUDA tensors
+    in turn, its start and outcome appended to ``probe<r>.jsonl``. gloo
+    may abort the process on a CUDA pointer it treats as host memory;
+    the last started op then has no outcome, and the parent reports it."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    sys.path.insert(0, HERE)
+    from deeplearning4j_tpu_torch.parallel import join_world, leave_world
+
+    join_world(os.path.join(tmp, "probe_store"), rank, n, backend="gloo",
+               timeout_s=60)
+    me = dist.get_rank()
+    x = torch.full((4,), float(me + 1), device="cuda")
+
+    def uneven():
+        send = [0] * n
+        recv = [0] * n
+        send[(me - 1) % n], recv[(me + 1) % n] = 4, 4
+        out = torch.empty(4, device="cuda")
+        dist.all_to_all_single(out, x.clone(), recv, send)
+        return float(out[0]) == float((me + 1) % n + 1)
+
+    def p2p():
+        out = torch.empty(4, device="cuda")
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x.clone(), (me - 1) % n),
+            dist.P2POp(dist.irecv, out, (me + 1) % n)])
+        for r in reqs:
+            r.wait()
+        return float(out[0]) == float((me + 1) % n + 1)
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return float(y[0]) == n * (n + 1) / 2
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, src=0)
+        return float(y[0]) == 1.0
+
+    def all_gather():
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x)
+        return [float(p[0]) for p in parts] == [float(i + 1)
+                                                for i in range(n)]
+
+    def even():
+        y = torch.arange(n, dtype=torch.float32, device="cuda") + 10 * me
+        out = torch.empty_like(y)
+        dist.all_to_all_single(out, y)
+        return [float(v) for v in out] == [10.0 * i + me for i in range(n)]
+
+    fns = dict(zip(MESH_PROBE_OPS, (all_reduce, broadcast, all_gather, even,
+                                    uneven, p2p)))
+    with open(os.path.join(tmp, f"probe{rank}.jsonl"), "a") as log:
+        for name in MESH_PROBE_OPS:
+            log.write(json.dumps({"op": name, "state": "start"}) + "\n")
+            log.flush()
+            try:
+                state = "carries" if fns[name]() else "wrong values"
+                torch.cuda.synchronize()
+            except Exception as e:  # the probe reports what gloo refuses
+                state = f"refused ({type(e).__name__}: {str(e)[:60]})"
+            log.write(json.dumps({"op": name, "state": state}) + "\n")
+            log.flush()
+            dist.barrier()
+    leave_world()
+
+
+def mesh_probe(tmp: str) -> dict:
+    """Which gloo collectives carry CUDA tensors on this machine, from a
+    world of its own (an op that aborts the process ends only that
+    world)."""
+    spawn_world("mesh_probe_rank", tmp, 120)
+    found = {}
+    path = os.path.join(tmp, "probe0.jsonl")
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                entry = json.loads(line)
+                found[entry["op"]] = entry["state"]
+    for name in MESH_PROBE_OPS:
+        if found.get(name) == "start":
+            found[name] = "aborted the process (gloo read device memory " \
+                          "as host memory)"
+        elif name not in found:
+            found[name] = "not probed (an earlier op ended the world)"
+    return found
+
+
+def spawn_world(fn: str, tmp: str, timeout_s: float) -> list:
+    """Run ``chip_smoke.<fn>(rank, MESH_RANKS, tmp)`` in MESH_RANKS
+    processes; every one is killed past ``timeout_s`` or as soon as one
+    fails. Returns the exit codes."""
+    procs, logs = [], []
+    for r in range(MESH_RANKS):
+        log = open(os.path.join(tmp, f"{fn}{r}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", MESH_RUNNER % fn, HERE, str(r),
+             str(MESH_RANKS), tmp], stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout_s
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    return [p.returncode for p in procs]
+
+
+def mesh_local(x, rank: int, n: int):
+    t = x.shape[1] // n
+    return x[:, rank * t:(rank + 1) * t].contiguous()
+
+
+def mesh_ring_checks(rank: int, n: int, seq) -> list:
+    """The flash ring (B1 per hop forward, B2 + B3 per hop backward) on
+    this rank's shard against B1/B2/B3 on the whole tensors."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel.ring_attention import (
+        ring_attention, ring_flash_forward)
+
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for causal, window in ((True, None), (False, None),
+                               (True, MESH_WINDOW)):
+            gen = torch.Generator(device="cuda").manual_seed(
+                len(out) + 100)
+            q, k, v, do = (torch.randn(MESH_SHAPE, generator=gen,
+                                       device="cuda").to(dtype)
+                           for _ in range(4))
+            kw = dict(causal=causal, window=window)
+            ref_out, ref_lse = fa.flash_attention_fwd(q, k, v, **kw)
+            ref_dq, ref_dk, ref_dv = fa.flash_attention_bwd(
+                q, k, v, ref_out, ref_lse, do, **kw)
+            ql, kl, vl, dol = (mesh_local(x, rank, n) for x in (q, k, v, do))
+            o, lse = ring_flash_forward(ql, kl, vl, seq, **kw)
+            t = MESH_SHAPE[1] // n
+            sl = slice(rank * t, (rank + 1) * t)
+            fwd_err = max(
+                float((o.float() - ref_out[:, sl].float()).abs().max()),
+                float((lse - ref_lse[:, :, sl]).abs().max()))
+            qg, kg, vg = (x.clone().requires_grad_() for x in (ql, kl, vl))
+            ring_attention(qg, kg, vg, seq, impl="flash", **kw).backward(dol)
+            bwd_err = max(float((g.grad.float() - r[:, sl].float()).abs()
+                                .max()) for g, r in ((qg, ref_dq),
+                                                     (kg, ref_dk),
+                                                     (vg, ref_dv)))
+            fwd_tol = TOL[name]
+            bwd_tol = BWD_TOL[name]
+            entry = {"dtype": name, "causal": causal, "window": window,
+                     "fwd_err": fwd_err, "bwd_err": bwd_err,
+                     "ok": fwd_err <= fwd_tol and bwd_err <= bwd_tol}
+            if dtype == torch.bfloat16:
+                # the ring rounds each hop's output to bf16 before the f32
+                # merge (the reference's design), so its out and delta
+                # carry one rounding more than the single-device kernel's:
+                # bf16 gradients are held against the f32 oracle, allowed
+                # the single-device kernels' own error there plus 2e-2
+                # both against the f32 oracle on the same bf16 inputs
+                f32 = [x.float() for x in (q, k, v, do)]
+                o32, l32 = fa.flash_attention_fwd_reference(*f32[:3], **kw)
+                oracle = fa.flash_backward(f32[0], f32[1], f32[2], o32, l32,
+                                           f32[3], precise=True, **kw)
+                entry["ring_vs_oracle"] = max(
+                    float((g.grad.float() - r[:, sl]).abs().max())
+                    for g, r in ((qg, oracle[0]), (kg, oracle[1]),
+                                 (vg, oracle[2])))
+                entry["kernel_vs_oracle"] = max(
+                    float((a[:, sl].float() - r[:, sl]).abs().max())
+                    for a, r in ((ref_dq, oracle[0]), (ref_dk, oracle[1]),
+                                 (ref_dv, oracle[2])))
+                entry["grad_scale"] = max(float(r.abs().max())
+                                          for r in oracle)
+                entry["ok"] = fwd_err <= fwd_tol and (
+                    entry["ring_vs_oracle"]
+                    <= entry["kernel_vs_oracle"] + bwd_tol)
+                del oracle, o32, l32, f32
+            out.append(entry)
+    return out
+
+
+def mesh_hop_transport(seq) -> dict:
+    """Host-clock ms of one K/V rotation (the forward's hop: k and v in
+    bf16) and of the backward's (k, v and the f32 dk, dv), at the ring
+    shape's local block."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel.collectives import rotate
+    from deeplearning4j_tpu_torch.parallel.mesh import axis_group
+
+    b, t, h, d = MESH_SHAPE
+    local = (b, t // MESH_RANKS, h, d)
+    g = axis_group(seq, "sequence")
+    kv = [torch.randn(local, device="cuda").to(torch.bfloat16)
+          for _ in range(2)]
+    grads = [torch.randn(local, device="cuda") for _ in range(2)]
+    res = {}
+    for name, ts in (("fwd", kv), ("bwd", kv + grads)):
+        rotate(ts, g, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_HOP_ITERS):
+            rotate(ts, g, 1)
+        torch.cuda.synchronize()
+        res[name] = {"ms": (time.perf_counter() - t0) * 1e3 / MESH_HOP_ITERS,
+                     "bytes": sum(x.numel() * x.element_size() for x in ts)}
+    return res
+
+
+def mesh_ulysses(rank: int, n: int, seq) -> dict:
+    """Ulysses (two all-to-alls around plain attention) against the plain
+    path on the whole tensors, bf16."""
+    import torch
+    from deeplearning4j_tpu_torch.ops.attention import dot_product_attention
+    from deeplearning4j_tpu_torch.parallel.ulysses import ulysses_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(MESH_SHAPE, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    with torch.no_grad():
+        ref = dot_product_attention(q, k, v, causal=True)
+        got = ulysses_attention(*(mesh_local(x, rank, n) for x in (q, k, v)),
+                                seq, causal=True)
+    err = float((got.float() - mesh_local(ref, rank, n).float()).abs().max())
+    return {"err": err, "ok": err <= TOL["bfloat16"]}
+
+
+def mesh_lm(rank: int, n: int, seq) -> dict:
+    """The d512·L8 LM's sequence-parallel step over ``sequence=n``, ring
+    (B1–B3 per hop) and Ulysses, 3 steps each from the same init; rank 0
+    holds both against the single-device step."""
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+    from deeplearning4j_tpu_torch.perf import step_graph
+
+    tok = torch.as_tensor(train_tokens(), device="cuda")
+    res, states = {}, {}
+    for impl in ("ring", "ulysses"):
+        lm = TransformerLM(**TRAIN_CFG, sp_impl=impl).init()
+        step = lm.make_train_step(mesh=seq, sequence_parallel=True)
+        losses, per_step, ms = [], [], []
+        for _ in range(MESH_STEPS):
+            dist.barrier()
+            torch.cuda.synchronize()
+            before = step_graph.kernel_launches()
+            t0 = time.perf_counter()
+            losses.append(lm.fit_batch(tok, train_step=step))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            per_step.append({k: v - before[k] for k, v in
+                             step_graph.kernel_launches().items()})
+        res[impl] = {"losses": losses, "ms": ms, "launches": per_step,
+                     "captured": step.captured}
+        states[impl] = lm.params
+        del lm, step
+    if rank == 0:
+        ref = TransformerLM(**TRAIN_CFG).init()
+        ref_losses = [ref.fit_batch(tok) for _ in range(MESH_STEPS)]
+        for impl in ("ring", "ulysses"):
+            loss_err = max(abs(a - b) for a, b in
+                           zip(res[impl]["losses"], ref_losses))
+            param_err = tree_err(states[impl], ref.params)
+            res[impl].update(ref_losses=ref_losses, loss_err=loss_err,
+                             param_err=param_err,
+                             ok=loss_err <= MESH_LM_TOL["loss"]
+                             and param_err <= MESH_LM_TOL["params"])
+    return res
+
+
+def mesh_dp(rank: int, n: int, data) -> dict:
+    """ParallelWrapper over ``data=n`` (replicated and FSDP) fitting the
+    MNIST MLP in float32 against single-device ``fit`` on the global
+    batches (rank 0 holds the gate)."""
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.dtypes import tree_leaves
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+    batches = mesh_batches()
+    res = {}
+    ref = None
+    if rank == 0:
+        ref = build_network("mnist_mlp", "float32", "cuda")
+        ref.fit(batches)
+    for fsdp in (False, True):
+        net = build_network("mnist_mlp", "float32", "cuda")
+        w = ParallelWrapper(net, mesh=data, fsdp=fsdp)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w.fit(batches)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        params, upd = w.gather()
+        entry = {"ms_per_fit": ms,
+                 "param_numel_this_rank": sum(
+                     x.numel() for x in tree_leaves(net.params))}
+        if ref is not None:
+            entry["err"] = max(tree_err(params, ref.params),
+                               tree_err(upd, ref.updater_state))
+            entry["ok"] = tree_close((params, upd),
+                                     (ref.params, ref.updater_state),
+                                     **MESH_F32_TOL)
+        res["fsdp" if fsdp else "replicated"] = entry
+    return res
+
+
+def mesh_rank(rank: int, n: int, tmp: str) -> None:
+    """One rank of the 4-process gloo world that shares the card; writes
+    its results to ``rank<r>.json`` in ``tmp``."""
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, HERE)
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshSpec, build_mesh, join_world, leave_world)
+    from deeplearning4j_tpu_torch.parallel.mesh import axis_group
+
+    out = {"rank": rank}
+    t0 = time.monotonic()
+    join_world(os.path.join(tmp, "store"), rank, n, backend="gloo",
+               timeout_s=MESH_JOIN_TIMEOUT_S)
+    out["join_s"] = time.monotonic() - t0
+    try:
+        seq = build_mesh(MeshSpec(data=1, sequence=n), device="cuda")
+        data = build_mesh(MeshSpec(data=n), device="cuda")
+        out["backend"] = dist.get_backend(axis_group(seq, "sequence"))
+        for name, fn in (("ring", lambda: mesh_ring_checks(rank, n, seq)),
+                         ("hop", lambda: mesh_hop_transport(seq)),
+                         ("ulysses", lambda: mesh_ulysses(rank, n, seq)),
+                         ("lm", lambda: mesh_lm(rank, n, seq)),
+                         ("dp", lambda: mesh_dp(rank, n, data))):
+            t = time.monotonic()
+            out[name] = fn()
+            out[f"{name}_s"] = time.monotonic() - t
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    except Exception:
+        out["error"] = traceback.format_exc()
+    finally:
+        leave_world()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    if "error" in out:
+        sys.exit(1)
+
+
+def mesh_world(card: str, tmp: str) -> list:
+    """Spawn the 4-rank gloo world on the card and wait for it (every
+    rank killed past ``MESH_WORLD_TIMEOUT_S``); returns the ranks'
+    results."""
+    codes = spawn_world("mesh_rank", tmp, MESH_WORLD_TIMEOUT_S)
+    bad = [r for r, c in enumerate(codes) if c != 0]
+    if bad:
+        for r in bad:
+            with open(os.path.join(tmp, f"mesh_rank{r}.log")) as f:
+                print(f"mesh rank {r} exited {codes[r]}:\n"
+                      f"{f.read()[-3000:]}", file=sys.stderr)
+        raise AssertionError(f"mesh world: rank(s) {bad} failed or timed "
+                             f"out ({MESH_WORLD_TIMEOUT_S} s)")
+    out = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def mesh_hop_kernels(card: str) -> None:
+    """B1/B2/B3 at one ring hop's shape (full and diagonal) beside the
+    single-device kernel at the same whole shape, CUDA events."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+
+    b, t, h, d = MESH_SHAPE
+    tl = t // MESH_RANKS
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    times = {}
+    for label, tq, causal in (("hop full", tl, False), ("hop diag", tl, True),
+                              ("single device", t, True)):
+        q, k, v, do = (torch.randn((b, tq, h, d), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        delta = fa._delta(out, do)
+        row = {
+            "fwd": cuda_ms(lambda: fa.flash_attention_fwd(q, k, v,
+                                                          causal=causal)),
+            "dkdv": cuda_ms(lambda: fa.flash_attention_bwd_dkdv(
+                q, k, v, do, lse, delta, causal=causal)),
+            "dq": cuda_ms(lambda: fa.flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, causal=causal))}
+        bound = fa.flash_bound(b, tq, tq, h, d, torch.bfloat16,
+                               causal=causal)
+        bwd = fa.flash_bwd_bound(b, tq, tq, h, d, torch.bfloat16,
+                                 causal=causal)
+        times[label] = row
+        print(f"mesh kernels {label} bf16 [{b}, {tq}, {h}, {d}] "
+              f"causal={causal}: B1 {row['fwd']:.5f} ms (bound "
+              f"{bound['bound_ms']:.5f}), B2 {row['dkdv']:.5f} ms (bound "
+              f"{bwd['dkdv']['bound_ms']:.5f}), B3 {row['dq']:.5f} ms "
+              f"(bound {bwd['dq']['bound_ms']:.5f}) [{card}]")
+    for k in ("fwd", "dkdv", "dq"):
+        busiest = 3 * times["hop full"][k] + times["hop diag"][k]
+        total = 6 * times["hop full"][k] + 4 * times["hop diag"][k]
+        print(f"mesh kernels {k}: the ring's hops at {MESH_RANKS} ranks sum "
+              f"to {total:.5f} ms (busiest rank {busiest:.5f} ms) against "
+              f"the single-device kernel's {times['single device'][k]:.5f} "
+              f"ms over the same whole shape [{card}]")
+
+
+def mean_trees(trees):
+    """The leafwise mean of trees of one structure."""
+    from deeplearning4j_tpu_torch.dtypes import tree_leaves
+    from deeplearning4j_tpu_torch.parallel.sharding_registry import _rebuild
+
+    leaves = [tree_leaves(t) for t in trees]
+    return _rebuild(trees[0], [sum(xs) / len(xs) for xs in zip(*leaves)])
+
+
+def mesh_averaging(card: str) -> None:
+    """ParameterAveragingTrainer with 4 replicas on the one card (no
+    process group) against its plain version: 4 clones stepped on their
+    quarters and averaged, every step."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel import ParameterAveragingTrainer
+
+    batches = mesh_batches()
+    net = build_network("mnist_mlp", "float32", "cuda")
+    plain = build_network("mnist_mlp", "float32", "cuda")
+    # the first vmap of the step pays torch.func's one-time set-up
+    ParameterAveragingTrainer(net.clone(), num_replicas=MESH_RANKS).fit(
+        batches[:1])
+    trainer = ParameterAveragingTrainer(net, num_replicas=MESH_RANKS,
+                                        averaging_frequency=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit(batches)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    q = MESH_MLP_BATCH // MESH_RANKS
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    for ds in batches:
+        reps = []
+        for r in range(MESH_RANKS):
+            c = plain.clone()
+            c.fit(DataSet(ds.features[r * q:(r + 1) * q],
+                          ds.labels[r * q:(r + 1) * q]))
+            reps.append(c)
+        plain.params = mean_trees([c.params for c in reps])
+        plain.updater_state = mean_trees([c.updater_state for c in reps])
+        plain.iteration_count += 1
+    err = max(tree_err(net.params, plain.params),
+              tree_err(net.updater_state, plain.updater_state))
+    ok = tree_close((net.params, net.updater_state),
+                    (plain.params, plain.updater_state), **MESH_F32_TOL)
+    print(f"mesh averaging ParameterAveragingTrainer({MESH_RANKS} replicas, "
+          f"one card, no process group) mnist_mlp float32 "
+          f"[{MESH_MLP_BATCH}, 784]: {ms:.3f} ms per fit, against 4 clones "
+          f"averaged max_abs_err={err:.3e} (rtol 1e-4, atol 1e-6) "
+          f"{'ok' if ok else 'MISMATCH'} [{card}]")
+    if not ok:
+        raise AssertionError("ParameterAveragingTrainer disagrees with its "
+                             "plain version")
+
+
+def mesh_phase(card: str) -> dict:
+    """Phase 15; returns B1–B3's launches over the 4-rank world's ring
+    steps, summed over the ranks."""
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch.parallel.ring_attention import hop_schedule
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="dl4j_mesh_") as tmp:
+        t0 = time.monotonic()
+        mesh_world_one(card, tmp)
+        print(f"mesh world1: {time.monotonic() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        probe = mesh_probe(tmp)
+        print(f"mesh probe world: {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        ranks = mesh_world(card, tmp)
+        print(f"mesh world{MESH_RANKS} (gloo, one card): "
+              f"{time.monotonic() - t0:.1f} s; per rank join "
+              + ", ".join(f"{r['join_s']:.1f}" for r in ranks) + " s, ring "
+              + ", ".join(f"{r['ring_s']:.1f}" for r in ranks) + " s, lm "
+              + ", ".join(f"{r['lm_s']:.1f}" for r in ranks) + " s, dp "
+              + ", ".join(f"{r['dp_s']:.1f}" for r in ranks) + " s")
+    r0 = ranks[0]
+    print(f"mesh probe: gloo with CUDA tensors: {probe}; the K/V "
+          f"rotation over the sequence group: {r0['backend']} "
+          f"all_to_all_single of CUDA tensors, one non-empty split each "
+          f"way [{card}]")
+    needed = ("all_reduce", "all_gather", "all_to_all_single uneven")
+    if any(probe[op] != "carries" for op in needed):
+        raise AssertionError(f"gloo does not carry the collectives the "
+                             f"mesh uses on CUDA tensors: {probe}")
+    failures = []
+    for i, case in enumerate(r0["ring"]):
+        fwd = max(r["ring"][i]["fwd_err"] for r in ranks)
+        bwd = max(r["ring"][i]["bwd_err"] for r in ranks)
+        ok = all(r["ring"][i]["ok"] for r in ranks)
+        print(f"mesh ring flash {case['dtype']} causal={case['causal']} "
+              f"window={case['window']} {list(MESH_SHAPE)} over "
+              f"sequence={MESH_RANKS}: out/lse max_abs_err={fwd:.3e} (tol "
+              f"{TOL[case['dtype']]:.0e}), dq/dk/dv max_abs_err={bwd:.3e} "
+              f"(f32 tol {BWD_TOL['float32']:.0e}; bf16 gated below) "
+              f"against B1/B2/B3 on the whole tensors "
+              f"{'ok' if ok else 'MISMATCH'} [{card}]")
+        if "ring_vs_oracle" in case:
+            print(f"mesh ring flash bf16 causal={case['causal']} window="
+                  f"{case['window']} gradients against the f32 oracle on the "
+                  f"same bf16 inputs: ring "
+                  f"{max(r['ring'][i]['ring_vs_oracle'] for r in ranks):.3e}"
+                  f", single-device B2/B3 "
+                  f"{max(r['ring'][i]['kernel_vs_oracle'] for r in ranks):.3e}"
+                  f" (gate: the ring within the single-device error + "
+                  f"{BWD_TOL['bfloat16']:.0e}), largest gradient "
+                  f"{max(r['ring'][i]['grad_scale'] for r in ranks):.3f} "
+                  f"{'ok' if ok else 'MISMATCH'} [{card}]")
+        if not ok:
+            failures.append(f"ring {case}")
+    for name in ("fwd", "bwd"):
+        per = [r["hop"][name]["ms"] for r in ranks]
+        print(f"mesh transport {name} hop ({r0['hop'][name]['bytes']} bytes "
+              f"a rank, gloo all_to_all_single): "
+              f"{', '.join(f'{x:.3f}' for x in per)} ms per rank [{card}]")
+    uly = max(r["ulysses"]["err"] for r in ranks)
+    print(f"mesh ulysses bf16 causal {list(MESH_SHAPE)} over "
+          f"sequence={MESH_RANKS}: max_abs_err={uly:.3e} against the plain "
+          f"path (tol {TOL['bfloat16']:.0e}) [{card}]")
+    if not all(r["ulysses"]["ok"] for r in ranks):
+        failures.append("ulysses")
+    layers = TRAIN_CFG["num_layers"]
+    hops = hop_schedule(MESH_RANKS, causal=True)
+    launches = {}
+    for impl in ("ring", "ulysses"):
+        lm = r0["lm"][impl]
+        per_step = [{k: sum(r["lm"][impl]["launches"][s][k] for r in ranks)
+                     for k in lm["launches"][0]} for s in range(MESH_STEPS)]
+        ms = [max(r["lm"][impl]["ms"][s] for r in ranks)
+              for s in range(MESH_STEPS)]
+        print(f"mesh lm {impl} [{TRAIN_BATCH}, {TRAIN_T}] mixed_bf16 over "
+              f"sequence={MESH_RANKS} (t_local {TRAIN_T // MESH_RANKS}): "
+              f"losses {lm['losses']} vs single device "
+              f"{lm['ref_losses']}: loss_err={lm['loss_err']:.3e} (tol "
+              f"{MESH_LM_TOL['loss']}), param_err={lm['param_err']:.3e} "
+              f"(tol {MESH_LM_TOL['params']}); ms per step "
+              f"{[round(x, 1) for x in ms]}; captured {lm['captured']}; "
+              f"B1-B3 launches per step over the ranks {per_step} [{card}]")
+        if not lm["ok"] or lm["captured"]:
+            failures.append(f"lm {impl}")
+        want = layers * hops if impl == "ring" else 0
+        if any(n != want for s in per_step for n in s.values()):
+            failures.append(f"lm {impl} launched {per_step}, expected "
+                            f"{want} of each a step")
+        if impl == "ring":
+            launches = {k: sum(s[k] for s in per_step)
+                        for k in per_step[0]}
+    for kind in ("replicated", "fsdp"):
+        dp = r0["dp"][kind]
+        numel = [r["dp"][kind]["param_numel_this_rank"] for r in ranks]
+        ms = max(r["dp"][kind]["ms_per_fit"] for r in ranks)
+        print(f"mesh dp ParallelWrapper({kind}) mnist_mlp float32 "
+              f"[{MESH_MLP_BATCH}, 784] over data={MESH_RANKS}: "
+              f"{MESH_STEPS} fits against single-device fit "
+              f"max_abs_err={dp['err']:.3e} (rtol 1e-4, atol 1e-6) "
+              f"{'ok' if dp['ok'] else 'MISMATCH'}; {ms:.2f} ms per fit; "
+              f"params held per rank {numel} [{card}]")
+        if not dp["ok"]:
+            failures.append(f"dp {kind}")
+    print("mesh peak_mem_bytes per rank "
+          f"{[r['peak_mem_bytes'] for r in ranks]} [{card}]")
+    if failures:
+        raise AssertionError("mesh: " + "; ".join(failures))
+    mesh_hop_kernels(card)
+    mesh_averaging(card)
+    print(f"mesh phase: {time.monotonic() - t_phase:.1f} s, B1-B3 launches "
+          f"over the ring steps {launches} [{card}]")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -4841,10 +5593,10 @@ def main() -> None:
     entries = {}
     serve_launches = train_launches = fused_launches = cli_launches = None
     extras_launches = data_launches = profile_launches = None
-    embed_launches = trees_launches = None
+    embed_launches = trees_launches = mesh_launches = None
     for phase in ("flash", "flash_bwd", "serve", "train", "networks",
                   "recurrent", "fused", "cli", "serve_extras", "data",
-                  "monitor", "embeddings", "trees"):
+                  "monitor", "embeddings", "trees", "mesh"):
         try:
             if phase == "flash":
                 entries["flash_attention_fwd"] = check_flash(card)
@@ -4877,8 +5629,10 @@ def main() -> None:
                 profile_launches = monitor_phase(card)
             elif phase == "embeddings":
                 embed_launches = embeddings(card)
-            else:
+            elif phase == "trees":
                 trees_launches = trees(card)
+            else:
+                mesh_launches = mesh_phase(card)
         except Exception:
             traceback.print_exc()
             failed.append(phase)
@@ -4897,6 +5651,9 @@ def main() -> None:
         e["launches_profile"] = profile_launches[name]
         e["launches_embeddings"] = embed_launches[name]
         e["launches_trees"] = trees_launches[name]
+        e["launches_mesh"] = mesh_launches[name]
+        if not e["launches_mesh"]:
+            fail(f"{name} was not launched on the mesh path")
     entries["flash_attention_fwd"]["launches_serve"] = serve_launches
     entries["flash_attention_fwd"]["launches_serve_extras"] = extras_launches
     print(json.dumps({"kernels": list(entries.values())}))

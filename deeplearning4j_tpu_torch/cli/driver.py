@@ -6,7 +6,7 @@ no card it raises, and ``cpu`` runs the plain PyTorch paths). ``train``
 prints one line per epoch with the last batch's score and, when the
 configuration pretrains, each pretrained layer's score per batch (the
 RBM's reconstruction error). ``-runtime mesh|multihost`` exits naming
-ROADMAP A14, which ports training over a device mesh.
+ROADMAP A14.3, which ports the multi-host runtime.
 
 Reference: ``cli/driver/CommandLineInterfaceDriver.java:60`` (main
 dispatches subcommands), ``cli/subcommands/Train.java:128`` (execute():
@@ -116,7 +116,7 @@ def _make_runtime(runtime: str, net):
     if runtime in ("mesh", "multihost"):
         raise SystemExit(
             f"-runtime {runtime}: data-parallel training over a device mesh "
-            "is not ported yet (ROADMAP A14); use -runtime local")
+            "is not ported yet (ROADMAP A14.3); use -runtime local")
     raise SystemExit(f"unknown -runtime {runtime!r} "
                      "(one of: local, mesh, multihost)")
 
@@ -312,7 +312,7 @@ def build_parser() -> argparse.ArgumentParser:
                          choices=["local", "mesh", "multihost"], default=None,
                          help="execution runtime (Train.java:75 parity); "
                               "also the 'runtime' property; mesh and "
-                              "multihost are not ported yet (ROADMAP A14)")
+                              "multihost are not ported yet (ROADMAP A14.3)")
     p_train.add_argument("--checkpoint-dir", default=None,
                          help="checkpoint dir: saves after every epoch "
                               "(property: checkpoint.dir)")

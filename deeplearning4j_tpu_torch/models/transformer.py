@@ -29,12 +29,25 @@ replays of one captured CUDA graph of the step (``perf/step_graph.py``),
 B1–B3 launched inside it; the step counter and Adam's bias corrections
 are device tensors, so the captured step is the eager one; the LM's
 graphs share one memory pool. On the CPU the same step runs eagerly.
-Not ported yet: sequence parallelism (``mesh=``, ROADMAP A14).
+
+Over a device mesh (``mesh=``, ``parallel/mesh.py``), every rank is
+given the same global ``[b, t]`` tokens and computes its part: rows
+split over the ``data`` axis and, with ``sequence_parallel=True``,
+positions over the ``sequence`` axis, each block's attention then being
+ring attention (``sp_impl="ring"``; the flash ring runs B1 per hop
+forward and B2 + B3 per hop backward) or Ulysses. The loss is each
+rank's share of the global mean, the gradients are summed over the
+mesh, and every rank applies the same Adam update. A mesh of one device
+runs the meshless step itself (captured on the card); a mesh step with
+collectives runs eagerly (gloo collectives cannot be captured; capture
+over NCCL comes with the fused epoch, ROADMAP A14.3). Tensor-parallel
+placement (``shard_params``) is ROADMAP A14.2 and raises.
 """
 
 from __future__ import annotations
 
 import functools
+import logging
 import math
 import os
 import types
@@ -49,12 +62,22 @@ from deeplearning4j_tpu_torch import dtypes as dtypes_mod
 from deeplearning4j_tpu_torch._device import resolve_device
 from deeplearning4j_tpu_torch.kernels.flash_attention import flash_attention
 from deeplearning4j_tpu_torch.ops.attention import grouped_query_attention
+from deeplearning4j_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    SEQUENCE_AXIS,
+    axis_group,
+    axis_rank,
+    axis_size,
+)
 from deeplearning4j_tpu_torch.perf.step_graph import (
     GraphPool,
     StepGraph,
     copy_tree_,
     static_clone,
 )
+
+logger = logging.getLogger(__name__)
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor,
@@ -214,7 +237,7 @@ class TransformerLM:
         self.attn_impl = attn_impl
         self.pos_encoding = pos_encoding
         self.attn_window = attn_window
-        # sp_impl only matters with sequence parallelism (not ported)
+        # the sequence-parallel strategy under sequence_parallel=True
         self.sp_impl = sp_impl
         self.scan_layers = bool(scan_layers)
         self.remat = remat
@@ -329,13 +352,16 @@ class TransformerLM:
             return "flash"
         return "xla"
 
-    def _block(self, blk, h: torch.Tensor, *, attention=None,
+    def _block(self, blk, h: torch.Tensor, *, mesh=None,
+               sequence_parallel: bool = False, attention=None,
                positions: Optional[torch.Tensor] = None,
                train: bool = False):
         """One pre-norm block on ``h`` [b, t, D]. Returns ``(h, k, v)``
         with k/v [b, t, Hkv, Dh] (post-RoPE). ``attention(q, k, v) -> o``
         overrides the causal self-attention core (the KV-cache decode
-        attends against the cache)."""
+        attends against the cache). Under ``sequence_parallel`` with a
+        mesh, ``h`` is this rank's sequence shard and attention runs
+        over the ``sequence`` axis (ring or Ulysses, by ``sp_impl``)."""
         policy = self.policy
         b, t = h.shape[0], h.shape[1]
         x = _layernorm(h, blk["ln1"]["g"], blk["ln1"]["b"], exact=not train)
@@ -352,6 +378,8 @@ class TransformerLM:
             k = _rope(k, positions)
         if attention is not None:
             o = attention(q, k, v)
+        elif sequence_parallel and mesh is not None:
+            o = self._sp_attention(q, k, v, mesh, train=train)
         elif self._attn_impl(t, train=train) == "flash":
             o = flash_attention(q, self._repeat_kv(k), self._repeat_kv(v),
                                 causal=True, window=self.attn_window)
@@ -367,6 +395,24 @@ class TransformerLM:
              + policy.cast_compute(blk["mlp"]["b2"]))
         return h, k, v
 
+    def _sp_attention(self, q, k, v, mesh, *, train: bool):
+        """Causal attention over the ``sequence`` axis on this rank's
+        shards, after ``_repeat_kv``."""
+        kr, vr = self._repeat_kv(k), self._repeat_kv(v)
+        if self.sp_impl == "ulysses":
+            from deeplearning4j_tpu_torch.parallel.ulysses import (
+                ulysses_attention)
+
+            return ulysses_attention(q, kr, vr, mesh, causal=True,
+                                     window=self.attn_window)
+        from deeplearning4j_tpu_torch.parallel.ring_attention import (
+            ring_attention)
+
+        t = q.shape[1] * axis_size(mesh, SEQUENCE_AXIS)
+        return ring_attention(q, kr, vr, mesh, causal=True,
+                              impl=self._attn_impl(t, train=train),
+                              window=self.attn_window)
+
     def _repeat_kv(self, x: torch.Tensor) -> torch.Tensor:
         """[b, t, Hkv, d] → [b, t, H, d] (no-op when H == Hkv)."""
         rep = self.num_heads // self.num_kv_heads
@@ -375,39 +421,80 @@ class TransformerLM:
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params, tokens: torch.Tensor,
+               offset: int = 0) -> torch.Tensor:
         """Token (+ learned position) embedding of [b, t] tokens at
-        positions 0..t-1, in the compute dtype."""
+        positions offset..offset+t-1, in the compute dtype."""
         h = params["embed"][tokens]
         if self.pos_encoding == "learned":
-            h = h + params["pos"][:tokens.shape[1]][None]
+            h = h + params["pos"][offset:offset + tokens.shape[1]][None]
         return self.policy.cast_compute(h)
 
     @torch.no_grad()
     def forward(self, params, tokens, *, mesh=None,
                 sequence_parallel: bool = False, train: bool = False):
         """tokens: [b, t] int → logits [b, t, V] in the output dtype. Builds
-        no autograd graph (the serve path); ``loss`` differentiates."""
-        return self._logits(params, tokens, mesh=mesh,
-                            sequence_parallel=sequence_parallel,
-                            train=train)
+        no autograd graph (the serve path); ``loss`` differentiates. Over
+        a mesh every rank computes its part of the global tokens and
+        gets the whole logits back (gathered over the mesh)."""
+        axes = self._mesh_axes(mesh, sequence_parallel)
+        if not axes:
+            return self._logits(params, tokens, train=train)
+        from deeplearning4j_tpu_torch.parallel.collectives import all_gather
+
+        tokens = self._tokens(tokens)
+        rows, p0, tl = self._local_part(tokens, mesh, sequence_parallel)
+        out = self._logits(params, tokens[rows, p0:p0 + tl], mesh=mesh,
+                           sequence_parallel=sequence_parallel, train=train,
+                           offset=p0)
+        for axis, dim in ((SEQUENCE_AXIS, 1), (DATA_AXIS, 0)):
+            if axis in axes:
+                out = all_gather(out, axis_group(mesh, axis), dim)
+        return out
+
+    def _mesh_axes(self, mesh, sequence_parallel: bool):
+        """The mesh axes a step over ``mesh`` splits and reduces over:
+        ``data`` (rows) and, under ``sequence_parallel``, ``sequence``
+        (positions); only axes of size > 1."""
+        axes = [DATA_AXIS] + ([SEQUENCE_AXIS] if sequence_parallel else [])
+        return [a for a in axes if axis_size(mesh, a) > 1]
+
+    def _local_part(self, tokens: torch.Tensor, mesh,
+                    sequence_parallel: bool):
+        """This rank's ``(rows, first position, positions)`` of the
+        global tokens."""
+        b, t = tokens.shape
+        nd, ns = axis_size(mesh, DATA_AXIS), (
+            axis_size(mesh, SEQUENCE_AXIS) if sequence_parallel else 1)
+        if b % nd or t % ns:
+            raise ValueError(
+                f"tokens {tuple(tokens.shape)} do not split over the mesh "
+                f"(data {nd}, sequence {ns})")
+        bl, tl = b // nd, t // ns
+        r0 = axis_rank(mesh, DATA_AXIS) * bl
+        p0 = (axis_rank(mesh, SEQUENCE_AXIS) * tl) if ns > 1 else 0
+        return slice(r0, r0 + bl), p0, tl
 
     def _logits(self, params, tokens, *, mesh=None,
-                sequence_parallel: bool = False, train: bool = False):
-        """``forward`` without ``no_grad``. ``remat`` recomputes each
-        block's activations in the backward pass
-        (``torch.utils.checkpoint``); ``scan_layers`` runs the same loop,
-        since a scan over stacked layers has nothing to save in eager
-        PyTorch."""
-        if mesh is not None or sequence_parallel:
-            raise NotImplementedError(
-                "sequence parallelism (mesh=, sequence_parallel=True) is "
-                "not ported yet")
+                sequence_parallel: bool = False, train: bool = False,
+                offset: int = 0):
+        """``forward`` without ``no_grad``, on the tokens it is given
+        (under a mesh, this rank's part, its first position at
+        ``offset``). ``remat`` recomputes each block's activations in the
+        backward pass (``torch.utils.checkpoint``); ``scan_layers`` runs
+        the same loop, since a scan over stacked layers has nothing to
+        save in eager PyTorch."""
         tokens = self._tokens(tokens)
-        h = self._embed(params, tokens)
+        sp = sequence_parallel and mesh is not None
+        h = self._embed(params, tokens, offset)
+        positions = None
+        if sp:
+            positions = torch.arange(offset, offset + tokens.shape[1],
+                                     device=h.device)
 
         def block_fn(blk, h):
-            return self._block(blk, h, train=train)[0]
+            return self._block(blk, h, mesh=mesh, sequence_parallel=sp,
+                               positions=positions, train=train)[0]
 
         for blk in params["blocks"]:
             if self.remat and torch.is_grad_enabled():
@@ -420,14 +507,38 @@ class TransformerLM:
     def loss(self, params, tokens, *, mesh=None,
              sequence_parallel: bool = False, train: bool = False):
         """Next-token cross entropy (mean over positions), log-softmax in
-        f32."""
+        f32. Over a mesh: the global tokens' loss in every rank, each
+        rank computing its share; a rank's gradients are those of its
+        share, and their sum over the mesh is the loss's gradient."""
         tokens = self._tokens(tokens)
-        logits = self._logits(params, tokens, mesh=mesh,
+        axes = self._mesh_axes(mesh, sequence_parallel)
+        if not axes:
+            logits = self._logits(params, tokens, train=train)[:, :-1]
+            logp = F.log_softmax(logits.float(), dim=-1)
+            nll = -torch.gather(logp, -1, tokens[:, 1:, None])
+            return nll.mean()
+        from deeplearning4j_tpu_torch.parallel.collectives import SumSharesFn
+
+        share = self._loss_share(params, tokens, mesh, sequence_parallel,
+                                 train)
+        for axis in axes:
+            share = SumSharesFn.apply(share, axis_group(mesh, axis))
+        return share
+
+    def _loss_share(self, params, tokens, mesh, sequence_parallel: bool,
+                    train: bool):
+        """This rank's share of the global mean NLL: its positions'
+        summed NLL (each predicting the next token of the global
+        sequence; the last position has none) over ``b·(t − 1)``."""
+        b, t = tokens.shape
+        rows, p0, tl = self._local_part(tokens, mesh, sequence_parallel)
+        logits = self._logits(params, tokens[rows, p0:p0 + tl], mesh=mesh,
                               sequence_parallel=sequence_parallel,
-                              train=train)[:, :-1]
-        logp = F.log_softmax(logits.float(), dim=-1)
-        nll = -torch.gather(logp, -1, tokens[:, 1:, None])
-        return nll.mean()
+                              train=train, offset=p0)
+        targets = tokens[rows, p0 + 1:p0 + tl + 1]
+        logp = F.log_softmax(logits[:, :targets.shape[1]].float(), dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None])
+        return nll.sum() / (b * (t - 1))
 
     # ------------------------------------------------------------------
     # training
@@ -444,13 +555,13 @@ class TransformerLM:
         serve path builds no graph. ``step_count`` is an int32 device
         tensor (an int is filled into one): ``t``, ``1 − b1**t`` and
         ``1 − b2**t`` are float32 device scalars, as in the reference, so
-        a captured step reads the counter it is given at every replay."""
-        if mesh is not None or sequence_parallel:
-            raise NotImplementedError(
-                "sequence parallelism (mesh=, sequence_parallel=True) is "
-                "not ported yet")
-        lr = self.lr
-        b1, b2, eps = 0.9, 0.999, 1e-8
+        a captured step reads the counter it is given at every replay.
+
+        Over a mesh with axes of size > 1 each rank differentiates its
+        share of the loss (``_loss_share``); the gradients and the loss
+        are summed over those axes (one flat all-reduce per dtype and
+        axis), so every rank applies the same update."""
+        axes = self._mesh_axes(mesh, sequence_parallel)
 
         def step(params, opt_state, tokens, step_count):
             if not isinstance(step_count, torch.Tensor):
@@ -459,45 +570,70 @@ class TransformerLM:
             fwd = dtypes_mod.tree_map(lambda p: p.detach().requires_grad_(),
                                       self.policy.compute_copy(params))
             leaves = dtypes_mod.tree_leaves(fwd)
-            loss = self.loss(fwd, tokens, train=True)
+            if axes:
+                from deeplearning4j_tpu_torch.parallel.collectives import (
+                    all_reduce_, all_reduce_tree_)
+
+                loss = self._loss_share(fwd, self._tokens(tokens), mesh,
+                                        sequence_parallel, True)
+            else:
+                loss = self.loss(fwd, tokens, train=True)
             grads = torch.autograd.grad(loss, leaves)
             grads = [self.policy.master_grads(g) for g in grads]
-            t = step_count.to(torch.float32) + 1.0
-            bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
-            states = _state_leaves(params, opt_state)
-            ms, vs = [s["m"] for s in states], [s["v"] for s in states]
-            # the reference's per-leaf Adam, operation for operation, on
-            # all leaves at once (multi-tensor ops: a few launches per
-            # operation instead of one per leaf)
-            with torch.no_grad():
-                torch._foreach_mul_(ms, b1)
-                torch._foreach_add_(ms, torch._foreach_mul(grads, 1 - b1))
-                torch._foreach_mul_(vs, b2)
-                torch._foreach_add_(vs, torch._foreach_mul(
-                    torch._foreach_mul(grads, 1 - b2), grads))
-                mhat = torch._foreach_div(ms, bc1)
-                denom = torch._foreach_add(
-                    torch._foreach_sqrt(torch._foreach_div(vs, bc2)), eps)
-                torch._foreach_sub_(
-                    dtypes_mod.tree_leaves(params),
-                    torch._foreach_div(torch._foreach_mul(mhat, lr), denom))
+            if axes:
+                loss = loss.detach().clone()
+                for axis in axes:
+                    group = axis_group(mesh, axis)
+                    all_reduce_tree_(grads, group)
+                    all_reduce_(loss, group)
+            self._adam_(params, opt_state, grads, step_count)
             return params, opt_state, loss.detach()
 
         return step
 
+    def _adam_(self, params, opt_state, grads, step_count) -> None:
+        """The reference's per-leaf Adam, operation for operation, on all
+        leaves at once, in place (multi-tensor ops: a few launches per
+        operation instead of one per leaf)."""
+        lr = self.lr
+        b1, b2, eps = 0.9, 0.999, 1e-8
+        t = step_count.to(torch.float32) + 1.0
+        bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
+        states = _state_leaves(params, opt_state)
+        ms, vs = [s["m"] for s in states], [s["v"] for s in states]
+        with torch.no_grad():
+            torch._foreach_mul_(ms, b1)
+            torch._foreach_add_(ms, torch._foreach_mul(grads, 1 - b1))
+            torch._foreach_mul_(vs, b2)
+            torch._foreach_add_(vs, torch._foreach_mul(
+                torch._foreach_mul(grads, 1 - b2), grads))
+            mhat = torch._foreach_div(ms, bc1)
+            denom = torch._foreach_add(
+                torch._foreach_sqrt(torch._foreach_div(vs, bc2)), eps)
+            torch._foreach_sub_(
+                dtypes_mod.tree_leaves(params),
+                torch._foreach_div(torch._foreach_mul(mhat, lr), denom))
+
+    def _steps(self, k: int, mesh, sequence_parallel: bool):
+        step = self._step_body(mesh=mesh,
+                               sequence_parallel=sequence_parallel)
+        if self._mesh_axes(mesh, sequence_parallel):
+            return _EagerSteps(self, step, k)
+        return _CapturedSteps(self, step, k)
+
     def make_train_step(self, *, mesh=None, sequence_parallel: bool = False):
         """The step function (one step per call; see
-        :class:`_CapturedSteps`)."""
-        return _CapturedSteps(self, self._step_body(
-            mesh=mesh, sequence_parallel=sequence_parallel), 1)
+        :class:`_CapturedSteps`, or :class:`_EagerSteps` for a step with
+        collectives). Over a mesh every rank calls it with the same
+        global tokens."""
+        return self._steps(1, mesh, sequence_parallel)
 
     def make_multi_train_step(self, k: int, *, mesh=None,
                               sequence_parallel: bool = False):
         """K optimizer steps in one call, replays of one captured step on
         the card (the reference's ``lax.scan`` program); returns the last
         step's loss."""
-        return _CapturedSteps(self, self._step_body(
-            mesh=mesh, sequence_parallel=sequence_parallel), k)
+        return self._steps(k, mesh, sequence_parallel)
 
     def fit_batch(self, tokens, train_step=None, block: bool = True):
         """One optimizer step on [b, t] tokens. ``block=False`` returns the
@@ -792,6 +928,81 @@ class TransformerLM:
             gen = torch.Generator(device=self.device).manual_seed(seed)
         return fn(self.params, prompt, gen)
 
+    # ------------------------------------------------------------------
+    # tensor-parallel sharding specs (Megatron split)
+    # ------------------------------------------------------------------
+    def param_specs(self, *, shard_data_embed: bool = False,
+                    model_axis_size: Optional[int] = None,
+                    mesh=None) -> Dict[str, Any]:
+        """The Megatron spec tree of the params (pure specs): wq/wk/wv/w1
+        column-sharded over ``model``, wo/w2 row-sharded. With GQA the kv
+        heads must tile the model axis or wk/wv replicate, so GQA/MQA
+        specs need ``model_axis_size`` (or ``mesh``)."""
+        from deeplearning4j_tpu_torch.parallel.sharding_registry import P
+
+        if mesh is not None and model_axis_size is None:
+            model_axis_size = axis_size(mesh, MODEL_AXIS)
+        col = P(None, MODEL_AXIS)
+        row = P(MODEL_AXIS, None)
+        kv_col = col
+        if self.num_kv_heads != self.num_heads and model_axis_size is None:
+            raise ValueError(
+                "param_specs with GQA/MQA needs model_axis_size= (or "
+                f"mesh=): whether the {self.num_kv_heads} kv heads can be "
+                "column-sharded depends on the model-axis size")
+        if model_axis_size and self.num_kv_heads % model_axis_size:
+            logger.warning(
+                "GQA TP fallback: num_kv_heads=%d does not tile the "
+                "model axis (size %d) — wk/wv stay REPLICATED",
+                self.num_kv_heads, model_axis_size)
+            kv_col = P()
+        blocks = []
+        for _ in range(self.num_layers):
+            blocks.append({
+                "ln1": {"g": P(), "b": P()},
+                "attn": {"wq": col, "wk": kv_col, "wv": kv_col, "wo": row},
+                "ln2": {"g": P(), "b": P()},
+                "mlp": {"w1": col, "b1": P(MODEL_AXIS), "w2": row,
+                        "b2": P()},
+            })
+        specs = {
+            "embed": row if shard_data_embed else P(),
+            "ln_f": {"g": P(), "b": P()},
+            "blocks": blocks,
+        }
+        if self.pos_encoding == "learned":
+            specs["pos"] = P()
+        return specs
+
+    def shard_params(self, mesh, specs: Optional[Dict[str, Any]] = None):
+        from deeplearning4j_tpu_torch.parallel.sharding_registry import a14_2
+
+        raise a14_2("TransformerLM.shard_params")
+
+
+class _EagerSteps:
+    """``k`` steps of a step with collectives per call, run eagerly:
+    ``(params, opt_state, tokens, step_count) -> (params, opt_state,
+    loss)``, the trees updated in place. ``captured`` says which kind of
+    step function this is."""
+
+    captured = False
+
+    def __init__(self, lm: "TransformerLM", step, k: int):
+        self.lm = lm
+        self.step = step
+        self.k = int(k)
+
+    def __call__(self, params, opt_state, tokens, step_count):
+        tokens = self.lm._tokens(tokens)
+        count = torch.full((), int(step_count), dtype=torch.int32,
+                           device=self.lm.device)
+        for _ in range(self.k):
+            params, opt_state, loss = self.step(params, opt_state, tokens,
+                                                count)
+            count.add_(1)
+        return params, opt_state, loss
+
 
 class _CapturedSteps:
     """``k`` steps of ``step`` (a ``_step_body``) per call:
@@ -806,6 +1017,8 @@ class _CapturedSteps:
     not the program's own, which is what the last call returned), runs
     ``k`` steps (on the card: replays), and returns the program's trees
     and a copy of the last loss, still on the device."""
+
+    captured = True
 
     def __init__(self, lm: "TransformerLM", step, k: int):
         self.lm = lm

@@ -10,7 +10,7 @@ computes the skip-gram/CBOW/HS objective and adds the updates back with
 fixed-order scatter-adds. The tagger decodes on the device
 (``viterbi.py``); the trees, the CKY parser, the index, SentiWordNet and
 the vectorizers are host code. ``DistributedWord2Vec`` raises (ROADMAP
-A14).
+A14.3).
 """
 
 from deeplearning4j_tpu_torch.nlp.tokenization import (  # noqa: F401

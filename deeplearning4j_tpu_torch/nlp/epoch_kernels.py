@@ -33,7 +33,7 @@ launches every batch's step from the host. Here:
 Each epoch's generator is seeded from ``(seed, absolute epoch)``
 (:func:`epoch_keys_for`), so ``fit_epochs(2)`` twice equals
 ``fit_epochs(4)`` once. The reference's data-parallel and row-sharded
-modes (``mesh=``, ``DL4J_W2V_ROW_SHARD``) are ROADMAP A14 and raise. The
+modes (``mesh=``, ``DL4J_W2V_ROW_SHARD``) are ROADMAP A14.3 and raise. The
 reference marks its plan functions ``@traced`` for its jaxpr lint
 engine; the port has no such engine yet (ROADMAP A15) and leaves the
 marker out.
@@ -93,7 +93,7 @@ def w2v_fused_enabled() -> bool:
 
 def w2v_row_shard_mode() -> str:
     """``DL4J_W2V_ROW_SHARD`` selects row-sharded tables over a mesh's
-    ``model`` axis; meshes are not ported (ROADMAP A14), so this raises."""
+    ``model`` axis; meshes are not ported (ROADMAP A14.3), so this raises."""
     raise mesh_not_ported("w2v_row_shard_mode (DL4J_W2V_ROW_SHARD)")
 
 
@@ -292,7 +292,7 @@ class SkipGramCorpusCache:
         self.n_sentences = int(tokens.shape[0])
         self.window = window
         self.negative = negative
-        self.n_shard = 1  # one device (meshes: ROADMAP A14)
+        self.n_shard = 1  # one device (meshes: ROADMAP A14.3)
         self.nbytes = nbytes
 
     @property
@@ -306,7 +306,7 @@ class SkipGramCorpusCache:
               ) -> Optional["SkipGramCorpusCache"]:
         """Build under budget on ``w2v.device``, inside a ``cache.build``
         tracer span with its counter; ``None`` on fallback. ``mesh=``
-        raises (ROADMAP A14)."""
+        raises (ROADMAP A14.3)."""
         from deeplearning4j_tpu_torch.monitor import record_counter, tracer
 
         if mesh is not None:

@@ -31,7 +31,7 @@ no fixed order.
 
 ``fit_epochs`` is the fused whole-epoch skip-gram of ``nlp/epoch_kernels``.
 The reference's ``mesh=`` (data-parallel and row-sharded tables) is not
-ported (ROADMAP A14) and raises.
+ported (ROADMAP A14.3) and raises.
 """
 
 from __future__ import annotations
@@ -482,7 +482,7 @@ class Word2Vec:
                            mesh=None):
         """Stage the corpus on the device for fused training (None over
         budget or for an empty corpus: callers fall back to the host
-        loop). ``mesh=`` raises (ROADMAP A14)."""
+        loop). ``mesh=`` raises (ROADMAP A14.3)."""
         from deeplearning4j_tpu_torch.nlp import epoch_kernels
 
         if mesh is not None:
@@ -496,7 +496,7 @@ class Word2Vec:
 
     def _fused_mode(self, mesh) -> str:
         """``"single"``; a mesh raises (the data-parallel and row-sharded
-        modes are ROADMAP A14)."""
+        modes are ROADMAP A14.3)."""
         from deeplearning4j_tpu_torch.nlp import epoch_kernels
 
         if mesh is not None:
@@ -544,7 +544,7 @@ class Word2Vec:
         tensor), or ``None`` when the host loop ran instead (HS/CBOW,
         ``DL4J_W2V_FUSED=0``, or a cache over the device-memory budget:
         the reference's fallback contract; the loop runs on this model's
-        device). ``mesh=`` raises (ROADMAP A14).
+        device). ``mesh=`` raises (ROADMAP A14.3).
 
         ``_plan`` (tests) is a list of per-epoch plans ``(centers,
         contexts, valid, negatives)`` shaped ``[N, B]``, ``[N, B]``,

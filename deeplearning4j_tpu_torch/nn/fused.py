@@ -419,7 +419,7 @@ class FusedTraining:
         Fallbacks, as in the reference: the configurations
         ``fused_epochs_supported`` rejects run ``fit`` per epoch (and a
         cache passed for one raises), and a dataset over the budget
-        (``DL4J_DEVICE_CACHE_MB``) streams. ``mesh=`` raises (A14)."""
+        (``DL4J_DEVICE_CACHE_MB``) streams. ``mesh=`` raises (A14.3)."""
         from deeplearning4j_tpu_torch.resilience.guard import nan_guard_policy
 
         self._ensure_init()

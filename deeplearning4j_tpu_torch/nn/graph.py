@@ -22,9 +22,10 @@ telemetry and accumulation, and the TBPTT window scan, each replaying one
 captured CUDA graph per step on the card.
 
 The graph runs on the CUDA card unless it is given ``device="cpu"``;
-with no card and no device it raises. Training over a device mesh
-(``mesh=``, ``request_reshard``) raises ``NotImplementedError`` naming
-ROADMAP A14.
+with no card and no device it raises. The fused epoch over a device
+mesh (``mesh=``, ``request_reshard``) raises ``NotImplementedError``
+naming ROADMAP A14.3 (``parallel.ParallelWrapper`` delegates a graph to
+its own ``fit``, as the reference's does).
 """
 
 from __future__ import annotations

@@ -15,6 +15,12 @@ BatchNorm keeps the reference's arithmetic, in plain ops:
 - the new running statistics are detached: ``net_state`` carries values
   from step to step, never a step's autograd graph.
 
+Under ``ParallelWrapper`` over a ``data`` axis the batch statistics are
+the global batch's (sync-BN, :func:`sync_batch_stats`): the per-channel
+sum and squared deviation are summed over the ranks by a differentiable
+all-reduce, as the reference's one program over the global batch
+computes them.
+
 LRN is ``x / (k + α·Σ x²)^β`` over a window of ``n`` channels padded
 ``(n//2, n−1−n//2)``. ``F.local_response_norm`` divides α by ``n`` and
 the reference does not, so the window sum is written out.
@@ -22,11 +28,48 @@ the reference does not, so the window sum is written out.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.layers.base import LayerImpl, register_layer_impl
+
+
+# the process group BatchNorm sums its batch statistics over (None: the
+# local batch is the whole batch)
+_STATS_GROUP: contextvars.ContextVar = contextvars.ContextVar(
+    "dl4j_bn_stats_group", default=None)
+
+
+@contextlib.contextmanager
+def sync_batch_stats(group):
+    """BatchNorm layers run inside take their training statistics over
+    ``group``'s ranks (each holding an equal share of the batch)."""
+    token = _STATS_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _STATS_GROUP.reset(token)
+
+
+def _batch_var_mean(x: torch.Tensor):
+    """Biased variance and mean over every axis but the last, over the
+    global batch when a stats group is set."""
+    dims = tuple(range(x.ndim - 1))
+    group = _STATS_GROUP.get()
+    if group is None:
+        return torch.var_mean(x, dim=dims, correction=0)
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel.collectives import AllReduceFn
+
+    count = (x.numel() // x.shape[-1]) * dist.get_world_size(group)
+    mean = AllReduceFn.apply(x.sum(dims), group) / count
+    var = AllReduceFn.apply(((x - mean) ** 2).sum(dims), group) / count
+    return var, mean
 
 
 @register_layer_impl(L.BatchNormalization)
@@ -62,8 +105,7 @@ class BatchNormImpl(LayerImpl):
     def forward(self, params, x, state, *, train=False, rng=None, mask=None):
         c = self.conf
         if train:
-            var, mean = torch.var_mean(x, dim=tuple(range(x.ndim - 1)),
-                                       correction=0)
+            var, mean = _batch_var_mean(x)
             d = c.decay
             new_state = {
                 "mean": d * state["mean"] + (1.0 - d) * mean.detach(),

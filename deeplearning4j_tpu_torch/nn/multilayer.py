@@ -29,9 +29,11 @@ step per window of ``tbptt_fwd_length`` timesteps, the recurrent layers'
 ``rnn_time_step`` carries the same state across calls for generation.
 
 The network runs on the CUDA card unless it is given ``device="cpu"``;
-with no card and no device it raises. Training over a device mesh
-(``mesh=``, ``request_reshard``) raises ``NotImplementedError`` naming
-ROADMAP A14.
+with no card and no device it raises. Data-parallel training over a
+device mesh is ``parallel.ParallelWrapper`` (ROADMAP A14.1); the fused
+epoch over a mesh (``fit_epochs``/``build_epoch_cache`` with ``mesh=``,
+``request_reshard``) raises ``NotImplementedError`` naming ROADMAP
+A14.3.
 """
 
 from __future__ import annotations

@@ -171,10 +171,21 @@ def compute_loss(loss, output: torch.Tensor, labels: torch.Tensor,
     per_example = per_example_loss(loss, output, labels, custom_name)
     if mask is None:
         return torch.mean(per_example)
+    total, denom = masked_sums(per_example, mask)
+    return total / _clip(denom, 1.0, None)
+
+
+def masked_sums(per_example: torch.Tensor, mask: Optional[torch.Tensor]):
+    """``(Σ per-example score · mask, Σ mask)``, the numerator and the
+    denominator of :func:`compute_loss`'s mean (without a mask, the count
+    of scores): summed over the ranks of a data-parallel step, they give
+    the global batch's mean."""
+    if mask is None:
+        return per_example.sum(), torch.full(
+            (), float(per_example.numel()), dtype=per_example.dtype,
+            device=per_example.device)
     mask = torch.as_tensor(mask, dtype=per_example.dtype,
                            device=per_example.device)
     mask = mask.reshape(mask.shape + (1,) * (per_example.ndim - mask.ndim))
     mask = torch.broadcast_to(mask, per_example.shape)
-    total = torch.sum(per_example * mask)
-    denom = _clip(torch.sum(mask), 1.0, None)
-    return total / denom
+    return torch.sum(per_example * mask), torch.sum(mask)

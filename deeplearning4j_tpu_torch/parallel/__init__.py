@@ -1,9 +1,78 @@
-"""Parallel and distributed pieces of the port: the fleet controller's
-:func:`workrouter.update_straggler_flags` and :mod:`.cluster`'s
-``FaultTolerantTrainer``. Meshes, data/tensor/pipeline parallelism, the
-state tracker, the multi-host runtime and the rest of the work router
-are ROADMAP A14/A15."""
+"""Distributed training over ``torch.distributed`` meshes.
 
+Port of ``deeplearning4j_tpu/parallel``. The reference runs one jitted
+SPMD program over a ``jax.sharding.Mesh``; the port runs torch's SPMD
+model — one process per rank, a ``DeviceMesh`` over the world
+(:mod:`.mesh`, joined through a ``FileStore`` by ``join_world``), a
+process group per axis — with the collectives written out
+(:mod:`.collectives`).
+
+Ported (ROADMAP A14.1): the mesh and its spec registry
+(:mod:`.sharding_registry`, the spec half of :mod:`.tensor_parallel`),
+``ParallelWrapper`` and ``ParameterAveragingTrainer``
+(:mod:`.data_parallel`), FSDP (:mod:`.fsdp`), ring attention over the
+flash kernels (:mod:`.ring_attention`) and Ulysses (:mod:`.ulysses`),
+plus ``FaultTolerantTrainer`` (:mod:`.cluster`, PR 12) and the work
+router's straggler rule (:mod:`.workrouter`).
+
+Importable but raising, naming their item: pipeline and expert
+parallelism (A14.2); the state tracker, the multi-host runtime and the
+rest of the work router (A14.3); the config registry (A15).
+"""
+
+from deeplearning4j_tpu_torch.parallel.mesh import (  # noqa: F401
+    MeshSpec,
+    build_mesh,
+    join_world,
+    leave_world,
+    local_device_count,
+)
+from deeplearning4j_tpu_torch.parallel.data_parallel import (  # noqa: F401
+    ParallelWrapper,
+    ParameterAveragingTrainer,
+)
+from deeplearning4j_tpu_torch.parallel.ring_attention import (  # noqa: F401
+    ring_attention,
+    ring_self_attention_sharded,
+)
+from deeplearning4j_tpu_torch.parallel.ulysses import (  # noqa: F401
+    ulysses_attention,
+    ulysses_self_attention_sharded,
+)
+from deeplearning4j_tpu_torch.parallel.fsdp import (  # noqa: F401
+    FSDP,
+    fsdp_shardings,
+    fsdp_spec,
+    shard_tree,
+)
 from deeplearning4j_tpu_torch.parallel.cluster import (  # noqa: F401
     FaultTolerantTrainer,
 )
+
+
+def _later(name: str, item: str, what: str):
+    """A name of the reference's ``parallel`` that raises when used."""
+    def raise_later(*args, **kwargs):
+        raise NotImplementedError(
+            f"{name} ({what}) is not ported yet (ROADMAP {item})")
+
+    raise_later.__name__ = raise_later.__qualname__ = name
+    return raise_later
+
+
+for _name in ("pipeline_train_step", "spmd_pipeline", "split_microbatches",
+              "stack_stage_params", "shard_stage_params"):
+    globals()[_name] = _later(_name, "A14.2", "pipeline parallelism")
+for _name in ("MoEConfig", "init_moe_params", "moe_ffn", "shard_moe_params"):
+    globals()[_name] = _later(_name, "A14.2", "expert parallelism")
+for _name in ("FileStateTracker", "InMemoryStateTracker", "Job",
+              "StateTracker"):
+    globals()[_name] = _later(_name, "A14.3", "the state tracker")
+for _name in ("ClusterConfig", "HeartbeatMonitor", "initialize_distributed"):
+    globals()[_name] = _later(_name, "A14.3", "the multi-host runtime")
+for _name in ("DistributedTrainer", "HogwildWorkRouter",
+              "IterativeReduceWorkRouter", "NetworkWorkPerformer",
+              "WorkRouter", "WorkerPerformer", "average_aggregator"):
+    globals()[_name] = _later(_name, "A14.3", "the work router")
+ConfigRegistry = _later("ConfigRegistry", "A15", "the config registry")
+del _name

@@ -14,7 +14,7 @@ configuration's seed).
 
 The multi-host runtime of that module (``ClusterConfig``,
 ``initialize_distributed``, ``HeartbeatMonitor``) and the trainer's
-``tracker=``, ``resume(mesh=)`` and ``resume(fsdp=True)`` are ROADMAP A14;
+``tracker=``, ``resume(mesh=)`` and ``resume(fsdp=True)`` are ROADMAP A14.3;
 they raise naming it.
 """
 
@@ -41,7 +41,7 @@ logger = logging.getLogger(__name__)
 def cluster_not_ported(what: str) -> NotImplementedError:
     """The error of the multi-host runtime's parts."""
     return NotImplementedError(
-        f"{what} (the multi-host runtime) is not ported yet (ROADMAP A14)")
+        f"{what} (the multi-host runtime) is not ported yet (ROADMAP A14.3)")
 
 
 def _log_failed_save(fut: "concurrent.futures.Future") -> None:
@@ -290,7 +290,7 @@ class FaultTolerantTrainer:
 
     def _resume_candidates(self) -> List[str]:
         """Newest → oldest. (The reference appends the state tracker's
-        replicated pointer; the tracker is A14.)"""
+        replicated pointer; the tracker is A14.3.)"""
         return list(reversed(self.checkpoints()))
 
     def resume(self, mesh=None, fsdp: bool = False) -> bool:
@@ -307,7 +307,7 @@ class FaultTolerantTrainer:
         run's stream), the host LR scale and the epoch and step cursors
         ``fit``/``fit_epochs`` use to skip work already done. The zip is
         restored on the network's device. ``mesh=`` and ``fsdp=True``
-        (re-laying the state out over a device mesh) are ROADMAP A14."""
+        (re-laying the state out over a device mesh) are ROADMAP A14.3."""
         if mesh is not None or fsdp:
             raise cluster_not_ported("resume(mesh=, fsdp=)")
         with tracer().span("checkpoint.resume") as resume_span:

@@ -1,0 +1,193 @@
+"""The collectives the mesh modules use.
+
+The reference's collectives are XLA's (``psum``, ``ppermute``,
+``all_to_all``), inserted by GSPMD or written in ``shard_map``. The port
+calls ``torch.distributed`` on the mesh axis's process group, with the
+same calls on every backend it runs: NCCL with CUDA tensors, gloo with
+CPU tensors, and gloo with CUDA tensors (several ranks sharing one
+card), which carries ``all_reduce``, ``all_gather`` and
+``all_to_all_single`` (uneven splits too) but has no CUDA point-to-point
+(``chip_smoke.py``'s probe). So the ring's K/V rotation (the reference's
+``lax.ppermute``) is one ``all_to_all_single`` with a single non-empty
+split each way, not a send and a receive: each rank sends its packed
+buffer to one peer and receives one from another, one call for any
+number of tensors.
+
+:class:`RingCarry`, :class:`AllToAllFn` and :class:`AllReduceFn` are
+the differentiable versions: the backward of a ring's rotations is the
+opposite rotations, of a sequence-to-heads reshard the heads-to-sequence
+one, and of an all-reduce the all-reduce of the gradient.
+:class:`SumSharesFn` sums a loss's shares and sends each share its own
+gradient.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+import torch.distributed as dist
+
+
+def _pack(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for t in tensors])
+
+
+def _unpack(flat: torch.Tensor, like: Sequence[torch.Tensor]):
+    out, off = [], 0
+    for t in like:
+        n = t.numel() * t.element_size()
+        out.append(flat[off:off + n].view(t.dtype).reshape(t.shape))
+        off += n
+    return out
+
+
+def rotate(tensors: Sequence[torch.Tensor], group, shift: int
+           ) -> List[torch.Tensor]:
+    """Send every tensor to the rank ``shift`` places before this one
+    in ``group`` and receive the same shapes from the rank ``shift``
+    places after it: group index i ends up holding what i + shift held
+    (the reference's ``ppermute`` with ``perm = [(i, i - shift)]``)."""
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    shift %= n
+    if shift == 0:
+        return [t.clone() for t in tensors]
+    flat = _pack(tensors)
+    send = [0] * n
+    recv = [0] * n
+    send[(me - shift) % n] = flat.numel()
+    recv[(me + shift) % n] = flat.numel()
+    dst = torch.empty_like(flat)
+    dist.all_to_all_single(dst, flat, recv, send, group=group)
+    return _unpack(dst, tensors)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` ``[n, ...]``: chunk j goes to group index j; returns
+    ``[n, ...]`` whose chunk j came from group index j."""
+    src = x.contiguous()
+    dst = torch.empty_like(src)
+    dist.all_to_all_single(dst, src, group=group)
+    return dst
+
+
+def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``x`` over ``group`` in place; returns ``x``."""
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def all_reduce_tree_(tensors: Sequence[torch.Tensor], group) -> None:
+    """Sum every tensor over ``group`` in place, in one collective per
+    dtype (packed into one flat buffer each)."""
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group_ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in group_ts])
+        all_reduce_(flat, group)
+        off = 0
+        for t in group_ts:
+            t.copy_(flat[off:off + t.numel()].view(t.shape))
+            off += t.numel()
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Concatenate every group member's ``x`` along ``dim``, in group
+    order (all members' ``x`` have one shape)."""
+    src = x.contiguous()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+class RingCarry(torch.autograd.Function):
+    """Differentiable K/V travel around a ring: ``apply(k, v, group,
+    shift, steps)`` returns ``(k_0, v_0, k_1, v_1, …)`` where ``k_s`` is
+    ``k`` rotated ``s`` times by ``shift`` (one :func:`rotate` of both a
+    step). One function for the whole trip, so its backward — the
+    opposite rotations, each adding the gradient of the block a step
+    held — runs in every rank even where a rank left a block unused (a
+    hop in its causal future): a collective per unused block would
+    leave the other ranks waiting."""
+
+    @staticmethod
+    def forward(ctx, k, v, group, shift, steps):
+        ctx.group, ctx.shift = group, shift
+        out = [k.clone(), v.clone()]
+        for _ in range(steps - 1):
+            out += rotate(out[-2:], group, shift)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        gk, gv = grads[-2], grads[-1]
+        for s in range(len(grads) // 2 - 2, -1, -1):
+            gk, gv = rotate([gk, gv], ctx.group, -ctx.shift)
+            gk = gk + grads[2 * s]
+            gv = gv + grads[2 * s + 1]
+        return gk, gv, None, None, None
+
+
+class AllToAllFn(torch.autograd.Function):
+    """Differentiable reshard of ``[b, t_local, H, d]`` sequence shards
+    to ``[b, t, H/n, d]`` head shards (``to_heads=True``) or back: the
+    reference's tiled ``lax.all_to_all``. Chunk order is group order on
+    both axes."""
+
+    @staticmethod
+    def forward(ctx, x, group, to_heads: bool):
+        ctx.group, ctx.to_heads = group, to_heads
+        return _reshard(x, group, to_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reshard(g, ctx.group, not ctx.to_heads), None, None
+
+
+def _reshard(x: torch.Tensor, group, to_heads: bool) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    b, t, h, d = x.shape
+    if to_heads:
+        # [b, tl, H, d] → [n(dst), b, tl, H/n, d] → exchange →
+        # [n(src), b, tl, H/n, d] → [b, n·tl, H/n, d]
+        send = x.reshape(b, t, n, h // n, d).permute(2, 0, 1, 3, 4)
+        got = all_to_all(send, group)
+        return got.permute(1, 0, 2, 3, 4).reshape(b, n * t, h // n, d)
+    # [b, T, h, d] → [n(dst), b, T/n, h, d] → exchange →
+    # [n(src), b, T/n, h, d] → [b, T/n, n·h, d]
+    send = x.reshape(b, n, t // n, h, d).permute(1, 0, 2, 3, 4)
+    got = all_to_all(send, group)
+    return got.permute(1, 2, 0, 3, 4).reshape(b, t // n, n * h, d)
+
+
+class AllReduceFn(torch.autograd.Function):
+    """Differentiable sum over ``group``: every member gets the sum, and
+    the gradient of each member's input is the sum of the members'
+    output gradients (the loss is the sum of the members' losses)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(), ctx.group), None
+
+
+class SumSharesFn(torch.autograd.Function):
+    """The sum over ``group`` of each member's share of one quantity (a
+    loss): every member gets the sum, and each member's gradient flows
+    to its own share only, so a member's parameter gradients are its
+    part of the whole and their sum over the group is the whole's."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None

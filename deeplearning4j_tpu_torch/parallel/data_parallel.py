@@ -1,0 +1,506 @@
+"""Data-parallel training: synchronous all-reduce DP + parameter averaging.
+
+Port of ``deeplearning4j_tpu/parallel/data_parallel.py``.
+
+``ParallelWrapper``: the reference's one SPMD program over a mesh — the
+batch split over the ``data`` axis, params replicated, the gradient
+all-reduce inserted by GSPMD — is, under torch's SPMD model, the same
+wrapper in every rank of the world. Each rank is given the same global
+batch, takes its rows (rank r of N: rows ``[r·B/N, (r+1)·B/N)``), and
+the step is written so that it equals the single-device step over the
+global batch:
+
+- the loss's numerator is summed locally and its denominator (the
+  examples, or the label mask's sum) over all ranks, so masked batches
+  whose shards hold different mask counts normalise as one batch;
+- the L1/L2 penalty enters each rank's loss as 1/N of itself;
+- BatchNorm takes its statistics over the global batch (sync-BN,
+  ``nn.layers.normalization.sync_batch_stats``);
+- the gradients are summed over the ranks in one flat all-reduce per
+  dtype, then the updaters run on the whole gradient, as the
+  reference's gradient normalisation sees it.
+
+A float32 sum over ranks is not the single-device sum bitwise (the
+order differs), so a wrapper over N > 1 ranks agrees with the global
+batch to rounding (the tests' float32 gate is rtol 1e-4 / atol 1e-6).
+A mesh whose ``data`` axis has size 1 runs the network's own step:
+bitwise ``net.fit``. Dropout draws come from each rank's own generator
+(seeded from the conf's seed and the rank), so they match the global
+program in distribution only.
+
+``fsdp=True`` keeps params and updater state sharded over ``data``
+between steps (``parallel/fsdp.py``): each rank holds its part in
+``network.params``/``network.updater_state``; a step gathers the whole
+state, runs the step above and keeps its part of the result.
+``gather()`` returns the whole trees; ``output``, ``score`` and
+``evaluate`` gather what they need.
+
+``ParameterAveragingTrainer`` keeps the reference's exact semantics
+(independent replicas, periodic averaging — local SGD): replicas stacked
+on a leading axis, each step's gradients ``torch.func.vmap``-ed over the
+replicas, params AND updater state averaged every
+``averaging_frequency`` steps. Without a mesh all replicas live on the
+one device and no process group is needed; over a ``data`` axis each
+rank holds R/N of them and the average is an all-reduce.
+
+Fused epochs over a mesh (``fit_epochs``, ``build_epoch_cache``,
+``request_reshard``) are ROADMAP A14.3 and raise.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+from typing import Any, Optional
+
+import torch
+
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.dtypes import tree_leaves, tree_map
+from deeplearning4j_tpu_torch.ops.losses import masked_sums, per_example_loss
+from deeplearning4j_tpu_torch.parallel.collectives import (
+    all_gather,
+    all_reduce_,
+    all_reduce_tree_,
+)
+from deeplearning4j_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    axis_group,
+    axis_rank,
+    build_mesh,
+    data_axis_size,
+    local_chunk,
+)
+from deeplearning4j_tpu_torch.parallel.sharding_registry import _rebuild
+from deeplearning4j_tpu_torch.perf.epoch_cache import mesh_not_ported
+
+logger = logging.getLogger(__name__)
+
+
+def loss_sums(loss_fn, out: torch.Tensor, y: torch.Tensor,
+              mask: Optional[torch.Tensor]):
+    """The loss's numerator and denominator on this rank's rows."""
+    return masked_sums(per_example_loss(loss_fn, out, y), mask)
+
+
+class ParallelWrapper:
+    """Synchronous data-parallel fit over a mesh.
+
+    Usage (in every rank of the world)::
+
+        wrapper = ParallelWrapper(net, mesh=build_mesh(device="cuda"))
+        wrapper.fit(iterator)   # the same global batches in every rank
+    """
+
+    def __init__(self, network, mesh=None, donate: bool = True,
+                 fsdp: bool = False):
+        """``fsdp=True`` shards parameters AND updater state over the
+        ``data`` axis instead of replicating; batch sizes must then
+        divide the data axis (no ragged-tail step). ``donate`` is the
+        reference's buffer-donation switch; eager torch updates in place
+        and ignores it."""
+        self.network = network
+        network._ensure_init()
+        self.mesh = mesh if mesh is not None else build_mesh(
+            device=network.device)
+        self._donate = donate
+        self.fsdp = fsdp
+        self._group = axis_group(self.mesh, DATA_AXIS)
+        self._rank = axis_rank(self.mesh, DATA_AXIS)
+        if self._group is not None:
+            # each rank draws its own dropout masks for its own rows
+            network._rng.manual_seed(network.conf.global_conf.seed
+                                     + (self._rank << 32))
+        self._place_params()
+
+    @property
+    def data_parallelism(self) -> int:
+        return data_axis_size(self.mesh)
+
+    def _place_params(self):
+        """Registry-driven placement: replicated on a pure-DP mesh,
+        composed with FSDP over ``data`` via ``with_fsdp`` when
+        ``fsdp=True``."""
+        from deeplearning4j_tpu_torch.parallel.sharding_registry import (
+            ShardingRegistry)
+
+        net = self.network
+        reg = ShardingRegistry.for_network(net, self.mesh)
+        if self.fsdp:
+            reg = reg.with_fsdp(net.params)
+        self._registry = reg
+        reg.place_network(net)
+
+    def gather(self):
+        """The whole ``(params, updater_state)`` (under ``fsdp=True``
+        gathered from every rank's parts; else the network's own)."""
+        net = self.network
+        if not self.fsdp:
+            return net.params, net.updater_state
+        return (self._registry.gather(net.params),
+                self._registry.gather_state(net.updater_state))
+
+    @contextlib.contextmanager
+    def _whole_params(self):
+        """The network holds its whole params inside (FSDP gathers)."""
+        net = self.network
+        if not self.fsdp or self._group is None:
+            yield
+            return
+        parts = net.params
+        net.params = self._registry.gather(parts)
+        try:
+            yield
+        finally:
+            net.params = parts
+
+    def request_reshard(self, mesh) -> None:
+        raise mesh_not_ported("ParallelWrapper.request_reshard")
+
+    def fit(self, data, num_epochs: int = 1):
+        """fit(DataSetIterator | DataSet). Every rank passes the same
+        global batches; each steps on its rows.
+
+        TBPTT, non-SGD-solver, pretraining, SCORE-lr and iterations > 1
+        configurations are NOT sharded: they delegate wholly to the
+        network's own fit (every rank runs the same whole batches, so
+        the replicas stay equal) rather than silently taking different
+        steps on the mesh."""
+        net = self.network
+        if not self._shardable():
+            if self.fsdp:
+                raise ValueError(
+                    "ParallelWrapper(fsdp=True) does not support "
+                    "TBPTT/non-SGD/pretrain/SCORE-lr/iterations>1 "
+                    "configs; use fsdp=False (replicated DP) for these")
+            from deeplearning4j_tpu_torch.nn.multilayer import (
+                MultiLayerNetwork)
+
+            reason = ("non-shardable config (TBPTT/non-SGD/pretrain/"
+                      "SCORE-lr/iterations>1)"
+                      if isinstance(net, MultiLayerNetwork)
+                      else f"{type(net).__name__} does not speak the "
+                           "MLN sharded-step protocol")
+            logger.info("ParallelWrapper: %s — delegating to the "
+                        "network's own fit path", reason)
+            net.fit(data, num_epochs=num_epochs)
+            return self
+        if isinstance(data, DataSet):
+            self._fit_one(data)
+            return self
+        for _ in range(num_epochs):
+            if hasattr(data, "reset"):
+                data.reset()
+            for ds in data:
+                self._fit_one(ds)
+        return self
+
+    def _shardable(self) -> bool:
+        """Configs whose per-batch semantics the sharded step keeps
+        exactly — MultiLayerNetwork's ``fit_steps`` exclusion list."""
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+        if not isinstance(self.network, MultiLayerNetwork):
+            return False
+        return self.network.fused_epochs_supported()
+
+    def _fit_one(self, ds: DataSet):
+        net = self.network
+        dp = self.data_parallelism
+        n = ds.num_examples()
+        if n % dp:
+            if self.fsdp:
+                raise ValueError(
+                    f"FSDP requires batch sizes divisible by the data "
+                    f"axis (got {n} vs dp={dp}); pad or drop the tail "
+                    f"batch")
+            # ragged tail batch: ONE unsharded step (every rank alike) —
+            # the same step count as the sharded path
+            logger.debug("batch of %d not divisible by dp=%d; running "
+                         "unsharded", n, dp)
+            self._whole_step(ds)
+            return
+        if self._group is None:
+            self._whole_step(ds)
+            return
+        batch = tuple(None if a is None else
+                      net._dev(local_chunk(torch.as_tensor(a), 0, dp,
+                                           self._rank))
+                      for a in (ds.features, ds.labels, ds.features_mask,
+                                ds.labels_mask))
+        params, upd = self.gather()
+        it = torch.full((), net.iteration_count, dtype=torch.int32,
+                        device=net.device)
+        lr = torch.full((), net._lr_scale_host, dtype=torch.float32,
+                        device=net.device)
+        new_p, new_u, new_s, loss = self._dp_step(params, upd,
+                                                  net.net_state, it, lr,
+                                                  batch)
+        if self.fsdp:
+            new_p = self._registry.place(new_p)
+            new_u = self._registry.place_state(new_u)
+        net.params, net.updater_state, net.net_state = new_p, new_u, new_s
+        net._score = loss
+        net._train_dispatches += 1
+        net._post_iteration()
+
+    def _whole_step(self, ds: DataSet):
+        """The network's own step on the whole batch (a mesh of one, or
+        a ragged tail on replicated params)."""
+        net = self.network
+        net._sgd_step(net._dev(ds.features), net._dev(ds.labels),
+                      net._dev(ds.features_mask), net._dev(ds.labels_mask))
+        net._post_iteration()
+
+    def _dp_step(self, params, updater_state, net_state, iteration, lr,
+                 batch):
+        """One step on this rank's rows that equals the global batch's
+        step: ``(params, updater state, net state, loss)``."""
+        from deeplearning4j_tpu_torch.nn.layers.normalization import (
+            sync_batch_stats)
+
+        net = self.network
+        pol = net._policy
+        x, y, fm, lm = batch
+        fwd = tree_map(lambda p: p.detach().requires_grad_(),
+                       pol.compute_copy(params))
+        with sync_batch_stats(self._group):
+            out, new_state, _, _ = net._forward(
+                fwd, net_state, x, train=True, rng=net._rng,
+                feature_mask=fm)
+        num, den = loss_sums(net._output_conf.loss_function, out, y, lm)
+        den = all_reduce_(den.detach().clone(), self._group)
+        loss = num / torch.clamp(den, min=1.0)
+        share = 1.0 / self.data_parallelism
+        for i, impl in enumerate(net.layers):
+            penalty = impl.l1_l2_penalty(fwd[str(i)])
+            if penalty is not None:
+                loss = loss + penalty * share
+        grads = list(torch.autograd.grad(loss, tree_leaves(fwd),
+                                         allow_unused=True,
+                                         materialize_grads=True))
+        all_reduce_tree_(grads, self._group)
+        loss = all_reduce_(loss.detach().clone(), self._group)
+        new_params, new_updater = net._apply_updaters(
+            params, updater_state, pol.master_grads(_rebuild(fwd, grads)),
+            iteration, net._plain_lr(lr))
+        return new_params, new_updater, new_state, loss
+
+    # fused epochs over a mesh: ROADMAP A14.3
+    def fused_epochs_supported(self) -> bool:
+        supported = getattr(self.network, "fused_epochs_supported", None)
+        return bool(supported and supported())
+
+    def build_epoch_cache(self, data, accum_steps: Optional[int] = None):
+        raise mesh_not_ported("ParallelWrapper.build_epoch_cache")
+
+    def fit_epochs(self, data, num_epochs: int, **kwargs):
+        raise mesh_not_ported("ParallelWrapper.fit_epochs")
+
+    def output(self, x):
+        """The whole batch's output in every rank: each rank's forward
+        runs on its rows, the rows are gathered. Batches that do not
+        divide the data axis run whole."""
+        net = self.network
+        x = torch.as_tensor(x)
+        dp = self.data_parallelism
+        with self._whole_params():
+            if self._group is None or x.shape[0] % dp:
+                return net.output(x)
+            local = net.output(local_chunk(x, 0, dp, self._rank))
+            return all_gather(local, self._group, 0)
+
+    # -- model-like surface so trainers (early stopping, solvers) can use
+    #    the wrapper interchangeably with the wrapped network -----------
+    @property
+    def score_value(self) -> float:
+        return self.network.score_value
+
+    def score(self, ds) -> float:
+        """The global batch's loss with each rank scoring its rows."""
+        net = self.network
+        dp = self.data_parallelism
+        with self._whole_params():
+            if self._group is None or ds.num_examples() % dp:
+                return net.score(ds)
+            rows = [None if a is None else
+                    net._dev(local_chunk(torch.as_tensor(a), 0, dp,
+                                         self._rank))
+                    for a in (ds.features, ds.labels, ds.labels_mask)]
+            with torch.no_grad():
+                out = net._infer(rows[0])
+                num, den = loss_sums(net._output_conf.loss_function, out,
+                                     rows[1], rows[2])
+                num = all_reduce_(num.clone(), self._group)
+                den = all_reduce_(den.clone(), self._group)
+                val = num / torch.clamp(den, min=1.0)
+                for i, impl in enumerate(net.layers):
+                    penalty = impl.l1_l2_penalty(net.params[str(i)])
+                    if penalty is not None:
+                        val = val + penalty
+        net.score_value = val
+        return net.score_value
+
+    def clone(self):
+        return self.network.clone()
+
+    @property
+    def conf(self):
+        return self.network.conf
+
+    def evaluate(self, data):
+        """Distributed evaluation: each batch's forward split over the
+        mesh, the per-batch Evaluations merged on the host (the
+        reference's map-side evaluate + ``Evaluation.merge``)."""
+        import numpy as np
+
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+
+        if isinstance(data, DataSet):
+            batches = [data]
+        else:
+            if hasattr(data, "reset"):
+                data.reset()
+            batches = data
+        total = Evaluation()
+        for ds in batches:
+            out = self.output(ds.features).float().cpu().numpy()
+            part = Evaluation()
+            part.eval(np.asarray(torch.as_tensor(ds.labels).cpu()), out,
+                      mask=None if ds.labels_mask is None
+                      else np.asarray(torch.as_tensor(ds.labels_mask).cpu()))
+            total.merge(part)
+        return total
+
+
+class ParameterAveragingTrainer:
+    """Reference-parity DP: R independent replicas + periodic averaging.
+
+    Semantics match SparkDl4jMultiLayer with ``averageEachIteration=
+    false``: each replica runs ``averaging_frequency`` local updater
+    steps on its own shard of every global batch, then params AND updater
+    state are averaged across replicas (UpdaterAggregator behaviour).
+    """
+
+    def __init__(self, network, num_replicas: Optional[int] = None,
+                 averaging_frequency: int = 1, mesh=None):
+        network._ensure_init()
+        self.network = network
+        self.mesh = mesh
+        dp = data_axis_size(mesh)
+        self.num_replicas = num_replicas or dp
+        self.averaging_frequency = max(1, averaging_frequency)
+        # replicas over 'data' when they divide evenly, else every rank
+        # runs all of them (placement here is an optimisation, not
+        # semantics)
+        split = self.num_replicas % dp == 0
+        self._group = axis_group(mesh, DATA_AXIS) if split else None
+        self._n_local = self.num_replicas // dp if split else \
+            self.num_replicas
+        self._first = axis_rank(mesh, DATA_AXIS) * self._n_local \
+            if split else 0
+        self._stacked: Optional[Any] = None  # [R_local, ...] params
+        self._stacked_upd: Optional[Any] = None
+        self._local_steps = 0
+
+    def _stack(self, tree):
+        r = self._n_local
+        return tree_map(lambda p: p[None].expand((r,) + tuple(p.shape))
+                        .clone(), tree)
+
+    def _replica_grads(self, stacked, xs, ys):
+        """Loss and gradients of every local replica on its rows, one
+        ``torch.func.vmap`` of ``torch.func.grad_and_value``."""
+        from torch.func import grad_and_value, vmap
+
+        net = self.network
+        state = net.net_state
+
+        def one_replica(params, x, y):
+            loss, _ = net._loss_and_state(params, state, x, y, None, None,
+                                          rng=None, train=True)
+            return loss
+
+        return vmap(grad_and_value(one_replica))(stacked, xs, ys)
+
+    def fit(self, data, num_epochs: int = 1):
+        batches = [data] if isinstance(data, DataSet) else data
+        for _ in range(num_epochs):
+            if hasattr(batches, "reset"):
+                batches.reset()
+            for ds in batches:
+                self._fit_one(ds)
+        self._sync_down(force=True)
+        return self
+
+    def _fit_one(self, ds: DataSet):
+        net = self.network
+        if any(True for _ in tree_leaves(net.net_state)):
+            raise ValueError(
+                "ParameterAveragingTrainer: the network carries net state "
+                "(BatchNorm statistics), which independent replicas would "
+                "each change; train it with ParallelWrapper")
+        r = self.num_replicas
+        n = ds.num_examples()
+        if n % r:
+            raise ValueError(f"batch {n} not divisible by {r} replicas")
+        if self._stacked is None:
+            self._stacked = self._stack(net.params)
+            self._stacked_upd = self._stack(net.updater_state)
+        per = n // r
+        lo, hi = self._first * per, (self._first + self._n_local) * per
+        xs = net._dev(torch.as_tensor(ds.features)[lo:hi])
+        ys = net._dev(torch.as_tensor(ds.labels)[lo:hi])
+        xs = xs.reshape((self._n_local, per) + tuple(xs.shape[1:]))
+        ys = ys.reshape((self._n_local, per) + tuple(ys.shape[1:]))
+        grads, losses = self._replica_grads(self._stacked, xs, ys)
+        it = torch.full((), net.iteration_count, dtype=torch.int32,
+                        device=net.device)
+        new_p, new_u = [], []
+        for i in range(self._n_local):
+            p_i, u_i = net._apply_updaters(
+                tree_map(lambda a: a[i], self._stacked),
+                tree_map(lambda a: a[i], self._stacked_upd),
+                tree_map(lambda a: a[i], grads), it)
+            new_p.append(p_i)
+            new_u.append(u_i)
+        self._stacked = _stack_trees(new_p)
+        self._stacked_upd = _stack_trees(new_u)
+        loss = losses.sum()
+        if self._group is not None:
+            loss = all_reduce_(loss, self._group)
+        net.score_value = loss / r
+        self._local_steps += 1
+        if self._local_steps % self.averaging_frequency == 0:
+            self._sync_down()
+        net._post_iteration()
+
+    def _average(self, stacked):
+        def mean(a):
+            s = a.sum(0)
+            if self._group is not None:
+                all_reduce_(s, self._group)
+            return s / self.num_replicas
+
+        return tree_map(mean, stacked)
+
+    def _sync_down(self, force: bool = False):
+        """Average replicas → params (+ updater state), restack."""
+        if self._stacked is None:
+            return
+        net = self.network
+        net.params = self._average(self._stacked)
+        net.updater_state = self._average(self._stacked_upd)
+        if force:
+            self._stacked = None
+            self._stacked_upd = None
+        else:
+            self._stacked = self._stack(net.params)
+            self._stacked_upd = self._stack(net.updater_state)
+
+
+def _stack_trees(trees):
+    """``[tree, ...]`` of one structure → one tree of stacked leaves."""
+    leaves = [tree_leaves(t) for t in trees]
+    return _rebuild(trees[0], [torch.stack(parts) for parts in
+                               zip(*leaves)])

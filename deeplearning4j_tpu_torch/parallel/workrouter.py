@@ -3,7 +3,7 @@
 Copy of ``update_straggler_flags`` from
 ``deeplearning4j_tpu/parallel/workrouter.py``, the outlier rule the
 training master and the serve fleet's controller share. The router's
-dispatch policies and the aggregators are not ported yet (ROADMAP A14).
+dispatch policies and the aggregators are not ported yet (ROADMAP A14.3).
 """
 
 from __future__ import annotations

@@ -34,7 +34,7 @@ samples device-memory watermarks after every chunk
 (``net._hbm_watermarks``).
 
 Not ported: ``mesh=`` and ``respec`` (sharding the stacks over a device
-mesh, and the elastic reshard that re-places them; ROADMAP A14).
+mesh, and the elastic reshard that re-places them; ROADMAP A14.3).
 """
 
 from __future__ import annotations
@@ -54,10 +54,12 @@ DEFAULT_PREFETCH_DEPTH = 8
 
 
 def mesh_not_ported(what: str) -> NotImplementedError:
-    """The error of everything that trains or caches over a device mesh."""
+    """The error of the fused epoch's mesh paths: caching, training and
+    resharding over a device mesh (``parallel.ParallelWrapper.fit`` is
+    the ported way to train over one)."""
     return NotImplementedError(
-        f"{what} (training over a device mesh) is not ported yet "
-        "(ROADMAP A14)")
+        f"{what} (the fused epoch over a device mesh) is not ported yet "
+        "(ROADMAP A14.3)")
 
 
 def cache_budget_mb() -> float:
@@ -489,7 +491,7 @@ def drive_epoch_chunks(net, cache, num_epochs: int,
     ``train_chunk_dispatches_total`` and runs under a ``StepWatchdog``
     whose deadline scales with its steps; ``epoch.chunk`` is a fault
     site. A pending elastic reshard is applied through ``reshard`` or,
-    without it, logged and dropped (the port has no mesh, ROADMAP A14).
+    without it, logged and dropped (the fused epoch has no mesh yet, ROADMAP A14.3).
 
     The run ledger (and the flight recorder, when on) hears from the
     driver at the reference's points only: the run's start, each chunk's

@@ -30,7 +30,7 @@ shape per prompt-ladder rung and pool. The port's only compiled artifacts
 are the kernel libraries; ``DL4J_COMPILE_CACHE_DIR`` points their build
 directory at a shared cache (``serving/compile_cache.py``). ``mesh=``
 (tensor-parallel serving) is not ported yet and raises
-``NotImplementedError`` naming ROADMAP A14.
+``NotImplementedError`` naming ROADMAP A14.2.
 
 Numerics contract: a slot's greedy stream equals ``TransformerLM.generate``
 on the same prompt (speculative or not), and its sampled stream equals
@@ -396,7 +396,7 @@ class DecodeEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh=) is not ported yet "
-                "(ROADMAP A14)")
+                "(ROADMAP A14.2)")
         self.device = resolve_device(device)
         if not _same_device(self.device, model.device):
             raise ValueError(

@@ -18,7 +18,7 @@ Port of ``deeplearning4j_tpu/serving/fleet``, in one process on one card:
 - :mod:`.driver` — :class:`FleetLoadDriver`: replays a schedule on
   virtual per-replica timelines with measured (or pinned) step costs.
 
-The cluster layer (``StateTracker`` heartbeats) is ROADMAP A14 and the
+The cluster layer (``StateTracker`` heartbeats) is ROADMAP A14.3 and the
 grant lease and the goodput autopilot are A15: ``tracker=``, ``lease=``
 and ``DL4J_AUTOPILOT`` raise ``NotImplementedError`` naming them.
 """

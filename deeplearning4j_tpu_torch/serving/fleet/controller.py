@@ -2,7 +2,7 @@
 
 Copy of ``deeplearning4j_tpu/serving/fleet/controller.py`` on the port's
 modules. The port has no ``StateTracker`` or heartbeat channel yet
-(ROADMAP A14), so ``tracker=`` raises and every tick reads the in-process
+(ROADMAP A14.3), so ``tracker=`` raises and every tick reads the in-process
 replicas' payloads directly; the goodput autopilot (``DL4J_AUTOPILOT``,
 ``autopilot=``) is ROADMAP A15 and raises too. The reference closes the
 loop the way ``DistributedTrainer``'s master tick does for training
@@ -79,7 +79,7 @@ class FleetController:
             raise NotImplementedError(
                 "a fleet wired to a StateTracker needs "
                 "parallel/statetracker.py and parallel/cluster.py, which "
-                "are not ported yet (ROADMAP A14)")
+                "are not ported yet (ROADMAP A14.3)")
         if autopilot is not None or _autopilot_requested():
             raise NotImplementedError(
                 "the serve autopilot (DL4J_AUTOPILOT, autopilot=) needs "
@@ -148,7 +148,7 @@ class FleetController:
         """Evict the in-process replicas whose loop died (the dead flag
         is honest local knowledge). The reference also evicts replicas
         silent past ``evict_timeout_s`` on the tracker's heartbeats,
-        which the port does not have yet (ROADMAP A14)."""
+        which the port does not have yet (ROADMAP A14.3)."""
         for r in list(self.router.replicas):
             rid = r.replica_id
             if rid not in self._evicted_set and r.dead:

@@ -1,7 +1,7 @@
 """ServeReplica: one DecodeServer as a fleet worker.
 
 Port of ``deeplearning4j_tpu/serving/fleet/replica.py``. The port has no
-``StateTracker``/``HeartbeatMonitor`` (ROADMAP A14) and no grant lease
+``StateTracker``/``HeartbeatMonitor`` (ROADMAP A14.3) and no grant lease
 (``resilience/lease.py``, ROADMAP A15), so ``tracker=`` and ``lease=``
 raise; an in-process fleet's controller reads :meth:`heartbeat_payload`
 directly. A sampled request's stream is a ``torch.Generator`` seeded with
@@ -69,14 +69,14 @@ class ServeReplica:
             raise NotImplementedError(
                 "replica heartbeats need parallel/cluster.HeartbeatMonitor "
                 "and a StateTracker, which are not ported yet (ROADMAP "
-                "A14)")
+                "A14.3)")
         if lease is not None:
             raise NotImplementedError(
                 "a grant lease needs resilience/lease.py, which is not "
                 "ported yet (ROADMAP A15)")
         self.server = server if server is not None else DecodeServer(
             model, clock=clock, **server_kw)
-        # the beat period of the reference's heartbeat monitor (A14)
+        # the beat period of the reference's heartbeat monitor (A14.3)
         self.heartbeat_interval_s = heartbeat_interval_s
         self.poll_s = poll_s
         self.clock = clock
@@ -295,7 +295,7 @@ class ServeReplica:
     def wedge(self) -> None:
         """Test hook: alive-but-stuck. The loop stops making progress
         but the dead flag stays down; in the reference only heartbeat
-        silence past the timeout catches it (ROADMAP A14 here)."""
+        silence past the timeout catches it (ROADMAP A14.3 here)."""
         if self._stop is not None:
             self._stop.set()
 

@@ -1,7 +1,7 @@
 """DecodeServer: continuous batching over the slot pool.
 
 Port of ``deeplearning4j_tpu/serving/server.py`` (``mesh=`` raises,
-naming ROADMAP A14). The loop, per ``step()`` (a step is a fusion
+naming ROADMAP A14.2). The loop, per ``step()`` (a step is a fusion
 boundary):
 
 1. **admit** — handed-off slabs first (``admit_external``: their prefill

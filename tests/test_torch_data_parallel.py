@@ -1,0 +1,491 @@
+"""Port parity for the mesh, the spec registry, ``ParallelWrapper``
+(replicated and FSDP), FSDP and ``ParameterAveragingTrainer`` against
+``deeplearning4j_tpu.parallel``.
+
+The JAX side runs on a 2- or 4-device slice of the 8 host devices
+(``tests/conftest.py``); the port side runs gloo worlds of 2 and 4
+spawned ranks (``tests/torch_worlds.py``), every rank given the same
+global batches, one world per size for all the cases of this module,
+each world with a hard timeout. Both sides start from the JAX
+network's params, updater state and iteration
+(``models/convert.load_network_from_jax``).
+
+Gates: float32 rtol 1e-4 / atol 1e-6 on losses, params, updater state
+and BatchNorm statistics after 3 steps (a float32 sum over ranks is not
+the single-device sum bitwise); the mesh, specs and shard sizes exactly.
+"""
+
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu.datasets.dataset import DataSet as JaxDataSet
+from deeplearning4j_tpu.models import zoo as jax_zoo
+from deeplearning4j_tpu.nn.conf import NeuralNetConfiguration as JaxNNC
+from deeplearning4j_tpu.nn.conf import layers as jax_L
+from deeplearning4j_tpu.nn.conf.enums import Updater as JaxUpdater
+from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JaxMLN
+from deeplearning4j_tpu.ops.losses import LossFunction as JaxLoss
+from deeplearning4j_tpu.parallel import (
+    MeshSpec as JaxMeshSpec,
+    ParallelWrapper as JaxWrapper,
+    ParameterAveragingTrainer as JaxPAT,
+    build_mesh as jax_build_mesh,
+)
+from deeplearning4j_tpu.parallel import fsdp as jax_fsdp
+from deeplearning4j_tpu.parallel import sharding_registry as jax_reg
+from deeplearning4j_tpu.parallel import tensor_parallel as jax_tp
+from deeplearning4j_tpu.models.transformer import TransformerLM as JaxLM
+
+import torch_worlds
+from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.dtypes import tree_leaves
+from deeplearning4j_tpu_torch.models import zoo
+from deeplearning4j_tpu_torch.models.convert import load_network_from_jax
+from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+from deeplearning4j_tpu_torch.parallel import (
+    FSDP,
+    MeshSpec,
+    ParallelWrapper,
+    ParameterAveragingTrainer,
+    build_mesh,
+)
+from deeplearning4j_tpu_torch.parallel import fsdp as port_fsdp
+from deeplearning4j_tpu_torch.parallel import mesh as port_mesh
+from deeplearning4j_tpu_torch.parallel import sharding_registry as reg
+from deeplearning4j_tpu_torch.parallel import tensor_parallel as port_tp
+
+SIZES = (2, 4)
+STEPS = 3
+TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _leaves(tree):
+    return [np.asarray(x) for x in jax.tree_util.tree_leaves(tree)]
+
+
+def _conf(kind: str):
+    """Small MLPs (Adam, L2 1e-3): plain, with a BatchNorm, or a
+    char-LSTM under TBPTT."""
+    if kind == "tbptt":
+        return jax_zoo.char_lstm(vocab_size=6, hidden=8, layers=1,
+                                 tbptt_length=3, seed=3).conf
+    b = (JaxNNC.Builder().seed(7).learning_rate(1e-2)
+         .updater(JaxUpdater.ADAM).regularization(True).l2(1e-3).list())
+    b.layer(0, jax_L.DenseLayer(n_in=8, n_out=16, activation="relu"))
+    i = 1
+    if kind == "bn":
+        b.layer(1, jax_L.BatchNormalization(n_in=16, n_out=16))
+        i = 2
+    b.layer(i, jax_L.DenseLayer(n_in=16, n_out=16, activation="tanh"))
+    b.layer(i + 1, jax_L.OutputLayer(n_in=16, n_out=4,
+                                     loss_function=JaxLoss.MCXENT))
+    return b.build()
+
+
+def _batches(kind: str, n: int, seed: int):
+    """Three global batches of seeded numpy draws; ``masked`` gives the
+    first shard all its labels and the others one each; ``ragged`` ends
+    on a batch the data axis does not divide."""
+    rng = np.random.default_rng(seed)
+    out = []
+    sizes = (16, 16, 4 * n + 1) if kind == "ragged" else (16,) * STEPS
+    for rows in sizes:
+        if kind == "tbptt":
+            x = np.eye(6, dtype=np.float32)[rng.integers(0, 6, (4, 7))]
+            y = np.eye(6, dtype=np.float32)[rng.integers(0, 6, (4, 7))]
+            out.append((x, y, None, None))
+            continue
+        x = rng.normal(size=(rows, 8)).astype(np.float32)
+        y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, rows)]
+        lm = None
+        if kind == "masked":
+            per = rows // n
+            lm = np.zeros(rows, np.float32)
+            lm[:per] = 1.0
+            lm[per::per] = 1.0
+        out.append((x, y, None, lm))
+    return out
+
+
+def _case(kind: str, n: int):
+    conf_kind = kind if kind in ("bn", "tbptt") else "mlp"
+    ref = JaxMLN(_conf(conf_kind)).init()
+    batches = _batches(kind, n, seed=n)
+    state = (_np(ref.params), _np(ref.updater_state), _np(ref.net_state),
+             ref.iteration_count)
+    wrapper_kind = {"fsdp": "fsdp", "pat": "pat"}.get(kind, "wrapper")
+    return ref, {"n": n, "kind": wrapper_kind, "conf": ref.conf.to_json(),
+                 "state": state, "batches": batches, "frequency": 2}
+
+
+KINDS = ("mlp", "fsdp", "masked", "bn", "ragged", "pat")
+CASES = [(k, n) for n in SIZES for k in KINDS] + [("tbptt", 2)]
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """Both worlds' results, and the JAX networks they started from."""
+    refs, payload = {}, {}
+    for kind, n in CASES:
+        refs[(kind, n)], payload[f"{kind}-{n}"] = _case(kind, n)
+    results = {}
+    for n in SIZES:
+        out = torch_worlds.run_world(
+            n, ["dp_cases"], {"dp": payload},
+            str(tmp_path_factory.mktemp(f"dp{n}")))
+        results.update(out["dp_cases"])
+    return refs, payload, results
+
+
+def _jax_fit(ref, case, n):
+    mesh = jax_build_mesh(JaxMeshSpec(data=n), devices=jax.devices()[:n])
+    batches = [JaxDataSet(*b) for b in case["batches"]]
+    if case["kind"] == "pat":
+        JaxPAT(ref, num_replicas=n, averaging_frequency=2,
+               mesh=mesh).fit(batches)
+        return None
+    w = JaxWrapper(ref, mesh=mesh, fsdp=case["kind"] == "fsdp")
+    w.fit(batches)
+    return w
+
+
+@pytest.mark.parametrize("kind,n", CASES,
+                         ids=[f"{k}-{n}" for k, n in CASES])
+def test_three_steps_match_reference(worlds, kind, n):
+    refs, payload, results = worlds
+    ref, case = refs[(kind, n)], payload[f"{kind}-{n}"]
+    got = results[f"{kind}-{n}"]
+    w = _jax_fit(ref, case, n)
+    for want_tree, got_tree in ((ref.params, got["params"]),
+                                (ref.updater_state, got["updater"]),
+                                (ref.net_state, got["net_state"])):
+        want, have = _leaves(want_tree), _leaves(got_tree)
+        assert len(want) == len(have)
+        for a, b in zip(want, have):
+            np.testing.assert_allclose(b, a, **TOL)
+    assert got["iteration"] == ref.iteration_count
+    if w is not None:
+        x = case["batches"][0][0]
+        np.testing.assert_allclose(got["output"], np.asarray(w.output(x)),
+                                   **TOL)
+        np.testing.assert_allclose(got["score"],
+                                   float(w.score(JaxDataSet(
+                                       *case["batches"][0]))), **TOL)
+
+
+def test_fsdp_holds_one_shard_per_rank(worlds):
+    """Each rank holds 1/N of every leaf FSDP can split; the rest (the
+    4-wide output bias at n=4 splits, odd ones would not) replicate."""
+    refs, payload, results = worlds
+    for n in SIZES:
+        shards = results[f"fsdp-{n}"]["shard_numel"]
+        ref = refs[("fsdp", n)]
+        mesh = jax_build_mesh(JaxMeshSpec(data=n), devices=jax.devices()[:n])
+        want = 0
+        for x in jax.tree_util.tree_leaves(ref.params):
+            spec = jax_fsdp.fsdp_spec(x.shape, mesh)
+            want += x.size // n if any(e is not None for e in spec) \
+                else x.size
+        assert shards == [want] * n
+        total = sum(x.size for x in jax.tree_util.tree_leaves(ref.params))
+        assert want < total
+        # the replicated wrapper holds the whole tree in every rank
+        assert results[f"mlp-{n}"]["shard_numel"] == [total] * n
+
+
+def test_ragged_tail_is_one_unsharded_step(worlds):
+    refs, payload, results = worlds
+    for n in SIZES:
+        got = results[f"ragged-{n}"]
+        assert got["iteration"] == STEPS and got["dispatches"] == STEPS
+
+
+def test_masked_shards_normalise_as_one_batch(worlds):
+    """The shards hold different label-mask counts; averaging per-rank
+    means would weigh the first shard's rows n/2 times less."""
+    refs, payload, results = worlds
+    lm = payload["masked-4"]["batches"][0][3]
+    counts = lm.reshape(4, -1).sum(1)
+    assert len(set(counts.tolist())) > 1
+    # the gate itself is test_three_steps_match_reference[masked-*]
+
+
+# ---------------------------------------------------------------------------
+# in this process: the mesh of one, specs, FSDP and one-card averaging
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def world_of_one(tmp_path):
+    port_mesh.join_world(str(tmp_path / "store"), 0, 1, backend="gloo",
+                         timeout_s=60)
+    try:
+        yield
+    finally:
+        port_mesh.leave_world()
+
+
+@pytest.mark.parametrize("spec,n", [
+    (dict(), 8), (dict(data=2, model=4), 8), (dict(data=1, sequence=8), 8),
+    (dict(data=-1, sequence=2), 4), (dict(model=2, pipe=2, expert=2), 8)])
+def test_mesh_spec_resolves_as_reference(spec, n):
+    assert MeshSpec(**spec).resolve(n) == JaxMeshSpec(**spec).resolve(n)
+
+
+def test_mesh_spec_errors_as_reference():
+    for spec, n in ((dict(model=3), 8), (dict(data=3, model=2), 8)):
+        with pytest.raises(ValueError) as want:
+            JaxMeshSpec(**spec).resolve(n)
+        with pytest.raises(ValueError) as got:
+            MeshSpec(**spec).resolve(n)
+        assert str(got.value) == str(want.value)
+
+
+def test_mesh_of_one_device(world_of_one):
+    mesh = build_mesh(device="cpu")
+    assert port_mesh.mesh_shape(mesh) == {"data": 1}
+    assert port_mesh.data_axis_size(mesh) == 1
+    assert port_mesh.axis_group(mesh, "data") is None
+    assert port_mesh.axis_size(mesh, "sequence") == 1
+    from torch.distributed.tensor import Replicate, Shard
+
+    assert port_mesh.replicated(mesh) == (Replicate(),)
+    assert port_mesh.batch_sharding(mesh, 3) == (Shard(0),)
+    x = torch.arange(6.0).reshape(3, 2)
+    assert port_mesh.shard_leading_axis({"x": x}, mesh, "data")["x"] is x
+
+
+def test_build_mesh_joins_a_world_of_one_and_needs_a_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_mesh()
+    try:
+        assert port_mesh.mesh_shape(build_mesh(device="cpu")) == {"data": 1}
+    finally:
+        port_mesh.leave_world()
+
+
+@pytest.mark.parametrize("text", ["8x1", "4x2", "2x2x2", "8", " 2 x 4 "])
+def test_parse_mesh_shape_as_reference(text):
+    assert reg.parse_mesh_shape(text) == MeshSpec(
+        **vars(jax_reg.parse_mesh_shape(text)))
+
+
+@pytest.mark.parametrize("text", ["2x2x2x2", "axb", "0x8", ""])
+def test_parse_mesh_shape_errors_as_reference(text):
+    with pytest.raises(ValueError) as want:
+        jax_reg.parse_mesh_shape(text)
+    with pytest.raises(ValueError) as got:
+        reg.parse_mesh_shape(text)
+    assert str(got.value) == str(want.value)
+
+
+def test_mesh_from_env(world_of_one, monkeypatch):
+    monkeypatch.delenv("DL4J_MESH_SHAPE", raising=False)
+    monkeypatch.delenv("DL4J_TP_SHARDS", raising=False)
+    assert reg.mesh_from_env(device="cpu") is None
+    monkeypatch.setenv("DL4J_MESH_SHAPE", "1x1")
+    assert port_mesh.mesh_shape(reg.mesh_from_env(device="cpu")) == \
+        {"data": 1}
+    monkeypatch.delenv("DL4J_MESH_SHAPE")
+    monkeypatch.setenv("DL4J_TP_SHARDS", "1")
+    assert port_mesh.mesh_shape(reg.mesh_from_env(device="cpu")) == \
+        {"data": 1}
+    monkeypatch.setenv("DL4J_TP_SHARDS", "0")
+    with pytest.raises(ValueError, match="DL4J_TP_SHARDS"):
+        reg.mesh_from_env(device="cpu")
+
+
+def _spec_tuples(tree):
+    """Spec trees as nested dicts/lists of plain tuples (either package)."""
+    if isinstance(tree, dict):
+        return {k: _spec_tuples(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_spec_tuples(v) for v in tree]
+    if type(tree).__name__ == "_ReplicateAll":
+        return "replicate-all"
+    return tuple(tree)
+
+
+@pytest.mark.parametrize("name", ["mnist_mlp", "lenet5", "char_lstm"])
+def test_network_specs_as_reference(name):
+    kw = {"hidden": 32} if name == "mnist_mlp" else {}
+    if name == "char_lstm":
+        kw = dict(vocab_size=6, hidden=8)
+    want = jax_tp.param_specs_for_network(getattr(jax_zoo, name)(**kw).conf)
+    got = port_tp.param_specs_for_network(
+        getattr(zoo, name)(device="cpu", **kw).conf)
+    assert _spec_tuples(got) == _spec_tuples(want)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(shard_data_embed=True), dict(model_axis_size=2),
+    dict(num_kv_heads=2, model_axis_size=2),
+    dict(num_kv_heads=1, model_axis_size=2),
+    dict(pos_encoding="rope", model_axis_size=4)])
+def test_transformer_param_specs_as_reference(kw):
+    cfg = dict(vocab_size=32, d_model=32, num_heads=4, num_layers=2,
+               max_len=16)
+    model_kw = {k: kw[k] for k in ("num_kv_heads", "pos_encoding")
+                if k in kw}
+    spec_kw = {k: kw[k] for k in ("shard_data_embed", "model_axis_size")
+               if k in kw}
+    want = JaxLM(**cfg, **model_kw).param_specs(**spec_kw)
+    got = TransformerLM(**cfg, **model_kw, device="cpu").param_specs(
+        **spec_kw)
+    assert _spec_tuples(got) == _spec_tuples(want)
+
+
+def test_gqa_specs_need_the_model_axis():
+    lm = TransformerLM(vocab_size=32, d_model=32, num_heads=4,
+                       num_kv_heads=2, device="cpu")
+    with pytest.raises(ValueError, match="model_axis_size"):
+        lm.param_specs()
+
+
+def test_registry_for_network_and_transformer(world_of_one):
+    mesh = build_mesh(device="cpu")
+    net = zoo.mnist_mlp(hidden=32, device="cpu").init()
+    r = reg.ShardingRegistry.for_network(net, mesh)
+    assert r.spec_for("0", "W") == reg.P()
+    assert len(r.leaf_specs(net.params)) == 6
+    assert r.declared_axes == {"data"}
+    assert r.describe() == {"model": "MultiLayerNetwork",
+                            "mesh": {"data": 1},
+                            "declared_axes": ["data"], "leaves": 6,
+                            "sharded_leaves": 0}
+    fsdp = r.with_fsdp(net.params)
+    assert fsdp.spec_for("0", "W") == reg.P("data", None)
+    assert fsdp.describe()["sharded_leaves"] == 6
+    placed = r.place(net.params)
+    assert placed["0"]["W"] is net.params["0"]["W"]
+    lm = TransformerLM(vocab_size=32, d_model=32, num_heads=4,
+                       num_layers=2, max_len=16, device="cpu").init()
+    lr = reg.ShardingRegistry.for_transformer(lm, mesh)
+    assert lr.spec_for("blocks", 1, "attn", "wq") == reg.P()
+    with pytest.raises(reg.UnmappedLeafError):
+        lr.spec_for("blocks", 2)
+    with pytest.raises(reg.UnmappedLeafError):
+        lr.spec_for("blocks", 1, "attn")
+
+
+def test_unmapped_leaf_raises():
+    net = zoo.mnist_mlp(hidden=32, device="cpu").init()
+    specs = port_tp.param_specs_for_network(net.conf)
+    del specs["1"]["b"]
+    with pytest.raises(reg.UnmappedLeafError, match=r"\('1', 'b'\)"):
+        reg._expand(net.params, specs, (), "MultiLayerNetwork")
+    with pytest.raises(reg.UnmappedLeafError, match="expected "
+                       "PartitionSpec"):
+        reg._expand({"w": torch.zeros(2)}, {"w": "data"}, (), "m")
+
+
+def test_later_items_raise_naming_them(world_of_one):
+    import deeplearning4j_tpu_torch.parallel as par
+
+    mesh = build_mesh(device="cpu")
+    net = zoo.mnist_mlp(hidden=8, device="cpu").init()
+    r = reg.ShardingRegistry.for_network(net, mesh)
+    for fn in (lambda: r.kv_pool_spec(2),
+               lambda: reg.ShardingRegistry.for_embedding_tables({}, mesh),
+               lambda: port_tp.shard_network_params(net, mesh),
+               lambda: TransformerLM(vocab_size=8, d_model=8, num_heads=1,
+                                     device="cpu").shard_params(mesh),
+               lambda: par.moe_ffn(), lambda: par.spmd_pipeline()):
+        with pytest.raises(NotImplementedError, match=r"A14\.2"):
+            fn()
+    w = ParallelWrapper(net, mesh=mesh)
+    for fn in (lambda: w.fit_epochs([], 1), lambda: w.request_reshard(None),
+               lambda: w.build_epoch_cache([]),
+               lambda: r.epoch_out_shardings({}, {}),
+               lambda: par.StateTracker(), lambda: par.ClusterConfig()):
+        with pytest.raises(NotImplementedError, match=r"A14\.3"):
+            fn()
+    with pytest.raises(NotImplementedError, match="A15"):
+        par.ConfigRegistry()
+
+
+@pytest.mark.parametrize("shape", [(784, 256), (256,), (10,), (3, 5),
+                                   (), (4, 8, 2)])
+def test_fsdp_spec_as_reference(shape):
+    class FakeMesh:
+        mesh_dim_names = ("data",)
+        shape = (4,)
+
+    jmesh = jax_build_mesh(JaxMeshSpec(data=4), devices=jax.devices()[:4])
+    assert tuple(port_fsdp.fsdp_spec(shape, FakeMesh())) == tuple(
+        jax_fsdp.fsdp_spec(shape, jmesh))
+
+
+def test_fsdp_wrapper_donation_check(world_of_one):
+    mesh = build_mesh(device="cpu")
+    lm = TransformerLM(vocab_size=16, d_model=32, num_heads=2,
+                       num_layers=1, max_len=16, device="cpu").init()
+    trainer = FSDP(mesh, lm.params, lm.opt_state)
+    params, opt = trainer.params, trainer.opt_state
+    step = trainer.jit_step(lm._step_body(mesh=mesh))
+    tok = np.random.default_rng(0).integers(0, 16, (2, 16))
+    params, opt, loss = step(params, opt, lm._tokens(tok), 0)
+    assert torch.isfinite(loss)
+    with pytest.raises(RuntimeError, match="donated"):
+        trainer.params
+
+
+def test_parallel_wrapper_on_one_device_is_fit_bitwise(world_of_one):
+    """A data axis of 1 runs the network's own step."""
+    mesh = build_mesh(device="cpu")
+    ref = JaxMLN(_conf("bn")).init()
+    state = (_np(ref.params), _np(ref.updater_state), _np(ref.net_state),
+             ref.iteration_count)
+    for fsdp in (False, True):
+        nets = []
+        for _ in range(2):
+            from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+            from deeplearning4j_tpu_torch.nn.conf.neural_net import (
+                MultiLayerConfiguration)
+
+            net = MultiLayerNetwork(MultiLayerConfiguration.from_json(
+                ref.conf.to_json()), device="cpu").init()
+            nets.append(load_network_from_jax(net, *state))
+        batches = [DataSet(*b) for b in _batches("mlp", 1, seed=5)]
+        ParallelWrapper(nets[0], mesh=mesh, fsdp=fsdp).fit(batches)
+        nets[1].fit(batches)
+        for a, b in zip(*(tree_leaves(
+                (n.params, n.updater_state, n.net_state)) for n in nets)):
+            assert torch.equal(a, b)
+
+
+def test_parameter_averaging_on_one_card_needs_no_group():
+    """Four replicas stacked on the one device, averaged every 2 steps,
+    against the JAX trainer over 4 devices."""
+    ref = JaxMLN(_conf("mlp")).init()
+    state = (_np(ref.params), _np(ref.updater_state), _np(ref.net_state),
+             ref.iteration_count)
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf.neural_net import (
+        MultiLayerConfiguration)
+
+    net = load_network_from_jax(MultiLayerNetwork(
+        MultiLayerConfiguration.from_json(ref.conf.to_json()),
+        device="cpu").init(), *state)
+    batches = _batches("mlp", 4, seed=9)
+    trainer = ParameterAveragingTrainer(net, num_replicas=4,
+                                        averaging_frequency=2)
+    assert trainer._group is None
+    trainer.fit([DataSet(*b) for b in batches])
+    mesh = jax_build_mesh(JaxMeshSpec(data=4), devices=jax.devices()[:4])
+    JaxPAT(ref, num_replicas=4, averaging_frequency=2, mesh=mesh).fit(
+        [JaxDataSet(*b) for b in batches])
+    for a, b in zip(_leaves(ref.params), _leaves(
+            jax.tree_util.tree_map(lambda t: t.numpy(), net.params))):
+        np.testing.assert_allclose(b, a, **TOL)
+    for a, b in zip(_leaves(ref.updater_state), _leaves(
+            jax.tree_util.tree_map(lambda t: t.numpy(),
+                                   net.updater_state))):
+        np.testing.assert_allclose(b, a, **TOL)

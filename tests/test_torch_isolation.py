@@ -54,8 +54,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert int(count) >= 15
     # optimize (4 modules), utils (3) and cli (2) are walked too
     assert int(new) >= 9
-    # and the serve fleet (6), parallel (2) and the compile cache
-    assert int(fleet) >= 9
+    # and the serve fleet (6), parallel (11: the mesh, its registry and
+    # collectives, data parallelism, FSDP, the TP specs, the ring and
+    # Ulysses since A14.1) and the compile cache
+    assert int(fleet) >= 18
     # and the embeddings: nlp (13 modules) and graph (4)
     assert int(embeddings) >= 17
     # and clustering (6 modules), plot (3) and the RNTN
@@ -74,7 +76,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     "deeplearning4j_tpu_torch.datasets.fetchers",
     "deeplearning4j_tpu_torch.nlp", "deeplearning4j_tpu_torch.nlp.epoch_kernels",
     "deeplearning4j_tpu_torch.graph", "deeplearning4j_tpu_torch.clustering",
-    "deeplearning4j_tpu_torch.plot", "deeplearning4j_tpu_torch.models.rntn"])
+    "deeplearning4j_tpu_torch.plot", "deeplearning4j_tpu_torch.models.rntn",
+    "deeplearning4j_tpu_torch.parallel.mesh",
+    "deeplearning4j_tpu_torch.parallel.ring_attention",
+    "deeplearning4j_tpu_torch.parallel.data_parallel"])
 def test_front_door_modules_import_first(module):
     """Each imports on its own in a fresh interpreter (no import cycle
     through ``nn``)."""
@@ -252,3 +257,26 @@ def test_tree_and_clustering_entry_points_raise_without_a_card(monkeypatch):
         .assignments.shape == (12,)
     assert Tsne(max_iter=2, perplexity=3.0, device="cpu") \
         .fit_transform(pts).shape == (12, 2)
+
+
+def test_mesh_entry_points_raise_without_a_card(monkeypatch):
+    """A mesh, and the wrappers that build one, are on the card unless
+    told ``cpu``; the later parallel items raise naming theirs."""
+    import deeplearning4j_tpu_torch.parallel as par
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.parallel import (
+        ParallelWrapper, build_mesh, mesh)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.join_world("unused", 0, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ParallelWrapper(zoo.mnist_mlp(hidden=8))
+    for name, item in (("spmd_pipeline", "A14.2"), ("moe_ffn", "A14.2"),
+                       ("HeartbeatMonitor", "A14.3"),
+                       ("IterativeReduceWorkRouter", "A14.3"),
+                       ("ConfigRegistry", "A15")):
+        with pytest.raises(NotImplementedError, match=item):
+            getattr(par, name)()
