@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Fifteen phases; any failure exits non-zero and prints no result line.
+Sixteen phases; any failure exits non-zero and prints no result line.
 
 1. Build and device: compile every CUDA kernel from ``csrc/`` (one
    ``nvcc`` per source, all at once), print ptxas's registers and spill
@@ -330,7 +330,30 @@ Fifteen phases; any failure exits non-zero and prints no result line.
    diagonal) beside the single-device kernels over the same whole shape
    (CUDA events), and ``ParameterAveragingTrainer`` with 4 replicas on
    the one card, no process group, against 4 clones averaged (float32
-   rtol 1e-4, atol 1e-6).
+   rtol 1e-4, atol 1e-6). The world of one also holds
+   ``shard_params`` over ``model=1`` bitwise the meshless captured step.
+16. Model axes (tensor parallelism, GPipe, MoE), in a world of four gloo
+   ranks sharing the card, as in phase 15: (a) the train cell's LM
+   (``[16, 1024]``, ``mixed_bf16``) under ``shard_params`` over
+   ``model=4`` and ``data=2 x model=2``, 3 steps against the
+   single-device step (loss 2e-2, params 1e-2), B1–B3 launched 8 times a
+   rank a step on the rank's heads (``[16, 1024, 2, 64]`` and ``[8,
+   1024, 4, 64]``); (b) the serve cell's 8 greedy requests through
+   ``DecodeServer(slots=8, mesh=model=4)``: every stream equal to the
+   unsharded ``lm.generate``, the smallest top-1/top-2 logit margin
+   seen, a beam-3 call beside the unsharded one, TTFT and tokens/s beside
+   a one-device server in the same call, B1 8 launches a prefill a rank
+   and no B2/B3; (c) the LM's 8 blocks as 4 stages of 2 over ``pipe=4``,
+   8 microbatches of ``[2, 1024]``, outputs and every stage's gradients
+   against the blocks in sequence (2e-2 of each tensor's largest), B1–B3
+   launched (M + S − 1) × 2 = 22 times a rank; (d) the MoE FFN (d512,
+   d_ff 2048, E=8, top-2, capacity 1.25) over ``expert=4`` on ``[4,
+   1024, 512]`` f32 against one device (rtol 1e-4, atol 1e-5); (e) the
+   MNIST MLP at ``[4096, 784]`` f32 under ``shard_network_params`` over
+   ``model=4``, 3 fits against ``fit`` (rtol 1e-4, atol 1e-6). Each cell
+   prints its ms, params and peak memory per rank, and one ``[16, 1024,
+   512]`` f32 all-reduce's ms. Then B1/B2/B3 at the two per-rank shapes
+   against their bounds, plain versions and SDPA (CUDA events).
 
 Output: metric lines, then a ``{"kernels": [...]}`` JSON line (each
 kernel's ``variant`` and ``launches`` counted over the train phase's
@@ -342,7 +365,9 @@ over phase 10 as ``launches_serve_extras``; over phase 11 as
 replays included, as ``launches_profile``; over phase 13 as
 ``launches_embeddings``, which must be 0; over phase 14 as
 ``launches_trees``, which must be 0; over phase 15's ring steps, summed
-over the four ranks, as ``launches_mesh``; and its train-shape numbers under
+over the four ranks, as ``launches_mesh``; over phase 16's TP train
+steps and its pipeline step, summed over the ranks, as ``launches_tp``
+and ``launches_pipe``; and its train-shape numbers under
 ``train``) and the ``nvidia-smi``
 line,
 then ``{"ok": true, "device": {...}}`` last.
@@ -4914,24 +4939,30 @@ def mesh_world_one(card: str, tmp: str) -> None:
         backend = dist.get_backend()
         tok = torch.as_tensor(train_tokens(), device="cuda")
         runs = []
-        for m in (None, mesh):
+        for m, tp in ((None, False), (mesh, False), (mesh, True)):
             lm = TransformerLM(**TRAIN_CFG).init()
-            step = lm.make_train_step(mesh=m, sequence_parallel=m is not None)
+            if tp:   # a model axis of 1: nothing is split
+                lm.shard_params(mesh)
+            step = lm.make_train_step(mesh=m, sequence_parallel=m is not None
+                                      and not tp)
             losses = torch.stack([lm.fit_batch(tok, train_step=step,
                                                block=False)
                                   for _ in range(MESH_STEPS)])
             runs.append((losses, lm.params, lm.opt_state, step.captured))
             del lm, step
-        same = (torch.equal(runs[0][0], runs[1][0])
-                and tree_equal(runs[0][1:3], runs[1][1:3]))
-        print(f"mesh world1 {backend} lm [{TRAIN_BATCH}, {TRAIN_T}] "
-              f"mixed_bf16 make_train_step(mesh, sequence_parallel=True) "
-              f"{MESH_STEPS} steps: losses "
-              f"{[float(x) for x in runs[1][0]]}, captured "
-              f"{runs[1][3]}, bitwise the meshless step: {same} [{card}]")
-        if not same:
-            raise AssertionError("the world-1 mesh LM step differs from the "
-                                 "meshless step")
+        for i, what in ((1, "make_train_step(mesh, sequence_parallel=True)"),
+                        (2, "shard_params(model=1) then "
+                            "make_train_step(mesh)")):
+            same = (torch.equal(runs[0][0], runs[i][0])
+                    and tree_equal(runs[0][1:3], runs[i][1:3]))
+            print(f"mesh world1 {backend} lm [{TRAIN_BATCH}, {TRAIN_T}] "
+                  f"mixed_bf16 {what} {MESH_STEPS} steps: losses "
+                  f"{[float(x) for x in runs[i][0]]}, captured "
+                  f"{runs[i][3]}, bitwise the meshless step: {same} "
+                  f"[{card}]")
+            if not same or not runs[i][3]:
+                raise AssertionError(f"the world-1 {what} differs from the "
+                                     "meshless captured step")
         del runs
         torch.cuda.empty_cache()
         batches = mesh_batches()
@@ -5562,6 +5593,533 @@ def mesh_phase(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the model, pipe and expert axes
+# ---------------------------------------------------------------------------
+MODEL_WORLD_TIMEOUT_S = 420  # the 4-rank world; every rank killed past it
+MODEL_STEPS = 3
+MODEL_BEAM_NEW = 16
+PIPE_STAGES, PIPE_MICRO, PIPE_ROWS = 4, 8, 2  # 4 stages of 2 blocks
+MOE_CFG = dict(d_model=512, d_ff=2048, n_experts=8, top_k=2,
+               capacity_factor=1.25)
+MOE_SHAPE = (4, 1024, 512)
+MOE_TOL = dict(rtol=1e-4, atol=1e-5)
+MODEL_BF16_TOL = 2e-2  # outputs and gradients, of each tensor's largest
+MODEL_KERNEL_SHAPES = ((16, 1024, 2, 64), (8, 1024, 4, 64))  # per rank
+
+
+def _launch_delta(before) -> dict:
+    from deeplearning4j_tpu_torch.perf import step_graph
+
+    return {k: v - before[k] for k, v in
+            step_graph.kernel_launches().items()}
+
+
+def _timed_barrier(fn):
+    """``fn()`` after a barrier, its wall ms and the B1–B3 launches it
+    made in this rank."""
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.perf import step_graph
+
+    dist.barrier()
+    torch.cuda.synchronize()
+    before = step_graph.kernel_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, _launch_delta(before)
+
+
+def _local_numel(tree) -> int:
+    from deeplearning4j_tpu_torch.dtypes import tree_leaves
+
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
+def model_tp_train(rank: int, meshes: dict) -> dict:
+    """Cell (a): the Train cell's LM over ``model=4`` and ``data=2 x
+    model=2``, 3 steps from the same init; rank 0 holds both against the
+    single-device step."""
+    import torch
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+
+    tok = torch.as_tensor(train_tokens(), device="cuda")
+    res, states = {}, {}
+    for name in ("model=4", "data=2 x model=2"):
+        mesh = meshes[name]
+        lm = TransformerLM(**TRAIN_CFG).init()
+        lm.shard_params(mesh)
+        step = lm.make_train_step(mesh=mesh)
+        losses, ms, launches = [], [], []
+        for _ in range(MODEL_STEPS):
+            loss, t, n = _timed_barrier(
+                lambda: lm.fit_batch(tok, train_step=step))
+            losses.append(loss)
+            ms.append(t)
+            launches.append(n)
+        res[name] = {"losses": losses, "ms": ms, "launches": launches,
+                     "captured": step.captured,
+                     "params_this_rank": _local_numel(lm.params)}
+        states[name] = lm.gather_params()[0]
+        del lm, step
+    if rank == 0:
+        ref = TransformerLM(**TRAIN_CFG).init()
+        ref_losses = [ref.fit_batch(tok) for _ in range(MODEL_STEPS)]
+        for name in res:
+            loss_err = max(abs(a - b) for a, b in
+                           zip(res[name]["losses"], ref_losses))
+            param_err = tree_err(states[name], ref.params)
+            res[name].update(ref_losses=ref_losses, loss_err=loss_err,
+                             param_err=param_err,
+                             ok=loss_err <= MESH_LM_TOL["loss"]
+                             and param_err <= MESH_LM_TOL["params"])
+        res["params_whole"] = _local_numel(ref.params)
+    return res
+
+
+def model_allreduce_ms(meshes: dict) -> float:
+    """One all-reduce of a ``[16, 1024, 512]`` f32 tensor over the
+    ``model=4`` group (the training g's), mean of 5."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel.collectives import all_reduce_
+    from deeplearning4j_tpu_torch.parallel.mesh import MODEL_AXIS, axis_group
+
+    group = axis_group(meshes["model=4"], MODEL_AXIS)
+    x = torch.ones((TRAIN_BATCH, TRAIN_T, SERVE_CFG["d_model"]),
+                   device="cuda")
+    all_reduce_(x, group)
+    _, ms, _ = _timed_barrier(lambda: [all_reduce_(x, group)
+                                       for _ in range(5)])
+    return ms / 5
+
+
+def _margin_recorder(srv, margins: list):
+    """Wrap the engine's sampler to keep the smallest top-1/top-2 logit
+    margin of the live rows it samples."""
+    import torch
+
+    sample = srv.engine._sample_row
+
+    def recorded(logits, gens):
+        live = srv._live_slots() if logits.shape[0] == srv.slots else [0]
+        if live:
+            top = torch.topk(logits[live].float(), 2, dim=-1).values
+            margins.append(float((top[:, 0] - top[:, 1]).min()))
+        return sample(logits, gens)
+
+    srv.engine._sample_row = recorded
+
+
+def model_tp_serve(rank: int, meshes: dict) -> dict:
+    """Cell (b): the Serve cell's 8 greedy requests through
+    ``DecodeServer(slots=8, mesh=model=4)``; rank 0 also serves them on
+    one device and holds every stream against ``lm.generate``."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+    from deeplearning4j_tpu_torch.serving import DecodeServer, run_open_loop
+
+    sched = serve_schedule()
+    lm = TransformerLM(**SERVE_CFG).init()
+    srv = DecodeServer(lm, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                       mesh=meshes["model=4"])
+    margins = []
+    _margin_recorder(srv, margins)
+    report, ms, launches = _timed_barrier(lambda: run_open_loop(srv, sched))
+    s = report.summary()
+    res = {"summary": s, "launches": launches, "ms": ms,
+           "min_margin": min(margins),
+           "kv_shards": srv.stats()["kv_shards"],
+           "pool_bytes_this_rank": srv.engine.cache.nbytes
+           // srv.engine.cache.n_shard,
+           "params_this_rank": _local_numel(lm.params)}
+    prompt = sched[0].prompt[None]
+    beam, _ = lm.generate_beam(prompt, MODEL_BEAM_NEW, beam_size=3)
+    if rank == 0:
+        ref = TransformerLM(**SERVE_CFG).init()
+        single = DecodeServer(ref, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+        rep1 = run_open_loop(single, sched)
+        torch.cuda.synchronize()
+        res["single"] = rep1.summary()
+        bad = []
+        for req in srv.finished:
+            want = ref.generate(req.prompt[None],
+                                req.max_new_tokens)[0].cpu().numpy()
+            if not np.array_equal(req.output, want):
+                bad.append(first_divergence(req.output, want, ref,
+                                            req.prompt))
+        res["streams_equal"] = not bad and len(srv.finished) == len(sched)
+        res["divergence"] = bad
+        rbeam, _ = ref.generate_beam(prompt, MODEL_BEAM_NEW, beam_size=3)
+        res["beam_equal"] = bool(torch.equal(beam.cpu(), rbeam.cpu()))
+    return res
+
+
+def _stage_fn(lm):
+    def fn(p, h):
+        for blk in p["blocks"]:
+            h = lm._block(blk, h, train=True)[0]
+        return h
+    return fn
+
+
+def model_pipe(rank: int, meshes: dict) -> dict:
+    """Cell (c): the LM's 8 blocks as 4 stages of 2 over ``pipe=4``, M =
+    8 microbatches of ``[2, 1024]`` (the blocks' bf16 compute copy on
+    seeded activations), forward and backward of ``Σ out·g``; rank 0
+    holds the outputs and every stage's gradients against the same
+    blocks run in sequence."""
+    import torch
+    from deeplearning4j_tpu_torch.dtypes import tree_leaves, tree_map
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+    from deeplearning4j_tpu_torch.parallel import (
+        shard_stage_params, split_microbatches, spmd_pipeline,
+        stack_stage_params)
+    from deeplearning4j_tpu_torch.parallel.collectives import all_gather
+    from deeplearning4j_tpu_torch.parallel.mesh import PIPE_AXIS, axis_group
+
+    mesh = meshes["pipe=4"]
+    lm = TransformerLM(**TRAIN_CFG).init()
+    blocks = lm.policy.compute_copy(lm.params)["blocks"]
+    per = len(blocks) // PIPE_STAGES
+    stacked = stack_stage_params([{"blocks": blocks[s * per:(s + 1) * per]}
+                                  for s in range(PIPE_STAGES)])
+    local = tree_map(lambda p: p.detach().requires_grad_(),
+                     shard_stage_params(stacked, mesh))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = PIPE_MICRO * PIPE_ROWS
+    x = torch.randn((rows, TRAIN_T, SERVE_CFG["d_model"]), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    g = torch.randn(x.shape, generator=gen, device="cuda")
+    fn = _stage_fn(lm)
+
+    def run():
+        out = spmd_pipeline(fn, local, split_microbatches(x, PIPE_MICRO),
+                            mesh).reshape(x.shape)
+        loss = (out.float() * g).sum() / g.numel()
+        return out.detach(), torch.autograd.grad(loss, tree_leaves(local))
+
+    run()  # the first call pays the collectives' and allocator's set-up
+    (out, grads), ms, launches = _timed_barrier(run)
+    group = axis_group(mesh, PIPE_AXIS)
+    whole = [all_gather(gr.float(), group, 0) for gr in grads]
+    res = {"ms": ms, "launches": launches,
+           "params_this_rank": _local_numel(local)}
+    if rank == 0:
+        seq = tree_map(lambda p: p.detach().requires_grad_(), stacked)
+        h = x
+        for s in range(PIPE_STAGES):
+            h = fn(tree_map(lambda a, s=s: a[s], seq), h)
+        ref_loss = (h.float() * g).sum() / g.numel()
+        ref_grads = torch.autograd.grad(ref_loss, tree_leaves(seq))
+
+        def rel(a, b):
+            return float((a.float() - b.float()).abs().max()) / max(
+                1.0, float(b.float().abs().max()))
+
+        res["out_err"] = rel(out, h.detach())
+        res["grad_err"] = max(rel(a, b) for a, b in zip(whole, ref_grads))
+        res["ok"] = (res["out_err"] <= MODEL_BF16_TOL
+                     and res["grad_err"] <= MODEL_BF16_TOL)
+    return res
+
+
+def model_moe(rank: int, meshes: dict) -> dict:
+    """Cell (d): the MoE FFN (d512, d_ff 2048, E=8, top-2, capacity
+    1.25) over ``expert=4`` on ``[4, 1024, 512]`` f32; rank 0 holds y
+    and aux against one device."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel import (
+        MoEConfig, init_moe_params, moe_ffn, shard_moe_params)
+
+    mesh = meshes["expert=4"]
+    cfg = MoEConfig(**MOE_CFG)
+    params = init_moe_params(cfg, torch.Generator().manual_seed(0),
+                             device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(MOE_SHAPE, generator=gen, device="cuda")
+    local = shard_moe_params(params, mesh)
+    with torch.no_grad():
+        moe_ffn(local, x, cfg, mesh)
+        (y, aux), ms, _ = _timed_barrier(lambda: moe_ffn(local, x, cfg,
+                                                         mesh))
+    res = {"ms": ms, "params_this_rank": _local_numel(local)}
+    if rank == 0:
+        with torch.no_grad():
+            ry, raux = moe_ffn(params, x, cfg)
+        res["y_err"] = float((y - ry).abs().max())
+        res["aux_err"] = abs(float(aux) - float(raux))
+        res["ok"] = (bool(torch.allclose(y, ry, **MOE_TOL))
+                     and res["aux_err"] <= MOE_TOL["rtol"] * abs(float(raux)))
+    return res
+
+
+def model_mlp(rank: int, meshes: dict) -> dict:
+    """Cell (e): the MNIST MLP at ``[4096, 784]`` f32 under
+    ``shard_network_params`` over ``model=4``: 3 fits against ``fit``."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+        shard_network_params)
+
+    batches = mesh_batches()
+    net = build_network("mnist_mlp", "float32", "cuda")
+    shard_network_params(net, meshes["model=4"])
+    _, ms, launches = _timed_barrier(lambda: net.fit(batches))
+    reg = net._sharding_registry
+    params = reg.gather(net.params)
+    upd = reg.gather_state(net.updater_state)
+    res = {"ms_per_fit": ms / len(batches), "launches": launches,
+           "kinds": [type(l).__name__ for l in net.layers],
+           "params_this_rank": _local_numel(net.params)}
+    if rank == 0:
+        ref = build_network("mnist_mlp", "float32", "cuda")
+        ref.fit(batches)
+        res["err"] = max(tree_err(params, ref.params),
+                         tree_err(upd, ref.updater_state))
+        res["ok"] = tree_close((params, upd), (ref.params, ref.updater_state),
+                               **MESH_F32_TOL)
+    return res
+
+
+def model_rank(rank: int, n: int, tmp: str) -> None:
+    """One rank of the 4-process gloo world of phase 16; writes its
+    results to ``model<r>.json`` in ``tmp``."""
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, HERE)
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshSpec, build_mesh, join_world, leave_world)
+
+    out = {"rank": rank}
+    t0 = time.monotonic()
+    join_world(os.path.join(tmp, "model_store"), rank, n, backend="gloo",
+               timeout_s=MESH_JOIN_TIMEOUT_S)
+    out["join_s"] = time.monotonic() - t0
+    try:
+        meshes = {
+            "model=4": build_mesh(MeshSpec(data=1, model=n), device="cuda"),
+            "data=2 x model=2": build_mesh(MeshSpec(data=2, model=n // 2),
+                                           device="cuda"),
+            "pipe=4": build_mesh(MeshSpec(data=1, pipe=n), device="cuda"),
+            "expert=4": build_mesh(MeshSpec(data=1, expert=n),
+                                   device="cuda")}
+        for name, fn in (("allreduce", lambda: model_allreduce_ms(meshes)),
+                         ("train", lambda: model_tp_train(rank, meshes)),
+                         ("serve", lambda: model_tp_serve(rank, meshes)),
+                         ("pipe", lambda: model_pipe(rank, meshes)),
+                         ("moe", lambda: model_moe(rank, meshes)),
+                         ("mlp", lambda: model_mlp(rank, meshes))):
+            torch.cuda.reset_peak_memory_stats()
+            t = time.monotonic()
+            out[name] = fn()
+            out[f"{name}_s"] = time.monotonic() - t
+            out[f"{name}_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+            torch.cuda.empty_cache()
+    except Exception:
+        out["error"] = traceback.format_exc()
+    finally:
+        leave_world()
+    with open(os.path.join(tmp, f"model{rank}.json"), "w") as f:
+        json.dump(out, f)
+    if "error" in out:
+        sys.exit(1)
+
+
+def model_kernels(card: str) -> dict:
+    """B1/B2/B3 at the per-rank attention shapes of the TP steps (2 of 8
+    heads at ``model=4``, 4 of 8 rows' heads at ``data=2 x model=2``)
+    against their bounds, their plain versions and SDPA, CUDA events."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for b, t, h, d in MODEL_KERNEL_SHAPES:
+        q, k, v, do = (torch.randn((b, t, h, d), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        delta = fa._delta(out, do)
+        args = (q, k, v, do, lse, delta)
+        keep = fa._keep(t, t, True, None, device="cuda")
+        scale = fa._scale(q, None)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        row = {
+            "fwd": cuda_ms(lambda: fa.flash_attention_fwd(q, k, v,
+                                                          causal=True)),
+            "fwd_plain": cuda_ms(lambda: fa.flash_attention_fwd_reference(
+                q, k, v, causal=True)),
+            "fwd_sdpa": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)),
+            "dkdv": cuda_ms(lambda: fa.flash_attention_bwd_dkdv(
+                *args, causal=True)),
+            "dkdv_plain": cuda_ms(lambda: fa._dkdv(*args, keep, scale)),
+            "dq": cuda_ms(lambda: fa.flash_attention_bwd_dq(*args,
+                                                            causal=True)),
+            "dq_plain": cuda_ms(lambda: fa._dq(*args, keep, scale)),
+            "bwd_sdpa": sdpa_backward_ms(q, k, v, do, True, None),
+            "fwd_bound": fa.flash_bound(b, t, t, h, d, torch.bfloat16,
+                                        causal=True)["bound_ms"]}
+        bwd = fa.flash_bwd_bound(b, t, t, h, d, torch.bfloat16, causal=True)
+        row["dkdv_bound"] = bwd["dkdv"]["bound_ms"]
+        row["dq_bound"] = bwd["dq"]["bound_ms"]
+        rows[(b, t, h, d)] = row
+        print(f"model kernels bf16 [{b}, {t}, {h}, {d}] causal: B1 "
+              f"{row['fwd']:.5f} ms (bound {row['fwd_bound']:.5f}, plain "
+              f"{row['fwd_plain']:.5f}, SDPA {row['fwd_sdpa']:.5f}), B2 "
+              f"{row['dkdv']:.5f} ms (bound {row['dkdv_bound']:.5f}, plain "
+              f"{row['dkdv_plain']:.5f}), B3 {row['dq']:.5f} ms (bound "
+              f"{row['dq_bound']:.5f}, plain {row['dq_plain']:.5f}), SDPA "
+              f"backward {row['bwd_sdpa']:.5f} ms [{card}]")
+    return rows
+
+
+def model_phase(card: str) -> dict:
+    """Phase 16; returns B1–B3's launches over cell (a)'s steps and cell
+    (c)'s step, summed over the ranks."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="dl4j_model_") as tmp:
+        t0 = time.monotonic()
+        codes = spawn_world("model_rank", tmp, MODEL_WORLD_TIMEOUT_S)
+        bad = [r for r, c in enumerate(codes) if c != 0]
+        if bad:
+            for r in bad:
+                with open(os.path.join(tmp, f"model_rank{r}.log")) as f:
+                    print(f"model rank {r} exited {codes[r]}:\n"
+                          f"{f.read()[-3000:]}", file=sys.stderr)
+            raise AssertionError(f"model world: rank(s) {bad} failed or "
+                                 f"timed out ({MODEL_WORLD_TIMEOUT_S} s)")
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(tmp, f"model{r}.json")) as f:
+                ranks.append(json.load(f))
+    print(f"model world{MESH_RANKS} (gloo, one card): "
+          f"{time.monotonic() - t0:.1f} s; per rank join "
+          + ", ".join(f"{r['join_s']:.1f}" for r in ranks) + " s; cells "
+          + ", ".join(f"{c} {max(r[c + '_s'] for r in ranks):.1f} s"
+                      for c in ("train", "serve", "pipe", "moe", "mlp")))
+    r0 = ranks[0]
+    layers = TRAIN_CFG["num_layers"]
+    failures = []
+    print(f"model allreduce [{TRAIN_BATCH}, {TRAIN_T}, "
+          f"{SERVE_CFG['d_model']}] f32 over model={MESH_RANKS} (gloo, CUDA "
+          f"tensors): {[round(r['allreduce'], 3) for r in ranks]} ms per "
+          f"rank [{card}]")
+    tp = {"flash_attention_fwd": 0, "flash_attention_bwd_dkdv": 0,
+          "flash_attention_bwd_dq": 0}
+    for name in ("model=4", "data=2 x model=2"):
+        c = r0["train"][name]
+        ms = [max(r["train"][name]["ms"][s] for r in ranks)
+              for s in range(MODEL_STEPS)]
+        per_rank = [r["train"][name]["launches"] for r in ranks]
+        print(f"model (a) tp train [{TRAIN_BATCH}, {TRAIN_T}] mixed_bf16 "
+              f"over {name}: losses {c['losses']} vs single device "
+              f"{c['ref_losses']}: loss_err={c['loss_err']:.3e} (tol "
+              f"{MESH_LM_TOL['loss']}), param_err={c['param_err']:.3e} (tol "
+              f"{MESH_LM_TOL['params']}); ms per step "
+              f"{[round(x, 1) for x in ms]}; captured {c['captured']}; "
+              f"params per rank {[r['train'][name]['params_this_rank'] for r in ranks]} "
+              f"of {r0['train']['params_whole']}; peak_mem_bytes per rank "
+              f"{[r['train_peak_mem_bytes'] for r in ranks]}; B1-B3 "
+              f"launches per rank and step {per_rank[0]} [{card}]")
+        if not c["ok"] or c["captured"]:
+            failures.append(f"tp train {name}")
+        for r in per_rank:
+            for step in r:
+                if any(v != layers for v in step.values()):
+                    failures.append(f"tp train {name} launched {step}, "
+                                    f"expected {layers} of each a step")
+                for k in tp:
+                    tp[k] += step[k]
+    sv = r0["serve"]
+    s, s1 = sv["summary"], sv["single"]
+    print(f"model (b) tp serve {SERVE_REQUESTS} greedy requests (20 req/s, "
+          f"seed 7) DecodeServer(slots={SERVE_SLOTS}, mesh=model="
+          f"{MESH_RANKS}): finished={s['finished']} "
+          f"tokens_per_sec={s['tokens_per_sec']} "
+          f"ttft_p50_ms={s['ttft_p50_ms']} vs one device "
+          f"tokens_per_sec={s1['tokens_per_sec']} "
+          f"ttft_p50_ms={s1['ttft_p50_ms']}; streams equal lm.generate: "
+          f"{sv['streams_equal']} {sv['divergence']}; smallest top-1/top-2 "
+          f"margin {min(r['serve']['min_margin'] for r in ranks):.5f}; "
+          f"beam-3 ({MODEL_BEAM_NEW} new) equal to one device: "
+          f"{sv['beam_equal']}; kv_shards {sv['kv_shards']}, pool bytes per "
+          f"rank {sv['pool_bytes_this_rank']}; params per rank "
+          f"{sv['params_this_rank']}; peak_mem_bytes per rank "
+          f"{[r['serve_peak_mem_bytes'] for r in ranks]}; B1-B3 launches "
+          f"per rank {[r['serve']['launches'] for r in ranks]} [{card}]")
+    if not sv["streams_equal"]:
+        failures.append("tp serve streams")
+    for r in ranks:
+        n = r["serve"]["launches"]
+        if (n["flash_attention_fwd"] != layers * SERVE_REQUESTS
+                or n["flash_attention_bwd_dkdv"]
+                or n["flash_attention_bwd_dq"]):
+            failures.append(f"tp serve launched {n}")
+    pp = r0["pipe"]
+    ticks = PIPE_MICRO + PIPE_STAGES - 1
+    per = layers // PIPE_STAGES
+    print(f"model (c) gpipe {layers} blocks as {PIPE_STAGES} stages of "
+          f"{per} over pipe={MESH_RANKS}, M={PIPE_MICRO} microbatches of "
+          f"[{PIPE_ROWS}, {TRAIN_T}] bf16: out_err={pp['out_err']:.3e}, "
+          f"grad_err={pp['grad_err']:.3e} of each tensor's largest (tol "
+          f"{MODEL_BF16_TOL}) against the blocks in sequence; "
+          f"{max(r['pipe']['ms'] for r in ranks):.1f} ms a forward and "
+          f"backward; params per rank {pp['params_this_rank']}; "
+          f"peak_mem_bytes per rank "
+          f"{[r['pipe_peak_mem_bytes'] for r in ranks]}; B1-B3 launches "
+          f"per rank {[r['pipe']['launches'] for r in ranks]} [{card}]")
+    if not pp["ok"]:
+        failures.append("gpipe")
+    pipe = {k: 0 for k in tp}
+    for r in ranks:
+        n = r["pipe"]["launches"]
+        if any(v != ticks * per for v in n.values()):
+            failures.append(f"gpipe launched {n}, expected {ticks * per} "
+                            "of each a rank")
+        for k in pipe:
+            pipe[k] += n[k]
+    me = r0["moe"]
+    print(f"model (d) moe d{MOE_CFG['d_model']} d_ff {MOE_CFG['d_ff']} "
+          f"E={MOE_CFG['n_experts']} top-{MOE_CFG['top_k']} capacity "
+          f"{MOE_CFG['capacity_factor']} over expert={MESH_RANKS} on "
+          f"{list(MOE_SHAPE)} f32: y max_abs_err={me['y_err']:.3e} (rtol "
+          f"1e-4, atol 1e-5), aux_err={me['aux_err']:.3e}; "
+          f"{max(r['moe']['ms'] for r in ranks):.2f} ms a forward; params "
+          f"per rank {me['params_this_rank']}; peak_mem_bytes per rank "
+          f"{[r['moe_peak_mem_bytes'] for r in ranks]} [{card}]")
+    if not me["ok"]:
+        failures.append("moe")
+    ml = r0["mlp"]
+    print(f"model (e) mnist_mlp float32 [{MESH_MLP_BATCH}, 784] under "
+          f"shard_network_params over model={MESH_RANKS} ({ml['kinds']}): "
+          f"{MESH_STEPS} fits against fit max_abs_err={ml['err']:.3e} "
+          f"(rtol 1e-4, atol 1e-6) {'ok' if ml['ok'] else 'MISMATCH'}; "
+          f"{max(r['mlp']['ms_per_fit'] for r in ranks):.2f} ms per fit; "
+          f"params per rank {ml['params_this_rank']}; peak_mem_bytes per "
+          f"rank {[r['mlp_peak_mem_bytes'] for r in ranks]} [{card}]")
+    if not ml["ok"]:
+        failures.append("tp mlp")
+    if any(v for r in ranks for v in r["mlp"]["launches"].values()):
+        failures.append("the MLP launched a flash kernel")
+    if failures:
+        raise AssertionError("model axes: " + "; ".join(failures))
+    torch.cuda.empty_cache()
+    model_kernels(card)
+    print(f"model phase: {time.monotonic() - t_phase:.1f} s, B1-B3 launches "
+          f"over the TP steps {tp}, over the pipeline step {pipe} [{card}]")
+    return {"tp": tp, "pipe": pipe}
+
+
 def main() -> None:
     try:
         import torch
@@ -5594,9 +6152,10 @@ def main() -> None:
     serve_launches = train_launches = fused_launches = cli_launches = None
     extras_launches = data_launches = profile_launches = None
     embed_launches = trees_launches = mesh_launches = None
+    model_launches = None
     for phase in ("flash", "flash_bwd", "serve", "train", "networks",
                   "recurrent", "fused", "cli", "serve_extras", "data",
-                  "monitor", "embeddings", "trees", "mesh"):
+                  "monitor", "embeddings", "trees", "mesh", "model"):
         try:
             if phase == "flash":
                 entries["flash_attention_fwd"] = check_flash(card)
@@ -5631,8 +6190,10 @@ def main() -> None:
                 embed_launches = embeddings(card)
             elif phase == "trees":
                 trees_launches = trees(card)
-            else:
+            elif phase == "mesh":
                 mesh_launches = mesh_phase(card)
+            else:
+                model_launches = model_phase(card)
         except Exception:
             traceback.print_exc()
             failed.append(phase)
@@ -5654,6 +6215,10 @@ def main() -> None:
         e["launches_mesh"] = mesh_launches[name]
         if not e["launches_mesh"]:
             fail(f"{name} was not launched on the mesh path")
+        e["launches_tp"] = model_launches["tp"][name]
+        e["launches_pipe"] = model_launches["pipe"][name]
+        if not e["launches_tp"] or not e["launches_pipe"]:
+            fail(f"{name} was not launched on the TP or pipeline path")
     entries["flash_attention_fwd"]["launches_serve"] = serve_launches
     entries["flash_attention_fwd"]["launches_serve_extras"] = extras_launches
     print(json.dumps({"kernels": list(entries.values())}))

@@ -11,8 +11,13 @@ SequenceVectors, ParagraphVectors, GloVe, DeepWalk) take the JAX model's
 vocab order and tables (:func:`load_embeddings_from_jax`): the reference
 initialises them with ``jax.random``, which torch cannot replay. So does
 the RNTN, whose vocab, params and AdaGrad state :func:`load_rntn_from_jax`
-carries. This module imports neither jax nor the JAX package: it takes
-plain numpy (or objects whose attributes ``np.asarray`` turns into numpy).
+carries. :func:`params_from_jax` also carries the parallel modules'
+trees: a MoE FFN's router and stacked expert weights
+(``parallel/expert_parallel.init_moe_params``) and stacked pipeline
+stage params (``parallel/pipeline_parallel.stack_stage_params``), any
+nesting of dicts and lists (a tuple comes back as a list). This module
+imports neither jax nor the JAX package: it takes plain numpy (or
+objects whose attributes ``np.asarray`` turns into numpy).
 """
 
 from __future__ import annotations

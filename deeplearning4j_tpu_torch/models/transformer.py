@@ -40,8 +40,20 @@ rank's share of the global mean, the gradients are summed over the
 mesh, and every rank applies the same Adam update. A mesh of one device
 runs the meshless step itself (captured on the card); a mesh step with
 collectives runs eagerly (gloo collectives cannot be captured; capture
-over NCCL comes with the fused epoch, ROADMAP A14.3). Tensor-parallel
-placement (``shard_params``) is ROADMAP A14.2 and raises.
+over NCCL comes with the fused epoch, ROADMAP A14.3).
+
+Tensor parallelism (``shard_params(mesh)``): each rank keeps its
+Megatron shards (wq/wk/wv/w1 column-split, wo/w2 row-split over
+``model``; the tied embedding, the norms and ``b2`` replicated) and its
+part of the Adam moments. Training runs its blocks split: f
+(``collectives.CopyToShardsFn``) before the q/k/v and w1 GEMMs, g after
+wo and w2 (an all-reduce of f32 partials). ``forward``, ``generate``,
+beam search and serving run attention and the KV cache on the rank's
+heads and every projection whole, on weights gathered once, so that
+their tokens are the unsharded model's (:class:`_TensorShards`).
+With GQA heads that do not tile the axis, wk/wv stay replicated (their
+gradients summed over ``model`` by f) and each rank attends with the
+K/V heads its q heads use.
 """
 
 from __future__ import annotations
@@ -256,6 +268,9 @@ class TransformerLM:
         self.step_count = 0
         # one memory pool for the graphs of every captured step function
         self._graph_pool = GraphPool()
+        # the tensor-parallel shards this rank holds (shard_params)
+        self._tp: Optional[_TensorShards] = None
+        self._registry = None
 
     # ------------------------------------------------------------------
     def init(self) -> "TransformerLM":
@@ -363,14 +378,31 @@ class TransformerLM:
         mesh, ``h`` is this rank's sequence shard and attention runs
         over the ``sequence`` axis (ring or Ulysses, by ``sp_impl``)."""
         policy = self.policy
+        tp = self._tp
+        # a tensor-parallel rank outside training (no autograd graph):
+        # the unsharded projections on the whole weights, attention on
+        # this rank's heads (see _TensorShards)
+        whole = (tp is not None and not train
+                 and not torch.is_grad_enabled())
+        split = tp is not None and not whole      # Megatron's f and g
+        if whole:
+            blk = tp.whole_block(blk)
         b, t = h.shape[0], h.shape[1]
+        heads, kv_heads = self._local_heads()
+        wk = policy.cast_compute(blk["attn"]["wk"])
+        wv = policy.cast_compute(blk["attn"]["wv"])
         x = _layernorm(h, blk["ln1"]["g"], blk["ln1"]["b"], exact=not train)
-        q = (x @ policy.cast_compute(blk["attn"]["wq"])).reshape(
-            b, t, self.num_heads, -1)
-        k = (x @ policy.cast_compute(blk["attn"]["wk"])).reshape(
-            b, t, self.num_kv_heads, -1)
-        v = (x @ policy.cast_compute(blk["attn"]["wv"])).reshape(
-            b, t, self.num_kv_heads, -1)
+        if split:
+            x = tp.enter(x)
+            if tp.kv_index is not None:   # replicated, each rank's heads
+                wk, wv = tp.enter(wk), tp.enter(wv)
+        q = x @ policy.cast_compute(blk["attn"]["wq"])
+        k, v = x @ wk, x @ wv
+        if whole:
+            q, k, v = tp.own_heads(q, k, v)
+        q = q.reshape(b, t, heads, -1)
+        k = k.reshape(b, t, kv_heads, -1)
+        v = v.reshape(b, t, kv_heads, -1)
         if self.pos_encoding == "rope":
             if positions is None:
                 positions = torch.arange(t, device=h.device)
@@ -381,24 +413,54 @@ class TransformerLM:
         elif sequence_parallel and mesh is not None:
             o = self._sp_attention(q, k, v, mesh, train=train)
         elif self._attn_impl(t, train=train) == "flash":
-            o = flash_attention(q, self._repeat_kv(k), self._repeat_kv(v),
+            o = flash_attention(q, self._kv_for_q(k), self._kv_for_q(v),
                                 causal=True, window=self.attn_window)
         else:
-            o = grouped_query_attention(q, k, v, causal=True,
-                                        window=self.attn_window)
-        h = h + o.reshape(b, t, -1) @ policy.cast_compute(blk["attn"]["wo"])
+            o = self._attend(q, k, v, causal=True, window=self.attn_window)
+        o = o.reshape(b, t, -1)
+        wo = policy.cast_compute(blk["attn"]["wo"])
+        if whole:
+            o = tp.gather_heads(o)
+        h = h + (tp.row(o, wo) if split else o @ wo)
         x = _layernorm(h, blk["ln2"]["g"], blk["ln2"]["b"], exact=not train)
+        if split:
+            x = tp.enter(x)
         x = F.gelu(x @ policy.cast_compute(blk["mlp"]["w1"])
                    + policy.cast_compute(blk["mlp"]["b1"]),
                    approximate="tanh")
-        h = (h + x @ policy.cast_compute(blk["mlp"]["w2"])
+        w2 = policy.cast_compute(blk["mlp"]["w2"])
+        h = (h + (tp.row(x, w2) if split else x @ w2)
              + policy.cast_compute(blk["mlp"]["b2"]))
         return h, k, v
+
+    def _local_heads(self) -> Tuple[int, int]:
+        """(query heads, K/V heads) this rank computes: all of them
+        without tensor parallelism."""
+        if self._tp is None:
+            return self.num_heads, self.num_kv_heads
+        return self._tp.heads, self._tp.kv_heads
+
+    def _kv_for_q(self, x: torch.Tensor) -> torch.Tensor:
+        """K or V ``[b, t, Hkv_local, d]`` → one head per local query
+        head, contiguous (the flash kernels' layout): repeated groups, or
+        under the GQA fallback the heads this rank's q heads use."""
+        tp = self._tp
+        if tp is not None and tp.kv_index is not None:
+            return x.index_select(2, tp.kv_index.to(x.device))
+        return self._repeat_kv(x)
+
+    def _attend(self, q, k, v, **kw) -> torch.Tensor:
+        """Plain grouped-query attention of this rank's q heads against
+        its K/V (a cache's included)."""
+        tp = self._tp
+        if tp is not None and tp.kv_index is not None:
+            k, v = self._kv_for_q(k), self._kv_for_q(v)
+        return grouped_query_attention(q, k, v, **kw)
 
     def _sp_attention(self, q, k, v, mesh, *, train: bool):
         """Causal attention over the ``sequence`` axis on this rank's
         shards, after ``_repeat_kv``."""
-        kr, vr = self._repeat_kv(k), self._repeat_kv(v)
+        kr, vr = self._kv_for_q(k), self._kv_for_q(v)
         if self.sp_impl == "ulysses":
             from deeplearning4j_tpu_torch.parallel.ulysses import (
                 ulysses_attention)
@@ -615,11 +677,22 @@ class TransformerLM:
                 torch._foreach_div(torch._foreach_mul(mhat, lr), denom))
 
     def _steps(self, k: int, mesh, sequence_parallel: bool):
+        self._check_tp_mesh(mesh)
         step = self._step_body(mesh=mesh,
                                sequence_parallel=sequence_parallel)
-        if self._mesh_axes(mesh, sequence_parallel):
+        if self._mesh_axes(mesh, sequence_parallel) or self._tp is not None:
             return _EagerSteps(self, step, k)
         return _CapturedSteps(self, step, k)
+
+    def _check_tp_mesh(self, mesh) -> None:
+        """A mesh with a ``model`` axis steps the shards ``shard_params``
+        placed on it."""
+        if mesh is None or axis_size(mesh, MODEL_AXIS) == 1:
+            return
+        if self._tp is None or self._tp.mesh is not mesh:
+            raise ValueError(
+                "a mesh with a model axis needs the params sharded over it "
+                "first: call shard_params(mesh)")
 
     def make_train_step(self, *, mesh=None, sequence_parallel: bool = False):
         """The step function (one step per call; see
@@ -757,7 +830,7 @@ class TransformerLM:
             def attn(q, kk, vv):
                 c["k"][:, t] = kk[:, 0].to(cdt)
                 c["v"][:, t] = vv[:, 0].to(cdt)
-                return grouped_query_attention(q, c["k"], c["v"], mask=live)
+                return self._attend(q, c["k"], c["v"], mask=live)
             return attn
 
         positions = torch.tensor([t], device=tok.device)
@@ -974,10 +1047,147 @@ class TransformerLM:
             specs["pos"] = P()
         return specs
 
-    def shard_params(self, mesh, specs: Optional[Dict[str, Any]] = None):
-        from deeplearning4j_tpu_torch.parallel.sharding_registry import a14_2
+    def shard_params(self, mesh):
+        """Keep this rank's Megatron shards of the params and the Adam
+        moments (every rank holds the whole tree before the call, as
+        after ``init`` from one seed), split as :meth:`param_specs`
+        splits them for the mesh's ``model`` axis, and run every later
+        path tensor-parallel over it. A ``model`` axis of 1 (dropped from
+        the mesh) places nothing: the model stays the meshless one."""
+        from deeplearning4j_tpu_torch.parallel.sharding_registry import (
+            ShardingRegistry, _expand)
 
-        raise a14_2("TransformerLM.shard_params")
+        self._ensure_init()
+        if self._tp is not None:
+            raise ValueError("the params are already sharded")
+        n = axis_size(mesh, MODEL_AXIS)
+        want = self.param_specs(model_axis_size=n)
+        if n > 1 and (self.num_heads % n or self.d_ff % n):
+            raise ValueError(
+                f"num_heads={self.num_heads} and d_ff={self.d_ff} must "
+                f"split over the model axis (size {n})")
+        reg = ShardingRegistry.for_transformer(self, mesh)
+        if n > 1 and reg.spec_tree != _expand(self.params, want, (),
+                                              "TransformerLM"):
+            raise ValueError(
+                "a leaf does not split over the model axis: "
+                f"{reg.spec_tree}")
+        self.params = reg.place(self.params)
+        self.opt_state = reg.place_state(self.opt_state)
+        self._registry = reg
+        if n > 1:
+            self._tp = _TensorShards(self, mesh)
+        # a step function built before is the unsharded one
+        self.__dict__.pop("_default_step", None)
+        return self
+
+    def gather_params(self):
+        """``(params, opt_state)`` whole, from every rank's shards (a
+        collective over ``model``); the trees themselves when unsharded."""
+        if self._registry is None:
+            return self.params, self.opt_state
+        return (self._registry.gather(self.params),
+                self._registry.gather_state(self.opt_state))
+
+
+class _TensorShards:
+    """What a rank of a tensor-parallel LM needs: the ``model`` axis's
+    group, this rank's head counts, and under the GQA fallback the
+    replicated K/V heads its query heads use (``kv_index``).
+
+    Two ways through a block. Training, and any path that builds an
+    autograd graph, runs Megatron's split: f (:meth:`enter`) before the
+    column GEMMs, g (:meth:`row`) after the row GEMMs. Every other path
+    (``forward``, ``generate``, beam search, serving) runs the unsharded
+    projections on the whole weights (:meth:`whole_block`, gathered once
+    and kept until a shard changes), attention and the KV cache on this
+    rank's heads, and gathers the heads' outputs before ``wo``
+    (:meth:`gather_heads`). Each of its GEMMs is then the unsharded
+    model's, on the same operands and shapes, so a decode row holds the
+    unsharded row's bytes and greedy and beam tokens are the unsharded
+    ones, near-ties included; a split GEMM sums in another order, and on
+    an H100 that flipped 2 of 8 greedy streams at top-2 margins under
+    1e-3. Splitting those GEMMs at inference is later work (ROADMAP)."""
+
+    def __init__(self, lm: "TransformerLM", mesh):
+        self.mesh = mesh
+        self.group = axis_group(mesh, MODEL_AXIS)
+        self.n = axis_size(mesh, MODEL_AXIS)
+        self.rank = axis_rank(mesh, MODEL_AXIS)
+        self.heads = lm.num_heads // self.n
+        self.head_dim = lm.d_model // lm.num_heads
+        self.kv_index = None
+        if lm.num_kv_heads % self.n == 0:
+            self.kv_heads = lm.num_kv_heads // self.n
+        else:
+            rep = lm.num_heads // lm.num_kv_heads
+            first = self.rank * self.heads
+            self.kv_heads = lm.num_kv_heads
+            self.kv_index = torch.arange(first, first + self.heads) // rep
+        # the split dimension of each block leaf (param_specs)
+        self._dims = {("attn", "wq"): 1, ("attn", "wo"): 0,
+                      ("mlp", "w1"): 1, ("mlp", "b1"): 0, ("mlp", "w2"): 0}
+        if self.kv_index is None:
+            self._dims.update({("attn", "wk"): 1, ("attn", "wv"): 1})
+        self._whole: Dict[int, Tuple[torch.Tensor, int, torch.Tensor]] = {}
+        self._limit = 2 * len(self._dims) * lm.num_layers
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """f: identity forward, gradient summed over ``model``."""
+        from deeplearning4j_tpu_torch.parallel.collectives import (
+            CopyToShardsFn)
+
+        return CopyToShardsFn.apply(x, self.group)
+
+    def row(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """g after a row-split GEMM: ``x @ w`` of this rank's slice of
+        ``x`` and rows of ``w``, the partials summed over ``model`` in
+        f32 (a plain all-reduce; each rank's gradient its own)."""
+        from deeplearning4j_tpu_torch.parallel.collectives import SumSharesFn
+
+        out = x @ w
+        return SumSharesFn.apply(out.float(), self.group).to(out.dtype)
+
+    def _gathered(self, w: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole of the shard ``w`` (split along ``dim``), gathered
+        over ``model`` once and again only after ``w`` changes: every
+        rank runs the same updates, so every rank gathers together."""
+        from deeplearning4j_tpu_torch.parallel.collectives import all_gather
+
+        hit = self._whole.get(id(w))
+        if hit is not None and hit[0] is w and hit[1] == w._version:
+            return hit[2]
+        if len(self._whole) >= self._limit:
+            self._whole.clear()      # the shards were replaced
+        out = all_gather(w.detach(), self.group, dim)
+        self._whole[id(w)] = (w, w._version, out)
+        return out
+
+    def whole_block(self, blk):
+        """``blk`` with each split leaf replaced by the whole weight."""
+        return {part: {name: (self._gathered(leaf, self._dims[part, name])
+                              if (part, name) in self._dims else leaf)
+                       for name, leaf in leaves.items()}
+                for part, leaves in blk.items()}
+
+    def own_heads(self, q, k, v):
+        """This rank's heads of whole-width q/k/v ``[b, t, H·dh]``,
+        contiguous (the flash kernels' layout); under the GQA fallback
+        every K/V head (``kv_index`` picks them)."""
+        dq = self.heads * self.head_dim
+        q = q.narrow(-1, self.rank * dq, dq).contiguous()
+        if self.kv_index is None:
+            dk = self.kv_heads * self.head_dim
+            k = k.narrow(-1, self.rank * dk, dk).contiguous()
+            v = v.narrow(-1, self.rank * dk, dk).contiguous()
+        return q, k, v
+
+    def gather_heads(self, o: torch.Tensor) -> torch.Tensor:
+        """``[b, t, heads·dh]`` of this rank's heads → every head's, in
+        head order (a concatenation: no sum to order)."""
+        from deeplearning4j_tpu_torch.parallel.collectives import all_gather
+
+        return all_gather(o, self.group, o.dim() - 1)
 
 
 class _EagerSteps:

@@ -266,8 +266,12 @@ class FusedTraining:
         return prog
 
     def _step_graph(self, body) -> StepGraph:
-        return StepGraph(body, self.device, generators=(self._rng,),
-                         pool=self._graph_pool)
+        graph = StepGraph(body, self.device, generators=(self._rng,),
+                          pool=self._graph_pool)
+        # a step with collectives (tensor parallelism over a mesh) runs
+        # eagerly: gloo collectives cannot be captured
+        graph.graphed &= getattr(self, "_tp_mesh", None) is None
+        return graph
 
     def _run(self, prog: _Program, n: int) -> None:
         for _ in range(n):

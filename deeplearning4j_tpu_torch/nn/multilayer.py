@@ -30,7 +30,9 @@ step per window of ``tbptt_fwd_length`` timesteps, the recurrent layers'
 
 The network runs on the CUDA card unless it is given ``device="cpu"``;
 with no card and no device it raises. Data-parallel training over a
-device mesh is ``parallel.ParallelWrapper`` (ROADMAP A14.1); the fused
+device mesh is ``parallel.ParallelWrapper`` (ROADMAP A14.1), and
+tensor parallelism over its ``model`` axis
+``parallel.tensor_parallel.shard_network_params`` (A14.2); the fused
 epoch over a mesh (``fit_epochs``/``build_epoch_cache`` with ``mesh=``,
 ``request_reshard``) raises ``NotImplementedError`` naming ROADMAP
 A14.3.

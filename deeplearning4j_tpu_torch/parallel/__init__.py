@@ -7,17 +7,20 @@ model — one process per rank, a ``DeviceMesh`` over the world
 process group per axis — with the collectives written out
 (:mod:`.collectives`).
 
-Ported (ROADMAP A14.1): the mesh and its spec registry
-(:mod:`.sharding_registry`, the spec half of :mod:`.tensor_parallel`),
+Ported: the mesh and its spec registry (:mod:`.sharding_registry`),
 ``ParallelWrapper`` and ``ParameterAveragingTrainer``
 (:mod:`.data_parallel`), FSDP (:mod:`.fsdp`), ring attention over the
-flash kernels (:mod:`.ring_attention`) and Ulysses (:mod:`.ulysses`),
-plus ``FaultTolerantTrainer`` (:mod:`.cluster`, PR 12) and the work
-router's straggler rule (:mod:`.workrouter`).
+flash kernels (:mod:`.ring_attention`) and Ulysses (:mod:`.ulysses`)
+(ROADMAP A14.1); tensor parallelism over ``model``
+(:mod:`.tensor_parallel`, ``TransformerLM.shard_params``), the GPipe
+schedule over ``pipe`` (:mod:`.pipeline_parallel`) and the MoE FFN over
+``expert`` (:mod:`.expert_parallel`) (A14.2); ``FaultTolerantTrainer``
+(:mod:`.cluster`) and the work router's straggler rule
+(:mod:`.workrouter`).
 
-Importable but raising, naming their item: pipeline and expert
-parallelism (A14.2); the state tracker, the multi-host runtime and the
-rest of the work router (A14.3); the config registry (A15).
+Importable but raising, naming their item: the state tracker, the
+multi-host runtime and the rest of the work router (A14.3); the config
+registry (A15).
 """
 
 from deeplearning4j_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -48,6 +51,19 @@ from deeplearning4j_tpu_torch.parallel.fsdp import (  # noqa: F401
 from deeplearning4j_tpu_torch.parallel.cluster import (  # noqa: F401
     FaultTolerantTrainer,
 )
+from deeplearning4j_tpu_torch.parallel.pipeline_parallel import (  # noqa: F401
+    pipeline_train_step,
+    shard_stage_params,
+    split_microbatches,
+    spmd_pipeline,
+    stack_stage_params,
+)
+from deeplearning4j_tpu_torch.parallel.expert_parallel import (  # noqa: F401
+    MoEConfig,
+    init_moe_params,
+    moe_ffn,
+    shard_moe_params,
+)
 
 
 def _later(name: str, item: str, what: str):
@@ -60,11 +76,6 @@ def _later(name: str, item: str, what: str):
     return raise_later
 
 
-for _name in ("pipeline_train_step", "spmd_pipeline", "split_microbatches",
-              "stack_stage_params", "shard_stage_params"):
-    globals()[_name] = _later(_name, "A14.2", "pipeline parallelism")
-for _name in ("MoEConfig", "init_moe_params", "moe_ffn", "shard_moe_params"):
-    globals()[_name] = _later(_name, "A14.2", "expert parallelism")
 for _name in ("FileStateTracker", "InMemoryStateTracker", "Job",
               "StateTracker"):
     globals()[_name] = _later(_name, "A14.3", "the state tracker")

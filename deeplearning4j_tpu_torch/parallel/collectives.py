@@ -19,6 +19,17 @@ opposite rotations, of a sequence-to-heads reshard the heads-to-sequence
 one, and of an all-reduce the all-reduce of the gradient.
 :class:`SumSharesFn` sums a loss's shares and sends each share its own
 gradient.
+
+Tensor parallelism over ``model`` (Megatron) pairs two of them: **f**
+(:class:`CopyToShardsFn`: identity forward, all-reduce backward) where
+a replicated activation enters the column-split GEMMs, and **g**
+(:class:`SumSharesFn`: sum forward, identity backward) after the
+row-split GEMM. An all-reduce's summation order depends on the buffer
+size (gloo and NCCL chunk their rings by it), so a split network's
+inference sums its partials with :func:`fixed_order_sum` instead:
+gathered, then added in rank order in float64, so that the sum over
+ranks does not depend on the batch (the partials still come from the
+matrix library, whose order may).
 """
 
 from __future__ import annotations
@@ -178,6 +189,48 @@ class AllReduceFn(torch.autograd.Function):
         return all_reduce_(g.clone(), ctx.group), None
 
 
+class CopyToShardsFn(torch.autograd.Function):
+    """Megatron's f: the identity forward; backward, the sum over
+    ``group`` of the members' gradients. Placed where one replicated
+    tensor feeds each member's shard of a split computation, so that
+    its gradient is the whole computation's."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # a 16-bit gradient is summed in f32 and rounded once
+        return all_reduce_(g.float(), ctx.group).to(g.dtype), None
+
+
+def fixed_order_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of every member's ``x``, the same bytes in
+    every member: the partials are gathered and added in group order in
+    float64, then rounded once to ``x``'s dtype. The order does not
+    depend on the size of ``x``, as a ring all-reduce's does."""
+    n = dist.get_world_size(group)
+    parts = all_gather(x[None], group, 0)
+    acc = parts[0].double()
+    for i in range(1, n):
+        acc = acc + parts[i].double()
+    return acc.to(x.dtype)
+
+
+class FixedOrderSumFn(torch.autograd.Function):
+    """:func:`fixed_order_sum` forward, the identity backward (g)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return fixed_order_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class SumSharesFn(torch.autograd.Function):
     """The sum over ``group`` of each member's share of one quantity (a
     loss): every member gets the sum, and each member's gradient flows
@@ -191,3 +244,37 @@ class SumSharesFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class GatherShardsFn(torch.autograd.Function):
+    """The whole tensor from every member's shard along ``dim``
+    (:func:`all_gather`); backward, this member's chunk of the whole
+    gradient, not summed: every member ran the same whole computation
+    on the gathered tensor, so each already holds the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim: int):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.r = dist.get_rank(group)
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.r * ctx.n, ctx.n).contiguous(), \
+            None, None
+
+
+class RotateFn(torch.autograd.Function):
+    """Differentiable :func:`rotate` of one tensor: the backward rotates
+    the gradient the other way, so the backward collectives of a
+    schedule of rotations meet in every member."""
+
+    @staticmethod
+    def forward(ctx, x, group, shift: int):
+        ctx.group, ctx.shift = group, shift
+        return rotate([x], group, shift)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return rotate([g.contiguous()], ctx.group, -ctx.shift)[0], \
+            None, None

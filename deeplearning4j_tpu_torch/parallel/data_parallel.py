@@ -124,7 +124,22 @@ class ParallelWrapper:
         from deeplearning4j_tpu_torch.parallel.sharding_registry import (
             ShardingRegistry)
 
+        from deeplearning4j_tpu_torch.parallel.sharding_registry import (
+            model_axis_size)
+        from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+            shard_network_params)
+
         net = self.network
+        if model_axis_size(self.mesh) > 1:
+            # rows over data, each data group's model ranks splitting
+            # the layers as tensor_parallel does
+            if self.fsdp:
+                raise ValueError("fsdp=True over a mesh with a model axis "
+                                 "is unsupported")
+            if getattr(net, "_tp_mesh", None) is not self.mesh:
+                shard_network_params(net, self.mesh)
+            self._registry = net._sharding_registry
+            return
         reg = ShardingRegistry.for_network(net, self.mesh)
         if self.fsdp:
             reg = reg.with_fsdp(net.params)
@@ -132,10 +147,11 @@ class ParallelWrapper:
         reg.place_network(net)
 
     def gather(self):
-        """The whole ``(params, updater_state)`` (under ``fsdp=True``
-        gathered from every rank's parts; else the network's own)."""
+        """The whole ``(params, updater_state)`` (under ``fsdp=True`` or
+        tensor parallelism gathered from every rank's parts; else the
+        network's own)."""
         net = self.network
-        if not self.fsdp:
+        if not self.fsdp and getattr(net, "_tp_mesh", None) is None:
             return net.params, net.updater_state
         return (self._registry.gather(net.params),
                 self._registry.gather_state(net.updater_state))
@@ -228,7 +244,10 @@ class ParallelWrapper:
                                            self._rank))
                       for a in (ds.features, ds.labels, ds.features_mask,
                                 ds.labels_mask))
-        params, upd = self.gather()
+        # the step runs on whole params under FSDP, on this rank's
+        # shards under tensor parallelism (its layers gather their own)
+        params, upd = (self.gather() if self.fsdp
+                       else (net.params, net.updater_state))
         it = torch.full((), net.iteration_count, dtype=torch.int32,
                         device=net.device)
         lr = torch.full((), net._lr_scale_host, dtype=torch.float32,

@@ -18,12 +18,13 @@ model's param tree MUST be covered by an explicit spec — ``P()``
 :class:`UnmappedLeafError` at registry construction instead of silently
 falling back to replicated.
 
-What this slice places: the ``data`` axis (replicated leaves, batches,
-FSDP shards). Placement over the ``model`` axis (the Megatron specs are
-computed, but a step over TP shards is ``tensor_parallel
-.shard_network_params``), the row-sharded embedding tables and the
-serving KV-pool specs raise naming ROADMAP A14.2; the fused epoch
-program's output pins (``epoch_out_shardings``) name A14.3.
+Placement covers every axis: ``data`` (replicated leaves, batches,
+FSDP shards), ``model`` (the Megatron column/row splits that
+``TransformerLM.shard_params`` and ``tensor_parallel
+.shard_network_params`` step over, the serving K/V pool's head split,
+row-sharded embedding tables) and ``pipe`` (stacked stage params). The
+fused epoch program's output pins (``epoch_out_shardings``) name
+ROADMAP A14.3.
 
 Env knobs (resolved by :func:`mesh_from_env`):
 
@@ -95,12 +96,6 @@ class UnmappedLeafError(KeyError):
     """A param/updater leaf has no PartitionSpec in the registry — the
     registry refuses to guess (silent replication is a memory
     regression, silent sharding a numerics one)."""
-
-
-def a14_2(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} (tensor-parallel placement, sharded serving) is not "
-        "ported yet (ROADMAP A14.2)")
 
 
 def _entry_axes(entry) -> Tuple[str, ...]:
@@ -414,8 +409,21 @@ class ShardingRegistry:
 
     @classmethod
     def for_embedding_tables(cls, tables, mesh, *, row_shard: bool = False,
-                             name: str = "Word2Vec"):
-        raise a14_2("ShardingRegistry.for_embedding_tables")
+                             name: str = "Word2Vec"
+                             ) -> "ShardingRegistry":
+        """Registry for sparse embedding tables (word2vec's syn0/syn1neg,
+        GloVe's w/wc): ``row_shard=True`` splits the vocab dim over
+        ``model`` (``P("model", None)``), else replicate-all (the
+        data-parallel layout). A vocab the axis does not tile is
+        replicated, with a warning naming the table."""
+        if row_shard and model_axis_size(mesh) > 1:
+            raw = {k: P(MODEL_AXIS, None) for k in tables}
+        else:
+            raw = _replicate_all_tree(tables)
+        expanded = _expand(tables, raw, (), name)
+        return cls(mesh,
+                   _divisible_or_replicated(tables, expanded, mesh, name),
+                   name=name)
 
     # ------------------------------------------------------------------
     # lookup
@@ -450,14 +458,9 @@ class ShardingRegistry:
     # ------------------------------------------------------------------
     # placement
     # ------------------------------------------------------------------
-    def _check_placeable(self, shardings) -> None:
-        if model_axis_size(self.mesh) > 1 or pipe_axis_size(self.mesh) > 1:
-            raise a14_2(f"placing {self.name} over a model or pipe axis")
-
     def place(self, tree):
         """This rank's part of every param leaf under its spec."""
         sh = self.param_shardings(tree)
-        self._check_placeable(sh)
         return _rebuild(tree, [s.local(x) for x, s in
                                zip(tree_leaves(tree), tree_leaves_of(sh))])
 
@@ -503,7 +506,6 @@ class ShardingRegistry:
     def place_state(self, state_tree):
         """This rank's part of an updater-state tree mirroring params."""
         sh = self.state_shardings(state_tree)
-        self._check_placeable(sh)
         return _rebuild(state_tree, [
             s.local(x) for x, s in zip(tree_leaves(state_tree),
                                        tree_leaves_of(sh))])
@@ -552,10 +554,25 @@ class ShardingRegistry:
         raise mesh_not_ported("ShardingRegistry.epoch_out_shardings")
 
     def kv_pool_spec(self, n_kv_heads: int) -> PartitionSpec:
-        raise a14_2("ShardingRegistry.kv_pool_spec")
+        """Spec of a ``[L, S, T_max, Hkv, Dh]`` K/V pool: the heads split
+        over ``model`` as the attention params split them, so each rank
+        holds ``Hkv/model`` heads of every slot. Replicated, with a
+        warning, when the kv heads do not tile the axis (the GQA
+        fallback, where wk/wv replicate too)."""
+        tp = model_axis_size(self.mesh)
+        if tp > 1 and n_kv_heads % tp == 0:
+            return P(None, None, None, MODEL_AXIS, None)
+        if tp > 1:
+            logger.warning(
+                "KV pool TP fallback: %d kv heads do not tile the model "
+                "axis (size %d) — pool stays replicated", n_kv_heads, tp)
+        return P()
 
     def kv_scale_spec(self, n_kv_heads: int) -> PartitionSpec:
-        raise a14_2("ShardingRegistry.kv_scale_spec")
+        """The int8 scales ``[L, S, Hkv]``: the pool's head split."""
+        if self.kv_pool_spec(n_kv_heads) == P():
+            return P()
+        return P(None, None, MODEL_AXIS)
 
     # ------------------------------------------------------------------
     # contracts

@@ -28,9 +28,14 @@ plain counter of the distinct shapes served (``program_builds``,
 ``compile_counts``): one decode shape per slot count (and K), one prefill
 shape per prompt-ladder rung and pool. The port's only compiled artifacts
 are the kernel libraries; ``DL4J_COMPILE_CACHE_DIR`` points their build
-directory at a shared cache (``serving/compile_cache.py``). ``mesh=``
-(tensor-parallel serving) is not ported yet and raises
-``NotImplementedError`` naming ROADMAP A14.2.
+directory at a shared cache (``serving/compile_cache.py``).
+
+``mesh=`` serves tensor-parallel: the model's params are placed over the
+mesh's ``model`` axis (``TransformerLM.shard_params``, the split training
+uses), the slot pool splits its heads to match (``SlotKVCache(registry=)``)
+and every rank runs the same prefill and decode steps on its heads, in
+step with the others: the caller drives every rank alike
+(``DecodeServer(mesh=)`` does, rank 0 deciding).
 
 Numerics contract: a slot's greedy stream equals ``TransformerLM.generate``
 on the same prompt (speculative or not), and its sampled stream equals
@@ -57,7 +62,6 @@ from deeplearning4j_tpu_torch._device import resolve_device
 from deeplearning4j_tpu_torch.models.transformer import (
     filter_logits, sample_logits)
 from deeplearning4j_tpu_torch.monitor import metrics
-from deeplearning4j_tpu_torch.ops.attention import grouped_query_attention
 from deeplearning4j_tpu_torch.perf.bucketing import (
     DEFAULT_PROMPT_BUCKETS, pad_prompt, prompt_bucket)
 from deeplearning4j_tpu_torch.serving.compile_cache import (
@@ -183,7 +187,7 @@ def _decode_step_body(model, cache: SlotKVCache, tok: torch.Tensor,
             cv, cvs = requant_write_slab(
                 cache.v[li], cache.v_scale[li] if cache.quantized else None,
                 vv, rows, write_at)
-            return grouped_query_attention(
+            return model._attend(
                 q, dequant_slab(ck, cks, cdt), dequant_slab(cv, cvs, cdt),
                 mask=live)
         return attn
@@ -232,7 +236,7 @@ def _serve_verify_impl(model, cache: SlotKVCache, toks: torch.Tensor,
             cv, cvs = requant_write_slab(
                 cache.v[li], cache.v_scale[li] if cache.quantized else None,
                 vv, rows, write_at)
-            return grouped_query_attention(
+            return model._attend(
                 q, dequant_slab(ck, cks, cdt), dequant_slab(cv, cvs, cdt),
                 mask=live)
         return attn
@@ -367,6 +371,16 @@ def _serve_spec_impl(engine, k_rounds: int, tok: torch.Tensor,
     return torch.stack(blocks)                             # [K, S, G+2]
 
 
+def _placed(model, mesh):
+    """The registry of ``model``'s params on ``mesh``, placing them
+    (``shard_params``) unless they already are."""
+    if model._registry is None:
+        model.shard_params(mesh)
+    elif model._registry.mesh is not mesh:
+        raise ValueError("the model's params are placed on another mesh")
+    return model._registry
+
+
 class DecodeEngine:
     """Owns the slot pool(s) and the prefill/decode steps.
 
@@ -393,10 +407,6 @@ class DecodeEngine:
         if top_k is not None and not 1 <= top_k <= model.vocab_size:
             raise ValueError(
                 f"top_k={top_k} must be in [1, vocab={model.vocab_size}]")
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh=) is not ported yet "
-                "(ROADMAP A14.2)")
         self.device = resolve_device(device)
         if not _same_device(self.device, model.device):
             raise ValueError(
@@ -404,7 +414,10 @@ class DecodeEngine:
                 f"{model.device}; pass device={str(model.device)!r}")
         model._ensure_init()
         self.model = model
-        self.cache = SlotKVCache(model, slots, max_len, kv_dtype)
+        self.mesh = mesh
+        self.registry = None if mesh is None else _placed(model, mesh)
+        self.cache = SlotKVCache(model, slots, max_len, kv_dtype,
+                                 registry=self.registry)
         self.slots = self.cache.slots
         self.max_len = self.cache.max_len
         self.kv_dtype = self.cache.kv_dtype
@@ -443,10 +456,17 @@ class DecodeEngine:
             self.draft_model = draft_model
         self.draft_cache = None
         if self.draft_model is not None:
+            # an independent draft gets its own placement (its own layer
+            # count and head split); the shallow draft's tensors are the
+            # target's shards, so the target's registry prices its pool
+            draft_reg = self.registry
+            if mesh is not None and draft_model is not None:
+                draft_reg = _placed(draft_model, mesh)
             # same slot count and positions as the target pool (the
             # constructor re-checks the draft's own position table)
             self.draft_cache = SlotKVCache(self.draft_model, self.slots,
-                                           self.max_len, kv_dtype)
+                                           self.max_len, kv_dtype,
+                                           registry=draft_reg)
         # a cold replica loads the kernel libraries from the shared cache
         # directory (DL4J_COMPILE_CACHE_DIR) instead of running nvcc
         ensure_compile_cache()
@@ -469,6 +489,7 @@ class DecodeEngine:
         draft.params = {k: v for k, v in model.params.items()
                         if k != "blocks"}
         draft.params["blocks"] = model.params["blocks"][:n]
+        draft._tp, draft._registry = model._tp, model._registry
         return draft
 
     # ------------------------------------------------------------------

@@ -17,6 +17,10 @@ Quantized pool (``kv_dtype="int8"`` / ``DL4J_SERVE_KV_DTYPE``): per-(layer,
 slot, head) absmax scales in f32 beside the pool; a write whose absmax
 exceeds the stored scale requantizes that slot-head's entries first
 (:func:`requant_write_slab`), so streamed writes never clip.
+
+Tensor-parallel serving (``registry=``): each rank holds the heads its
+shards of wk/wv emit, ``Hkv/model`` of every slot (the registry's
+``kv_pool_spec``), or all of them under the GQA fallback.
 """
 
 from __future__ import annotations
@@ -63,9 +67,10 @@ def _elem_bytes(name: str) -> int:
     return torch.empty((), dtype=_TORCH_DTYPES[name]).element_size()
 
 
-def _pool_dims(model, slots: int, max_len: int):
+def _pool_dims(model, slots: int, max_len: int, kv_heads=None):
     dh = model.d_model // model.num_heads
-    return (model.num_layers, slots, max_len, model.num_kv_heads, dh)
+    return (model.num_layers, slots, max_len,
+            model.num_kv_heads if kv_heads is None else kv_heads, dh)
 
 
 def kv_pool_nbytes(model, slots: int, max_len: Optional[int] = None,
@@ -131,11 +136,12 @@ class SlotKVCache:
     """``[L, S, T_max, Hkv, Dh]`` K/V pools + per-slot cursors, on the
     model's device."""
 
-    # the slot pool is single-replica device state
+    # the slot pool is single-replica device state, unless a registry
+    # splits its heads over ``model`` (then the ranks' count)
     n_shard = 1
 
     def __init__(self, model, slots: int, max_len: Optional[int] = None,
-                 kv_dtype: Optional[str] = None):
+                 kv_dtype: Optional[str] = None, registry=None):
         if slots < 1:
             raise ValueError(f"slots={slots} must be >= 1")
         self.slots = int(slots)
@@ -150,7 +156,16 @@ class SlotKVCache:
                 "pos_encoding='rope' to serve past it")
         self.kv_dtype = resolve_kv_dtype(kv_dtype, model)
         dev = model.device
-        shape = _pool_dims(model, self.slots, self.max_len)
+        self.registry = registry
+        kv_heads = None
+        if registry is not None:
+            from deeplearning4j_tpu_torch.parallel.sharding_registry import (
+                P, model_axis_size)
+
+            if registry.kv_pool_spec(model.num_kv_heads) != P():
+                self.n_shard = model_axis_size(registry.mesh)
+                kv_heads = model.num_kv_heads // self.n_shard
+        shape = _pool_dims(model, self.slots, self.max_len, kv_heads)
         store = _TORCH_DTYPES[self.kv_dtype]
         self.k = torch.zeros(shape, dtype=store, device=dev)
         self.v = torch.zeros(shape, dtype=store, device=dev)
@@ -191,15 +206,18 @@ class SlotKVCache:
             view.k_scale = self.k_scale[:, pick]
             view.v_scale = self.v_scale[:, pick]
         view.cursors = self.cursors[pick]
+        view.registry, view.n_shard = self.registry, self.n_shard
         return view
 
     @property
     def nbytes(self) -> int:
-        """Device footprint of the pool state, scales included."""
+        """Footprint of the whole pool state, scales included: over
+        ``n_shard`` ranks each holds ``nbytes / n_shard``."""
         tensors = [self.k, self.v]
         if self.quantized:
             tensors += [self.k_scale, self.v_scale]
-        return sum(t.numel() * t.element_size() for t in tensors)
+        return self.n_shard * sum(t.numel() * t.element_size()
+                                  for t in tensors)
 
     @property
     def per_slot_nbytes(self) -> int:

@@ -175,13 +175,22 @@ def run_open_loop(server, schedule: List[Arrival], *,
     and the server drained."""
     clock = clock or time.monotonic
     sleep = sleep or time.sleep
+    # the ranks of a tensor-parallel server step together: each takes
+    # rank 0's view of which arrivals are due and whether to go on
+    agree = getattr(server, "agree", lambda value: value)
     report = LoadReport()
     t0 = clock()
     i = 0
     reqs = []
-    while i < len(schedule) or server.busy():
+    while True:
         now = clock() - t0
-        while i < len(schedule) and schedule[i].arrival_s <= now:
+        due = i
+        while due < len(schedule) and schedule[due].arrival_s <= now:
+            due += 1
+        due, go = agree((due, i < len(schedule) or server.busy()))
+        if not go:
+            break
+        while i < due:
             a = schedule[i]
             i += 1
             # the arrival's deadline is a budget from NOW; the server

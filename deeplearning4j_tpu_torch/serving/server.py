@@ -1,8 +1,7 @@
 """DecodeServer: continuous batching over the slot pool.
 
-Port of ``deeplearning4j_tpu/serving/server.py`` (``mesh=`` raises,
-naming ROADMAP A14.2). The loop, per ``step()`` (a step is a fusion
-boundary):
+Port of ``deeplearning4j_tpu/serving/server.py``. The loop, per
+``step()`` (a step is a fusion boundary):
 
 1. **admit** — handed-off slabs first (``admit_external``: their prefill
    ran on another replica), then queued requests into free slots; each
@@ -17,6 +16,18 @@ The host reads back one token block per dispatch ([S] at K=1, [K, S]
 fused, [K, S, G+2] speculative); that readback is the loop's
 synchronisation point. Deadlines, criticality shedding and the bounded
 queue behave as in the reference.
+
+Tensor-parallel serving (``mesh=``, or ``DL4J_MESH_SHAPE`` /
+``DL4J_TP_SHARDS`` through ``mesh_from_env`` when no mesh is passed):
+every rank of the ``model`` axis runs its own copy of this loop, and
+each ``step()`` is collective. Whatever the loop decides from a clock
+(deadlines, shedding, admissions) rank 0 decides: at each step it
+broadcasts its decisions since the last one (sheds, cancels,
+rejections) and the step's admissions, with the requests themselves,
+and the other ranks apply them, so every rank runs the same prefills
+and decodes. A follower's own ``submit`` only records its request;
+its state follows rank 0's. ``drain`` and ``loadgen.run_open_loop``
+take rank 0's view of when to stop and of which arrivals are due.
 
 Randomness: a sampled request draws from a ``torch.Generator`` seeded
 with its seed; a speculative server gives it a second one for the draft's
@@ -78,6 +89,11 @@ class DecodeServer:
                            else serve_fuse_steps())
         if self.fuse_steps < 1:
             raise ValueError(f"fuse_steps={fuse_steps} must be >= 1")
+        if mesh is None:
+            from deeplearning4j_tpu_torch.parallel.sharding_registry import (
+                mesh_from_env)
+
+            mesh = mesh_from_env(device=device)
         self.engine = DecodeEngine(
             model, slots if slots is not None else serve_slots(),
             max_len=max_len, temperature=temperature, top_k=top_k,
@@ -118,6 +134,19 @@ class DecodeServer:
         self.spec_proposed = 0
         self.spec_accepted = 0
         self._reg = metrics()
+        # tensor-parallel serving: rank 0 of the model axis decides
+        self._group = None
+        self._leader = True
+        self._seq = 0                 # submissions so far, the same in
+        #                               every rank of a mesh server
+        self._by_seq: dict = {}       # a follower's undecided requests
+        self._log: List[tuple] = []   # rank 0's decisions since a step
+        if mesh is not None:
+            from deeplearning4j_tpu_torch.parallel.mesh import (
+                MODEL_AXIS, axis_group, axis_rank)
+
+            self._group = axis_group(mesh, MODEL_AXIS)
+            self._leader = axis_rank(mesh, MODEL_AXIS) == 0
 
     # ------------------------------------------------------------------
     # submission
@@ -172,6 +201,17 @@ class DecodeServer:
                            seed=seed, deadline_s=deadline_s,
                            criticality=criticality, replay=int(replay))
         req.submit_s = now
+        if self._group is not None:
+            req.mesh_seq = self._seq
+            self._seq += 1
+            if not self._leader:  # its fate is rank 0's to decide
+                old = self._by_seq.get(req.mesh_seq)
+                if old is None:
+                    self._by_seq[req.mesh_seq] = req
+                elif old.state != "running":  # rank 0 admitted it first
+                    del self._by_seq[req.mesh_seq]
+                return AdmissionVerdict(admitted=True, request=old or req,
+                                        queue_depth=len(self.queue))
         if req.expired(now):
             self._shed(req, where="admission", reason="deadline", now=now)
             self._reg.counter("serve_requests_total").inc(event="rejected")
@@ -183,6 +223,7 @@ class DecodeServer:
             if displace:
                 admitted, victim = self.queue.displace(req)
             if not admitted:
+                self._note("rejected", req)
                 self._reg.counter("serve_requests_total").inc(
                     event="rejected")
                 return AdmissionVerdict(admitted=False,
@@ -201,6 +242,7 @@ class DecodeServer:
               now: float, displaced_by: Optional[int] = None) -> None:
         """Shed one request with its evidence (``shed_log``, a
         ``serve.shed`` event, counters)."""
+        self._note("shed", req, where, reason, displaced_by)
         req.state = "shed"
         req.shed_reason = reason
         req.finish_s = now
@@ -231,6 +273,9 @@ class DecodeServer:
         handed-off slab and cursor in it; the request then decodes like a
         locally prefilled one. ``req`` must already carry its first token
         (sampled by the prefill replica, which recorded its TTFT)."""
+        if self._group is not None:
+            raise ValueError("handoff into a tensor-parallel server is "
+                             "unsupported: the slab is one rank's heads")
         if self.engine.spec:
             raise ValueError(
                 "handoff into a speculative decode server is "
@@ -273,6 +318,7 @@ class DecodeServer:
         while req is not None:
             now = self.clock()
             if req.canceled:
+                self._note("canceled", req)
                 req.state = "canceled"
             elif req.expired(now):
                 self._shed(req, where="queue", reason="deadline", now=now)
@@ -319,32 +365,111 @@ class DecodeServer:
             req = self._pop_live_request()
             if req is None:
                 break
-            with tracer().span("serve.prefill", request=req.id, slot=slot,
-                               prompt_len=int(req.prompt.shape[0])):
-                gen = self._generator(req.seed)
-                if self.engine.spec:
-                    self._draft_gens[slot] = self._generator(
-                        draft_seed(req.seed))
-                tok = int(self.engine.prefill(req.prompt, slot, gen,
-                                              replay=req.replay))
-            now = self.clock()
-            req.state = "running"
-            req.slot = slot
-            req.first_token_s = now
-            req.tokens.append(tok)
-            self._slot_req[slot] = req
-            self._gens[slot] = gen
-            self._last_tok[slot] = tok
-            self._last_tok_s[slot] = now
-            if req.ttft_s is not None:
-                self._reg.histogram("serve_ttft_seconds",
-                                    buckets=_LATENCY_BUCKETS
-                                    ).observe(req.ttft_s)
-            self._reg.counter("serve_tokens_total").inc()
+            self._admit_one(slot, req)
             admitted += 1
-            if len(req.tokens) >= req.max_new_tokens:
-                self._retire(slot, now)
         return admitted
+
+    def _admit_one(self, slot: int, req: ServeRequest) -> None:
+        """Prefill ``req`` into the free ``slot``."""
+        with tracer().span("serve.prefill", request=req.id, slot=slot,
+                           prompt_len=int(req.prompt.shape[0])):
+            gen = self._generator(req.seed)
+            if self.engine.spec:
+                self._draft_gens[slot] = self._generator(
+                    draft_seed(req.seed))
+            tok = int(self.engine.prefill(req.prompt, slot, gen,
+                                          replay=req.replay))
+        now = self.clock()
+        req.state = "running"
+        req.slot = slot
+        req.first_token_s = now
+        req.tokens.append(tok)
+        self._slot_req[slot] = req
+        self._gens[slot] = gen
+        self._last_tok[slot] = tok
+        self._last_tok_s[slot] = now
+        if req.ttft_s is not None:
+            self._reg.histogram("serve_ttft_seconds",
+                                buckets=_LATENCY_BUCKETS
+                                ).observe(req.ttft_s)
+        self._reg.counter("serve_tokens_total").inc()
+        if len(req.tokens) >= req.max_new_tokens:
+            self._retire(slot, now)
+
+    # ------------------------------------------------------------------
+    # tensor-parallel serving: rank 0 decides, the others follow
+    # ------------------------------------------------------------------
+    def _note(self, kind: str, req: ServeRequest, *args) -> None:
+        """Record one of rank 0's decisions about ``req`` for the next
+        step's broadcast."""
+        if self._group is not None and self._leader:
+            self._log.append((kind, req.mesh_seq) + args)
+
+    def agree(self, value):
+        """Rank 0's ``value`` in every rank of a mesh server (a
+        collective); ``value`` itself otherwise."""
+        if self._group is None:
+            return value
+        import torch.distributed as dist
+
+        box = [value]
+        dist.broadcast_object_list(
+            box, src=dist.get_global_rank(self._group, 0), group=self._group)
+        return box[0]
+
+    def _lead(self) -> None:
+        """Rank 0: sweep, choose the admissions, broadcast them with the
+        decisions logged since the last step, then prefill."""
+        self._sweep_expired()
+        picks = []
+        for slot in self._free_slots():
+            req = self._pop_live_request()
+            if req is None:
+                break
+            picks.append((slot, req))
+        admits = [(slot, req.mesh_seq, req.prompt, req.max_new_tokens,
+                   req.seed, req.deadline_s, req.criticality, req.replay)
+                  for slot, req in picks]
+        self.agree({"log": self._log, "admit": admits})
+        self._log = []
+        for slot, req in picks:
+            self._admit_one(slot, req)
+
+    def _follow(self) -> None:
+        """Every other rank: apply rank 0's decisions, then run the same
+        prefills. A request leaves ``_by_seq`` once decided (a running
+        one when it retires), unless it was not submitted here yet."""
+        plan = self.agree(None)
+        now = self.clock()
+        for kind, seq, *args in plan["log"]:
+            req = self._by_seq.get(seq)
+            if req is None:
+                continue
+            self._decided(req)
+            if req.slot is not None and self._slot_req[req.slot] is req:
+                self._free(req.slot)
+            if kind == "shed":
+                where, reason, by = args
+                self._shed(req, where=where, reason=reason, now=now,
+                           displaced_by=by)
+            elif kind == "canceled":
+                req.state = "canceled"
+        for (slot, seq, prompt, max_new, seed, deadline, crit,
+             replay) in plan["admit"]:
+            req = self._by_seq.get(seq)
+            if req is None:   # submitted here later than on rank 0
+                req = ServeRequest(prompt=prompt, max_new_tokens=max_new,
+                                   seed=seed, deadline_s=deadline,
+                                   criticality=crit, replay=replay)
+                req.submit_s, req.mesh_seq = now, seq
+                self._by_seq[seq] = req
+            self._admit_one(slot, req)
+
+    def _decided(self, req: ServeRequest) -> None:
+        """A follower forgets a request whose fate is settled, once its
+        own ``submit`` of it has come."""
+        if self._group is not None and req.mesh_seq < self._seq:
+            self._by_seq.pop(req.mesh_seq, None)
 
     def _free(self, slot: int) -> None:
         self._slot_req[slot] = None
@@ -353,6 +478,7 @@ class DecodeServer:
 
     def _retire(self, slot: int, now: float) -> None:
         req = self._slot_req[slot]
+        self._decided(req)
         req.state = "finished"
         req.finish_s = now
         self._free(slot)
@@ -394,6 +520,7 @@ class DecodeServer:
         for slot in self._live_slots():
             req = self._slot_req[slot]
             if req.canceled:
+                self._note("canceled", req)
                 req.state = "canceled"
                 self._free(slot)
                 self._reg.counter("serve_requests_total").inc(
@@ -407,8 +534,13 @@ class DecodeServer:
         """One scheduler iteration: shed expired/canceled slots, admit,
         then one decode dispatch. Returns False when nothing was live."""
         with tracer().span("serve.step") as sp:
-            self._sweep_expired()
-            self._admit()
+            if self._group is None:
+                self._sweep_expired()
+                self._admit()
+            elif self._leader:
+                self._lead()
+            else:
+                self._follow()
             live = self._live_slots()
             self._reg.gauge("serve_queue_depth").set(len(self.queue))
             self._reg.gauge("serve_slot_occupancy").set(
@@ -467,7 +599,7 @@ class DecodeServer:
     def drain(self, max_steps: Optional[int] = None) -> int:
         """Step until queue and slots are empty; returns steps taken."""
         taken = 0
-        while self.busy():
+        while self.agree(self.busy()):
             self.step()
             taken += 1
             if max_steps is not None and taken >= max_steps:

@@ -16,6 +16,12 @@ kill mid-write leaves the last complete step as the latest. After each
 save only the newest ``keep`` steps remain. The two packages exchange
 models through ModelSerializer zips; neither reads the other's checkpoint
 directories.
+
+A network sharded over a mesh (``TransformerLM.shard_params``,
+``tensor_parallel.shard_network_params``, FSDP) is saved whole:
+``save_network`` gathers its state in every rank (a collective) and
+rank 0 writes it; ``restore_network`` reads the whole state and places
+each rank's part onto the network's own sharding.
 """
 
 from __future__ import annotations
@@ -122,8 +128,7 @@ class NetworkCheckpointer:
         self.keep = keep
 
     def save(self, network, step: int) -> None:
-        save_checkpoint(self.directory, _network_state(network), step,
-                        keep=self.keep)
+        save_network(self.directory, network, step, keep=self.keep)
 
     def close(self) -> None:
         pass
@@ -139,22 +144,41 @@ def _network_state(network) -> dict:
             f"cannot checkpoint {type(network).__name__}: expected a "
             "MultiLayerNetwork/ComputationGraph/TransformerLM")
     ensure()
+    reg = _registry(network)
     if hasattr(network, "opt_state") and hasattr(network, "step_count"):
-        return {
-            "params": network.params,
-            "updater_state": network.opt_state,
-            "iteration": network.step_count,
-        }
-    if not hasattr(network, "updater_state"):
+        params, state = network.params, network.opt_state
+        it = network.step_count
+    elif hasattr(network, "updater_state"):
+        params, state = network.params, network.updater_state
+        it = network.iteration_count
+    else:
         raise TypeError(
             f"cannot checkpoint {type(network).__name__}: expected a "
             "MultiLayerNetwork/ComputationGraph/TransformerLM")
-    return {
-        "params": network.params,
-        "updater_state": network.updater_state,
-        "net_state": network.net_state,
-        "iteration": network.iteration_count,
-    }
+    if reg is not None:
+        params, state = reg.gather(params), reg.gather_state(state)
+    out = {"params": params, "updater_state": state, "iteration": it}
+    if not hasattr(network, "opt_state"):
+        out["net_state"] = network.net_state
+    return out
+
+
+def _registry(network):
+    """The sharding registry a network's state is split under (None
+    when every rank holds it whole)."""
+    reg = (getattr(network, "_registry", None)
+           or getattr(network, "_sharding_registry", None))
+    if reg is None or not reg.describe()["sharded_leaves"]:
+        return None
+    return reg
+
+
+def _writes() -> bool:
+    """Whether this process writes a sharded network's checkpoint: rank
+    0 of the world (every process without one)."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def save_network(directory: str, network, step: Optional[int] = None,
@@ -162,9 +186,21 @@ def save_network(directory: str, network, step: Optional[int] = None,
     """Checkpoint a network's training state as step ``step`` (its
     iteration count when None)."""
     state = _network_state(network)
-    save_checkpoint(directory, state,
-                    step if step is not None else int(state["iteration"]),
-                    keep=keep)
+    sharded = _registry(network) is not None
+    if not sharded or _writes():
+        save_checkpoint(directory, state,
+                        step if step is not None else int(state["iteration"]),
+                        keep=keep)
+    if sharded and _world():
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+def _world() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_initialized() and dist.get_world_size() > 1
 
 
 def restore_network(directory: str, network, step: Optional[int] = None):
@@ -173,12 +209,16 @@ def restore_network(directory: str, network, step: Optional[int] = None):
     target = _network_state(network)
     target["iteration"] = 0
     state = restore_checkpoint(directory, target=target, step=step)
-    network.params = state["params"]
+    params, upd = state["params"], state["updater_state"]
+    reg = _registry(network)
+    if reg is not None:
+        params, upd = reg.place(params), reg.place_state(upd)
+    network.params = params
     if hasattr(network, "opt_state"):
-        network.opt_state = state["updater_state"]
+        network.opt_state = upd
         network.step_count = int(state["iteration"])
     else:
-        network.updater_state = state["updater_state"]
+        network.updater_state = upd
         network.net_state = state["net_state"]
         network.iteration_count = int(state["iteration"])
     return network

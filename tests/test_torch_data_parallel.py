@@ -392,14 +392,24 @@ def test_later_items_raise_naming_them(world_of_one):
     mesh = build_mesh(device="cpu")
     net = zoo.mnist_mlp(hidden=8, device="cpu").init()
     r = reg.ShardingRegistry.for_network(net, mesh)
-    for fn in (lambda: r.kv_pool_spec(2),
-               lambda: reg.ShardingRegistry.for_embedding_tables({}, mesh),
-               lambda: port_tp.shard_network_params(net, mesh),
-               lambda: TransformerLM(vocab_size=8, d_model=8, num_heads=1,
-                                     device="cpu").shard_params(mesh),
-               lambda: par.moe_ffn(), lambda: par.spmd_pipeline()):
-        with pytest.raises(NotImplementedError, match=r"A14\.2"):
-            fn()
+    # the model axis's items (A14.2) are ported: over a mesh of one they
+    # place nothing and replicate
+    assert r.kv_pool_spec(2) == reg.P() and r.kv_scale_spec(2) == reg.P()
+    tables = reg.ShardingRegistry.for_embedding_tables(
+        {"syn0": torch.zeros(4, 2)}, mesh, row_shard=True)
+    assert tables.spec_for("syn0") == reg.P()
+    before = [x.clone() for x in tree_leaves(net.params)]
+    port_tp.shard_network_params(net, mesh)
+    assert all(torch.equal(a, b)
+               for a, b in zip(before, tree_leaves(net.params)))
+    lm = TransformerLM(vocab_size=8, d_model=8, num_heads=1,
+                       device="cpu").shard_params(mesh)
+    assert lm._tp is None and lm.make_train_step(mesh=mesh).captured
+    from deeplearning4j_tpu_torch.parallel import (
+        expert_parallel, pipeline_parallel)
+
+    assert par.moe_ffn is expert_parallel.moe_ffn
+    assert par.spmd_pipeline is pipeline_parallel.spmd_pipeline
     w = ParallelWrapper(net, mesh=mesh)
     for fn in (lambda: w.fit_epochs([], 1), lambda: w.request_reshard(None),
                lambda: w.build_epoch_cache([]),

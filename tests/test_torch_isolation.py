@@ -79,7 +79,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     "deeplearning4j_tpu_torch.plot", "deeplearning4j_tpu_torch.models.rntn",
     "deeplearning4j_tpu_torch.parallel.mesh",
     "deeplearning4j_tpu_torch.parallel.ring_attention",
-    "deeplearning4j_tpu_torch.parallel.data_parallel"])
+    "deeplearning4j_tpu_torch.parallel.data_parallel",
+    "deeplearning4j_tpu_torch.parallel.tensor_parallel",
+    "deeplearning4j_tpu_torch.parallel.pipeline_parallel",
+    "deeplearning4j_tpu_torch.parallel.expert_parallel"])
 def test_front_door_modules_import_first(module):
     """Each imports on its own in a fresh interpreter (no import cycle
     through ``nn``)."""
@@ -261,7 +264,8 @@ def test_tree_and_clustering_entry_points_raise_without_a_card(monkeypatch):
 
 def test_mesh_entry_points_raise_without_a_card(monkeypatch):
     """A mesh, and the wrappers that build one, are on the card unless
-    told ``cpu``; the later parallel items raise naming theirs."""
+    told ``cpu`` (the MoE's weights too); the later parallel items
+    raise naming theirs."""
     import deeplearning4j_tpu_torch.parallel as par
     from deeplearning4j_tpu_torch.models import zoo
     from deeplearning4j_tpu_torch.parallel import (
@@ -274,8 +278,9 @@ def test_mesh_entry_points_raise_without_a_card(monkeypatch):
         mesh.join_world("unused", 0, 1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ParallelWrapper(zoo.mnist_mlp(hidden=8))
-    for name, item in (("spmd_pipeline", "A14.2"), ("moe_ffn", "A14.2"),
-                       ("HeartbeatMonitor", "A14.3"),
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        par.init_moe_params(par.MoEConfig(4, 8, 2), torch.Generator())
+    for name, item in (("HeartbeatMonitor", "A14.3"),
                        ("IterativeReduceWorkRouter", "A14.3"),
                        ("ConfigRegistry", "A15")):
         with pytest.raises(NotImplementedError, match=item):

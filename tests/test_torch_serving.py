@@ -145,10 +145,17 @@ def test_engine_steps_and_counts():
     assert torch.equal(block[3], block[2])       # frozen after 3 steps
     assert eng.compile_counts() == {"decode": 2, "prefill_buckets": [16],
                                     "total": 3}
-    # speculative decoding needs a draft; mesh= is ROADMAP A14
+    # speculative decoding needs a draft; mesh= places the model on the
+    # mesh (one device here: nothing is split) and prices the pool
     assert DecodeEngine(lm, 2, draft_layers=1, device="cpu").spec
-    with pytest.raises(NotImplementedError, match="A14"):
-        DecodeEngine(lm, 2, mesh=object(), device="cpu")
+
+    class OneDevice:
+        mesh_dim_names, shape = ("data",), (1,)
+
+    mesh = OneDevice()
+    meshed = DecodeEngine(tm.TransformerLM(**CFG, device="cpu"), 2,
+                          mesh=mesh, device="cpu")
+    assert meshed.registry.mesh is mesh and meshed.cache.n_shard == 1
     with pytest.raises(ValueError, match="draft"):
         eng.decode_spec(np.zeros(2), np.zeros(2), [None] * 2, [None] * 2, 1)
 

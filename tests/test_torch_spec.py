@@ -163,9 +163,19 @@ def test_spec_validation_stats_and_counts():
     _, small = _pair(vocab_size=32)
     with pytest.raises(ValueError, match="vocab"):
         DecodeServer(lm, slots=1, draft_model=small, device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        DecodeServer(lm, slots=1, draft_layers=1, mesh=object(),
-                     device="cpu")
+    # a mesh of one device: the shallow draft shares the target's
+    # placement, an independent draft gets its own
+    class OneDevice:
+        mesh_dim_names, shape = ("data",), (1,)
+
+    mesh = OneDevice()
+    meshed = DecodeServer(TransformerLM(**CFG, device="cpu"), slots=1,
+                          draft_layers=1, mesh=mesh, device="cpu")
+    assert meshed.engine.draft_model._registry is meshed.engine.registry
+    other = TransformerLM(**{**CFG, "num_layers": 1}, device="cpu")
+    DecodeEngine(TransformerLM(**CFG, device="cpu"), 1, draft_model=other,
+                 mesh=mesh, device="cpu")
+    assert other._registry.mesh is mesh
     srv = DecodeServer(lm, slots=1, max_len=32, draft_layers=1,
                        spec_tokens=4, device="cpu")
     with pytest.raises(ValueError, match="speculative slack"):

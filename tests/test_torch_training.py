@@ -225,10 +225,21 @@ def test_train_attention_and_unported_options():
     assert lm._attn_impl(1024) == "xla"
     _, port = _pair()
     # sequence parallelism without a mesh is the meshless (captured)
-    # step, as in the reference; tensor-parallel placement is A14.2
+    # step, as in the reference; tensor-parallel placement over a mesh
+    # of one device places nothing and keeps the captured step
     assert port.make_train_step(sequence_parallel=True).captured
-    with pytest.raises(NotImplementedError, match=r"A14\.2"):
-        port.shard_params(object())
+
+    class OneDevice:
+        mesh_dim_names, shape = ("data",), (1,)
+
+    before = [p.clone() for p in jax.tree_util.tree_leaves(port.params)]
+    port.shard_params(OneDevice())
+    assert port._tp is None
+    assert all(torch.equal(a, b) for a, b in zip(
+        before, jax.tree_util.tree_leaves(port.params)))
+    assert port.make_train_step(mesh=OneDevice()).captured
+    port.shard_params(OneDevice())        # again: still nothing placed
+    assert port._tp is None and port.make_train_step().captured
 
 
 def test_flops_per_token_is_the_reference_benchmarks_count():

@@ -316,3 +316,322 @@ def dp_cases(rank, n, payload):
                    dispatches=net._train_dispatches)
         out[key] = res
     return out
+
+
+# ---------------------------------------------------------------------------
+# the model, pipe and expert axes (tests/test_torch_model_parallel.py)
+# ---------------------------------------------------------------------------
+def _tp_lm(case):
+    """A CPU TransformerLM carrying the case's JAX params, sharded over
+    the case's mesh."""
+    mesh = _mesh(**case["mesh"])
+    lm = _lm(case["cfg"], case["params"])
+    lm.shard_params(mesh)
+    return lm, mesh
+
+
+def tp_lm_cases(rank, n, payload):
+    """The LM over ``model`` (and ``data × model``): greedy and beam
+    tokens, one step's loss and whole gradients, forward logits, decode
+    rows at batch 1 and 5, and a step's launch of the attention per
+    rank's heads."""
+    import torch
+
+    from deeplearning4j_tpu_torch.dtypes import tree_leaves, tree_map
+    from deeplearning4j_tpu_torch.parallel.collectives import all_reduce_tree_
+    from deeplearning4j_tpu_torch.parallel.mesh import axis_group
+
+    out = {}
+    for key, case in payload["tp_lm"].items():
+        lm, mesh = _tp_lm(case)
+        res = {"wq_local": tuple(lm.params["blocks"][0]["attn"]["wq"].shape),
+               "wk_local": tuple(lm.params["blocks"][0]["attn"]["wk"].shape)}
+        tokens = torch.as_tensor(case["tokens"])
+        if case.get("decode"):
+            prompt = torch.as_tensor(case["prompt"])
+            res["greedy"] = lm.generate(prompt, case["new"]).numpy()
+            seqs, scores = lm.generate_beam(prompt, case["beam_new"],
+                                            beam_size=3)
+            res["beam"] = seqs.numpy()
+            res["beam_scores"] = scores.numpy()
+            res["logits"] = lm.forward(lm.params, tokens).numpy()
+            # the unsharded port on this rank's rows: the same bytes
+            one = _lm(case["cfg"], case["params"])
+            rows = lm._local_part(tokens, mesh, False)[0]
+            res["same_logits"] = bool(torch.equal(
+                torch.as_tensor(res["logits"])[rows],
+                one.forward(one.params, tokens[rows])))
+            oseqs, oscores = one.generate_beam(prompt, case["beam_new"],
+                                               beam_size=3)
+            res["same_beam"] = bool(torch.equal(seqs, oseqs)
+                                    and torch.equal(scores, oscores))
+        if case.get("grads"):
+            fwd = tree_map(lambda p: p.detach().requires_grad_(), lm.params)
+            loss = lm.loss(fwd, tokens, mesh=mesh, train=True)
+            grads = list(torch.autograd.grad(loss, tree_leaves(fwd)))
+            for axis in lm._mesh_axes(mesh, False):
+                all_reduce_tree_(grads, axis_group(mesh, axis))
+            it = iter(grads)
+            whole = lm._registry.gather(tree_map(lambda _: next(it), fwd))
+            res["loss"] = float(loss.detach())
+            res["grads"] = [g.numpy() for g in tree_leaves(whole)]
+            step = lm.make_train_step(mesh=mesh)
+            res["captured"] = step.captured
+            res["step_loss"] = lm.fit_batch(tokens, train_step=step)
+            params, _ = lm.gather_params()
+            res["params"] = _tree_np(params)
+        out[key] = res
+    return out
+
+
+def tp_invariance_case(rank, n, payload):
+    """One decode row alone and beside four others in a ``model=n``
+    engine: its logits must be the same bytes."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.serving.engine import (
+        DecodeEngine, _decode_step_body)
+
+    case = payload["tp_invariance"]
+    lm, mesh = _tp_lm(case)
+    eng = DecodeEngine(lm, 5, max_len=case["max_len"], mesh=mesh,
+                       device="cpu")
+    rng = np.random.default_rng(3)
+    for slot in range(5):
+        eng.prefill(rng.integers(0, 64, 6 + slot), slot)
+    tok = torch.as_tensor(rng.integers(0, 64, 5))
+    pos = eng.cache.cursors.clone()
+    alone = _decode_step_body(lm, eng.cache.slot_view(2), tok[2:3],
+                              pos[2:3])
+    batch = _decode_step_body(lm, eng.cache, tok, pos)
+    return {"equal": bool(torch.equal(alone[0], batch[2])),
+            "kv_local_heads": int(eng.cache.k.shape[3]),
+            "n_shard": eng.cache.n_shard}
+
+
+def tp_serve_cases(rank, n, payload):
+    """``DecodeEngine(mesh=)`` through ``DecodeServer(mesh=)`` on one
+    Poisson schedule under a fake clock: the greedy streams."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import DecodeServer
+    from deeplearning4j_tpu_torch.serving.loadgen import (
+        Arrival, run_open_loop)
+
+    out = {}
+    for key, case in payload["tp_serve"].items():
+        lm, mesh = _tp_lm(case)
+        t = [0.0]
+
+        def clock():
+            t[0] += 0.004
+            return t[0]
+
+        srv = DecodeServer(lm, slots=case["slots"], max_len=case["max_len"],
+                           kv_dtype=case.get("kv_dtype"),
+                           fuse_steps=case.get("fuse_steps", 1),
+                           mesh=mesh, device="cpu", clock=clock)
+        sched = [Arrival(**a) for a in case["schedule"]]
+        report = run_open_loop(srv, sched, clock=clock,
+                               sleep=lambda s: t.__setitem__(0, t[0] + s))
+        out[key] = {"streams": {r.prompt.tobytes(): np.asarray(r.output)
+                                for r in srv.finished},
+                    "finished": report.finished,
+                    "kv_shards": srv.stats()["kv_shards"],
+                    "pool_local_heads": int(srv.engine.cache.k.shape[3])}
+    return out
+
+
+def _tp_network(case):
+    from deeplearning4j_tpu_torch.models.convert import load_network_from_jax
+    from deeplearning4j_tpu_torch.nn.conf.graph import (
+        ComputationGraphConfiguration)
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+        shard_network_params)
+
+    if case.get("graph"):
+        net = load_network_from_jax(ComputationGraph(
+            ComputationGraphConfiguration.from_json(case["conf"]),
+            device="cpu").init(), *case["state"])
+    else:
+        net = _network(case)
+    mesh = _mesh(**case["mesh"])
+    if case.get("wrapper"):
+        from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+        return ParallelWrapper(net, mesh=mesh), mesh
+    shard_network_params(net, mesh)
+    return net, mesh
+
+
+def tp_network_cases(rank, n, payload):
+    """MultiLayerNetworks under ``shard_network_params``: the output
+    before and the whole state after ``fit``."""
+    import torch
+
+    out = {}
+    for key, case in payload["tp_net"].items():
+        net, mesh = _tp_network(case)
+        trainer = net
+        if case.get("wrapper"):   # rows over data, layers over model
+            net = trainer.network
+        impls = (net.layer_impls if case.get("graph")
+                 else dict(enumerate(net.layers)))
+        kinds = {str(k): type(v).__name__ for k, v in impls.items()}
+        x = torch.as_tensor(case["batches"][0][0])
+        y = net.output(x)
+        res = {"output": _np(y[0] if case.get("graph") else y),
+               "kinds": kinds}
+        for b in _batches(case):
+            trainer.fit(b)
+        reg = net._sharding_registry
+        res.update(params=_tree_np(reg.gather(net.params)),
+                   updater=_tree_np(reg.gather_state(net.updater_state)))
+        if case.get("unsharded"):   # the port's own fit on one device
+            ref = _network(case)
+            for b in _batches(case):
+                ref.fit(b)
+            res["unsharded_params"] = _tree_np(ref.params)
+        out[key] = res
+    return out
+
+
+def tp_checkpoint_case(rank, n, payload):
+    """A TP-sharded LM's checkpoint round trip: saved whole, restored
+    onto another model's shards."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.utils.checkpoint import (
+        restore_network, save_network)
+
+    case = payload["tp_checkpoint"]
+    lm, mesh = _tp_lm(case)
+    lm.fit_batch(np.asarray(case["tokens"]),
+                 train_step=lm.make_train_step(mesh=mesh))
+    save_network(case["dir"], lm, step=1)
+    other = _lm({**case["cfg"], "seed": 5})
+    other.shard_params(mesh)
+    restore_network(case["dir"], other)
+    same = _equal_trees(lm.params, other.params)
+    same_state = _equal_trees(lm.opt_state, other.opt_state)
+    return {"same_params": same, "same_state": same_state,
+            "step_count": other.step_count,
+            "wq_local": tuple(other.params["blocks"][0]["attn"]["wq"].shape)}
+
+
+def _equal_trees(a, b) -> bool:
+    """Same keys and the same bytes in every leaf, whatever the key
+    order."""
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal_trees(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_equal_trees, a, b))
+    return bool(torch.equal(a, b))
+
+
+def _pipe_stage_fn(params, x):
+    import torch
+
+    return torch.tanh(x @ params["W"] + params["b"])
+
+
+def pipe_cases(rank, n, payload):
+    """GPipe over ``pipe`` (and ``data × pipe``): outputs, gradients of
+    the mean-square loss and 20 SGD steps' losses."""
+    import torch
+
+    from deeplearning4j_tpu_torch.dtypes import tree_map
+    from deeplearning4j_tpu_torch.models.convert import params_from_jax
+    from deeplearning4j_tpu_torch.parallel import (
+        pipeline_train_step, shard_stage_params, split_microbatches,
+        spmd_pipeline)
+    from deeplearning4j_tpu_torch.parallel.collectives import (
+        all_gather, all_reduce_tree_)
+    from deeplearning4j_tpu_torch.parallel.mesh import (
+        PIPE_AXIS, axis_group, axis_size)
+
+    out = {}
+    for key, case in payload["pipe"].items():
+        mesh = _mesh(**case["mesh"])
+        stacked = params_from_jax(case["stacked"])
+        x = torch.as_tensor(case["x"])
+        y = torch.as_tensor(case["y"])
+        local = tree_map(lambda p: p.requires_grad_(),
+                         shard_stage_params(stacked, mesh))
+        res = {"out": _np(spmd_pipeline(
+            _pipe_stage_fn, local, split_microbatches(x, case["micro"]),
+            mesh).reshape(x.shape))}
+        pred = spmd_pipeline(_pipe_stage_fn, local, split_microbatches(
+            x, case["micro_grad"]), mesh).reshape(x.shape)
+        loss = ((pred - y) ** 2).mean()
+        grads = list(torch.autograd.grad(loss, [local["W"], local["b"]]))
+        # the whole stack's gradient: summed over the data groups' rows,
+        # the stages gathered over pipe
+        if axis_size(mesh, "data") > 1:
+            all_reduce_tree_(grads, axis_group(mesh, "data"))
+        group = axis_group(mesh, PIPE_AXIS)
+        res["grads"] = [_np(all_gather(g, group, 0)) for g in grads]
+        step = pipeline_train_step(
+            _pipe_stage_fn, lambda p, t: ((p - t) ** 2).mean(), mesh,
+            n_microbatches=case["micro"], learning_rate=0.5)
+        params = shard_stage_params(params_from_jax(case["train_stacked"]),
+                                    mesh)
+        losses = []
+        for _ in range(21):
+            params, l_ = step(params, x, y)
+            losses.append(float(l_))
+        res["losses"] = losses
+        out[key] = res
+    return out
+
+
+def moe_cases(rank, n, payload):
+    """The MoE FFN over ``expert``: y, aux, the router's and this
+    rank's experts' gradients gathered whole, and 31 SGD steps."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.convert import params_from_jax
+    from deeplearning4j_tpu_torch.parallel import (
+        MoEConfig, moe_ffn, shard_moe_params)
+    from deeplearning4j_tpu_torch.parallel.collectives import all_gather
+    from deeplearning4j_tpu_torch.parallel.mesh import (
+        EXPERT_AXIS, axis_group)
+
+    case = payload["moe"]
+    cfg = MoEConfig(**case["cfg"])
+    mesh = _mesh(**case["mesh"])
+    group = axis_group(mesh, EXPERT_AXIS)
+    params = shard_moe_params(params_from_jax(case["params"]), mesh)
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    x = torch.as_tensor(case["x"])
+    y, aux = moe_ffn(params, x, cfg, mesh)
+    res = {"y": _np(y), "aux": float(aux)}
+    target = torch.as_tensor(case["target"])
+    loss = ((y - target) ** 2).mean() + aux
+    names = ["Wg", "W1", "b1", "W2", "b2"]
+    grads = torch.autograd.grad(loss, [params[k] for k in names])
+    res["grads"] = {k: _np(g if k == "Wg" else all_gather(g, group, 0))
+                    for k, g in zip(names, grads)}
+    drop_cfg = MoEConfig(**case["drop_cfg"])
+    dp = shard_moe_params(params_from_jax(case["drop_params"]), mesh)
+    res["dropped"] = _np(moe_ffn(dp, torch.as_tensor(case["drop_x"]),
+                                 drop_cfg, mesh)[0])
+    p = shard_moe_params(params_from_jax(case["train_params"]), mesh)
+    xt, yt = torch.as_tensor(case["train_x"]), torch.as_tensor(
+        case["train_y"])
+    losses = []
+    for _ in range(31):
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        o, a = moe_ffn(leaves, xt, cfg, mesh)
+        l_ = ((o - yt) ** 2).mean() + a
+        g = torch.autograd.grad(l_, list(leaves.values()))
+        p = {k: (v - 0.1 * gi).detach()
+             for (k, v), gi in zip(leaves.items(), g)}
+        losses.append(float(l_))
+    res["losses"] = losses
+    return res
