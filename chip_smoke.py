@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Sixteen phases; any failure exits non-zero and prints no result line.
+Seventeen phases; any failure exits non-zero and prints no result line.
 
 1. Build and device: compile every CUDA kernel from ``csrc/`` (one
    ``nvcc`` per source, all at once), print ptxas's registers and spill
@@ -354,6 +354,29 @@ Sixteen phases; any failure exits non-zero and prints no result line.
    prints its ms, params and peak memory per rank, and one ``[16, 1024,
    512]`` f32 all-reduce's ms. Then B1/B2/B3 at the two per-rank shapes
    against their bounds, plain versions and SDPA (CUDA events).
+17. Cluster (the fused epoch over a mesh and the cluster layer): (a) an
+   NCCL world of one: ``ParallelWrapper(build_mesh()).fit_epochs`` on
+   phase 8's epoch cell (``bench_epoch``, 5 epochs) bitwise
+   ``net.fit_epochs``, 16 replays an epoch, ms an epoch; then a world of
+   four gloo ranks sharing the card: (b) ``fit_epochs`` over ``data=4``
+   (FSDP off and on) on ``bench_epoch`` in float32 for 2 epochs against
+   one device (rtol 1e-4, atol 1e-6), each rank's cache a quarter of one
+   device's, and the elastic run ``data=4 → None → data=2 × model=2 →
+   data=4`` (one epoch each) against the uninterrupted run (rtol 2e-4,
+   atol 1e-5), 3 reshards counted; (c) ``DistributedWord2Vec`` on
+   ``bench_word2vec`` over ``data=4`` (``dp``) and row-sharded over
+   ``model=4`` (``rows``: 4,260 words tile it) against the one-device
+   fused epoch on the same plan (atol 1e-5), words/s beside it; (d)
+   ``FaultTolerantTrainer`` with a ``FileStateTracker``: (b)'s wrapper
+   preempted after epoch 1 and resumed over ``data=2 × model=2`` to the
+   end, against the uninterrupted run (rtol 2e-4, atol 1e-5), every
+   rank's heartbeat in the tracker. In this process: (e)
+   ``DistributedTrainer`` with ``IterativeReduceWorkRouter`` and 4
+   ``NetworkWorkPerformer`` threads on the card, one MNIST-MLP ``[4096,
+   784]`` job each, against 4 clones' fits averaged (rtol 1e-4, atol
+   1e-6); (f) ``train -runtime multihost`` as 4 processes on
+   ``127.0.0.1`` against ``-runtime local`` (rtol 1e-4), wall time. Each
+   cell prints its ms, memory and bytes per rank; no B1–B3 launch.
 
 Output: metric lines, then a ``{"kernels": [...]}`` JSON line (each
 kernel's ``variant`` and ``launches`` counted over the train phase's
@@ -367,7 +390,9 @@ replays included, as ``launches_profile``; over phase 13 as
 ``launches_trees``, which must be 0; over phase 15's ring steps, summed
 over the four ranks, as ``launches_mesh``; over phase 16's TP train
 steps and its pipeline step, summed over the ranks, as ``launches_tp``
-and ``launches_pipe``; and its train-shape numbers under
+and ``launches_pipe``; over phase 17, its ranks' summed with this
+process's, as ``launches_cluster``, which must be 0; and its train-shape
+numbers under
 ``train``) and the ``nvidia-smi``
 line,
 then ``{"ok": true, "device": {...}}`` last.
@@ -6120,6 +6145,608 @@ def model_phase(card: str) -> dict:
     return {"tp": tp, "pipe": pipe}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the cluster layer — the fused epoch over a mesh with its
+# elastic reshard, DistributedWord2Vec, the tracker, the router, the CLI
+# ---------------------------------------------------------------------------
+CLUSTER_DEVICE = "cuda"  # "cpu" only to rehearse the phase
+CLUSTER_WORLD_TIMEOUT_S = 420  # the 4-rank world; every rank killed past it
+CLUSTER_EPOCHS = 2  # bench_epoch's epochs over the mesh, (b) and (d)
+CLUSTER_ELASTIC_EPOCHS = 4  # one chunk each: data=4, None, 2x2, data=4
+CLUSTER_TOL = dict(rtol=1e-4, atol=1e-6)  # float32 against one device
+CLUSTER_ELASTIC_TOL = dict(rtol=2e-4, atol=1e-5)  # the reference's gate
+CLUSTER_W2V_ATOL = 1e-5
+CLUSTER_W2V_EPOCHS = 1
+CLUSTER_JOBS = 4  # (e): one [4096, 784] job a worker thread
+CLI_MH_ROWS, CLI_MH_FEATURES, CLI_MH_BATCH = 4096, 64, 256
+CLI_MH_PROCS = 4
+
+
+def cluster_world_one(card: str, tmp: str) -> dict:
+    """(a) An NCCL world of one: ``ParallelWrapper(build_mesh())
+    .fit_epochs`` on phase 8's epoch cell is the network's own captured
+    ``fit_epochs``, bitwise, with 16 replays an epoch."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import (
+        ParallelWrapper, build_mesh, join_world, leave_world)
+
+    join_world(os.path.join(tmp, "nccl1"), 0, 1,
+               backend="gloo" if CLUSTER_DEVICE == "cpu" else "nccl",
+               timeout_s=MESH_JOIN_TIMEOUT_S)
+    try:
+        mesh = build_mesh(device=CLUSTER_DEVICE)
+        it = ListDataSetIterator(epoch_data(), EPOCH_BATCH)
+        runs = []
+        for wrapped in (False, True):
+            net = build_network("mnist_mlp", "bf16", CLUSTER_DEVICE)
+            cache = net.build_epoch_cache(it)
+            net.fit_epochs(cache, 1)  # warm-up: capture
+            prog = next(iter(net._programs.values()))
+            r0 = prog.graph.replays
+            w = ParallelWrapper(net, mesh=mesh) if wrapped else net
+            out = {}
+            wall, _ = timed(lambda: out.setdefault(
+                "hist", w.fit_epochs(cache, EPOCH_EPOCHS)))
+            runs.append((net, out["hist"], wall / EPOCH_EPOCHS * 1e3,
+                         (prog.graph.replays - r0) / EPOCH_EPOCHS))
+        (a, ha, ms_a, _), (b, hb, ms_b, replays) = runs
+        same = torch.equal(ha, hb) and same_state(a, b)
+        print(f"cluster (a) world1 nccl ParallelWrapper.fit_epochs "
+              f"mnist_mlp bf16 [{EPOCH_BATCHES} x {EPOCH_BATCH}, 784] "
+              f"x{EPOCH_EPOCHS}: bitwise net.fit_epochs: {same}, "
+              f"{replays:.1f} replays an epoch, {ms_b:.3f} ms an epoch "
+              f"(net.fit_epochs {ms_a:.3f}) [{card}]")
+        if not same or (replays != EPOCH_BATCHES
+                        and CLUSTER_DEVICE != "cpu"):
+            raise AssertionError("the world-1 wrapper's fit_epochs is not "
+                                 "the captured net.fit_epochs")
+        return {"ms_per_epoch": ms_b, "net_ms_per_epoch": ms_a}
+    finally:
+        leave_world()
+
+
+def _cache_bytes(cache) -> int:
+    from deeplearning4j_tpu_torch.dtypes import tree_leaves
+
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves([a for a in cache.batch_stacks()
+                                     if a is not None]))
+
+
+def _epoch_ms(fn, epochs: int):
+    """``fn()`` after a barrier: its result and ms an epoch."""
+    out, ms, launches = _timed_barrier(fn)
+    return out, ms / epochs, launches
+
+
+def _timed_barrier_free(fn):
+    """``fn()`` in one process: its result, wall ms and launches."""
+    import torch
+    from deeplearning4j_tpu_torch.perf import step_graph
+
+    _cluster_sync()
+    before = step_graph.kernel_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    _cluster_sync()
+    return out, (time.perf_counter() - t0) * 1e3, _launch_delta(before)
+
+
+def _cluster_sync() -> None:
+    import torch
+
+    if CLUSTER_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def _sum_launches(into: dict, more: dict) -> None:
+    for k, v in more.items():
+        into[k] = into.get(k, 0) + v
+
+
+def cluster_epochs(rank: int, meshes: dict, launches: dict) -> dict:
+    """(b) ``fit_epochs`` over ``data=4`` (FSDP off and on) on bench_epoch
+    in float32, and the elastic run ``data=4 → None → data=2 × model=2 →
+    data=4`` beside the uninterrupted one; rank 0 also runs the one-device
+    ``fit_epochs``."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.dtypes import tree_map
+    from deeplearning4j_tpu_torch.monitor import metrics
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+    m4, m22 = meshes["data=4"], meshes["data=2 x model=2"]
+    ds = epoch_data()
+    it = ListDataSetIterator(ds, EPOCH_BATCH)
+    out = {}
+    # warm-up: the world's first steps set up gloo's pairs and the card
+    ParallelWrapper(build_network("mnist_mlp", "float32", CLUSTER_DEVICE),
+                    mesh=m4).fit_epochs(it, 1)
+    for fsdp in (False, True):
+        net = build_network("mnist_mlp", "float32", CLUSTER_DEVICE)
+        w = ParallelWrapper(net, mesh=m4, fsdp=fsdp)
+        torch.cuda.reset_peak_memory_stats()
+        cache = w.build_epoch_cache(it)
+        hist, ms, n = _epoch_ms(lambda: w.fit_epochs(cache, CLUSTER_EPOCHS),
+                                CLUSTER_EPOCHS)
+        _sum_launches(launches, n)
+        params = w.gather()[0]
+        out[f"fsdp={fsdp}"] = {
+            "ms_per_epoch": ms, "hist": hist.tolist(),
+            "cache_bytes_this_rank": _cache_bytes(cache),
+            "cache_n_shard": cache.n_shard,
+            "params_this_rank": _local_numel(net.params),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "plans_equal": None}
+        out[f"fsdp={fsdp}"]["_params"] = params
+        del cache
+    counter = metrics().counter("elastic_reshards_total")
+    before = counter.value(model="MultiLayerNetwork")
+    runs = {}
+    for elastic in (False, True):
+        net = build_network("mnist_mlp", "float32", CLUSTER_DEVICE)
+        w = ParallelWrapper(net, mesh=m4)
+        targets = {1: None, 2: m22, 3: m4} if elastic else {}
+
+        def on_chunk(done, w=w, targets=targets):
+            if done in targets:
+                w.request_reshard(targets[done])
+            return False
+
+        hist, ms, n = _epoch_ms(lambda: w.fit_epochs(
+            it, CLUSTER_ELASTIC_EPOCHS, chunk_epochs=1, on_chunk=on_chunk),
+            CLUSTER_ELASTIC_EPOCHS)
+        _sum_launches(launches, n)
+        runs[elastic] = (hist, w.gather()[0], ms)
+    (h0, p0, ms0), (h1, p1, ms1) = runs[False], runs[True]
+    out["elastic"] = {
+        "ok": (torch.allclose(h1, h0, **CLUSTER_ELASTIC_TOL)
+               and tree_close(p1, p0, **CLUSTER_ELASTIC_TOL)),
+        "hist_err": float((h1 - h0).abs().max()), "param_err": tree_err(p1,
+                                                                       p0),
+        "reshards": counter.value(model="MultiLayerNetwork") - before,
+        "ms_per_epoch": ms1, "uninterrupted_ms_per_epoch": ms0}
+    if rank == 0:  # the one-device reference, in this rank alone
+        one = build_network("mnist_mlp", "float32", CLUSTER_DEVICE)
+        h1d = one.fit_epochs(it, CLUSTER_EPOCHS)
+        params_1d = tree_map(torch.clone, one.params)
+        one_cache = one.build_epoch_cache(it)
+        out["one_cache_bytes"] = _cache_bytes(one_cache)
+        _, ms, _ = _timed_barrier_free(  # replays, once captured
+            lambda: one.fit_epochs(one_cache, CLUSTER_EPOCHS))
+        out["one_ms_per_epoch"] = ms / CLUSTER_EPOCHS
+        del one_cache
+        for fsdp in (False, True):
+            c = out[f"fsdp={fsdp}"]
+            h = torch.tensor(c["hist"], device=h1d.device)
+            c["ok"] = (torch.allclose(h, h1d.float(), **CLUSTER_TOL)
+                       and tree_close(c["_params"], params_1d,
+                                      **CLUSTER_TOL))
+            c["param_err"] = tree_err(c["_params"], params_1d)
+    for fsdp in (False, True):
+        del out[f"fsdp={fsdp}"]["_params"]
+    return out
+
+
+def cluster_w2v(rank: int, meshes: dict, launches: dict) -> dict:
+    """(c) ``DistributedWord2Vec`` on bench_word2vec over ``data=4``
+    (``dp``) and row-sharded over ``model=4`` (``rows``); rank 0 also
+    runs the one-device fused ``fit_epochs`` (the same plan: every run
+    draws it from the same seeds)."""
+    import torch
+    from deeplearning4j_tpu_torch.nlp import CollectionSentenceIterator
+    from deeplearning4j_tpu_torch.nlp.distributed import DistributedWord2Vec
+
+    sentences, _ = zipf_corpus(W2V_SENTENCES, W2V_VOCAB)
+    out = {}
+    for name in ("data=4", "model=4"):
+        mesh = meshes[name]
+        dw = DistributedWord2Vec(CollectionSentenceIterator(sentences),
+                                 mesh=mesh, seed=44, device=CLUSTER_DEVICE,
+                                 **W2V_CFG)
+        dw.build_vocab()
+        dw.reset_weights()
+        mode = dw._fused_mode(mesh)
+        cache = dw.build_corpus_cache(mesh=mesh)
+        torch.cuda.reset_peak_memory_stats()
+        hist, ms, n = _epoch_ms(lambda: dw.fit_epochs(CLUSTER_W2V_EPOCHS),
+                                CLUSTER_W2V_EPOCHS)
+        _sum_launches(launches, n)
+        syn0, syn1neg = dw.gather_tables()
+        out[name] = {"mode": mode, "vocab": dw.vocab.num_words(),
+                     "rows_this_rank": int(dw.syn0.shape[0]),
+                     "batch": cache.batch, "batches": cache.n_batches,
+                     "words_per_sec": cache.n_words / (ms / 1e3),
+                     "ms_per_epoch": ms, "hist": hist.tolist(),
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                     "_tables": (syn0, syn1neg)}
+    if rank == 0:
+        from deeplearning4j_tpu_torch.nlp import Word2Vec
+
+        one = Word2Vec(CollectionSentenceIterator(sentences), seed=44,
+                       device=CLUSTER_DEVICE, **W2V_CFG)
+        one.build_vocab()
+        one.reset_weights()
+        cache = one.build_corpus_cache()
+        one.fit_epochs(1)  # warm-up: capture
+        one = Word2Vec(CollectionSentenceIterator(sentences), seed=44,
+                       device=CLUSTER_DEVICE, **W2V_CFG)
+        one.build_vocab()
+        one.reset_weights()
+        one.build_corpus_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h1d = one.fit_epochs(CLUSTER_W2V_EPOCHS)
+        torch.cuda.synchronize()
+        out["one_words_per_sec"] = (cache.n_words * CLUSTER_W2V_EPOCHS
+                                    / (time.perf_counter() - t0))
+        for name in ("data=4", "model=4"):
+            c = out[name]
+            s0, s1 = c["_tables"]
+            h = torch.tensor(c["hist"], device=h1d.device)
+            c["err"] = max(float((h - h1d).abs().max()),
+                           float((s0 - one.syn0).abs().max()),
+                           float((s1 - one.syn1neg).abs().max()))
+            c["ok"] = c["err"] <= CLUSTER_W2V_ATOL
+    for name in ("data=4", "model=4"):
+        del out[name]["_tables"]
+    return out
+
+
+def cluster_resume(rank: int, meshes: dict, launches: dict,
+                   tmp: str) -> dict:
+    """(d) ``FaultTolerantTrainer`` with a ``FileStateTracker``: (b)'s
+    wrapper preempted after epoch 1 and resumed over ``data=2 × model=2``
+    to the end, beside the uninterrupted run; the ranks' heartbeats."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import (
+        FaultTolerantTrainer, FileStateTracker, ParallelWrapper)
+    from deeplearning4j_tpu_torch.resilience import faults
+    from deeplearning4j_tpu_torch.resilience.preemption import (
+        PreemptionGuard)
+
+    m4, m22 = meshes["data=4"], meshes["data=2 x model=2"]
+    it = ListDataSetIterator(epoch_data(), EPOCH_BATCH)
+    tracker = FileStateTracker(os.path.join(tmp, "tracker"))
+    ck = os.path.join(tmp, "ck")
+
+    def trainer(w):
+        return FaultTolerantTrainer(w, ck, tracker=tracker,
+                                    worker_id=f"rank-{rank}",
+                                    heartbeat_interval_s=0.1)
+
+    base = ParallelWrapper(build_network("mnist_mlp", "float32", CLUSTER_DEVICE),
+                           mesh=m4)
+    base.fit_epochs(it, CLUSTER_EPOCHS, chunk_epochs=1)
+    first = trainer(ParallelWrapper(
+        build_network("mnist_mlp", "float32", CLUSTER_DEVICE), mesh=m4))
+    faults.install("preempt.chunk", faults.fail_nth(1))
+    try:
+        (_, ms_pre, n) = _epoch_ms(lambda: first.fit_epochs(
+            it, CLUSTER_EPOCHS, preemption=PreemptionGuard(signals=())), 1)
+    finally:
+        faults.clear()
+    _sum_launches(launches, n)
+    again = trainer(ParallelWrapper(
+        build_network("mnist_mlp", "float32", CLUSTER_DEVICE), mesh=m4))
+    t0 = time.perf_counter()
+    resumed = again.resume(mesh=m22)
+    resume_ms = (time.perf_counter() - t0) * 1e3
+    (_, ms_post, n) = _epoch_ms(lambda: again.fit_epochs(it, CLUSTER_EPOCHS),
+                                1)
+    _sum_launches(launches, n)
+    got, want = again.network.gather()[0], base.gather()[0]
+    dist.barrier()
+    return {"preempted": first.preempted, "resumed": resumed,
+            "ok": tree_close(got, want, **CLUSTER_ELASTIC_TOL),
+            "param_err": tree_err(got, want), "resume_ms": resume_ms,
+            "preempted_run_ms": ms_pre, "resumed_run_ms": ms_post,
+            "w_this_rank": list(again.model.params["0"]["W"].shape),
+            "workers": sorted(tracker.workers()),
+            "pointer": os.path.basename(
+                str(tracker.get_meta("latest_checkpoint")))}
+
+
+def cluster_rank(rank: int, n: int, tmp: str) -> None:
+    """One rank of phase 17's 4-process gloo world; writes its results
+    to ``cluster<r>.json`` in ``tmp``."""
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, HERE)
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshSpec, build_mesh, join_world, leave_world)
+
+    out = {"rank": rank}
+    launches = {}
+    t0 = time.monotonic()
+    join_world(os.path.join(tmp, "cluster_store"), rank, n, backend="gloo",
+               timeout_s=MESH_JOIN_TIMEOUT_S)
+    out["join_s"] = time.monotonic() - t0
+    try:
+        meshes = {
+            "data=4": build_mesh(MeshSpec(data=n), device=CLUSTER_DEVICE),
+            "data=2 x model=2": build_mesh(MeshSpec(data=2, model=n // 2),
+                                           device=CLUSTER_DEVICE),
+            "model=4": build_mesh(MeshSpec(data=1, model=n),
+                                  device=CLUSTER_DEVICE)}
+        for name, fn in (
+                ("epochs", lambda: cluster_epochs(rank, meshes, launches)),
+                ("w2v", lambda: cluster_w2v(rank, meshes, launches)),
+                ("resume", lambda: cluster_resume(rank, meshes, launches,
+                                                  tmp))):
+            t = time.monotonic()
+            out[name] = fn()
+            out[f"{name}_s"] = time.monotonic() - t
+            torch.cuda.empty_cache()
+    except Exception:
+        out["error"] = traceback.format_exc()
+    finally:
+        leave_world()
+    out["launches"] = launches
+    with open(os.path.join(tmp, f"cluster{rank}.json"), "w") as f:
+        json.dump(out, f)
+    if "error" in out:
+        sys.exit(1)
+
+
+def cluster_router(card: str) -> dict:
+    """(e) ``DistributedTrainer`` with ``IterativeReduceWorkRouter`` and 4
+    ``NetworkWorkPerformer`` threads on the card, no process group: one
+    ``[4096, 784]`` job each from the published start, against 4 clones'
+    fits averaged."""
+    import threading
+
+    import numpy as np
+    from deeplearning4j_tpu_torch.parallel import (
+        DistributedTrainer, InMemoryStateTracker, IterativeReduceWorkRouter,
+        NetworkWorkPerformer)
+
+    proto = build_network("mnist_mlp", "float32", CLUSTER_DEVICE)
+    conf_json = proto.conf.to_json()
+    start = proto.get_flat_params()
+    jobs = [{"features": b.features, "labels": b.labels}
+            for b in mesh_batches(CLUSTER_JOBS)]
+    tracker = InMemoryStateTracker()
+    router = IterativeReduceWorkRouter(tracker)
+    tracker.put_array("global_params", start)
+    barrier = threading.Barrier(CLUSTER_JOBS)
+
+    class OneJobEach(NetworkWorkPerformer):
+        def perform(self, payload):
+            barrier.wait(timeout=120)  # each thread takes one job
+            return super().perform(payload)
+
+    trainer = DistributedTrainer(
+        tracker, router,
+        lambda: OneJobEach(conf_json, device=CLUSTER_DEVICE),
+        num_workers=CLUSTER_JOBS, heartbeat_interval_s=0.2)
+    for job in jobs:
+        tracker.add_job(job)
+    t0 = time.perf_counter()
+    got = np.asarray(trainer.train(timeout_s=300), np.float32)
+    wall = time.perf_counter() - t0
+    fits = []
+    for job in jobs:
+        clone = build_network("mnist_mlp", "float32", CLUSTER_DEVICE)
+        clone.set_flat_params(start)
+        from deeplearning4j_tpu_torch.datasets import DataSet
+
+        clone.fit(DataSet(job["features"], job["labels"]))
+        fits.append(clone.get_flat_params())
+    want = np.mean(np.stack(fits), axis=0)
+    ok = bool(np.allclose(got, want, **CLUSTER_TOL))
+    err = float(np.abs(got - want).max())
+    print(f"cluster (e) DistributedTrainer IterativeReduceWorkRouter "
+          f"{CLUSTER_JOBS} NetworkWorkPerformer threads, mnist_mlp float32 "
+          f"[{MESH_MLP_BATCH}, 784] jobs: rounds {router.rounds}, averaged "
+          f"params against {CLUSTER_JOBS} clones' fits averaged "
+          f"max_abs_err={err:.3e} (rtol 1e-4, atol 1e-6) "
+          f"{'ok' if ok else 'MISMATCH'}; {wall:.2f} s [{card}]")
+    if not ok or router.rounds != 1:
+        raise AssertionError("the work router's average differs from the "
+                             "clones' fits averaged")
+    return {"wall_s": wall, "err": err}
+
+
+def cluster_cli(card: str, tmp: str) -> dict:
+    """(f) ``train -runtime multihost`` as 4 processes meeting on
+    ``127.0.0.1`` (gloo, sharing the card), the model zip against
+    ``-runtime local``'s at rtol 1e-4."""
+    import socket
+
+    import io
+
+    import numpy as np
+    from deeplearning4j_tpu_torch.cli import main as cli_main
+    from deeplearning4j_tpu_torch.utils import ModelSerializer
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(CLI_MH_ROWS, CLI_MH_FEATURES)).astype(np.float32)
+    y = (x[:, :8].sum(1) > 0).astype(np.int64)
+    data = os.path.join(tmp, "mh.csv")
+    np.savetxt(data, np.concatenate([x, y[:, None]], axis=1),
+               fmt=["%.5f"] * CLI_MH_FEATURES + ["%d"], delimiter=",")
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+
+    conf = (NeuralNetConfiguration.Builder().seed(7).learning_rate(0.1)
+            .list()
+            .layer(0, L.DenseLayer(n_in=CLI_MH_FEATURES, n_out=128,
+                                   activation="tanh"))
+            .layer(1, L.OutputLayer(n_in=128, n_out=2,
+                                    activation="softmax")).build())
+    model = os.path.join(tmp, "mh.json")
+    with open(model, "w") as f:
+        f.write(conf.to_json())
+    common = [sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "train",
+              "-input", data, "-model", model, "--num-classes", "2",
+              "--batch-size", str(CLI_MH_BATCH), "--epochs", "2"]
+    env = {**os.environ, "PYTHONPATH": HERE}
+    if CLUSTER_DEVICE == "cpu":
+        common += ["--device", "cpu"]
+    local = os.path.join(tmp, "local.zip")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # in this process
+        cli_main(common[3:] + ["-output", local])
+    local_s = time.perf_counter() - t0
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = os.path.join(tmp, "multihost.zip")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        common + ["-output", out, "-runtime", "multihost", "--coordinator",
+                  f"127.0.0.1:{port}", "--num-processes", str(CLI_MH_PROCS),
+                  "--process-id", str(r)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(CLI_MH_PROCS)]
+    try:
+        logs = [p.communicate(timeout=CLI_TIMEOUT_S)[0].decode()
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    wall = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        raise AssertionError("multihost CLI: " + " | ".join(
+            log[-1500:] for log in logs))
+    a = ModelSerializer.restore(local, device=CLUSTER_DEVICE)
+    b = ModelSerializer.restore(out, device=CLUSTER_DEVICE)
+    ok = tree_close(b.params, a.params, rtol=1e-4, atol=1e-6)
+    err = tree_err(b.params, a.params)
+    print(f"cluster (f) cli train -runtime multihost {CLI_MH_PROCS} "
+          f"processes on 127.0.0.1 (gloo, one card), [{CLI_MH_ROWS}, "
+          f"{CLI_MH_FEATURES}] CSV, batch {CLI_MH_BATCH}, 2 epochs: zip "
+          f"against -runtime local max_abs_err={err:.3e} (rtol 1e-4) "
+          f"{'ok' if ok else 'MISMATCH'}; wall {wall:.1f} s (-runtime "
+          f"local in this process {local_s:.1f} s) [{card}]")
+    if not ok:
+        raise AssertionError("the multihost CLI's model differs from the "
+                             "local one")
+    return {"wall_s": wall, "local_s": local_s}
+
+
+def cluster_phase(card: str) -> dict:
+    """Phase 17; returns B1–B3's launches over it, the parent's and the
+    ranks' summed (0 each: nothing on its path runs attention)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.perf import step_graph
+
+    t_phase = time.monotonic()
+    before = step_graph.kernel_launches()
+    with tempfile.TemporaryDirectory(prefix="dl4j_cluster_") as tmp:
+        cluster_world_one(card, tmp)
+        t0 = time.monotonic()
+        codes = spawn_world("cluster_rank", tmp, CLUSTER_WORLD_TIMEOUT_S)
+        bad = [r for r, c in enumerate(codes) if c != 0]
+        if bad:
+            for r in bad:
+                with open(os.path.join(tmp, f"cluster_rank{r}.log")) as f:
+                    log = f.read()[-3000:]
+                res = os.path.join(tmp, f"cluster{r}.json")
+                if os.path.exists(res):
+                    with open(res) as f:
+                        log += json.load(f).get("error", "")[-3000:]
+                print(f"cluster rank {r} exited {codes[r]}:\n{log}",
+                      file=sys.stderr)
+            raise AssertionError(f"cluster world: rank(s) {bad} failed or "
+                                 f"timed out ({CLUSTER_WORLD_TIMEOUT_S} s)")
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(tmp, f"cluster{r}.json")) as f:
+                ranks.append(json.load(f))
+        world_s = time.monotonic() - t0
+        router = cluster_router(card)
+        cli = cluster_cli(card, tmp)
+    print(f"cluster world{MESH_RANKS} (gloo, one card): {world_s:.1f} s; "
+          f"per rank join " + ", ".join(f"{r['join_s']:.1f}" for r in ranks)
+          + " s; cells " + ", ".join(
+              f"{c} {max(r[c + '_s'] for r in ranks):.1f} s"
+              for c in ("epochs", "w2v", "resume")))
+    r0 = ranks[0]
+    failures = []
+    ep = r0["epochs"]
+    for fsdp in (False, True):
+        c = ep[f"fsdp={fsdp}"]
+        per_rank = [r["epochs"][f"fsdp={fsdp}"] for r in ranks]
+        print(f"cluster (b) ParallelWrapper(fsdp={fsdp}).fit_epochs over "
+              f"data={MESH_RANKS} mnist_mlp float32 [{EPOCH_BATCHES} x "
+              f"{EPOCH_BATCH}, 784] x{CLUSTER_EPOCHS}: against one device "
+              f"param_err={c['param_err']:.3e} (rtol 1e-4, atol 1e-6) "
+              f"{'ok' if c['ok'] else 'MISMATCH'}; ms an epoch "
+              f"{[round(p['ms_per_epoch'], 1) for p in per_rank]} (one "
+              f"device {ep['one_ms_per_epoch']:.1f}); cache bytes per rank "
+              f"{[p['cache_bytes_this_rank'] for p in per_rank]} (one "
+              f"device {ep['one_cache_bytes']}); params per rank "
+              f"{[p['params_this_rank'] for p in per_rank]}; peak_mem_bytes "
+              f"per rank {[p['peak_mem_bytes'] for p in per_rank]} [{card}]")
+        if not c["ok"]:
+            failures.append(f"fit_epochs fsdp={fsdp}")
+        if any(4 * p["cache_bytes_this_rank"] != ep["one_cache_bytes"]
+               for p in per_rank):
+            failures.append(f"fsdp={fsdp}: a rank's cache is not a quarter "
+                            "of one device's")
+    el = ep["elastic"]
+    print(f"cluster (b) elastic fit_epochs data={MESH_RANKS} -> None -> "
+          f"data=2 x model=2 -> data={MESH_RANKS} (1 epoch each) against "
+          f"the uninterrupted data={MESH_RANKS} run: hist_err "
+          f"{el['hist_err']:.3e}, param_err {el['param_err']:.3e} (rtol "
+          f"2e-4, atol 1e-5) {'ok' if el['ok'] else 'MISMATCH'}; reshards "
+          f"{el['reshards']}; ms an epoch "
+          f"{max(r['epochs']['elastic']['ms_per_epoch'] for r in ranks):.1f}"
+          f" (uninterrupted "
+          f"{max(r['epochs']['elastic']['uninterrupted_ms_per_epoch'] for r in ranks):.1f}) "
+          f"[{card}]")
+    if not el["ok"] or el["reshards"] != 3:
+        failures.append("elastic reshard")
+    w2 = r0["w2v"]
+    for name, mode in (("data=4", "dp"), ("model=4", "rows")):
+        c = w2[name]
+        print(f"cluster (c) DistributedWord2Vec [{W2V_SENTENCES} x "
+              f"{W2V_LEN}] vocab {c['vocab']} d{W2V_CFG['layer_size']} over "
+              f"{name}: mode {c['mode']}, rows per rank "
+              f"{[r['w2v'][name]['rows_this_rank'] for r in ranks]}, batch "
+              f"{c['batch']} x {c['batches']}; against the one-device fused "
+              f"epoch max_abs_err={c['err']:.3e} (atol {CLUSTER_W2V_ATOL}) "
+              f"{'ok' if c['ok'] else 'MISMATCH'}; words/s "
+              f"{min(r['w2v'][name]['words_per_sec'] for r in ranks):.0f} "
+              f"(one device {w2['one_words_per_sec']:.0f}); peak_mem_bytes "
+              f"per rank {[r['w2v'][name]['peak_mem_bytes'] for r in ranks]}"
+              f" [{card}]")
+        if c["mode"] != mode or not c["ok"]:
+            failures.append(f"w2v {name}")
+    rs = r0["resume"]
+    print(f"cluster (d) FaultTolerantTrainer(FileStateTracker) preempted "
+          f"after epoch 1 over data={MESH_RANKS}, resume(mesh=data=2 x "
+          f"model=2) to epoch {CLUSTER_EPOCHS}: preempted "
+          f"{rs['preempted']}, resumed {rs['resumed']}, param_err "
+          f"{rs['param_err']:.3e} against the uninterrupted run (rtol 2e-4, "
+          f"atol 1e-5) {'ok' if rs['ok'] else 'MISMATCH'}; W per rank "
+          f"{rs['w_this_rank']}; resume {rs['resume_ms']:.1f} ms; "
+          f"heartbeats {rs['workers']}; pointer {rs['pointer']} [{card}]")
+    if not (rs["preempted"] and rs["resumed"] and rs["ok"]) or rs[
+            "workers"] != [f"rank-{r}" for r in range(MESH_RANKS)]:
+        failures.append("resume over a mesh")
+    launches = _launch_delta(before)
+    for r in ranks:
+        _sum_launches(launches, r["launches"])
+    if any(launches.values()):
+        failures.append(f"B1-B3 launched on the cluster path: {launches}")
+    if failures:
+        raise AssertionError("cluster: " + "; ".join(failures))
+    print(f"cluster phase: {time.monotonic() - t_phase:.1f} s, B1-B3 "
+          f"launches {launches} (router {router['wall_s']:.1f} s, cli "
+          f"{cli['wall_s']:.1f} s) [{card}]")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -6152,10 +6779,11 @@ def main() -> None:
     serve_launches = train_launches = fused_launches = cli_launches = None
     extras_launches = data_launches = profile_launches = None
     embed_launches = trees_launches = mesh_launches = None
-    model_launches = None
+    model_launches = cluster_launches = None
     for phase in ("flash", "flash_bwd", "serve", "train", "networks",
                   "recurrent", "fused", "cli", "serve_extras", "data",
-                  "monitor", "embeddings", "trees", "mesh", "model"):
+                  "monitor", "embeddings", "trees", "mesh", "model",
+                  "cluster"):
         try:
             if phase == "flash":
                 entries["flash_attention_fwd"] = check_flash(card)
@@ -6192,8 +6820,10 @@ def main() -> None:
                 trees_launches = trees(card)
             elif phase == "mesh":
                 mesh_launches = mesh_phase(card)
-            else:
+            elif phase == "model":
                 model_launches = model_phase(card)
+            else:
+                cluster_launches = cluster_phase(card)
         except Exception:
             traceback.print_exc()
             failed.append(phase)
@@ -6219,6 +6849,7 @@ def main() -> None:
         e["launches_pipe"] = model_launches["pipe"][name]
         if not e["launches_tp"] or not e["launches_pipe"]:
             fail(f"{name} was not launched on the TP or pipeline path")
+        e["launches_cluster"] = cluster_launches[name]
     entries["flash_attention_fwd"]["launches_serve"] = serve_launches
     entries["flash_attention_fwd"]["launches_serve_extras"] = extras_launches
     print(json.dumps({"kernels": list(entries.values())}))

@@ -5,8 +5,13 @@ properties and messages, plus ``--device`` (default: the CUDA card; with
 no card it raises, and ``cpu`` runs the plain PyTorch paths). ``train``
 prints one line per epoch with the last batch's score and, when the
 configuration pretrains, each pretrained layer's score per batch (the
-RBM's reconstruction error). ``-runtime mesh|multihost`` exits naming
-ROADMAP A14.3, which ports the multi-host runtime.
+RBM's reconstruction error). ``-runtime mesh`` trains through a
+``ParallelWrapper`` over the world ``torchrun``'s environment describes
+(``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT``), or a world of
+one; ``-runtime multihost`` first joins the ranks through
+``cluster.initialize_distributed`` (``--coordinator``, ``--num-processes``,
+``--process-id`` or the ``runtime.*`` properties). Every rank trains on
+the same data; rank 0 alone writes the model zip and the checkpoints.
 
 Reference: ``cli/driver/CommandLineInterfaceDriver.java:60`` (main
 dispatches subcommands), ``cli/subcommands/Train.java:128`` (execute():
@@ -106,19 +111,69 @@ def _full_dataset(it, input_path: str):
     return DataSet.merge(batches)
 
 
-def _make_runtime(runtime: str, net):
+def _make_runtime(runtime: str, net, args, props: Dict[str, str]):
     """Select the execution runtime (reference: ``-runtime local|hadoop|
     spark``, cli/subcommands/Train.java:75,128, re-expressed as local |
-    mesh | multihost). ``local`` fits on ``--device``; the data-parallel
-    runtimes are not ported yet."""
+    mesh | multihost).
+
+    - ``local``     — fit on ``--device``.
+    - ``mesh``      — a data-parallel ``ParallelWrapper`` over the world
+                       ``torchrun``'s environment describes (joined here
+                       when it is not up yet), or a world of one;
+                       ``--mesh-devices``/``runtime.mesh.devices`` names
+                       the data axis's size, which must be the world's.
+    - ``multihost`` — join the world first
+                       (``cluster.initialize_distributed``: coordinator and
+                       rank from flags or ``runtime.*`` properties), then
+                       data-parallel over it.
+    """
     if runtime == "local":
         return net
-    if runtime in ("mesh", "multihost"):
-        raise SystemExit(
-            f"-runtime {runtime}: data-parallel training over a device mesh "
-            "is not ported yet (ROADMAP A14.3); use -runtime local")
-    raise SystemExit(f"unknown -runtime {runtime!r} "
-                     "(one of: local, mesh, multihost)")
+    import os
+
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.parallel.cluster import (
+        ClusterConfig, initialize_distributed)
+    from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    if runtime == "multihost":
+        coord = args.coordinator or props.get("runtime.coordinator")
+        nproc = (args.num_processes
+                 if args.num_processes is not None
+                 else int(props.get("runtime.num.processes", "1")))
+        pid = (args.process_id if args.process_id is not None
+               else int(props.get("runtime.process.id", "0")))
+        if nproc > 1 and not coord:
+            raise SystemExit(
+                "-runtime multihost with --num-processes > 1 requires "
+                "--coordinator host:port (or the runtime.coordinator "
+                "property) — refusing to silently train single-process")
+        initialize_distributed(ClusterConfig(
+            coordinator_address=coord, num_processes=nproc, process_id=pid),
+            device=net.device)
+    elif runtime != "mesh":
+        raise SystemExit(f"unknown -runtime {runtime!r} "
+                         "(one of: local, mesh, multihost)")
+    elif (not dist.is_initialized()
+          and int(os.environ.get("WORLD_SIZE", "1")) > 1):
+        initialize_distributed(ClusterConfig(
+            coordinator_address=(f"{os.environ['MASTER_ADDR']}:"
+                                 f"{os.environ['MASTER_PORT']}"),
+            num_processes=int(os.environ["WORLD_SIZE"]),
+            process_id=int(os.environ["RANK"])), device=net.device)
+    n_dev = args.mesh_devices or (
+        int(props["runtime.mesh.devices"])
+        if "runtime.mesh.devices" in props else None)
+    mesh = build_mesh(MeshSpec(data=n_dev or -1), device=net.device)
+    return ParallelWrapper(net, mesh=mesh)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def _net_from_document(doc: str, device=None):
@@ -200,21 +255,32 @@ def cmd_train(args) -> int:
             "(cli train writes one checkpoint per epoch; iteration-keyed "
             "dirs from CheckpointIterationListener resume via "
             "utils.checkpoint.restore_network instead)")
+    import torch.distributed as dist
+
     runtime = args.runtime or props.get("runtime", "local")
-    runner = _make_runtime(runtime, net)
+    owns_world = runtime != "local" and not dist.is_initialized()
+    runner = _make_runtime(runtime, net, args, props)
     it = _build_iterator(args, props)
     epochs = epochs_requested
+    writer = _rank() == 0  # over a world, rank 0 alone writes files
     for epoch in range(start_epoch, epochs):
         it.reset()
         runner.fit(it)
         _report_epoch(net, epoch + 1, epochs)
-        if ckpt_dir:
+        if ckpt_dir and writer:
             from deeplearning4j_tpu_torch.utils.checkpoint import save_network
 
             # epoch-keyed checkpoint: kill the process anywhere and
             # --resume picks up after the last completed epoch
             save_network(ckpt_dir, net, step=epoch + 1)
-    ModelSerializer.write_model(net, args.output)
+    if writer:
+        ModelSerializer.write_model(net, args.output)
+    if runner is not net and dist.get_world_size() > 1:
+        dist.barrier()  # the zip is on disk before any rank returns
+    if owns_world:  # joined here: left here
+        from deeplearning4j_tpu_torch.parallel.mesh import leave_world
+
+        leave_world()
     ran = max(0, epochs - start_epoch)
     suffix = f" ({start_epoch} resumed)" if start_epoch else ""
     print(f"model trained ({ran} epoch(s){suffix}, runtime={runtime}) "
@@ -311,14 +377,20 @@ def build_parser() -> argparse.ArgumentParser:
     p_train.add_argument("-runtime", "--runtime",
                          choices=["local", "mesh", "multihost"], default=None,
                          help="execution runtime (Train.java:75 parity); "
-                              "also the 'runtime' property; mesh and "
-                              "multihost are not ported yet (ROADMAP A14.3)")
+                              "also the 'runtime' property")
+    p_train.add_argument("--mesh-devices", type=int, default=None,
+                         help="the mesh's data axis size (default: every "
+                              "rank of the world)")
     p_train.add_argument("--checkpoint-dir", default=None,
                          help="checkpoint dir: saves after every epoch "
                               "(property: checkpoint.dir)")
     p_train.add_argument("--resume", action="store_true",
                          help="resume from the latest checkpoint in "
                               "--checkpoint-dir")
+    p_train.add_argument("--coordinator", default=None,
+                         help="multihost coordinator host:port")
+    p_train.add_argument("--num-processes", type=int, default=None)
+    p_train.add_argument("--process-id", type=int, default=None)
     p_train.set_defaults(fn=cmd_train)
 
     p_test = sub.add_parser("test", help="evaluate a saved model")

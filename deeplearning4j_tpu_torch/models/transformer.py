@@ -39,8 +39,8 @@ forward and B2 + B3 per hop backward) or Ulysses. The loss is each
 rank's share of the global mean, the gradients are summed over the
 mesh, and every rank applies the same Adam update. A mesh of one device
 runs the meshless step itself (captured on the card); a mesh step with
-collectives runs eagerly (gloo collectives cannot be captured; capture
-over NCCL comes with the fused epoch, ROADMAP A14.3).
+collectives runs eagerly (gloo collectives cannot be captured; capturing
+NCCL collectives is later speed work, ROADMAP B).
 
 Tensor parallelism (``shard_params(mesh)``): each rank keeps its
 Megatron shards (wq/wk/wv/w1 column-split, wo/w2 row-split over

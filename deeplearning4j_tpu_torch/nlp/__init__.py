@@ -9,8 +9,8 @@ plan on the device; one step per batch gathers the embedding rows,
 computes the skip-gram/CBOW/HS objective and adds the updates back with
 fixed-order scatter-adds. The tagger decodes on the device
 (``viterbi.py``); the trees, the CKY parser, the index, SentiWordNet and
-the vectorizers are host code. ``DistributedWord2Vec`` raises (ROADMAP
-A14.3).
+the vectorizers are host code. ``DistributedWord2Vec`` and
+``Word2Vec.fit_epochs(mesh=)`` train over a device mesh.
 """
 
 from deeplearning4j_tpu_torch.nlp.tokenization import (  # noqa: F401

@@ -32,9 +32,30 @@ launches every batch's step from the host. Here:
 
 Each epoch's generator is seeded from ``(seed, absolute epoch)``
 (:func:`epoch_keys_for`), so ``fit_epochs(2)`` twice equals
-``fit_epochs(4)`` once. The reference's data-parallel and row-sharded
-modes (``mesh=``, ``DL4J_W2V_ROW_SHARD``) are ROADMAP A14.3 and raise. The
-reference marks its plan functions ``@traced`` for its jaxpr lint
+``fit_epochs(4)`` once.
+
+Over a mesh (``SkipGramCorpusCache.build(mesh=)``) every rank draws the
+same plan from the same seeds and :class:`SkipGramMeshChunk` runs the
+steps eagerly (their collectives cannot be captured), in one of two
+modes (``Word2Vec._fused_mode``):
+
+- ``dp``: each rank computes the per-pair terms of its ``B/n`` of every
+  batch (its chunk over ``data``), and one ``all_gather`` brings every
+  rank the whole batch's terms in rank order (the rows a batch touches,
+  not the tables: ``(2 + K + 2D)·B`` floats a step against ``2·V·D``).
+  The row counts come from the replicated plan, and every rank applies
+  the whole batch's scatter-adds in the one-device order
+  (``word2vec._row_sums``), so the tables stay the same bytes in every
+  rank and sum their repeats as the one-device step does.
+- ``rows`` (``DL4J_W2V_ROW_SHARD``, a ``model`` axis the vocab tiles):
+  each rank holds ``V/model`` rows of ``syn0`` and ``syn1neg``. A step
+  fetches the rows its batch touches (each owner contributes its rows, a
+  sum over ``model`` with one non-zero term a row, so exact), runs the
+  one-device step on them, and adds to its own rows their slice of the
+  one-device deltas (a ``V``-row transient, so the repeats sum in the
+  one-device order).
+
+The reference marks its plan functions ``@traced`` for its jaxpr lint
 engine; the port has no such engine yet (ROADMAP A15) and leaves the
 marker out.
 """
@@ -43,6 +64,7 @@ from __future__ import annotations
 
 import logging
 import os
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -60,7 +82,6 @@ from deeplearning4j_tpu_torch.perf.bucketing import bucket_size
 from deeplearning4j_tpu_torch.perf.epoch_cache import (
     cache_budget_mb,
     chunk_deadline_s,
-    mesh_not_ported,
 )
 
 logger = logging.getLogger(__name__)
@@ -68,6 +89,7 @@ logger = logging.getLogger(__name__)
 __all__ = [
     "SkipGramCorpusCache",
     "SkipGramChunk",
+    "SkipGramMeshChunk",
     "skipgram_pair_plan",
     "skipgram_negatives",
     "skipgram_epoch_plan",
@@ -92,9 +114,11 @@ def w2v_fused_enabled() -> bool:
 
 
 def w2v_row_shard_mode() -> str:
-    """``DL4J_W2V_ROW_SHARD`` selects row-sharded tables over a mesh's
-    ``model`` axis; meshes are not ported (ROADMAP A14.3), so this raises."""
-    raise mesh_not_ported("w2v_row_shard_mode (DL4J_W2V_ROW_SHARD)")
+    """``DL4J_W2V_ROW_SHARD``: ``auto`` (default: row-shard the tables
+    over ``model`` whenever the mesh carries that axis and the vocab tiles
+    it), ``1`` (the same, but warn when it cannot apply), ``0`` (never:
+    tables stay replicated, data parallelism only)."""
+    return os.environ.get("DL4J_W2V_ROW_SHARD", "auto").strip() or "auto"
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +288,90 @@ def _neg_epoch_math(syn0, syn1neg, centers, contexts, valid, negatives, lr):
     return syn0, syn1neg, loss
 
 
+def _neg_epoch_tail(syn0_rows: int, syn1_rows: int, h, centers, contexts,
+                    valid, negatives, per_pair, g_pos, g_neg, grad_h):
+    """The whole batch's loss and table deltas from its per-pair terms,
+    as :func:`_neg_epoch_math` computes them: ``(d0, d1, loss)``."""
+    loss = torch.sum(per_pair) / torch.clamp_min(torch.sum(valid), 1.0)
+    sc_c = _row_scale(syn0_rows, centers, valid)
+    sc_pos, sc_neg = _joint_scales(syn1_rows, contexts, negatives, valid)
+    d0 = _row_sums(syn0_rows, centers, -grad_h * sc_c[:, None])
+    d1 = _row_sums(syn1_rows, *_output_updates(
+        h, contexts, negatives, g_pos * sc_pos, g_neg * sc_neg))
+    return d0, d1, loss
+
+
+def _pair_terms(h, v_pos, v_neg, valid, lr):
+    """Per-pair ``(per_pair loss, g_pos, g_neg, grad_h)`` of a NEG step."""
+    s_pos, s_neg = _sigmoid_scores(h, v_pos, v_neg)
+    per_pair = -_neg_loss_terms(s_pos, s_neg) * valid
+    g_pos = (s_pos - 1.0) * lr * valid
+    g_neg = s_neg * lr * valid[:, None]
+    grad_h = (g_pos[:, None] * v_pos
+              + torch.einsum("bk,bkd->bd", g_neg, v_neg))
+    return per_pair, g_pos, g_neg, grad_h
+
+
+def _neg_epoch_math_dp(syn0, syn1neg, centers, contexts, valid, negatives,
+                       lr, group, n_shard: int, shard: int):
+    """:func:`_neg_epoch_math` with the batch split over ``group`` (the
+    ``dp`` mode of the module notes): in place, returns the loss."""
+    centers, contexts, negatives = (centers.long(), contexts.long(),
+                                    negatives.long())
+    b = centers.shape[0] // n_shard
+    mine = slice(shard * b, (shard + 1) * b)
+    h = syn0[centers[mine]]
+    per_pair, g_pos, g_neg, grad_h = _pair_terms(
+        h, syn1neg[contexts[mine]], syn1neg[negatives[mine]], valid[mine],
+        lr)
+    k, d = g_neg.shape[1], h.shape[1]
+    from deeplearning4j_tpu_torch.parallel.collectives import all_gather
+
+    whole = all_gather(torch.cat([per_pair[:, None], g_pos[:, None], g_neg,
+                                  grad_h, h], dim=1), group, 0)
+    per_pair, g_pos, g_neg, grad_h, h = torch.split(
+        whole, [1, 1, k, d, d], dim=1)
+    d0, d1, loss = _neg_epoch_tail(
+        syn0.shape[0], syn1neg.shape[0], h, centers, contexts, valid,
+        negatives, per_pair[:, 0].contiguous(), g_pos[:, 0], g_neg, grad_h)
+    syn0.add_(d0)
+    syn1neg.add_(d1)
+    return loss
+
+
+def _fetch_rows(local, lo: int, idx, group):
+    """``whole_table[idx]`` from every rank's rows ``[lo, lo + len)``."""
+    uniq, inverse = torch.unique(idx, return_inverse=True)
+    rows = torch.zeros((uniq.shape[0], local.shape[1]), dtype=local.dtype,
+                       device=local.device)
+    own = (uniq >= lo) & (uniq < lo + local.shape[0])
+    rows[own] = local[uniq[own] - lo]
+    import torch.distributed as dist
+
+    dist.all_reduce(rows, group=group)
+    return rows[inverse]
+
+
+def _neg_epoch_math_rows(syn0, syn1neg, centers, contexts, valid,
+                         negatives, lr, group, vocab: int, lo: int):
+    """:func:`_neg_epoch_math` on row-sharded tables (the ``rows`` mode of
+    the module notes): this rank's rows updated in place; returns the
+    loss."""
+    centers, contexts, negatives = (centers.long(), contexts.long(),
+                                    negatives.long())
+    h = _fetch_rows(syn0, lo, centers, group)
+    v = _fetch_rows(syn1neg, lo,
+                    torch.cat([contexts, negatives.reshape(-1)]), group)
+    bsz = centers.shape[0]
+    v_pos, v_neg = v[:bsz], v[bsz:].reshape(negatives.shape + (-1,))
+    per_pair, g_pos, g_neg, grad_h = _pair_terms(h, v_pos, v_neg, valid, lr)
+    d0, d1, loss = _neg_epoch_tail(vocab, vocab, h, centers, contexts, valid,
+                                   negatives, per_pair, g_pos, g_neg, grad_h)
+    syn0.add_(d0[lo:lo + syn0.shape[0]])
+    syn1neg.add_(d1[lo:lo + syn1neg.shape[0]])
+    return loss
+
+
 # ---------------------------------------------------------------------------
 # the device-resident corpus cache
 # ---------------------------------------------------------------------------
@@ -280,7 +388,7 @@ class SkipGramCorpusCache:
 
     def __init__(self, *, tokens, mask, keep_prob, table, n_batches: int,
                  batch: int, n_pairs: int, n_words: int, window: int,
-                 negative: int, nbytes: int):
+                 negative: int, nbytes: int, mesh=None, n_shard: int = 1):
         self.tokens = tokens
         self.mask = mask
         self.keep_prob = keep_prob
@@ -292,7 +400,8 @@ class SkipGramCorpusCache:
         self.n_sentences = int(tokens.shape[0])
         self.window = window
         self.negative = negative
-        self.n_shard = 1  # one device (meshes: ROADMAP A14.3)
+        self.mesh = mesh  # every rank holds the whole corpus and plan
+        self.n_shard = n_shard  # the data axis's shards of every batch
         self.nbytes = nbytes
 
     @property
@@ -306,26 +415,25 @@ class SkipGramCorpusCache:
               ) -> Optional["SkipGramCorpusCache"]:
         """Build under budget on ``w2v.device``, inside a ``cache.build``
         tracer span with its counter; ``None`` on fallback. ``mesh=``
-        raises (ROADMAP A14.3)."""
+        records the mesh and its ``data`` shards (the batch is rounded up
+        to a multiple of them); every rank holds the whole corpus."""
         from deeplearning4j_tpu_torch.monitor import record_counter, tracer
 
-        if mesh is not None:
-            raise mesh_not_ported("SkipGramCorpusCache.build(mesh=)")
         with tracer().span("cache.build", kind=cls.__name__) as sp:
             out = cls._build(w2v, budget_mb=budget_mb, buckets=buckets,
-                             batch=batch)
+                             batch=batch, mesh=mesh)
             sp.attrs["cached"] = out is not None
             if out is not None:
                 sp.attrs.update(n_batches=out.n_batches, batch=out.batch,
                                 mb=round(out.nbytes / 1024 ** 2, 3),
-                                n_shard=1)
+                                n_shard=out.n_shard)
         record_counter("cache_builds_total", kind=cls.__name__,
                        outcome="cached" if out is not None else "fallback")
         return out
 
     @classmethod
     def _build(cls, w2v, *, budget_mb=None, buckets=None,
-               batch: Optional[int] = None
+               batch: Optional[int] = None, mesh=None
                ) -> Optional["SkipGramCorpusCache"]:
         from deeplearning4j_tpu_torch.nlp.vocab import subsample_keep_prob
 
@@ -360,9 +468,13 @@ class SkipGramCorpusCache:
             # tiny corpora shrink the batch so each epoch still takes
             # several mean-normalized steps (mirrors the host loop)
             batch = min(int(w2v.batch_size), max(32, n_pairs // 8))
-        # round up to a multiple of 8, as the reference does (there for
-        # every power-of-two data axis up to 8)
-        mult = 8
+        # round up to a multiple of 8 (and of the data axis), as the
+        # reference does: every power-of-two axis up to 8 gives the same
+        # batch, so a mesh run and its one-device reference share a plan
+        from deeplearning4j_tpu_torch.parallel.mesh import data_axis_size
+
+        n_shard = data_axis_size(mesh)
+        mult = 8 if n_shard in (1, 2, 4, 8) else 8 * n_shard
         batch = max(mult, int(batch))
         batch += (-batch) % mult
         n_batches = -(-n_pairs // batch)
@@ -391,7 +503,8 @@ class SkipGramCorpusCache:
                    keep_prob=put(keep), table=put(table),
                    n_batches=int(n_batches), batch=int(batch),
                    n_pairs=int(n_pairs), n_words=n_words, window=window,
-                   negative=negative, nbytes=resident + workspace)
+                   negative=negative, nbytes=resident + workspace,
+                   mesh=mesh, n_shard=n_shard)
 
     def plan(self, gen: torch.Generator, out=None):
         """One epoch's plan drawn from ``gen`` (see
@@ -491,6 +604,64 @@ class SkipGramChunk:
         return out
 
 
+class SkipGramMeshChunk:
+    """The chunk over a mesh (``mode`` ``dp`` or ``rows``, see the module):
+    the same ``launch(w2v, cache, seeds, plans)`` as :class:`SkipGramChunk`
+    and the same learning-rate arithmetic, each step run eagerly with its
+    collectives on the tables ``w2v`` holds (in ``rows`` mode this rank's
+    rows)."""
+
+    def __init__(self, w2v, cache: SkipGramCorpusCache, key, mode: str):
+        from deeplearning4j_tpu_torch.monitor.profile import ProfiledProgram
+        from deeplearning4j_tpu_torch.parallel.mesh import (
+            DATA_AXIS, MODEL_AXIS, axis_group, axis_rank, axis_size)
+
+        self.mode = mode
+        self.n_batches = cache.n_batches
+        mesh = cache.mesh
+        if mode == "dp":
+            self.group = axis_group(mesh, DATA_AXIS)
+            self.shard = axis_rank(mesh, DATA_AXIS)
+        else:
+            self.group = axis_group(mesh, MODEL_AXIS)
+            self.shard = axis_rank(mesh, MODEL_AXIS)
+            self.vocab = w2v.vocab.num_words()
+            self.lo = self.shard * (self.vocab // axis_size(mesh, MODEL_AXIS))
+        self.n_shard = cache.n_shard
+        self.launch = ProfiledProgram(self._launch, name="w2v_epoch_chunk",
+                                      key=key)
+
+    def _step(self, syn0, syn1neg, plan, lr):
+        if self.mode == "dp":
+            return _neg_epoch_math_dp(syn0, syn1neg, *plan, lr, self.group,
+                                      self.n_shard, self.shard)
+        return _neg_epoch_math_rows(syn0, syn1neg, *plan, lr, self.group,
+                                    self.vocab, self.lo)
+
+    def _launch(self, w2v, cache: SkipGramCorpusCache, seeds, plans):
+        k, n = len(seeds), self.n_batches
+        dev = cache.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        it = torch.full((), float(w2v.iteration_count), **f32)
+        lr0 = torch.full((), float(w2v.learning_rate), **f32)
+        min_lr = torch.full((), float(w2v.min_learning_rate), **f32)
+        planned = torch.full((), float(max(1, w2v.epochs) * n), **f32)
+        out = torch.empty((k, n), **f32)
+        syn0, syn1neg = w2v.syn0, w2v.syn1neg
+        for e in range(k):
+            if plans is None:
+                plan = cache.plan(epoch_generator(seeds[e], dev))
+            else:
+                plan = tuple(torch.as_tensor(np.asarray(a)).to(dev)
+                             for a in plans[e])
+            for i in range(n):
+                lr = torch.maximum(min_lr, lr0 * (1.0 - it / planned))
+                out[e, i] = self._step(syn0, syn1neg,
+                                       tuple(a[i] for a in plan), lr)
+                it = it + 1.0
+        return out
+
+
 # ---------------------------------------------------------------------------
 # the host-side chunk loop
 # ---------------------------------------------------------------------------
@@ -542,6 +713,7 @@ def drive_skipgram_chunks(w2v, cache: SkipGramCorpusCache,
                 faults.fault_point("epoch.chunk")
                 e0 = w2v._epochs_done
                 seeds = epoch_keys_for(w2v.seed, e0, k)
+                t0 = time.perf_counter()
                 ledger_chunk_start(model=model_name, epoch0=e0, epochs=k)
                 with tracer().span("epoch.chunk", model=model_name,
                                    epochs=k, steps=k * cache.n_batches,
@@ -557,6 +729,16 @@ def drive_skipgram_chunks(w2v, cache: SkipGramCorpusCache,
                 w2v.iteration_count += k * cache.n_batches
                 w2v._epochs_done += k
                 w2v._score = hist[-1, -1]  # device scalar
+                if hasattr(w2v, "_heartbeat_stats"):
+                    # a heartbeat reads this: one scalar read a chunk
+                    last = float(hist[-1, -1])
+                    dt = max(time.perf_counter() - t0, 1e-9)
+                    w2v._heartbeat_stats = {
+                        "step_s": dt / (k * cache.n_batches),
+                        "words_per_sec": k * cache.n_words / dt,
+                        "last_loss": last,
+                        "epochs_done": w2v._epochs_done,
+                    }
                 history.append(hist)
                 done += k
                 for listener in getattr(w2v, "listeners", ()):

@@ -29,9 +29,12 @@ step equals the eager one bitwise. ``index_add_`` and ``scatter_add_``
 on CUDA, and ``index_put_`` on a large CPU batch, add with atomics in
 no fixed order.
 
-``fit_epochs`` is the fused whole-epoch skip-gram of ``nlp/epoch_kernels``.
-The reference's ``mesh=`` (data-parallel and row-sharded tables) is not
-ported (ROADMAP A14.3) and raises.
+``fit_epochs`` is the fused whole-epoch skip-gram of ``nlp/epoch_kernels``;
+``fit_epochs(mesh=)`` runs it over a mesh, every rank calling it alike:
+the batch split over ``data`` (``dp``) or the tables row-sharded over
+``model`` (``rows``), as ``_fused_mode`` decides. Row-sharded, ``syn0``
+and ``syn1neg`` hold this rank's rows after the run; ``gather_tables``
+gives the whole tables.
 """
 
 from __future__ import annotations
@@ -391,6 +394,7 @@ class Word2Vec:
         self._train_dispatches = 0
         self._epochs_done = 0
         self._epoch_steps: Dict[tuple, object] = {}
+        self._sharding_registry = None  # row-sharded tables over a mesh
         self._corpus_cache = None
         self._score = None  # the last batch's loss (a device scalar)
 
@@ -482,42 +486,89 @@ class Word2Vec:
                            mesh=None):
         """Stage the corpus on the device for fused training (None over
         budget or for an empty corpus: callers fall back to the host
-        loop). ``mesh=`` raises (ROADMAP A14.3)."""
+        loop). ``mesh=`` records the mesh the run is split over."""
         from deeplearning4j_tpu_torch.nlp import epoch_kernels
 
-        if mesh is not None:
-            raise epoch_kernels.mesh_not_ported("build_corpus_cache(mesh=)")
         if self.vocab is None:
             self.build_vocab()
         cache = epoch_kernels.SkipGramCorpusCache.build(
-            self, budget_mb=budget_mb)
+            self, budget_mb=budget_mb, mesh=mesh)
         self._corpus_cache = cache
         return cache
 
     def _fused_mode(self, mesh) -> str:
-        """``"single"``; a mesh raises (the data-parallel and row-sharded
-        modes are ROADMAP A14.3)."""
-        from deeplearning4j_tpu_torch.nlp import epoch_kernels
+        """How the fused run goes on ``mesh``: ``"rows"`` (tables
+        row-sharded over ``model``), ``"dp"`` (each batch split over
+        ``data``), or ``"single"`` (no mesh, or a mesh of one device)."""
+        import logging
 
-        if mesh is not None:
-            raise epoch_kernels.mesh_not_ported("Word2Vec._fused_mode(mesh)")
+        from deeplearning4j_tpu_torch.nlp.epoch_kernels import (
+            w2v_row_shard_mode)
+        from deeplearning4j_tpu_torch.parallel.mesh import data_axis_size
+        from deeplearning4j_tpu_torch.parallel.sharding_registry import (
+            model_axis_size)
+
+        if mesh is None:
+            return "single"
+        tp = model_axis_size(mesh)
+        mode = w2v_row_shard_mode()
+        if tp > 1 and mode != "0":
+            if self.vocab.num_words() % tp == 0:
+                return "rows"
+            if mode == "1":
+                logging.getLogger(__name__).warning(
+                    "DL4J_W2V_ROW_SHARD=1 but vocab %d does not tile the "
+                    "model axis (size %d) — tables stay replicated",
+                    self.vocab.num_words(), tp)
+        if data_axis_size(mesh) > 1:
+            return "dp"
         return "single"
 
     def _register_tables(self, cache):
-        from deeplearning4j_tpu_torch.nlp import epoch_kernels
+        """syn0/syn1neg into the sharding registry: row-sharded over
+        ``model`` when ``_fused_mode`` says so, else replicated. Keeps
+        this rank's part of the live tables and stamps
+        ``_sharding_registry``."""
+        from deeplearning4j_tpu_torch.parallel.sharding_registry import (
+            ShardingRegistry)
 
-        raise epoch_kernels.mesh_not_ported("Word2Vec._register_tables")
+        mesh = cache.mesh
+        if mesh is None:
+            self._sharding_registry = None
+            return None
+        tables = {"syn0": self.syn0, "syn1neg": self.syn1neg}
+        reg = ShardingRegistry.for_embedding_tables(
+            tables, mesh, row_shard=(self._fused_mode(mesh) == "rows"),
+            name=type(self).__name__)
+        placed = reg.place(tables)
+        self.syn0, self.syn1neg = placed["syn0"], placed["syn1neg"]
+        self._sharding_registry = reg
+        return reg
+
+    def gather_tables(self):
+        """The whole ``(syn0, syn1neg)``: gathered from every rank's rows
+        after a row-sharded run (every rank calls it), else the live
+        tables."""
+        reg = getattr(self, "_sharding_registry", None)
+        tables = {"syn0": self.syn0, "syn1neg": self.syn1neg}
+        if reg is not None:
+            tables = reg.gather(tables)
+        return tables["syn0"], tables["syn1neg"]
 
     def _skipgram_program(self, cache):
-        """The chunk program for ``cache``'s geometry, built once and kept
-        in ``_epoch_steps``."""
-        from deeplearning4j_tpu_torch.nlp.epoch_kernels import SkipGramChunk
+        """The chunk program for ``cache``'s geometry and mode, built once
+        and kept in ``_epoch_steps``."""
+        from deeplearning4j_tpu_torch.nlp.epoch_kernels import (
+            SkipGramChunk, SkipGramMeshChunk)
 
+        mode = self._fused_mode(cache.mesh)
         key = (self.vocab.num_words(), self.layer_size, cache.n_batches,
-               cache.batch, cache.window, cache.negative, "single", 1)
+               cache.batch, cache.window, cache.negative, mode,
+               cache.n_shard)
         prog = self._epoch_steps.get(key)
         if prog is None:
-            prog = SkipGramChunk(self, cache, key)
+            prog = (SkipGramChunk(self, cache, key) if mode == "single"
+                    else SkipGramMeshChunk(self, cache, key, mode))
             self._epoch_steps[key] = prog
         return prog
 
@@ -544,15 +595,13 @@ class Word2Vec:
         tensor), or ``None`` when the host loop ran instead (HS/CBOW,
         ``DL4J_W2V_FUSED=0``, or a cache over the device-memory budget:
         the reference's fallback contract; the loop runs on this model's
-        device). ``mesh=`` raises (ROADMAP A14.3).
+        device). ``mesh=`` runs over that mesh (see the module).
 
         ``_plan`` (tests) is a list of per-epoch plans ``(centers,
         contexts, valid, negatives)`` shaped ``[N, B]``, ``[N, B]``,
         ``[N, B]``, ``[N, B, K]`` that replace the drawn ones."""
         from deeplearning4j_tpu_torch.nlp import epoch_kernels
 
-        if mesh is not None:
-            raise epoch_kernels.mesh_not_ported("Word2Vec.fit_epochs(mesh=)")
         if num_epochs is None:
             num_epochs = self.epochs
         num_epochs = int(num_epochs)
@@ -567,11 +616,16 @@ class Word2Vec:
             return self._host_fallback(num_epochs)
         if cache is None:
             cache = self._corpus_cache
-            if cache is None:
-                cache = self.build_corpus_cache(budget_mb=budget_mb)
+            if cache is None or (mesh is not None
+                                 and cache.mesh is not mesh):
+                cache = self.build_corpus_cache(budget_mb=budget_mb,
+                                                mesh=mesh)
         if cache is None:
             return self._host_fallback(num_epochs)
         self._corpus_cache = cache
+        if (cache.mesh is not None
+                and getattr(self, "_sharding_registry", None) is None):
+            self._register_tables(cache)
         hist = epoch_kernels.drive_skipgram_chunks(
             self, cache, num_epochs, chunk_epochs=chunk_epochs,
             on_chunk=on_chunk, plans=_plan)

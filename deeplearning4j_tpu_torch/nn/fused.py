@@ -50,6 +50,7 @@ import torch
 from deeplearning4j_tpu_torch.dtypes import tree_leaves, tree_map
 from deeplearning4j_tpu_torch.monitor import fused_metrics_stride
 from deeplearning4j_tpu_torch.monitor.profile import ProfiledProgram
+from deeplearning4j_tpu_torch.ops.losses import dp_scope
 from deeplearning4j_tpu_torch.nn.updater import (
     grouped_apply_updaters,
     lr_policy_scale,
@@ -59,7 +60,6 @@ from deeplearning4j_tpu_torch.perf.epoch_cache import (
     drive_epoch_chunks,
     effective_accum_steps,
     epoch_schedule,
-    mesh_not_ported,
     stream_epochs,
 )
 from deeplearning4j_tpu_torch.perf.step_graph import (
@@ -83,6 +83,22 @@ def _map(fn, *trees):
     if t0 is None:
         return None
     return fn(*trees)
+
+
+def _dp_reduce(grads, loss):
+    """Inside a data-parallel step (``ops.losses.data_parallel_loss``):
+    the gradients and the loss summed over the ranks, each rank having
+    computed its share of the global batch's; else both unchanged."""
+    scope = dp_scope()
+    if scope is None:
+        return grads, loss
+    from deeplearning4j_tpu_torch.parallel.collectives import (
+        all_reduce_,
+        all_reduce_tree_,
+    )
+
+    all_reduce_tree_(tree_leaves(grads), scope[0])
+    return grads, all_reduce_(loss.detach().clone(), scope[0])
 
 
 def _where_tree(ok: torch.Tensor, new, old):
@@ -151,6 +167,7 @@ class FusedTraining:
         pol = self._policy
         loss, (new_state, new_rnn), grads = self._loss_grads(
             pol.compute_copy(params), net_state, *batch, rng, rnn_state)
+        grads, loss = _dp_reduce(grads, loss)
         new_params, new_updater = self._apply_updaters(
             params, updater_state, pol.master_grads(grads), iteration,
             self._plain_lr(lr))
@@ -174,6 +191,7 @@ class FusedTraining:
         else:
             loss, (nst2, _), grads = self._loss_grads(
                 fwd, net_state, *batch, rng, None)
+        grads, loss = _dp_reduce(grads, loss)
         # the sentinel and the norms read the f32 (master) grads: a bf16
         # overflow to inf survives the widening cast
         grads = pol.master_grads(grads)
@@ -377,17 +395,55 @@ class FusedTraining:
                           accum_steps: Optional[int] = None):
         """Prebuild the device cache ``fit_epochs`` would build, on the
         network's device, so that callers re-running chunks pay the drain
-        and transfer once. ``accum_steps=None`` reads ``DL4J_ACCUM_STEPS``
-        (it prices the budget's working-set term)."""
-        if mesh is not None:
-            raise mesh_not_ported("build_epoch_cache(mesh=)")
+        and transfer once. ``mesh`` keeps this rank's rows of every batch
+        (its chunk over ``data``). ``accum_steps=None`` reads
+        ``DL4J_ACCUM_STEPS`` (it prices the budget's working-set term)."""
         if accum_steps is None:
             accum_steps = accum_steps_default()
-        return self._CACHE.build(data, accum_steps=accum_steps,
+        return self._CACHE.build(data, mesh=mesh, accum_steps=accum_steps,
                                  device=self.device)
 
+    def _place_on_mesh(self, mesh):
+        """Place the trainable state on ``mesh`` through the sharding
+        registry: replicated over a pure data mesh (every rank holds the
+        whole tensors already, so nothing moves: the reference's
+        ``_place_replicated``), this rank's Megatron shards
+        (``tensor_parallel.shard_network_params``) where the mesh has a
+        ``model`` axis. Returns the registry."""
+        from deeplearning4j_tpu_torch.parallel.sharding_registry import (
+            ShardingRegistry, model_axis_size)
+        from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+            shard_network_params)
+
+        if model_axis_size(mesh) > 1:
+            shard_network_params(self, mesh)
+            return self._sharding_registry
+        return ShardingRegistry.for_network(self, mesh).place_network(self)
+
     def request_reshard(self, mesh) -> None:
-        raise mesh_not_ported("request_reshard")
+        """Request an elastic reshard of the in-flight ``fit_epochs`` run:
+        at the next chunk boundary the state and the dataset cache are
+        re-laid out for ``mesh`` (``None``: whole batches on every rank's
+        one device) and the run continues; the values are untouched. The
+        target must span every rank of the world (``ValueError``
+        otherwise: a process cannot leave a world in the middle of a
+        call; ``FaultTolerantTrainer.resume(mesh=)`` in a new world
+        changes the width)."""
+        from deeplearning4j_tpu_torch.parallel.mesh import check_world_mesh
+
+        check_world_mesh(mesh)
+        self._pending_mesh = (mesh,)
+
+    def _reshard_meshless(self, mesh) -> None:
+        """The meshless run's reshard: a mesh of one device (or None)
+        places nothing; a wider target needs the mesh path."""
+        from deeplearning4j_tpu_torch.parallel.mesh import mesh_devices
+
+        if mesh_devices(mesh) > 1:
+            raise ValueError(
+                "a fit_epochs run without a mesh cannot reshard onto "
+                f"{mesh_devices(mesh)} devices; start it with "
+                "fit_epochs(mesh=) or ParallelWrapper.fit_epochs")
 
     def _fit_trains_nothing(self) -> bool:
         return False
@@ -423,12 +479,23 @@ class FusedTraining:
         Fallbacks, as in the reference: the configurations
         ``fused_epochs_supported`` rejects run ``fit`` per epoch (and a
         cache passed for one raises), and a dataset over the budget
-        (``DL4J_DEVICE_CACHE_MB``) streams. ``mesh=`` raises (A14.3)."""
+        (``DL4J_DEVICE_CACHE_MB``) streams.
+
+        ``mesh=`` (or a prebuilt cache built over one) runs the epoch over
+        that mesh with replicated state, every rank calling it with the
+        same data: the run of ``parallel.ParallelWrapper(self, mesh)
+        .fit_epochs``. A mesh of one device runs this meshless path."""
+        from deeplearning4j_tpu_torch.parallel.mesh import mesh_devices
         from deeplearning4j_tpu_torch.resilience.guard import nan_guard_policy
 
         self._ensure_init()
-        if mesh is not None:
-            raise mesh_not_ported("fit_epochs(mesh=)")
+        if mesh is None and isinstance(data, self._CACHE):
+            mesh = data.mesh
+        if mesh_devices(mesh) > 1:
+            return self._mesh_wrapper(mesh).fit_epochs(
+                data, num_epochs, shuffle=shuffle, chunk_epochs=chunk_epochs,
+                cache_mb=cache_mb, accum_steps=accum_steps, guard=guard,
+                telemetry=telemetry, on_chunk=on_chunk)
         if num_epochs <= 0 or self._fit_trains_nothing():
             return None
         if accum_steps is None:
@@ -474,9 +541,22 @@ class FusedTraining:
             return drive_epoch_chunks(self, cache, num_epochs, chunk_epochs,
                                       prog.launch, shuffle=shuffle,
                                       guard=guard, replay_step=replay_step,
-                                      on_chunk=on_chunk)
+                                      on_chunk=on_chunk,
+                                      reshard=self._reshard_meshless)
         finally:
             prog.stacks = None
+
+    def _mesh_wrapper(self, mesh):
+        """The replicated ``ParallelWrapper`` over ``mesh`` that
+        ``fit_epochs(mesh=)`` runs through (kept for the next call on the
+        same mesh)."""
+        from deeplearning4j_tpu_torch.parallel.data_parallel import (
+            ParallelWrapper)
+
+        wrapper = getattr(self, "_mesh_wrapper_", None)
+        if wrapper is None or wrapper.mesh is not mesh:
+            wrapper = self._mesh_wrapper_ = ParallelWrapper(self, mesh=mesh)
+        return wrapper
 
     def _epoch_program(self, cache, shuffle: bool, accum: int,
                        guarded: bool, stride: int) -> _Program:

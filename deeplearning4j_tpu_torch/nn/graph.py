@@ -22,10 +22,10 @@ telemetry and accumulation, and the TBPTT window scan, each replaying one
 captured CUDA graph per step on the card.
 
 The graph runs on the CUDA card unless it is given ``device="cpu"``;
-with no card and no device it raises. The fused epoch over a device
-mesh (``mesh=``, ``request_reshard``) raises ``NotImplementedError``
-naming ROADMAP A14.3 (``parallel.ParallelWrapper`` delegates a graph to
-its own ``fit``, as the reference's does).
+with no card and no device it raises. The fused epoch runs over a
+device mesh too (``fit_epochs(mesh=)``, ``request_reshard``, through
+``parallel.ParallelWrapper.fit_epochs``); the wrapper's per-batch ``fit``
+delegates a graph to its own ``fit``, as the reference's does.
 """
 
 from __future__ import annotations
@@ -69,7 +69,11 @@ from deeplearning4j_tpu_torch.nn.multilayer import (
 )
 from deeplearning4j_tpu_torch.nn.conf.enums import LearningRatePolicy
 from deeplearning4j_tpu_torch.nn.updater import UpdaterSpec, init_updater_state
-from deeplearning4j_tpu_torch.ops.losses import compute_loss
+from deeplearning4j_tpu_torch.ops.losses import (
+    compute_loss,
+    dp_penalty,
+    dp_sum,
+)
 from deeplearning4j_tpu_torch.perf.device_eval import confusion_update
 from deeplearning4j_tpu_torch.perf.epoch_cache import DeviceMultiDataSetCache
 
@@ -290,7 +294,7 @@ class ComputationGraph(FusedTraining):
         for name, impl in self.layer_impls.items():
             penalty = impl.l1_l2_penalty(params[name])
             if penalty is not None:
-                total = total + penalty
+                total = total + dp_penalty(penalty)
         return total, (new_state, new_rnn)
 
     def _loss_grads(self, params, net_state, inputs, labels,
@@ -321,7 +325,7 @@ class ComputationGraph(FusedTraining):
         microbatches: every head's loss is its masked mean scaled by the
         microbatch's share of that head's full-batch mask, plus 1/k of the
         L1/L2 penalty. Returns ``(grads, loss, new net state)``."""
-        d_full = [torch.clamp(m.sum(), min=1.0) for m in batch[3]]
+        d_full = [torch.clamp(dp_sum(m.sum()), min=1.0) for m in batch[3]]
 
         def micro_loss(p, nst, mb, rng):
             inputs, labels, fms, lms = mb
@@ -334,12 +338,12 @@ class ComputationGraph(FusedTraining):
                     continue
                 core = compute_loss(lc.loss_function, outs[i], labels[i],
                                     lms[i])
-                total = total + core * (torch.clamp(lms[i].sum(), min=1.0)
-                                        / d_full[i])
+                total = total + core * (
+                    torch.clamp(dp_sum(lms[i].sum()), min=1.0) / d_full[i])
             for name, impl in self.layer_impls.items():
                 penalty = impl.l1_l2_penalty(p[name])
                 if penalty is not None:
-                    total = total + penalty / k
+                    total = total + dp_penalty(penalty) / k
             return total, st
 
         return self._accum_micro(params, net_state, batch, rng, k,

@@ -32,10 +32,9 @@ The network runs on the CUDA card unless it is given ``device="cpu"``;
 with no card and no device it raises. Data-parallel training over a
 device mesh is ``parallel.ParallelWrapper`` (ROADMAP A14.1), and
 tensor parallelism over its ``model`` axis
-``parallel.tensor_parallel.shard_network_params`` (A14.2); the fused
-epoch over a mesh (``fit_epochs``/``build_epoch_cache`` with ``mesh=``,
-``request_reshard``) raises ``NotImplementedError`` naming ROADMAP
-A14.3.
+``parallel.tensor_parallel.shard_network_params`` (A14.2), and the fused
+epoch over a mesh ``fit_epochs(mesh=)``/``build_epoch_cache(mesh=)`` with
+``request_reshard`` (A14.3, run through ``ParallelWrapper.fit_epochs``).
 """
 
 from __future__ import annotations
@@ -66,7 +65,12 @@ from deeplearning4j_tpu_torch.nn.updater import (
     apply_updater,
     init_updater_state,
 )
-from deeplearning4j_tpu_torch.ops.losses import compute_loss, per_example_loss
+from deeplearning4j_tpu_torch.ops.losses import (
+    compute_loss,
+    dp_penalty,
+    dp_sum,
+    per_example_loss,
+)
 from deeplearning4j_tpu_torch.perf.epoch_cache import DeviceDataSetCache
 from deeplearning4j_tpu_torch.perf.device_eval import (
     RegressionStats,
@@ -214,7 +218,7 @@ class MultiLayerNetwork(FusedTraining):
         for i, impl in enumerate(self.layers):
             penalty = impl.l1_l2_penalty(params[str(i)])
             if penalty is not None:
-                loss = loss + penalty
+                loss = loss + dp_penalty(penalty)
         return loss, (new_state, new_rnn)
 
     def _loss_grads(self, params, net_state, x, y, feature_mask=None,
@@ -245,18 +249,18 @@ class MultiLayerNetwork(FusedTraining):
         microbatches: each microbatch's loss is its masked mean scaled by
         its share of the full batch's mask (``d_mb / d_full``) plus 1/k
         of the L1/L2 penalty. Returns ``(grads, loss, new net state)``."""
-        d_full = torch.clamp(batch[3].sum(), min=1.0)
+        d_full = torch.clamp(dp_sum(batch[3].sum()), min=1.0)
 
         def micro_loss(p, nst, mb, rng):
             x, y, fm, lm = mb
             out, st, _, _ = self._forward(p, nst, x, train=True, rng=rng,
                                           feature_mask=fm)
             core = compute_loss(self._output_conf.loss_function, out, y, lm)
-            loss = core * (torch.clamp(lm.sum(), min=1.0) / d_full)
+            loss = core * (torch.clamp(dp_sum(lm.sum()), min=1.0) / d_full)
             for i, impl in enumerate(self.layers):
                 penalty = impl.l1_l2_penalty(p[str(i)])
                 if penalty is not None:
-                    loss = loss + penalty / k
+                    loss = loss + dp_penalty(penalty) / k
             return loss, st
 
         return self._accum_micro(params, net_state, batch, rng, k,

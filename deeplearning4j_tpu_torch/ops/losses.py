@@ -10,10 +10,19 @@ tie (a softmax output of exactly 1.0, say) both halves take half the
 gradient, as ``jnp.clip`` does, where ``clamp`` passes all of it. MCXENT
 is softmax output → clip → log, kept as the reference has it rather
 than ``log_softmax``: the clip changes the gradient near 0.
+
+Inside :func:`data_parallel_loss` (a data-parallel step over a mesh's
+``data`` axis, each rank holding an equal share of the global batch)
+:func:`compute_loss` divides this rank's numerator by the denominator
+summed over the ranks, :func:`dp_sum` sums a mask count over them and
+:func:`dp_penalty` gives each rank its 1/N share of an L1/L2 penalty:
+the ranks' losses then add up to the global batch's loss.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import enum
 from typing import Callable, Optional
 
@@ -169,10 +178,10 @@ def compute_loss(loss, output: torch.Tensor, labels: torch.Tensor,
     over the mask sum.
     """
     per_example = per_example_loss(loss, output, labels, custom_name)
-    if mask is None:
+    if mask is None and _DP_SCOPE.get() is None:
         return torch.mean(per_example)
     total, denom = masked_sums(per_example, mask)
-    return total / _clip(denom, 1.0, None)
+    return total / _clip(dp_sum(denom), 1.0, None)
 
 
 def masked_sums(per_example: torch.Tensor, mask: Optional[torch.Tensor]):
@@ -189,3 +198,44 @@ def masked_sums(per_example: torch.Tensor, mask: Optional[torch.Tensor]):
     mask = mask.reshape(mask.shape + (1,) * (per_example.ndim - mask.ndim))
     mask = torch.broadcast_to(mask, per_example.shape)
     return torch.sum(per_example * mask), torch.sum(mask)
+
+
+#: ``(group, ranks)`` of the data-parallel step running on this thread
+_DP_SCOPE: contextvars.ContextVar = contextvars.ContextVar(
+    "dl4j_dp_loss", default=None)
+
+
+@contextlib.contextmanager
+def data_parallel_loss(group, ranks: int):
+    """Losses computed inside are this rank's share of a batch split over
+    ``group``'s ``ranks`` ranks (see the module)."""
+    token = _DP_SCOPE.set((group, int(ranks)))
+    try:
+        yield
+    finally:
+        _DP_SCOPE.reset(token)
+
+
+def dp_scope():
+    """The ``(group, ranks)`` of the enclosing :func:`data_parallel_loss`,
+    or None."""
+    return _DP_SCOPE.get()
+
+
+def dp_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the data-parallel ranks (no gradient flows
+    through the sum: it is a mask count); ``x`` itself outside a scope."""
+    scope = _DP_SCOPE.get()
+    if scope is None:
+        return x
+    import torch.distributed as dist
+
+    out = x.detach().clone()
+    dist.all_reduce(out, group=scope[0])
+    return out
+
+
+def dp_penalty(penalty: torch.Tensor) -> torch.Tensor:
+    """This rank's share of an L1/L2 penalty: 1/N of it inside a scope."""
+    scope = _DP_SCOPE.get()
+    return penalty if scope is None else penalty / scope[1]

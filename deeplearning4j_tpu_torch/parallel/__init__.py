@@ -14,13 +14,13 @@ flash kernels (:mod:`.ring_attention`) and Ulysses (:mod:`.ulysses`)
 (ROADMAP A14.1); tensor parallelism over ``model``
 (:mod:`.tensor_parallel`, ``TransformerLM.shard_params``), the GPipe
 schedule over ``pipe`` (:mod:`.pipeline_parallel`) and the MoE FFN over
-``expert`` (:mod:`.expert_parallel`) (A14.2); ``FaultTolerantTrainer``
-(:mod:`.cluster`) and the work router's straggler rule
-(:mod:`.workrouter`).
+``expert`` (:mod:`.expert_parallel`) (A14.2); the fused epoch over a mesh
+with its elastic reshard (``ParallelWrapper.fit_epochs``), the state
+tracker (:mod:`.statetracker`), the multi-host runtime and
+``FaultTolerantTrainer`` (:mod:`.cluster`) and the work router
+(:mod:`.workrouter`) (A14.3).
 
-Importable but raising, naming their item: the state tracker, the
-multi-host runtime and the rest of the work router (A14.3); the config
-registry (A15).
+Importable but raising, naming its item: the config registry (A15).
 """
 
 from deeplearning4j_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -48,8 +48,26 @@ from deeplearning4j_tpu_torch.parallel.fsdp import (  # noqa: F401
     fsdp_spec,
     shard_tree,
 )
+from deeplearning4j_tpu_torch.parallel.statetracker import (  # noqa: F401
+    FileStateTracker,
+    InMemoryStateTracker,
+    Job,
+    StateTracker,
+)
 from deeplearning4j_tpu_torch.parallel.cluster import (  # noqa: F401
+    ClusterConfig,
     FaultTolerantTrainer,
+    HeartbeatMonitor,
+    initialize_distributed,
+)
+from deeplearning4j_tpu_torch.parallel.workrouter import (  # noqa: F401
+    DistributedTrainer,
+    HogwildWorkRouter,
+    IterativeReduceWorkRouter,
+    NetworkWorkPerformer,
+    WorkRouter,
+    WorkerPerformer,
+    average_aggregator,
 )
 from deeplearning4j_tpu_torch.parallel.pipeline_parallel import (  # noqa: F401
     pipeline_train_step,
@@ -76,14 +94,4 @@ def _later(name: str, item: str, what: str):
     return raise_later
 
 
-for _name in ("FileStateTracker", "InMemoryStateTracker", "Job",
-              "StateTracker"):
-    globals()[_name] = _later(_name, "A14.3", "the state tracker")
-for _name in ("ClusterConfig", "HeartbeatMonitor", "initialize_distributed"):
-    globals()[_name] = _later(_name, "A14.3", "the multi-host runtime")
-for _name in ("DistributedTrainer", "HogwildWorkRouter",
-              "IterativeReduceWorkRouter", "NetworkWorkPerformer",
-              "WorkRouter", "WorkerPerformer", "average_aggregator"):
-    globals()[_name] = _later(_name, "A14.3", "the work router")
 ConfigRegistry = _later("ConfigRegistry", "A15", "the config registry")
-del _name

@@ -1,21 +1,32 @@
-"""Checkpoint/resume training: ``FaultTolerantTrainer``.
+"""Multi-host cluster runtime: launcher, liveness, checkpoint/resume.
 
-Port of the trainer half of ``deeplearning4j_tpu/parallel/cluster.py``
-(``_log_failed_save`` and ``FaultTolerantTrainer``): checkpoints every N
-iterations in the ModelSerializer zip both packages read, sha256
-manifest sidecars, ``resume`` from the newest verified checkpoint,
-``save_async`` (the state copied to the host on the calling thread, the
-zip written on a background writer), ``fit`` under a step watchdog and
-the preemption guard, and ``fit_epochs`` on the chunk driver's
-``on_chunk``. A JAX-written checkpoint resumes here (its weights,
-updater state and cursors; the port draws from its own generator, which
-the JAX zip does not carry, so its epoch orders start from the
-configuration's seed).
+Port of ``deeplearning4j_tpu/parallel/cluster.py``:
 
-The multi-host runtime of that module (``ClusterConfig``,
-``initialize_distributed``, ``HeartbeatMonitor``) and the trainer's
-``tracker=``, ``resume(mesh=)`` and ``resume(fsdp=True)`` are ROADMAP A14.3;
-they raise naming it.
+- ``initialize_distributed`` joins the ranks into one
+  ``torch.distributed`` world at ``coordinator_address`` over TCP (a
+  ``TCPStore`` that rank 0 hosts), with retry under ``RetryPolicy`` and
+  the ``distributed.init`` fault point; one process is a no-op.
+- ``HeartbeatMonitor``: a background liveness thread against a
+  ``StateTracker`` (``parallel/statetracker.py``).
+- ``FaultTolerantTrainer``: checkpoints every N iterations in the
+  ModelSerializer zip both packages read, sha256 manifest sidecars,
+  ``resume`` from the newest verified checkpoint (the tracker's
+  ``latest_checkpoint`` pointer among the candidates), ``save_async``
+  (the state copied to the host on the calling thread, the zip written on
+  a background writer), ``fit`` under a step watchdog and the preemption
+  guard, ``fit_epochs`` on the chunk driver's ``on_chunk``, and
+  heartbeats when given a tracker. A JAX-written checkpoint resumes here
+  (its weights, updater state and cursors; the port draws from its own
+  generator, which the JAX zip does not carry, so its epoch orders start
+  from the configuration's seed).
+
+Over a mesh (a ``ParallelWrapper`` handed in, every rank running the
+trainer with the same directory) the checkpoint holds the whole state:
+every rank takes part in gathering it, rank 0 alone writes it, and the
+ranks meet at a barrier before a save returns. ``resume(mesh=)`` places
+the restored state on any mesh of the current world (replicated, or the
+registry's tensor-parallel shards where it has a ``model`` axis), and
+``resume(fsdp=True)`` keeps this rank's FSDP shards over ``data``.
 """
 
 from __future__ import annotations
@@ -27,21 +38,229 @@ import json
 import logging
 import os
 import threading
+from dataclasses import dataclass
 from typing import Callable, List, Optional
 
 from deeplearning4j_tpu_torch.monitor import metrics, record_counter, tracer
-from deeplearning4j_tpu_torch.resilience import faults
+from deeplearning4j_tpu_torch.parallel.statetracker import StateTracker
+from deeplearning4j_tpu_torch.resilience import (
+    RetryError,
+    RetryPolicy,
+    faults,
+)
 from deeplearning4j_tpu_torch.resilience.preemption import PreemptionGuard
 from deeplearning4j_tpu_torch.resilience.watchdog import StepWatchdog
 from deeplearning4j_tpu_torch.utils.fileio import atomic_write_text
 
 logger = logging.getLogger(__name__)
 
+DEFAULT_EVICTION_TIMEOUT_S = 120.0  # MasterActor parity
 
-def cluster_not_ported(what: str) -> NotImplementedError:
-    """The error of the multi-host runtime's parts."""
-    return NotImplementedError(
-        f"{what} (the multi-host runtime) is not ported yet (ROADMAP A14.3)")
+
+@dataclass
+class ClusterConfig:
+    """Multi-host topology (maps onto ``initialize_distributed``)."""
+
+    coordinator_address: Optional[str] = None  # "host:port"
+    num_processes: int = 1
+    process_id: int = 0
+    heartbeat_interval_s: float = 5.0
+    eviction_timeout_s: float = DEFAULT_EVICTION_TIMEOUT_S
+
+
+def default_backend(device=None, world_size: int = 1) -> str:
+    """NCCL where every rank has a card of its own, gloo otherwise (the
+    CPU, or ranks sharing cards: gloo carries CUDA tensors too)."""
+    import torch
+
+    from deeplearning4j_tpu_torch._device import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda" and world_size <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def initialize_distributed(config: ClusterConfig, retries: int = 3,
+                           retry_delay_s: float = 5.0,
+                           policy: Optional[RetryPolicy] = None, *,
+                           device=None) -> bool:
+    """Join the multi-process world; returns True when initialized.
+
+    Single-process configs are a no-op (False). Rank
+    ``config.process_id`` of ``config.num_processes`` meets the others at
+    ``coordinator_address`` (``host:port``; rank 0 hosts the
+    ``TCPStore``) over :func:`default_backend` for ``device`` (default:
+    the card), with the mesh's collective timeout. On CUDA each rank then
+    takes card ``process_id % device_count``. Failures retry under the
+    shared :class:`RetryPolicy` (``retries``/``retry_delay_s`` seed the
+    default one)."""
+    if config.num_processes <= 1 or config.coordinator_address is None:
+        return False
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch._device import resolve_device
+    from deeplearning4j_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT_S
+
+    if policy is None:
+        policy = RetryPolicy(max_attempts=retries,
+                             base_delay_s=retry_delay_s,
+                             max_delay_s=4 * retry_delay_s)
+    dev = resolve_device(device)
+    backend = default_backend(dev, config.num_processes)
+    host, _, port = config.coordinator_address.rpartition(":")
+    timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
+
+    def init():
+        faults.fault_point("distributed.init")
+        store = dist.TCPStore(host or "127.0.0.1", int(port),
+                              config.num_processes,
+                              is_master=config.process_id == 0,
+                              timeout=timeout)
+        dist.init_process_group(backend, store=store,
+                                rank=config.process_id,
+                                world_size=config.num_processes,
+                                timeout=timeout)
+
+    try:
+        policy.call(init)
+    except RetryError as e:
+        raise RuntimeError(
+            f"torch.distributed init failed after {e.attempts} attempts"
+        ) from e.last
+    if dev.type == "cuda":
+        torch.cuda.set_device(config.process_id % torch.cuda.device_count())
+    return True
+
+
+class HeartbeatMonitor:
+    """Posts worker heartbeats on a timer; the coordinator side calls
+    ``evict()`` to drop silent workers and requeue their jobs.
+
+    ``payload_fn`` (optional) is called before every beat and its dict
+    rides along as the beat's compact metrics payload (step time,
+    goodput, last-chunk loss — whatever the worker wants the master's
+    fleet view to see). A failing ``payload_fn`` degrades to a
+    payload-less beat — liveness must never depend on telemetry — and a
+    tracker whose ``heartbeat`` predates the ``metrics=`` parameter
+    gets the legacy payload-less call."""
+
+    def __init__(self, tracker: StateTracker, worker_id: str,
+                 interval_s: float = 5.0,
+                 eviction_timeout_s: float = DEFAULT_EVICTION_TIMEOUT_S,
+                 payload_fn: Optional[Callable[[], Optional[dict]]] = None):
+        self.tracker = tracker
+        self.worker_id = worker_id
+        self.interval_s = interval_s
+        self.eviction_timeout_s = eviction_timeout_s
+        self.payload_fn = payload_fn
+        self._supports_metrics: Optional[bool] = None
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    @classmethod
+    def from_config(cls, tracker: StateTracker, worker_id: str,
+                    config: ClusterConfig) -> "HeartbeatMonitor":
+        return cls(tracker, worker_id,
+                   interval_s=config.heartbeat_interval_s,
+                   eviction_timeout_s=config.eviction_timeout_s)
+
+    def _post(self) -> None:
+        # liveness must degrade, not crash: a transient tracker error
+        # (shared-fs hiccup, injected fault) skips one beat and keeps the
+        # thread alive — eviction only triggers after MANY missed beats
+        payload = None
+        if self.payload_fn is not None:
+            try:
+                payload = self.payload_fn()
+            except Exception:  # noqa: BLE001 — telemetry never blocks liveness
+                logger.debug("heartbeat payload_fn failed for %s; "
+                             "posting payload-less beat", self.worker_id,
+                             exc_info=True)
+        try:
+            if payload is None or not self._tracker_takes_metrics():
+                self.tracker.heartbeat(self.worker_id)
+            else:
+                self.tracker.heartbeat(self.worker_id, metrics=payload)
+        except Exception:  # noqa: BLE001
+            logger.warning("heartbeat post failed for %s (will retry on "
+                           "next interval)", self.worker_id, exc_info=True)
+
+    def _tracker_takes_metrics(self) -> bool:
+        # signature inspection, cached, instead of catching TypeError
+        # from the live call: a TypeError the tracker itself raises
+        # (e.g. a non-JSON-serializable payload value) must surface as
+        # a warning, not be misread as "pre-payload implementation" and
+        # silently demote every future beat to payload-less
+        if self._supports_metrics is None:
+            import inspect
+
+            try:
+                params = inspect.signature(
+                    self.tracker.heartbeat).parameters.values()
+                self._supports_metrics = any(
+                    p.name == "metrics"
+                    or p.kind is inspect.Parameter.VAR_KEYWORD
+                    for p in params)
+            except (TypeError, ValueError):  # uninspectable callable
+                self._supports_metrics = True
+        return self._supports_metrics
+
+    def start(self) -> "HeartbeatMonitor":
+        if self._thread is not None:
+            if self._thread.is_alive():
+                return self
+            self._thread = None  # crashed/finished thread: allow restart
+        # a FRESH event captured by THIS thread's closure — stop() of a
+        # previous incarnation (possibly still draining its join timeout)
+        # can then never stop the new thread, and vice versa
+        stop = threading.Event()
+        self._stop = stop
+        self._post()
+
+        def run():
+            while not stop.wait(self.interval_s):
+                self._post()
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name=f"heartbeat-{self.worker_id}")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        thread, stop = self._thread, self._stop
+        if thread is None:
+            return  # idempotent: stop() after stop() is a no-op
+        self._thread = None
+        stop.set()
+        thread.join(timeout=self.interval_s + 1.0)
+
+    def __enter__(self) -> "HeartbeatMonitor":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    def evict(self, timeout_s: Optional[float] = None) -> List[str]:
+        return self.tracker.evict_stale(
+            timeout_s if timeout_s is not None else self.eviction_timeout_s)
+
+
+
+def _world_rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def _log_failed_save(fut: "concurrent.futures.Future") -> None:
@@ -76,13 +295,12 @@ class FaultTolerantTrainer:
 
     def __init__(self, network, checkpoint_dir: str,
                  checkpoint_every: int = 10, keep: int = 3,
-                 tracker=None,
+                 tracker: Optional[StateTracker] = None,
                  worker_id: str = "worker-0",
                  heartbeat_interval_s: float = 5.0,
                  step_deadline_s: Optional[float] = None,
                  on_stall: Optional[Callable[[float], None]] = None):
-        if tracker is not None:
-            raise cluster_not_ported("FaultTolerantTrainer(tracker=)")
+        self.tracker = tracker
         self.network = network
         # ``network`` may be a ParallelWrapper; serialization and cursor
         # bookkeeping always target the real model underneath, while
@@ -187,6 +405,9 @@ class FaultTolerantTrainer:
                     os.unlink(self._manifest_path(old))
                 except FileNotFoundError:
                     pass  # legacy checkpoint without a sidecar
+            if self.tracker is not None:
+                # the replicated pointer: found after a restart elsewhere
+                self.tracker.put_meta("latest_checkpoint", path)
         metrics().histogram(
             "checkpoint_write_seconds",
             "zip + sha256 manifest + prune wall time").observe(
@@ -194,11 +415,24 @@ class FaultTolerantTrainer:
         record_counter("checkpoint_saves_total")
         return path
 
+    def _over_mesh(self) -> bool:
+        """Whether the handle trains over a world of several ranks (a
+        ``ParallelWrapper``): saves then gather and rank 0 writes."""
+        from deeplearning4j_tpu_torch.parallel.mesh import world_size
+
+        return hasattr(self.network, "gather") and world_size() > 1
+
     def save(self) -> str:
         faults.fault_point("checkpoint.save")
         self.wait_for_saves()  # never interleave with an async write
-        return self._write_checkpoint(
-            self.model, self._ckpt_path(self.model.iteration_count))
+        path = self._ckpt_path(self.model.iteration_count)
+        if not self._over_mesh():
+            return self._write_checkpoint(self.model, path)
+        snap = self._snapshot_model()  # every rank gathers
+        if _world_rank() == 0:
+            self._write_checkpoint(snap, path)
+        _barrier()
+        return path
 
     # -- async save ----------------------------------------------------
     def _snapshot_model(self):
@@ -218,11 +452,15 @@ class FaultTolerantTrainer:
         if not hasattr(net, "conf") or not hasattr(net, "updater_state"):
             return None
         host = lambda t: t.detach().to("cpu", copy=True)  # noqa: E731
+        # over a mesh the whole trees, gathered from every rank's parts
+        params, upd = (self.network.gather()
+                       if hasattr(self.network, "gather")
+                       else (net.params, net.updater_state))
         snap = object.__new__(type(net))
         snap.conf = net.conf
         snap.device = torch.device("cpu")
-        snap.params = tree_map(host, net.params)
-        snap.updater_state = tree_map(host, net.updater_state)
+        snap.params = tree_map(host, params)
+        snap.updater_state = tree_map(host, upd)
         snap.net_state = tree_map(host, net.net_state)
         snap.iteration_count = net.iteration_count
         snap._initialized = True
@@ -252,6 +490,11 @@ class FaultTolerantTrainer:
             "checkpoint_snapshot_seconds",
             "device-to-host state copy (the blocking part of save_async)"
         ).observe(sp.duration_s)
+        if self._over_mesh() and _world_rank() != 0:
+            # rank 0 writes the checkpoint; the others only gathered
+            fut = concurrent.futures.Future()
+            fut.set_result(self._ckpt_path(snap.iteration_count))
+            return fut
         if snap is None:  # model type without the snapshot surface
             fut: concurrent.futures.Future = concurrent.futures.Future()
             try:
@@ -289,9 +532,15 @@ class FaultTolerantTrainer:
                 ex.shutdown(wait=False)
 
     def _resume_candidates(self) -> List[str]:
-        """Newest → oldest. (The reference appends the state tracker's
-        replicated pointer; the tracker is A14.3.)"""
-        return list(reversed(self.checkpoints()))
+        """Newest → oldest, with the tracker's replicated pointer appended
+        as a last resort (it may point outside ``self.dir`` after a
+        restart on another host)."""
+        cands = list(reversed(self.checkpoints()))
+        if self.tracker is not None:
+            meta = self.tracker.get_meta("latest_checkpoint")
+            if meta and meta not in cands:
+                cands.append(meta)
+        return cands
 
     def resume(self, mesh=None, fsdp: bool = False) -> bool:
         """Restore the newest checkpoint that passes integrity
@@ -306,14 +555,20 @@ class FaultTolerantTrainer:
         (so every later epoch order and dropout draw continues the dead
         run's stream), the host LR scale and the epoch and step cursors
         ``fit``/``fit_epochs`` use to skip work already done. The zip is
-        restored on the network's device. ``mesh=`` and ``fsdp=True``
-        (re-laying the state out over a device mesh) are ROADMAP A14.3."""
-        if mesh is not None or fsdp:
-            raise cluster_not_ported("resume(mesh=, fsdp=)")
-        with tracer().span("checkpoint.resume") as resume_span:
-            return self._resume_impl(resume_span)
+        restored on the network's device.
 
-    def _resume_impl(self, resume_span) -> bool:
+        Elastic re-sharding: the checkpoint holds whole tensors, so it
+        restores onto any mesh of the current world. ``mesh=`` places the
+        restored state on it (replicated, or the registry's
+        tensor-parallel shards where the mesh has a ``model`` axis);
+        ``fsdp=True`` keeps this rank's FSDP shards over ``data``. A
+        ``ParallelWrapper`` handle adopts the mesh (its own when none is
+        given), so its next ``fit_epochs`` runs there. Every rank of the
+        world calls ``resume`` with the same arguments."""
+        with tracer().span("checkpoint.resume") as resume_span:
+            return self._resume_impl(mesh, fsdp, resume_span)
+
+    def _resume_impl(self, mesh, fsdp: bool, resume_span) -> bool:
         from deeplearning4j_tpu_torch.utils.serializer import ModelSerializer
 
         candidates = self._resume_candidates()
@@ -350,6 +605,7 @@ class FaultTolerantTrainer:
             # the generator's state, into the network's own generator: a
             # captured step holds that object
             net._rng.set_state(restored._rng.get_state())
+            self._reshard(mesh, fsdp)
             if saw_corrupt:
                 logger.warning("resumed from fallback %s (skipped %d bad "
                                "checkpoint(s))", path, len(saw_corrupt))
@@ -364,6 +620,38 @@ class FaultTolerantTrainer:
                 f"are corrupt or unloadable; refusing to silently restart "
                 f"from scratch (newest: {saw_corrupt[0]})")
         return False
+
+    def _reshard(self, mesh, fsdp: bool) -> None:
+        """Place the restored whole state: on the wrapper's (or the
+        given) mesh through the wrapper, else on ``mesh`` through the
+        registry, or FSDP-sharded over its ``data`` axis."""
+        from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+            unshard_network_params)
+
+        net = self.model
+        if mesh is None and not hasattr(self.network, "gather"):
+            return
+        unshard_network_params(net)  # the restored trees are whole
+        if hasattr(self.network, "gather"):
+            wrapper = self.network
+            wrapper.fsdp = wrapper.fsdp or fsdp
+            wrapper._set_mesh(wrapper.mesh if mesh is None else mesh)
+        elif fsdp:
+            from deeplearning4j_tpu_torch.parallel.fsdp import shard_tree
+
+            net.params = shard_tree(net.params, mesh)
+            net.updater_state = shard_tree(net.updater_state, mesh)
+        else:
+            net._place_on_mesh(mesh)
+
+    def _heartbeats(self):
+        """A started :class:`HeartbeatMonitor` for this worker when the
+        trainer has a tracker, else None."""
+        if self.tracker is None:
+            return None
+        return HeartbeatMonitor(self.tracker, self.worker_id,
+                                interval_s=self.heartbeat_interval_s
+                                ).start()
 
     # ------------------------------------------------------------------
     def fit(self, data, num_epochs: int = 1,
@@ -386,6 +674,7 @@ class FaultTolerantTrainer:
         model = self.model
         self.preempted = False
         watchdog = None
+        monitor = self._heartbeats()
         if self.step_deadline_s is not None:
             watchdog = StepWatchdog(self.step_deadline_s,
                                     on_stall=self.on_stall).start()
@@ -422,6 +711,8 @@ class FaultTolerantTrainer:
                 preemption.uninstall()
             if watchdog is not None:
                 watchdog.stop()
+            if monitor is not None:
+                monitor.stop()
         return self
 
     def fit_epochs(self, data, num_epochs: int, *,
@@ -475,20 +766,25 @@ class FaultTolerantTrainer:
                 self.save_async()
             return False
 
-        with guard:
-            hist = net.fit_epochs(data, num_epochs - start,
-                                  chunk_epochs=chunk_epochs,
-                                  on_chunk=on_chunk, **fit_kw)
-            self.wait_for_saves()
-            if not self.preempted:
-                # fallback paths (streaming / per-step) never fire
-                # on_chunk; a completed run is complete either way
-                model._epoch_cursor = num_epochs
-                self.save()
-                # the CHECKPOINT keeps cursor=num_epochs so a crash-
-                # restart loop that re-runs this job is idempotent
-                # (resume -> nothing left -> no retraining); the LIVE
-                # model resets so another interactive fit_epochs call
-                # trains again instead of silently no-oping
-                model._epoch_cursor = 0
+        monitor = self._heartbeats()
+        try:
+            with guard:
+                hist = net.fit_epochs(data, num_epochs - start,
+                                      chunk_epochs=chunk_epochs,
+                                      on_chunk=on_chunk, **fit_kw)
+                self.wait_for_saves()
+                if not self.preempted:
+                    # fallback paths (streaming / per-step) never fire
+                    # on_chunk; a completed run is complete either way
+                    model._epoch_cursor = num_epochs
+                    self.save()
+                    # the CHECKPOINT keeps cursor=num_epochs so a crash-
+                    # restart loop that re-runs this job is idempotent
+                    # (resume -> nothing left -> no retraining); the LIVE
+                    # model resets so another interactive fit_epochs call
+                    # trains again instead of silently no-oping
+                    model._epoch_cursor = 0
+        finally:
+            if monitor is not None:
+                monitor.stop()
         return hist

@@ -20,6 +20,10 @@ global batch:
   dtype, then the updaters run on the whole gradient, as the
   reference's gradient normalisation sees it.
 
+That step is the network's own (``_variant_step``) inside
+``ops.losses.data_parallel_loss``, the scope whose losses are each
+rank's share of the global batch's.
+
 A float32 sum over ranks is not the single-device sum bitwise (the
 order differs), so a wrapper over N > 1 ranks agrees with the global
 batch to rounding (the tests' float32 gate is rtol 1e-4 / atol 1e-6).
@@ -43,8 +47,20 @@ replicas, params AND updater state averaged every
 one device and no process group is needed; over a ``data`` axis each
 rank holds R/N of them and the average is an all-reduce.
 
-Fused epochs over a mesh (``fit_epochs``, ``build_epoch_cache``,
-``request_reshard``) are ROADMAP A14.3 and raise.
+``fit_epochs`` is the fused epoch over the mesh: the dataset cache
+keeps each rank's ``B/n`` rows of every batch (``perf.epoch_cache``
+``build(mesh=)``), and each epoch runs the step above on this rank's
+rows of every batch of the plan, eagerly (gloo collectives cannot be
+captured), with the ``[E, N]`` history, the numeric sentinel, telemetry
+and ``accum_steps`` of the one-device ``fit_epochs``. Every rank trains
+on one plan: rank 0 draws each epoch's order from the network's
+generator (the one-device run's stream) and broadcasts it. A world of
+one runs the network's own captured ``fit_epochs``, bitwise.
+``request_reshard(mesh)`` re-lays the run out at the next chunk boundary
+(elastic reshard: another topology over the same ranks, or ``None``:
+every rank the one-device step on whole batches); chunk-boundary
+decisions (``on_chunk``'s stop, a reshard request) must agree across
+ranks, which the boundary checks with one ``all_gather``.
 """
 
 from __future__ import annotations
@@ -54,6 +70,7 @@ import logging
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.dtypes import tree_leaves, tree_map
@@ -61,7 +78,6 @@ from deeplearning4j_tpu_torch.ops.losses import masked_sums, per_example_loss
 from deeplearning4j_tpu_torch.parallel.collectives import (
     all_gather,
     all_reduce_,
-    all_reduce_tree_,
 )
 from deeplearning4j_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -70,9 +86,10 @@ from deeplearning4j_tpu_torch.parallel.mesh import (
     build_mesh,
     data_axis_size,
     local_chunk,
+    mesh_devices,
+    world_size,
 )
 from deeplearning4j_tpu_torch.parallel.sharding_registry import _rebuild
-from deeplearning4j_tpu_torch.perf.epoch_cache import mesh_not_ported
 
 logger = logging.getLogger(__name__)
 
@@ -101,17 +118,32 @@ class ParallelWrapper:
         and ignores it."""
         self.network = network
         network._ensure_init()
-        self.mesh = mesh if mesh is not None else build_mesh(
-            device=network.device)
         self._donate = donate
         self.fsdp = fsdp
-        self._group = axis_group(self.mesh, DATA_AXIS)
-        self._rank = axis_rank(self.mesh, DATA_AXIS)
-        if self._group is not None:
-            # each rank draws its own dropout masks for its own rows
-            network._rng.manual_seed(network.conf.global_conf.seed
-                                     + (self._rank << 32))
-        self._place_params()
+        self._epoch_plans = []  # each epoch's order, as every rank drew it
+        self._set_mesh(mesh if mesh is not None else build_mesh(
+            device=network.device))
+
+    def _set_mesh(self, mesh) -> None:
+        """Adopt ``mesh`` (``None``: whole batches in every rank) and
+        place the network's whole state on it."""
+        net = self.network
+        self.mesh = mesh
+        self._group = axis_group(mesh, DATA_AXIS)
+        self._rank = axis_rank(mesh, DATA_AXIS)
+        if self._group is not None and self._rank:
+            # each rank draws its own dropout masks for its own rows;
+            # rank 0 keeps the network's stream, which draws the plans
+            net._rng.manual_seed(net.conf.global_conf.seed
+                                 + (self._rank << 32)
+                                 + net.iteration_count)
+        self._registry = None
+        if mesh is not None:
+            self._place_params()
+
+    @property
+    def device(self):
+        return self.network.device
 
     @property
     def data_parallelism(self) -> int:
@@ -151,7 +183,8 @@ class ParallelWrapper:
         tensor parallelism gathered from every rank's parts; else the
         network's own)."""
         net = self.network
-        if not self.fsdp and getattr(net, "_tp_mesh", None) is None:
+        if self._registry is None or (
+                not self.fsdp and getattr(net, "_tp_mesh", None) is None):
             return net.params, net.updater_state
         return (self._registry.gather(net.params),
                 self._registry.gather_state(net.updater_state))
@@ -171,7 +204,34 @@ class ParallelWrapper:
             net.params = parts
 
     def request_reshard(self, mesh) -> None:
-        raise mesh_not_ported("ParallelWrapper.request_reshard")
+        """Request an elastic reshard of the in-flight ``fit_epochs`` run
+        onto ``mesh`` (another topology over all the world's ranks, or
+        ``None``: every rank the one-device step on whole batches),
+        applied at the next chunk boundary (``_apply_reshard``). Every
+        rank must request the same one. A mesh over a strict subset of
+        the ranks raises ``ValueError``."""
+        self.network.request_reshard(mesh)
+
+    def _apply_reshard(self, mesh, cache) -> None:
+        """The chunk driver's reshard actuator: the whole state gathered
+        from the old layout (tensor-parallel layers unwrapped), the
+        dataset cache re-laid for ``mesh``, the state placed on it. With
+        ``None`` every rank continues from rank 0's generator, so that
+        the ranks' whole-batch steps stay the same bytes. Values are
+        untouched; only placement changes."""
+        from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+            unshard_network_params)
+
+        net = self.network
+        params, upd = self.gather()
+        unshard_network_params(net)
+        net.params, net.updater_state = params, upd
+        cache.respec(mesh)
+        if mesh is None and world_size() > 1:
+            state = [net._rng.get_state()]
+            dist.broadcast_object_list(state, src=0)
+            net._rng.set_state(state[0])
+        self._set_mesh(mesh)
 
     def fit(self, data, num_epochs: int = 1):
         """fit(DataSetIterator | DataSet). Every rank passes the same
@@ -244,21 +304,12 @@ class ParallelWrapper:
                                            self._rank))
                       for a in (ds.features, ds.labels, ds.features_mask,
                                 ds.labels_mask))
-        # the step runs on whole params under FSDP, on this rank's
-        # shards under tensor parallelism (its layers gather their own)
-        params, upd = (self.gather() if self.fsdp
-                       else (net.params, net.updater_state))
-        it = torch.full((), net.iteration_count, dtype=torch.int32,
-                        device=net.device)
-        lr = torch.full((), net._lr_scale_host, dtype=torch.float32,
-                        device=net.device)
-        new_p, new_u, new_s, loss = self._dp_step(params, upd,
-                                                  net.net_state, it, lr,
-                                                  batch)
-        if self.fsdp:
-            new_p = self._registry.place(new_p)
-            new_u = self._registry.place_state(new_u)
-        net.params, net.updater_state, net.net_state = new_p, new_u, new_s
+        # on whole params under FSDP, on this rank's shards under tensor
+        # parallelism (its layers gather their own)
+        p, u, s, loss, _, _ = self._sharded_step(
+            net.params, net.updater_state, net.net_state,
+            net.iteration_count, batch, self._group, 1, False, 0, net._rng)
+        net.params, net.updater_state, net.net_state = p, u, s
         net._score = loss
         net._train_dispatches += 1
         net._post_iteration()
@@ -271,50 +322,237 @@ class ParallelWrapper:
                       net._dev(ds.features_mask), net._dev(ds.labels_mask))
         net._post_iteration()
 
-    def _dp_step(self, params, updater_state, net_state, iteration, lr,
-                 batch):
-        """One step on this rank's rows that equals the global batch's
-        step: ``(params, updater state, net state, loss)``."""
-        from deeplearning4j_tpu_torch.nn.layers.normalization import (
-            sync_batch_stats)
-
-        net = self.network
-        pol = net._policy
-        x, y, fm, lm = batch
-        fwd = tree_map(lambda p: p.detach().requires_grad_(),
-                       pol.compute_copy(params))
-        with sync_batch_stats(self._group):
-            out, new_state, _, _ = net._forward(
-                fwd, net_state, x, train=True, rng=net._rng,
-                feature_mask=fm)
-        num, den = loss_sums(net._output_conf.loss_function, out, y, lm)
-        den = all_reduce_(den.detach().clone(), self._group)
-        loss = num / torch.clamp(den, min=1.0)
-        share = 1.0 / self.data_parallelism
-        for i, impl in enumerate(net.layers):
-            penalty = impl.l1_l2_penalty(fwd[str(i)])
-            if penalty is not None:
-                loss = loss + penalty * share
-        grads = list(torch.autograd.grad(loss, tree_leaves(fwd),
-                                         allow_unused=True,
-                                         materialize_grads=True))
-        all_reduce_tree_(grads, self._group)
-        loss = all_reduce_(loss.detach().clone(), self._group)
-        new_params, new_updater = net._apply_updaters(
-            params, updater_state, pol.master_grads(_rebuild(fwd, grads)),
-            iteration, net._plain_lr(lr))
-        return new_params, new_updater, new_state, loss
-
-    # fused epochs over a mesh: ROADMAP A14.3
+    # ------------------------------------------------------------------
+    # the fused epoch over the mesh
+    # ------------------------------------------------------------------
     def fused_epochs_supported(self) -> bool:
+        """The wrapped network's own fused-path matrix."""
         supported = getattr(self.network, "fused_epochs_supported", None)
         return bool(supported and supported())
 
-    def build_epoch_cache(self, data, accum_steps: Optional[int] = None):
-        raise mesh_not_ported("ParallelWrapper.build_epoch_cache")
+    def build_epoch_cache(self, data, accum_steps: Optional[int] = None,
+                          cache_mb: Optional[float] = None):
+        """The device cache with each rank's ``B/n`` rows of every batch
+        (a batch the ``data`` axis does not divide stays whole), priced
+        per rank. ``accum_steps=None`` reads ``DL4J_ACCUM_STEPS``."""
+        from deeplearning4j_tpu_torch.perf.epoch_cache import (
+            accum_steps_default)
 
-    def fit_epochs(self, data, num_epochs: int, **kwargs):
-        raise mesh_not_ported("ParallelWrapper.fit_epochs")
+        net = self.network
+        if accum_steps is None:
+            accum_steps = accum_steps_default()
+        return net._CACHE.build(data, budget_mb=cache_mb, mesh=self.mesh,
+                                accum_steps=accum_steps, device=net.device)
+
+    def _meshless(self) -> bool:
+        return world_size() == 1 and mesh_devices(self.mesh) == 1
+
+    def fit_epochs(self, data, num_epochs: int, *, shuffle: bool = True,
+                   chunk_epochs: Optional[int] = None,
+                   cache_mb: Optional[float] = None,
+                   accum_steps: Optional[int] = None,
+                   guard: Optional[str] = None, telemetry=None,
+                   on_chunk=None):
+        """``net.fit_epochs`` over the mesh (see the module): every rank
+        calls it with the same data. Returns the ``[E, N]`` loss history
+        (the global batch's losses, the same in every rank), or ``None``
+        when a fallback ran: an unsupported configuration runs the
+        network's own per-epoch ``fit`` (``fsdp=True`` raises, having no
+        unsharded fallback); a dataset over the per-rank budget streams
+        through the wrapper's sharded ``fit`` for a MultiLayerNetwork and
+        the graph's own ``fit`` for a ComputationGraph (which raises
+        under ``fsdp=True``)."""
+        from deeplearning4j_tpu_torch.monitor import fused_metrics_stride
+        from deeplearning4j_tpu_torch.nn.fused import _map
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+        from deeplearning4j_tpu_torch.perf.epoch_cache import (
+            accum_steps_default,
+            drive_epoch_chunks,
+            effective_accum_steps,
+            stream_epochs,
+        )
+        from deeplearning4j_tpu_torch.resilience.guard import nan_guard_policy
+
+        net = self.network
+        net._ensure_init()
+        if self._meshless():
+            return net.fit_epochs(
+                data, num_epochs, shuffle=shuffle, chunk_epochs=chunk_epochs,
+                cache_mb=cache_mb, accum_steps=accum_steps, guard=guard,
+                telemetry=telemetry, on_chunk=on_chunk)
+        if num_epochs <= 0 or net._fit_trains_nothing():
+            return None
+        if accum_steps is None:
+            accum_steps = accum_steps_default()
+        prebuilt = isinstance(data, net._CACHE)
+        if not self.fused_epochs_supported():
+            if prebuilt:
+                raise ValueError(
+                    "this configuration needs the per-step fit loop — "
+                    "pass the original iterator, not a prebuilt cache")
+            if self.fsdp:
+                raise ValueError(
+                    "ParallelWrapper(fsdp=True) cannot run this "
+                    "configuration's per-step fallback; use fsdp=False")
+            for _ in range(num_epochs):
+                net.fit(data)
+            return None
+        cache = data if prebuilt else self.build_epoch_cache(
+            data, accum_steps=accum_steps, cache_mb=cache_mb)
+        if cache is None:
+            if self.fsdp and not isinstance(net, MultiLayerNetwork):
+                raise ValueError(
+                    "dataset exceeds the per-rank cache budget and "
+                    "ComputationGraph has no fsdp streaming fallback — "
+                    "raise DL4J_DEVICE_CACHE_MB, set "
+                    "DL4J_CACHE_DTYPE=bfloat16, or increase accum_steps")
+            stream_epochs(self, data, num_epochs)
+            return None
+        if self.fsdp and cache.n_shard == 1 and self._group is not None:
+            raise ValueError(
+                f"FSDP requires the bucket batch ({cache.batch}) to divide "
+                f"the data axis ({self.data_parallelism})")
+        accum = effective_accum_steps(accum_steps, cache.rows_per_shard)
+        guard = nan_guard_policy() if guard is None else guard
+        guarded = guard != "off"
+        stride = fused_metrics_stride(telemetry)
+
+        def replay_step(params, upd, nst, it, i, gen):
+            # the ``raise`` replay: the same step on the same rows
+            batch = _map(lambda a: a[i], cache.batch_stacks())
+            p, u, s, loss, _, _ = self._sharded_step(
+                params, upd, nst, it, batch, self._cache_group(cache), accum,
+                False, 0, gen)
+            return p, u, s, loss
+
+        def agreed(done: int) -> bool:
+            stop = bool(on_chunk(done)) if on_chunk is not None else False
+            self._agree(stop)
+            return stop
+
+        return drive_epoch_chunks(
+            net, cache, num_epochs, chunk_epochs,
+            self._epoch_launch(cache, shuffle, accum, guarded, stride),
+            shuffle=shuffle, guard=guard, replay_step=replay_step,
+            on_chunk=agreed,
+            reshard=lambda mesh: self._apply_reshard(mesh, cache),
+            gen_state_fn=self._rank0_generator_state)
+
+    def _cache_group(self, cache):
+        """The group a step over ``cache`` sums over: the ``data`` axis's
+        while the cache holds each rank's rows, none while it holds whole
+        batches (read per step: a reshard changes both)."""
+        return self._group if cache.n_shard > 1 else None
+
+    def _epoch_launch(self, cache, shuffle: bool, accum: int, guarded: bool,
+                      stride: int):
+        """``launch(k)`` for the chunk driver: k epochs of eager steps on
+        this rank's rows of every batch, in the plan every rank shares."""
+        from deeplearning4j_tpu_torch.nn.fused import _map
+
+        net = self.network
+        width = 1 + int(guarded) + (4 if stride else 0)
+        hdtype = torch.promote_types(net._policy.output_dtype, torch.float32)
+
+        def launch(k: int):
+            n = cache.n_batches
+            out = torch.empty((k, n, width), dtype=hdtype, device=net.device)
+            it = net.iteration_count
+            for e in range(k):
+                # resolved per epoch: a reshard between chunks swaps them
+                stacks = cache.batch_stacks()
+                group = self._cache_group(cache)
+                for j, i in enumerate(self._plan(n, shuffle)):
+                    batch = _map(lambda a: a[i], stacks)
+                    p, u, s, loss, tripped, mets = self._sharded_step(
+                        net.params, net.updater_state, net.net_state, it,
+                        batch, group, accum, guarded, stride, net._rng)
+                    net.params, net.updater_state, net.net_state = p, u, s
+                    vals = [loss.reshape(1)]
+                    if guarded:
+                        vals.append(tripped.reshape(1))
+                    if stride:
+                        vals.append(mets)
+                    out[e, j] = torch.cat([v.to(hdtype) for v in vals])
+                    net._train_dispatches += 1
+                    it += 1
+            hist = out[..., 0].contiguous()
+            trips = out[..., 1] != 0 if guarded else None
+            mets = (out[..., width - 4:].to(torch.float32)
+                    if stride else None)
+            return hist, trips, mets
+
+        return launch
+
+    def _sharded_step(self, params, upd, nst, it: int, batch, group,
+                      accum: int, guarded: bool, stride: int, gen):
+        """One step on this rank's rows that equals the global batch's:
+        the network's ``_variant_step`` inside a data-parallel loss scope
+        over ``group`` (none when every rank holds the whole batch), with
+        BatchNorm's statistics over it. Under FSDP ``params``/``upd``
+        are this rank's parts: the step runs on the gathered state and
+        keeps this rank's part of the result. Returns ``(params, updater
+        state, net state, loss, tripped, metrics)``."""
+        from deeplearning4j_tpu_torch.nn.layers.normalization import (
+            sync_batch_stats)
+        from deeplearning4j_tpu_torch.ops.losses import data_parallel_loss
+
+        net = self.network
+        fsdp = self.fsdp and self._registry is not None
+        if fsdp:
+            params = self._registry.gather(params)
+            upd = self._registry.gather_state(upd)
+        itt = torch.full((), it, dtype=torch.int32, device=net.device)
+        lr = torch.full((), net._lr_scale_host, dtype=torch.float32,
+                        device=net.device)
+        scope = (contextlib.nullcontext() if group is None else
+                 data_parallel_loss(group, self.data_parallelism))
+        with scope, sync_batch_stats(group):
+            p, u, s, loss, tripped, mets = net._variant_step(
+                params, upd, nst, itt, lr, batch, gen, accum, guarded,
+                stride)
+        if fsdp:
+            p = self._registry.place(p)
+            u = self._registry.place_state(u)
+        return p, u, s, loss, tripped, mets
+
+    def _plan(self, n: int, shuffle: bool):
+        """This epoch's batch order, the same list in every rank: drawn
+        by rank 0 from the network's generator and broadcast."""
+        from deeplearning4j_tpu_torch.perf.epoch_cache import epoch_schedule
+
+        net = self.network
+        if not shuffle:
+            order = list(range(n))
+        else:
+            box = [epoch_schedule(net._rng, n, True).tolist()
+                   if dist.get_rank() == 0 else None]
+            dist.broadcast_object_list(box, src=0)
+            order = box[0]
+        self._epoch_plans.append(order)
+        return order
+
+    def _rank0_generator_state(self):
+        """Rank 0's generator state, in every rank (the ``raise``
+        replay redraws rank 0's plans from it)."""
+        state = [self.network._rng.get_state()]
+        dist.broadcast_object_list(state, src=0)
+        return state[0]
+
+    def _agree(self, stop: bool) -> None:
+        """Every rank must leave a chunk with the same decision: the same
+        stop and the same pending reshard. ``RuntimeError`` where they
+        differ (the ranks would otherwise enter different collectives)."""
+        pending = getattr(self.network, "_pending_mesh", None)
+        mine = (stop, pending is not None,
+                None if pending is None else _mesh_key(pending[0]))
+        views = [None] * world_size()
+        dist.all_gather_object(views, mine)
+        if any(v != views[0] for v in views):
+            raise RuntimeError(
+                "the ranks disagree at a chunk boundary (stop, reshard "
+                f"target) by rank: {views}; on_chunk and listeners must "
+                "decide alike in every rank")
 
     def output(self, x):
         """The whole batch's output in every rank: each rank's forward
@@ -516,6 +754,15 @@ class ParameterAveragingTrainer:
         else:
             self._stacked = self._stack(net.params)
             self._stacked_upd = self._stack(net.updater_state)
+
+
+def _mesh_key(mesh):
+    """What identifies a reshard target across ranks."""
+    if mesh is None:
+        return None
+    ranks = getattr(mesh, "mesh", None)
+    return (tuple(mesh.mesh_dim_names), tuple(int(d) for d in mesh.shape),
+            None if ranks is None else tuple(ranks.flatten().tolist()))
 
 
 def _stack_trees(trees):

@@ -171,6 +171,34 @@ def axis_group(mesh, axis: str):
     return mesh.get_group(axis)
 
 
+def mesh_devices(mesh) -> int:
+    """The devices (ranks) ``mesh`` spans: the product of its axes; 1 for
+    None."""
+    n = 1
+    for size in mesh_shape(mesh).values():
+        n *= int(size)
+    return n
+
+
+def world_size() -> int:
+    """Ranks in the current world (1 when no world is up)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def check_world_mesh(mesh) -> None:
+    """An elastic reshard's target must span every rank of the world
+    (or be None: whole batches on every rank's device): a process cannot
+    leave a world in the middle of a call. ``ValueError`` otherwise."""
+    if mesh is None:
+        return
+    n, world = mesh_devices(mesh), world_size()
+    if n != world:
+        raise ValueError(
+            f"a reshard target must span all {world} ranks of the world "
+            f"(got a mesh of {n}); to change the width, checkpoint and "
+            "FaultTolerantTrainer.resume(mesh=) in a world of that size")
+
+
 def data_axis_size(mesh) -> int:
     """Size of the ``data`` axis of ``mesh`` (1 when mesh is None or the
     axis was dropped) — the data-parallel shard count a batch splits

@@ -22,9 +22,9 @@ Placement covers every axis: ``data`` (replicated leaves, batches,
 FSDP shards), ``model`` (the Megatron column/row splits that
 ``TransformerLM.shard_params`` and ``tensor_parallel
 .shard_network_params`` step over, the serving K/V pool's head split,
-row-sharded embedding tables) and ``pipe`` (stacked stage params). The
-fused epoch program's output pins (``epoch_out_shardings``) name
-ROADMAP A14.3.
+row-sharded embedding tables) and ``pipe`` (stacked stage params), and
+the layouts the fused epoch over a mesh keeps across chunks
+(``epoch_out_shardings``).
 
 Env knobs (resolved by :func:`mesh_from_env`):
 
@@ -549,9 +549,21 @@ class ShardingRegistry:
 
     def epoch_out_shardings(self, params_tree, state_tree, *,
                             guard: bool = False, metrics_stride: int = 0):
-        from deeplearning4j_tpu_torch.perf.epoch_cache import mesh_not_ported
-
-        raise mesh_not_ported("ShardingRegistry.epoch_out_shardings")
+        """The placement the fused epoch keeps across chunks: params and
+        updater state under their registered specs (replicated,
+        TP-sharded, FSDP-sharded or a composition), net state and the
+        loss, trip and metrics histories replicated. The reference pins
+        its program's ``out_shardings`` to this tuple; the port's mesh
+        epoch places each step's result with :meth:`place` and
+        :meth:`place_state`, so these are the layouts it keeps."""
+        repl = replicated_sharding(self.mesh)
+        out = (self.param_shardings(params_tree),
+               self.state_shardings(state_tree), repl, repl)
+        if guard:
+            out = out + (repl,)
+        if metrics_stride:
+            out = out + (repl,)
+        return out
 
     def kv_pool_spec(self, n_kv_heads: int) -> PartitionSpec:
         """Spec of a ``[L, S, T_max, Hkv, Dh]`` K/V pool: the heads split

@@ -160,6 +160,24 @@ def shard_network_params(network, mesh,
     network._tp_mesh = mesh
 
 
+def unshard_network_params(network) -> None:
+    """Undo :func:`shard_network_params`'s layer wrapping: the network
+    runs its own layers again (the caller puts the whole params and
+    updater state back, gathered while the mesh was in place). A network
+    that was never split is left as it is."""
+    if getattr(network, "_tp_mesh", None) is None:
+        return
+    if isinstance(network.conf.layers, dict):
+        for key, impl in list(network.layer_impls.items()):
+            if isinstance(impl, _ShardLayer):
+                network.layer_impls[key] = impl.impl
+    else:
+        network.layers = [impl.impl if isinstance(impl, _ShardLayer)
+                          else impl for impl in network.layers]
+    network._tp_mesh = None
+    network.__dict__.pop("_sharding_registry", None)
+
+
 def _is_split(spec) -> bool:
     if isinstance(spec, PartitionSpec):
         return any(e is not None for e in spec)

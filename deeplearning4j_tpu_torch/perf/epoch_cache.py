@@ -33,8 +33,14 @@ and chunk boundaries (``monitor.ledger``) and, under ``DL4J_PROFILE``,
 samples device-memory watermarks after every chunk
 (``net._hbm_watermarks``).
 
-Not ported: ``mesh=`` and ``respec`` (sharding the stacks over a device
-mesh, and the elastic reshard that re-places them; ROADMAP A14.3).
+Over a device mesh (``build(mesh=)``) each rank keeps its ``B/n`` rows of
+every batch (the ``data`` axis's ``local_chunk`` of the bucket batch), so
+the budget is priced per rank; a bucket batch the axis does not divide is
+kept whole in every rank, as the reference replicates it. ``respec``
+re-places the stacks for another mesh in the middle of a run (the elastic
+reshard): the rows are all-gathered over the old ``data`` group and each
+rank keeps its chunk on the new mesh, or whole batches with ``None``.
+The values are untouched.
 """
 
 from __future__ import annotations
@@ -53,13 +59,39 @@ DEFAULT_CACHE_MB = 2048
 DEFAULT_PREFETCH_DEPTH = 8
 
 
-def mesh_not_ported(what: str) -> NotImplementedError:
-    """The error of the fused epoch's mesh paths: caching, training and
-    resharding over a device mesh (``parallel.ParallelWrapper.fit`` is
-    the ported way to train over one)."""
-    return NotImplementedError(
-        f"{what} (the fused epoch over a device mesh) is not ported yet "
-        "(ROADMAP A14.3)")
+def _data_shards(mesh) -> Tuple[int, int]:
+    """(size, this rank's index) of the mesh's ``data`` axis; (1, 0)
+    without a mesh."""
+    from deeplearning4j_tpu_torch.parallel.mesh import (
+        DATA_AXIS, axis_rank, data_axis_size)
+
+    if mesh is None:
+        return 1, 0
+    return data_axis_size(mesh), axis_rank(mesh, DATA_AXIS)
+
+
+def _local_rows(arr: np.ndarray, n_shard: int, rank: int) -> np.ndarray:
+    """This rank's rows of every batch of an ``[N, B, ...]`` host stack."""
+    if n_shard == 1:
+        return arr
+    per = arr.shape[1] // n_shard
+    return arr[:, rank * per:(rank + 1) * per]
+
+
+def _respec_stack(a, old_mesh, old_shards: int, mesh, n_new: int):
+    """An ``[N, b, ...]`` device stack re-laid for ``mesh``: gathered
+    over the old ``data`` group, then this rank's chunk on the new one."""
+    if a is None:
+        return None
+    from deeplearning4j_tpu_torch.parallel.collectives import all_gather
+    from deeplearning4j_tpu_torch.parallel.mesh import (
+        DATA_AXIS, axis_group, axis_rank, local_chunk)
+
+    if old_shards > 1:
+        a = all_gather(a, axis_group(old_mesh, DATA_AXIS), 1)
+    if n_new > 1:
+        a = local_chunk(a, 1, n_new, axis_rank(mesh, DATA_AXIS))
+    return a
 
 
 def cache_budget_mb() -> float:
@@ -211,8 +243,25 @@ class DeviceDataSetCache:
     def device(self) -> torch.device:
         return self.features.device
 
+    @property
+    def rows_per_shard(self) -> int:
+        """Rows of every batch this rank holds."""
+        return self.batch // self.n_shard
+
     def respec(self, mesh) -> "DeviceDataSetCache":
-        raise mesh_not_ported("respec")
+        """Re-lay the stacks for ``mesh`` (``None``: whole batches in
+        every rank); every rank of the old mesh calls it together."""
+        n_new = _respec_shards(self.batch, mesh)
+
+        def move(a):
+            return _respec_stack(a, self.mesh, self.n_shard, mesh, n_new)
+
+        self.features = move(self.features)
+        self.labels = move(self.labels)
+        self.features_mask = move(self.features_mask)
+        self.labels_mask = move(self.labels_mask)
+        self.mesh, self.n_shard = mesh, n_new
+        return self
 
     @classmethod
     def build(cls, data, budget_mb: Optional[float] = None,
@@ -226,11 +275,12 @@ class DeviceDataSetCache:
                              accum_steps, device)
 
     @classmethod
-    def _build(cls, data, budget_mb, buckets, accum_steps, device):
+    def _build(cls, data, budget_mb, buckets, mesh, accum_steps, device):
         budget = cache_budget_mb() if budget_mb is None else float(budget_mb)
         if budget <= 0:
             return None
         limit = budget * 1024 ** 2
+        n_shard, rank = _data_shards(mesh)
         try:
             batches = _drain(data)
         except TypeError:
@@ -248,9 +298,12 @@ class DeviceDataSetCache:
             target = max(target, b)
             running += (_nbytes_padded(ds.features, b, itemsize)
                         + _nbytes_padded(ds.labels, b, itemsize))
-            if running > limit:  # early exit; the check below governs
+            # early exit; the per-rank check below governs
+            if running / n_shard > limit:
                 _reset(data)
                 return None
+        if target % n_shard:  # the batch does not tile the data axis
+            n_shard, rank = 1, 0
         total = 0
         step_bytes = 0
         for ds in batches:
@@ -261,10 +314,11 @@ class DeviceDataSetCache:
                       + _nbytes_padded(ds.features_mask, target)
                       + 4 * target * (1 if ds.labels.ndim == 2
                                       else int(ds.labels.shape[1])))
-        # the resident stacks plus the step's working set (the gathered
-        # batch and its gradient-side twin), the latter divided by K
+        # per rank: the resident stacks plus the step's working set (the
+        # gathered batch and its gradient-side twin), the latter divided
+        # by K
         accum = effective_accum_steps(accum_steps, target)
-        if total + 2 * step_bytes / accum > limit:
+        if (total + 2 * step_bytes / accum) / n_shard > limit:
             _reset(data)
             return None
         any_fm = any(ds.features_mask is not None for ds in batches)
@@ -284,14 +338,17 @@ class DeviceDataSetCache:
             _reset(data)
             return None
         device = resolve_device(device)
-        return cls(_place(features, device, dtype),
-                   _place(labels, device, dtype),
-                   None if fm is None else _place(fm, device),
-                   _place(lm, device),
+        def local(a):
+            return _local_rows(a, n_shard, rank)
+
+        return cls(_place(local(features), device, dtype),
+                   _place(local(labels), device, dtype),
+                   None if fm is None else _place(local(fm), device),
+                   _place(local(lm), device),
                    n_batches=len(batches), batch=target,
                    total_examples=sum(int(ds.features.shape[0])
                                       for ds in batches),
-                   nbytes=total)
+                   nbytes=total, mesh=mesh, n_shard=n_shard)
 
     def batch_stacks(self) -> Tuple:
         """``(features, labels, features_mask, labels_mask)``, the
@@ -324,8 +381,28 @@ class DeviceMultiDataSetCache:
     def device(self) -> torch.device:
         return self.features[0].device
 
+    @property
+    def rows_per_shard(self) -> int:
+        """Rows of every batch this rank holds."""
+        return self.batch // self.n_shard
+
     def respec(self, mesh) -> "DeviceMultiDataSetCache":
-        raise mesh_not_ported("respec")
+        """Re-lay the stacks for ``mesh`` (``None``: whole batches in
+        every rank); every rank of the old mesh calls it together."""
+        n_new = _respec_shards(self.batch, mesh)
+
+        def move(stacks):
+            if stacks is None:
+                return None
+            return tuple(_respec_stack(a, self.mesh, self.n_shard, mesh,
+                                       n_new) for a in stacks)
+
+        self.features = move(self.features)
+        self.labels = move(self.labels)
+        self.features_masks = move(self.features_masks)
+        self.labels_masks = move(self.labels_masks)
+        self.mesh, self.n_shard = mesh, n_new
+        return self
 
     @classmethod
     def build(cls, data, budget_mb: Optional[float] = None,
@@ -336,7 +413,7 @@ class DeviceMultiDataSetCache:
                              accum_steps, device)
 
     @classmethod
-    def _build(cls, data, budget_mb, buckets, accum_steps, device):
+    def _build(cls, data, budget_mb, buckets, mesh, accum_steps, device):
         from deeplearning4j_tpu_torch.datasets.dataset import (
             DataSet, MultiDataSet)
 
@@ -344,6 +421,7 @@ class DeviceMultiDataSetCache:
         if budget <= 0:
             return None
         limit = budget * 1024 ** 2
+        n_shard, rank = _data_shards(mesh)
         try:
             batches = _drain(data)
         except TypeError:
@@ -366,9 +444,11 @@ class DeviceMultiDataSetCache:
             target = max(target, b)
             running += sum(_nbytes_padded(a, b, itemsize)
                            for a in list(mds.features) + list(mds.labels))
-            if running > limit:
+            if running / n_shard > limit:
                 _reset(data)
                 return None
+        if target % n_shard:  # the batch does not tile the data axis
+            n_shard, rank = 1, 0
         try:
             features = tuple(
                 _stack_padded([b.features[i] for b in batches], target)
@@ -402,19 +482,21 @@ class DeviceMultiDataSetCache:
         step_bytes = sum(_stored_nbytes(a[0], itemsize)
                          for a in features + labels)
         accum = effective_accum_steps(accum_steps, target)
-        if nbytes + 2 * step_bytes / accum > limit:
+        if (nbytes + 2 * step_bytes / accum) / n_shard > limit:
             _reset(data)
             return None
         device = resolve_device(device)
-        return cls(tuple(_place(a, device, dtype) for a in features),
-                   tuple(_place(a, device, dtype) for a in labels),
-                   None if fms is None else tuple(_place(a, device)
-                                                  for a in fms),
-                   tuple(_place(a, device) for a in lms),
+        def place(a, dt=None):
+            return _place(_local_rows(a, n_shard, rank), device, dt)
+
+        return cls(tuple(place(a, dtype) for a in features),
+                   tuple(place(a, dtype) for a in labels),
+                   None if fms is None else tuple(place(a) for a in fms),
+                   tuple(place(a) for a in lms),
                    n_batches=len(batches), batch=target,
                    total_examples=sum(int(b.features[0].shape[0])
                                       for b in batches),
-                   nbytes=nbytes)
+                   nbytes=nbytes, mesh=mesh, n_shard=n_shard)
 
     def batch_stacks(self) -> Tuple:
         """``(features, labels, features_masks, labels_masks)`` as lists,
@@ -423,6 +505,13 @@ class DeviceMultiDataSetCache:
                 None if self.features_masks is None
                 else list(self.features_masks),
                 list(self.labels_masks))
+
+
+def _respec_shards(batch: int, mesh) -> int:
+    """The ``data`` shards a cache of bucket batch ``batch`` takes on
+    ``mesh``: 1 when the batch does not tile the axis."""
+    n, _ = _data_shards(mesh)
+    return n if batch % n == 0 else 1
 
 
 def _stored_nbytes(a: np.ndarray, itemsize: Optional[int]) -> int:
@@ -435,10 +524,8 @@ def _traced_build(cls, data, budget_mb, buckets, mesh, accum_steps, device):
     pad and transfer are the fused path's one serial host cost)."""
     from deeplearning4j_tpu_torch.monitor import record_counter, tracer
 
-    if mesh is not None:
-        raise mesh_not_ported("mesh=")
     with tracer().span("cache.build", kind=cls.__name__) as sp:
-        out = cls._build(data, budget_mb, buckets, accum_steps, device)
+        out = cls._build(data, budget_mb, buckets, mesh, accum_steps, device)
         sp.attrs["cached"] = out is not None
         if out is not None:
             sp.attrs.update(n_batches=out.n_batches, batch=out.batch,
@@ -467,7 +554,8 @@ def chunk_deadline_s(chunk_steps: int, width_factor: float = 1.0) -> float:
 def drive_epoch_chunks(net, cache, num_epochs: int,
                        chunk_epochs: Optional[int], launch_chunk, *,
                        shuffle: bool = True, guard: str = "off",
-                       replay_step=None, on_chunk=None, reshard=None):
+                       replay_step=None, on_chunk=None, reshard=None,
+                       gen_state_fn=None):
     """The host-side chunk driver behind both classes' ``fit_epochs``.
 
     ``launch_chunk(k) -> ([k, N] losses, [k, N] trips or None, [k, N, 4]
@@ -490,8 +578,12 @@ def drive_epoch_chunks(net, cache, num_epochs: int,
     Every chunk opens an ``epoch.chunk`` span, bumps
     ``train_chunk_dispatches_total`` and runs under a ``StepWatchdog``
     whose deadline scales with its steps; ``epoch.chunk`` is a fault
-    site. A pending elastic reshard is applied through ``reshard`` or,
-    without it, logged and dropped (the fused epoch has no mesh yet, ROADMAP A14.3).
+    site. A pending elastic reshard (``net._pending_mesh``, set by
+    ``request_reshard``) is applied through ``reshard(mesh)`` before the
+    next chunk, or, without it, logged and dropped. ``gen_state_fn()``
+    (default the network generator's ``get_state``) gives the state the
+    ``raise`` replay redraws the chunk's orders from: over a mesh, rank
+    0's, whose generator draws every rank's plan.
 
     The run ledger (and the flight recorder, when on) hears from the
     driver at the reference's points only: the run's start, each chunk's
@@ -559,7 +651,8 @@ def drive_epoch_chunks(net, cache, num_epochs: int,
                         _tree_clone(t) for t in (net.params,
                                                  net.updater_state,
                                                  net.net_state))
-                    gen_state = net._rng.get_state()
+                    gen_state = (net._rng.get_state() if gen_state_fn
+                                 is None else gen_state_fn())
                 ledger_chunk_start(model=model_name, epoch0=done,
                                    epochs=k)
                 with tracer().span("epoch.chunk", model=model_name,

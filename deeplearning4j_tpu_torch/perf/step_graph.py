@@ -55,6 +55,7 @@ import contextlib
 import contextvars
 import gc
 import threading
+import weakref
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
@@ -110,15 +111,24 @@ def reset_kernel_launches() -> None:
 
 class GraphPool:
     """The memory pool the graphs of one owner share, made at the first
-    capture (so that nothing touches the card on the CPU)."""
+    capture (so that nothing touches the card on the CPU). Once every
+    graph captured into it is gone, the allocator refuses the pool for a
+    new capture (an internal assert: its use count is 0), so the next
+    capture takes a new pool: a program rebuilt for a new dataset cache
+    replaces the only graph of its network."""
 
     def __init__(self):
         self.handle = None
+        self._graphs = weakref.WeakSet()
 
     def get(self):
-        if self.handle is None:
+        if self.handle is None or not self._graphs:
             self.handle = torch.cuda.graph_pool_handle()
         return self.handle
+
+    def add(self, graph) -> None:
+        """Count ``graph``, captured into this pool, while it lives."""
+        self._graphs.add(graph)
 
 
 class StepGraph:
@@ -194,6 +204,7 @@ class StepGraph:
         self.recorded = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}
         _RECORDED.update(self.recorded)
+        self.pool.add(graph)
         self.graph = graph
         self.captures += 1
 

@@ -18,9 +18,10 @@ Port of ``deeplearning4j_tpu/serving/fleet``, in one process on one card:
 - :mod:`.driver` — :class:`FleetLoadDriver`: replays a schedule on
   virtual per-replica timelines with measured (or pinned) step costs.
 
-The cluster layer (``StateTracker`` heartbeats) is ROADMAP A14.3 and the
-grant lease and the goodput autopilot are A15: ``tracker=``, ``lease=``
-and ``DL4J_AUTOPILOT`` raise ``NotImplementedError`` naming them.
+Replicas beat to a ``parallel.StateTracker`` when given ``tracker=``, and
+the controller evicts one silent past its timeout. The grant lease and the
+goodput autopilot are ROADMAP A15: ``lease=`` and ``DL4J_AUTOPILOT`` raise
+``NotImplementedError`` naming it.
 """
 
 from deeplearning4j_tpu_torch.serving.fleet.controller import (  # noqa: F401

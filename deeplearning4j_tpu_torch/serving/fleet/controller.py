@@ -1,12 +1,12 @@
 """FleetController: the master tick for the serve fleet.
 
 Copy of ``deeplearning4j_tpu/serving/fleet/controller.py`` on the port's
-modules. The port has no ``StateTracker`` or heartbeat channel yet
-(ROADMAP A14.3), so ``tracker=`` raises and every tick reads the in-process
-replicas' payloads directly; the goodput autopilot (``DL4J_AUTOPILOT``,
-``autopilot=``) is ROADMAP A15 and raises too. The reference closes the
-loop the way ``DistributedTrainer``'s master tick does for training
-workers, on the heartbeat channel:
+modules. With ``tracker=`` every tick reads the replicas' beat payloads
+off the state tracker and evicts a replica silent past the timeout;
+without one it reads the in-process replicas' payloads directly. The
+goodput autopilot (``DL4J_AUTOPILOT``, ``autopilot=``) is ROADMAP A15 and
+raises. The loop closes the way ``DistributedTrainer``'s master tick does
+for training workers, on the heartbeat channel:
 
 - **aggregate** — every tick reads each replica's newest beat payload
   and publishes the fleet gauges (``fleet_serve_replicas``, per-replica
@@ -75,17 +75,13 @@ class FleetController:
                  evict_timeout_s: Optional[float] = None,
                  straggler_ratio: float = 3.0,
                  clock=time.time, autopilot=None):
-        if tracker is not None:
-            raise NotImplementedError(
-                "a fleet wired to a StateTracker needs "
-                "parallel/statetracker.py and parallel/cluster.py, which "
-                "are not ported yet (ROADMAP A14.3)")
         if autopilot is not None or _autopilot_requested():
             raise NotImplementedError(
                 "the serve autopilot (DL4J_AUTOPILOT, autopilot=) needs "
                 "resilience/autopilot.py, which is not ported yet "
                 "(ROADMAP A15)")
         self.router = router
+        self.tracker = tracker
         self.evict_timeout_s = (evict_timeout_s
                                 if evict_timeout_s is not None
                                 else serve_evict_s())
@@ -105,15 +101,18 @@ class FleetController:
 
     # ------------------------------------------------------------------
     def _payload(self, replica) -> Optional[dict]:
-        """Newest payload, straight from the in-process replica (the
-        reference reads the same dict off its heartbeat when a tracker
-        is wired)."""
+        """Newest beat payload: from the tracker when one is wired (the
+        cross-process path), else straight from the in-process replica
+        (the same dict, no beat in between)."""
+        if self.tracker is not None:
+            return self.tracker.heartbeat_metrics(replica.replica_id)
         return replica.heartbeat_payload() if replica.alive else None
 
     def tick(self) -> Dict[str, dict]:
         """One aggregation + health pass; returns the per-replica
         payload map (tests and dashboards read it)."""
         fleet: Dict[str, dict] = {}
+        now = self.clock()
         for r in self.router.replicas:
             if r.replica_id in self._evicted_set:
                 continue
@@ -131,7 +130,7 @@ class FleetController:
             id_label="replica", value_key="tpot_s",
             counter_name="fleet_serve_stragglers_total",
             event_name="serve.straggler")
-        self._evict_pass(fleet)
+        self._evict_pass(now, fleet)
         alive = [r for r in self.router.replicas
                  if r.replica_id not in self._evicted_set and r.alive]
         self._reg.gauge("fleet_serve_replicas",
@@ -144,16 +143,30 @@ class FleetController:
         return fleet
 
     # ------------------------------------------------------------------
-    def _evict_pass(self, fleet: Dict[str, dict]) -> None:
+    def _evict_pass(self, now: float, fleet: Dict[str, dict]) -> None:
         """Evict the in-process replicas whose loop died (the dead flag
-        is honest local knowledge). The reference also evicts replicas
-        silent past ``evict_timeout_s`` on the tracker's heartbeats,
-        which the port does not have yet (ROADMAP A14.3)."""
+        is honest local knowledge) and, with a tracker, those whose
+        heartbeat has been silent for ``evict_timeout_s`` or more (a
+        replica that never beat yet is still booting)."""
         for r in list(self.router.replicas):
             rid = r.replica_id
-            if rid not in self._evicted_set and r.dead:
+            if rid in self._evicted_set:
+                continue
+            if r.dead:
                 self.evict(rid, reason=f"crashed: {r.dead_reason}",
                            silent_s=None, last_metrics=fleet.get(rid))
+                continue
+            if self.tracker is None:
+                continue
+            t = self.tracker.last_heartbeat(rid)
+            if t is None:
+                continue
+            silent = now - t
+            if silent >= self.evict_timeout_s:
+                self.evict(rid, reason="heartbeat_silence",
+                           silent_s=round(silent, 3),
+                           last_metrics=self.tracker.heartbeat_metrics(
+                               rid) or fleet.get(rid))
 
     def evict(self, replica_id: str, *, reason: str,
               silent_s: Optional[float] = None,

@@ -1,10 +1,12 @@
 """ServeReplica: one DecodeServer as a fleet worker.
 
-Port of ``deeplearning4j_tpu/serving/fleet/replica.py``. The port has no
-``StateTracker``/``HeartbeatMonitor`` (ROADMAP A14.3) and no grant lease
-(``resilience/lease.py``, ROADMAP A15), so ``tracker=`` and ``lease=``
-raise; an in-process fleet's controller reads :meth:`heartbeat_payload`
-directly. A sampled request's stream is a ``torch.Generator`` seeded with
+Port of ``deeplearning4j_tpu/serving/fleet/replica.py``. With
+``tracker=`` a started replica beats through a
+``parallel.cluster.HeartbeatMonitor``, each beat carrying
+:meth:`heartbeat_payload`; without one an in-process fleet's controller
+reads the payload directly. The grant lease (``lease=``,
+``resilience/lease.py``) is not ported yet and raises (ROADMAP A15). A
+sampled request's stream is a ``torch.Generator`` seeded with
 its seed (the reference's ``jax.random.PRNGKey(seed)``). Several replicas
 started on one card share its default stream; a killed replica dies
 between steps, at the ``serve.replica.step.<id>`` fault site, never
@@ -65,18 +67,14 @@ class ServeReplica:
         if self.role not in SERVE_ROLES:
             raise ValueError(
                 f"role={self.role!r} must be one of {SERVE_ROLES}")
-        if tracker is not None:
-            raise NotImplementedError(
-                "replica heartbeats need parallel/cluster.HeartbeatMonitor "
-                "and a StateTracker, which are not ported yet (ROADMAP "
-                "A14.3)")
         if lease is not None:
             raise NotImplementedError(
                 "a grant lease needs resilience/lease.py, which is not "
                 "ported yet (ROADMAP A15)")
         self.server = server if server is not None else DecodeServer(
             model, clock=clock, **server_kw)
-        # the beat period of the reference's heartbeat monitor (A14.3)
+        self.tracker = tracker
+        self.monitor = None  # the HeartbeatMonitor while started
         self.heartbeat_interval_s = heartbeat_interval_s
         self.poll_s = poll_s
         self.clock = clock
@@ -254,6 +252,14 @@ class ServeReplica:
     def start(self) -> "ServeReplica":
         if self._thread is not None and self._thread.is_alive():
             return self
+        if self.tracker is not None and self.monitor is None:
+            from deeplearning4j_tpu_torch.parallel.cluster import (
+                HeartbeatMonitor)
+
+            self.monitor = HeartbeatMonitor(
+                self.tracker, self.replica_id,
+                interval_s=self.heartbeat_interval_s,
+                payload_fn=self.heartbeat_payload).start()
         stop = threading.Event()
         self._stop = stop
 
@@ -262,8 +268,9 @@ class ServeReplica:
                 try:
                     progressed = self.step_once()
                 except BaseException as e:  # noqa: BLE001 — a dying
-                    # replica must look dead and leave the reason for
-                    # the eviction evidence
+                    # replica must look dead (its beats stop: the monitor
+                    # thread would keep a corpse "alive") and leave the
+                    # reason for the eviction evidence
                     self._die(f"{type(e).__name__}: {e}")
                     return
                 if not progressed:
@@ -278,6 +285,12 @@ class ServeReplica:
         self.dead = True
         if self.dead_reason is None:  # first cause wins (a crash's
             self.dead_reason = reason  # exception beats a later evict)
+        self._stop_beats()
+
+    def _stop_beats(self) -> None:
+        monitor, self.monitor = self.monitor, None
+        if monitor is not None:
+            monitor.stop()
 
     def kill(self, reason: str = "killed") -> None:
         """Make this replica dead the way a crashed one is — loop
@@ -294,10 +307,11 @@ class ServeReplica:
 
     def wedge(self) -> None:
         """Test hook: alive-but-stuck. The loop stops making progress
-        but the dead flag stays down; in the reference only heartbeat
-        silence past the timeout catches it (ROADMAP A14.3 here)."""
+        and the beats stop, but the dead flag stays down, so only
+        heartbeat silence past the timeout catches it."""
         if self._stop is not None:
             self._stop.set()
+        self._stop_beats()
 
     def retire(self) -> None:
         """Planned removal (graceful drain): clean shutdown PLUS the
@@ -308,9 +322,10 @@ class ServeReplica:
         self.retired = True
 
     def stop(self) -> None:
-        """Clean shutdown (not an eviction): loop joined."""
+        """Clean shutdown (not an eviction): loop joined, beats off."""
         if self._stop is not None:
             self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=5.0)
             self._thread = None
+        self._stop_beats()

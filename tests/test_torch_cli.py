@@ -243,14 +243,35 @@ def test_svmlight_readers(tmp_path):
 @pytest.mark.parametrize("runtime", ["mesh", "multihost"])
 def test_data_parallel_runtimes_exit_naming_their_item(tmp_path, toy_csv,
                                                        conf_json, runtime):
-    with pytest.raises(SystemExit, match="ROADMAP A14"):
-        _train(toy_csv, conf_json, str(tmp_path / "x.zip"),
-               "-runtime", runtime)
+    """The runtimes are ported: ``mesh`` (from the flag or the
+    ``runtime`` property) trains in a world of one, bitwise ``local``;
+    ``multihost`` over more than one process needs a coordinator and
+    exits with the reference's message; an unknown one is refused. The
+    multi-process runs are tests/test_torch_cluster.py's."""
+    local = str(tmp_path / "l.zip")
+    assert _train(toy_csv, conf_json, local) == 0
     props = tmp_path / "r.properties"
-    props.write_text(f"runtime={runtime}\ninput.num.classes=2\n")
-    with pytest.raises(SystemExit, match="ROADMAP A14"):
-        main(["train", "-input", toy_csv, "-model", conf_json, "-conf",
-              str(props), "-output", str(tmp_path / "y.zip"), *CPU])
+    if runtime == "mesh":
+        assert _train(toy_csv, conf_json, str(tmp_path / "x.zip"),
+                      "-runtime", runtime) == 0
+        props.write_text(f"runtime={runtime}\ninput.num.classes=2\n")
+        assert main(["train", "-input", toy_csv, "-model", conf_json,
+                     "-conf", str(props), "-output",
+                     str(tmp_path / "y.zip"), *CPU]) == 0
+        want = ModelSerializer.restore(local, device="cpu").get_flat_params()
+        for name in ("x.zip", "y.zip"):
+            got = ModelSerializer.restore(str(tmp_path / name),
+                                          device="cpu").get_flat_params()
+            np.testing.assert_array_equal(got, want)
+    else:
+        with pytest.raises(SystemExit, match="requires --coordinator"):
+            _train(toy_csv, conf_json, str(tmp_path / "x.zip"),
+                   "-runtime", runtime, "--num-processes", "2")
+        props.write_text(f"runtime={runtime}\ninput.num.classes=2\n"
+                         "runtime.num.processes=2\n")
+        with pytest.raises(SystemExit, match="requires --coordinator"):
+            main(["train", "-input", toy_csv, "-model", conf_json, "-conf",
+                  str(props), "-output", str(tmp_path / "y.zip"), *CPU])
     with pytest.raises(SystemExit):  # argparse refuses an unknown one
         _train(toy_csv, conf_json, str(tmp_path / "z.zip"),
                "-runtime", "yarn")

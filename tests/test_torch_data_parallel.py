@@ -23,10 +23,15 @@ import pytest
 import torch
 
 from deeplearning4j_tpu.datasets.dataset import DataSet as JaxDataSet
+from deeplearning4j_tpu.datasets.dataset import MultiDataSet as JaxMDS
+from deeplearning4j_tpu.datasets.iterator import \
+    ListDataSetIterator as JaxListIterator
 from deeplearning4j_tpu.models import zoo as jax_zoo
 from deeplearning4j_tpu.nn.conf import NeuralNetConfiguration as JaxNNC
+from deeplearning4j_tpu.nn.conf import graph as jax_G
 from deeplearning4j_tpu.nn.conf import layers as jax_L
 from deeplearning4j_tpu.nn.conf.enums import Updater as JaxUpdater
+from deeplearning4j_tpu.nn.graph import ComputationGraph as JaxCG
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JaxMLN
 from deeplearning4j_tpu.ops.losses import LossFunction as JaxLoss
 from deeplearning4j_tpu.parallel import (
@@ -36,6 +41,7 @@ from deeplearning4j_tpu.parallel import (
     build_mesh as jax_build_mesh,
 )
 from deeplearning4j_tpu.parallel import fsdp as jax_fsdp
+from deeplearning4j_tpu.resilience.guard import TrainingDivergedError
 from deeplearning4j_tpu.parallel import sharding_registry as jax_reg
 from deeplearning4j_tpu.parallel import tensor_parallel as jax_tp
 from deeplearning4j_tpu.models.transformer import TransformerLM as JaxLM
@@ -130,19 +136,126 @@ KINDS = ("mlp", "fsdp", "masked", "bn", "ragged", "pat")
 CASES = [(k, n) for n in SIZES for k in KINDS] + [("tbptt", 2)]
 
 
+# ---------------------------------------------------------------------------
+# the fused epoch over the mesh (ParallelWrapper.fit_epochs): the cases run
+# in the same worlds as the per-batch ones
+# ---------------------------------------------------------------------------
+def _epoch_conf(kind: str):
+    """The networks of ``tests/test_dp_epoch.py``: a tanh MLP (Adam), a
+    GravesLSTM with a label mask (SGD) and a two-input graph (Adam)."""
+    b = JaxNNC.Builder().seed(0).learning_rate(0.05).updater(
+        JaxUpdater.ADAM)
+    if kind == "rnn":
+        return (JaxNNC.Builder().seed(0).learning_rate(0.02)
+                .updater(JaxUpdater.SGD).list()
+                .layer(0, jax_L.GravesLSTM(n_in=3, n_out=6,
+                                           activation="tanh"))
+                .layer(1, jax_L.RnnOutputLayer(
+                    n_in=6, n_out=4, loss_function=JaxLoss.MCXENT))
+                .build())
+    if kind == "graph2":
+        return (b.graph_builder().add_inputs("a", "b")
+                .add_layer("da", jax_L.DenseLayer(n_in=6, n_out=8,
+                                                  activation="tanh"), "a")
+                .add_layer("db", jax_L.DenseLayer(n_in=4, n_out=8,
+                                                  activation="tanh"), "b")
+                .add_vertex("m", jax_G.MergeVertex(), "da", "db")
+                .add_layer("out", jax_L.OutputLayer(n_in=16, n_out=3), "m")
+                .set_outputs("out").build())
+    return (b.list()
+            .layer(0, jax_L.DenseLayer(n_in=6, n_out=12, activation="tanh"))
+            .layer(1, jax_L.OutputLayer(n_in=12, n_out=3)).build())
+
+
+def _epoch_arrays(kind: str, rows: int, seed: int, label_mask=False,
+                  poison=None):
+    rng = np.random.default_rng(seed)
+    if kind == "rnn":
+        x = rng.normal(size=(rows, 5, 3)).astype(np.float32)
+        y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, (rows, 5))]
+        lm = (np.arange(5)[None, :]
+              < rng.integers(3, 6, rows)[:, None]).astype(np.float32)
+        return x, y, None, lm
+    x = rng.normal(size=(rows, 6)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, rows)]
+    if poison is not None:  # one row of one batch non-finite
+        x[poison] = np.nan
+    lm = rng.integers(0, 2, rows).astype(np.float32) if label_mask else None
+    return x, y, None, lm
+
+
+#: key -> (world size, network, options); every case is checked against
+#: the JAX wrapper's fit_epochs, the shuffled ones against the port's own
+#: one-device fit_epochs on the same plan
+EPOCH_CASES = {
+    "epoch_mlp-2": (2, "mlp", {}), "epoch_mlp-4": (4, "mlp", {}),
+    "epoch_mlp_fsdp-2": (2, "mlp", dict(fsdp=True)),
+    "epoch_mlp_fsdp-4": (4, "mlp", dict(fsdp=True)),
+    "epoch_rnn-4": (4, "rnn", {}),
+    "epoch_rnn_fsdp-2": (2, "rnn", dict(fsdp=True)),
+    "epoch_graph2-4": (4, "graph2", {}),
+    "epoch_graph2_fsdp-2": (2, "graph2", dict(fsdp=True)),
+    "epoch_accum-4": (4, "mlp", dict(rows=100, label_mask=True,
+                               fit=dict(accum_steps=2))),
+    "epoch_skip-2": (2, "mlp", dict(poison=40, fit=dict(guard="skip"))),
+    "epoch_raise-2": (2, "mlp", dict(poison=40, fit=dict(guard="raise"))),
+    "epoch_telemetry-4": (4, "mlp", dict(fit=dict(telemetry=1))),
+    "epoch_net_mesh-4": (4, "mlp", dict(mode="net_mesh")),
+    "epoch_fsdp_chunks-4": (4, "mlp", dict(fsdp=True, epochs=3,
+                                     fit=dict(chunk_epochs=1))),
+    "epoch_shuffle-4": (4, "mlp", dict(shuffle=True)),
+    "epoch_shuffle_fsdp-2": (2, "mlp", dict(fsdp=True, shuffle=True)),
+    "epoch_stream-2": (2, "mlp", dict(mode="stream",
+                                      fit=dict(cache_mb=1e-4))),
+}
+
+
+def _epoch_case(key):
+    n, kind, opt = EPOCH_CASES[key]
+    conf = _epoch_conf(kind)
+    ref = (JaxCG if kind == "graph2" else JaxMLN)(conf).init()
+    state = (_np(ref.params), _np(ref.updater_state), _np(ref.net_state),
+             ref.iteration_count)
+    fit = dict(shuffle=opt.get("shuffle", False), **opt.get("fit", {}))
+    case = {"n": n, "conf": conf.to_json(), "state": state,
+            "graph": kind == "graph2", "fsdp": opt.get("fsdp", False),
+            "mode": opt.get("mode", "wrapper"),
+            "epochs": opt.get("epochs", 2), "fit": fit,
+            "one_device": fit["shuffle"]}
+    if kind == "graph2":
+        rng = np.random.default_rng(n)
+        a = rng.normal(size=(96, 6)).astype(np.float32)
+        bb = rng.normal(size=(96, 4)).astype(np.float32)
+        y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 96)]
+        case["multi"] = [((a[i:i + 32], bb[i:i + 32]), (y[i:i + 32],))
+                         for i in range(0, 96, 32)]
+    else:
+        case["arrays"] = _epoch_arrays(
+            kind, opt.get("rows", 48 if kind == "rnn" else 96), seed=n,
+            label_mask=opt.get("label_mask", False),
+            poison=opt.get("poison"))
+        case["batch"] = 16 if kind == "rnn" else 32
+    return ref, case
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """Both worlds' results, and the JAX networks they started from."""
     refs, payload = {}, {}
     for kind, n in CASES:
         refs[(kind, n)], payload[f"{kind}-{n}"] = _case(kind, n)
+    epoch = {}
+    for key in EPOCH_CASES:
+        refs[key], epoch[key] = _epoch_case(key)
     results = {}
     for n in SIZES:
         out = torch_worlds.run_world(
-            n, ["dp_cases"], {"dp": payload},
+            n, ["dp_cases", "dp_epoch_cases"],
+            {"dp": payload, "dp_epoch": epoch},
             str(tmp_path_factory.mktemp(f"dp{n}")))
         results.update(out["dp_cases"])
-    return refs, payload, results
+        results.update(out["dp_epoch_cases"])
+    return refs, {**payload, **epoch}, results
 
 
 def _jax_fit(ref, case, n):
@@ -216,6 +329,109 @@ def test_masked_shards_normalise_as_one_batch(worlds):
     counts = lm.reshape(4, -1).sum(1)
     assert len(set(counts.tolist())) > 1
     # the gate itself is test_three_steps_match_reference[masked-*]
+
+
+def _jax_epoch_data(case):
+    if case.get("multi"):
+        return [JaxMDS(list(f), list(l)) for f, l in case["multi"]]
+    return JaxListIterator(JaxDataSet(*case["arrays"]), case["batch"])
+
+
+def _jax_epochs(ref, case):
+    """The JAX wrapper's fit_epochs on the case (shuffle off)."""
+    n = case["n"]
+    mesh = jax_build_mesh(JaxMeshSpec(data=n), devices=jax.devices()[:n])
+    kw = {k: v for k, v in case["fit"].items() if k != "cache_mb"}
+    if case["mode"] == "net_mesh":
+        return ref.fit_epochs(_jax_epoch_data(case), case["epochs"],
+                              mesh=mesh, **kw)
+    w = JaxWrapper(ref, mesh=mesh, fsdp=case["fsdp"])
+    return w.fit_epochs(_jax_epoch_data(case), case["epochs"], **kw)
+
+
+def _assert_tree_close(got_tree, want_tree, **tol):
+    want, have = _leaves(want_tree), _leaves(got_tree)
+    assert len(want) == len(have)
+    for a, b in zip(want, have):
+        np.testing.assert_allclose(b, a, **tol)
+
+
+UNSHUFFLED = [k for k, (_, _, o) in EPOCH_CASES.items()
+              if not o.get("shuffle") and o.get("mode") != "stream"
+              and o.get("fit", {}).get("guard") != "raise"]
+
+
+@pytest.mark.parametrize("key", UNSHUFFLED)
+def test_mesh_fit_epochs_matches_reference(worlds, key):
+    """The ``[E, N]`` history and the params of the port's fused epoch
+    over ``data`` against the JAX wrapper's fused program on
+    ``jax.devices()[:n]`` (shuffle off), float32 rtol 1e-4 / atol 1e-6;
+    the sentinel and the telemetry pack too where they are on."""
+    refs, payload, results = worlds
+    ref, case, got = refs[key], payload[key], results[key]
+    want = np.asarray(_jax_epochs(ref, case))
+    assert got["hist"].shape == want.shape
+    np.testing.assert_allclose(got["hist"], want, **TOL)
+    _assert_tree_close(got["params"], ref.params, **TOL)
+    _assert_tree_close(got["updater"], ref.updater_state, **TOL)
+    assert got["iteration"] == ref.iteration_count
+    if case["fit"].get("guard") == "skip":
+        trips = np.asarray(ref._last_sentinel)
+        assert trips.any()
+        np.testing.assert_array_equal(got["sentinel"], trips)
+    if case["fit"].get("telemetry"):
+        np.testing.assert_allclose(got["metrics"],
+                                   np.asarray(ref._last_metrics), **TOL)
+
+
+def test_mesh_guard_raise_names_the_batch_as_the_reference(worlds):
+    """``guard="raise"`` over ``data=2``: every rank stops at the chunk
+    whose sentinel tripped, replays it from rank 0's generator and names
+    the epoch, the step and the dataset batch the JAX wrapper names."""
+    refs, payload, results = worlds
+    ref, case = refs["epoch_raise-2"], payload["epoch_raise-2"]
+    with pytest.raises(TrainingDivergedError) as want:
+        _jax_epochs(ref, case)
+    got = results["epoch_raise-2"]["diverged"]
+    e = want.value
+    assert got == (e.epoch, e.step, e.batch_index, e.n_trips)
+    assert got[2] == 1  # row 40 lies in the second batch of 32
+
+
+@pytest.mark.parametrize("key", ["epoch_shuffle-4", "epoch_shuffle_fsdp-2"])
+def test_shuffled_mesh_epochs_match_one_device(worlds, key):
+    """Shuffled, every rank trains on rank 0's plan (the network's own
+    stream), so the run is the port's one-device fit_epochs on the same
+    orders: rtol 1e-5 / atol 1e-6."""
+    _, _, results = worlds
+    got = results[key]
+    plans = got["plans"]
+    assert all(p == plans[0] for p in plans) and len(plans[0]) == 2
+    assert sorted(plans[0][0]) == [0, 1, 2]
+    np.testing.assert_allclose(got["hist"], got["one_hist"], rtol=1e-5,
+                               atol=1e-6)
+    _assert_tree_close(got["params"], got["one_params"], rtol=1e-5,
+                       atol=1e-6)
+
+
+def test_fsdp_state_stays_sharded_across_chunks(worlds):
+    refs, payload, results = worlds
+    got = results["epoch_fsdp_chunks-4"]
+    total = sum(x.size for x in _leaves(got["params"]))
+    assert got["local_numel"] < total
+    assert got["hist"].shape == (3, 3)
+
+
+def test_over_budget_mesh_epochs_stream_through_the_wrapper(worlds):
+    """Over the per-rank budget the run streams each epoch through the
+    wrapper's sharded fit: bitwise the wrapper's fit run each epoch."""
+    _, _, results = worlds
+    got = results["epoch_stream-2"]
+    assert got["hist"] is None
+    for a, b in zip(_leaves(got["params"]), _leaves(got["fit_params"])):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(_leaves(got["updater"]), _leaves(got["fit_updater"])):
+        np.testing.assert_array_equal(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -410,13 +626,20 @@ def test_later_items_raise_naming_them(world_of_one):
 
     assert par.moe_ffn is expert_parallel.moe_ffn
     assert par.spmd_pipeline is pipeline_parallel.spmd_pipeline
+    # the A14.3 items are ported: over a mesh of one the wrapper's fused
+    # epoch is the network's own, a reshard to None places nothing, the
+    # epoch layouts are replicated and the cluster names are real
     w = ParallelWrapper(net, mesh=mesh)
-    for fn in (lambda: w.fit_epochs([], 1), lambda: w.request_reshard(None),
-               lambda: w.build_epoch_cache([]),
-               lambda: r.epoch_out_shardings({}, {}),
-               lambda: par.StateTracker(), lambda: par.ClusterConfig()):
-        with pytest.raises(NotImplementedError, match=r"A14\.3"):
-            fn()
+    assert w.build_epoch_cache([]) is None
+    assert w.fit_epochs([], 1) is None
+    w.request_reshard(None)
+    assert net._pending_mesh == (None,)
+    outs = r.epoch_out_shardings(net.params, net.updater_state, guard=True,
+                                 metrics_stride=1)
+    assert len(outs) == 6
+    assert all(sh.is_replicated for sh in reg.tree_leaves_of(outs[0]))
+    assert par.ClusterConfig().num_processes == 1
+    assert par.InMemoryStateTracker().jobs() == []
     with pytest.raises(NotImplementedError, match="A15"):
         par.ConfigRegistry()
 

@@ -45,6 +45,7 @@ from deeplearning4j_tpu_torch.nlp import (
     Glove,
     ParagraphVectors,
     SequenceVectors,
+    Word2Vec,
 )
 from deeplearning4j_tpu_torch.nlp import glove as port_glove
 from deeplearning4j_tpu_torch.nlp.sentence_iterator import (
@@ -303,5 +304,20 @@ def test_glove_carrier_needs_all_eight_tables():
 
 
 def test_distributed_word2vec_raises_naming_a14():
-    with pytest.raises(NotImplementedError, match="A14"):
-        DistributedWord2Vec()
+    """DistributedWord2Vec is ported: over a mesh of one device its host
+    loop is Word2Vec's, bitwise (the world tests are
+    tests/test_torch_cluster.py)."""
+    class MeshOfOne:
+        mesh_dim_names, shape = ("data",), (1,)
+
+    sents = ["a b c a b d", "b c a d d", "c a b"]
+    kw = dict(min_word_frequency=1, layer_size=8, window_size=2, seed=3,
+              epochs=2, device="cpu")
+    dw = DistributedWord2Vec(CollectionSentenceIterator(sents),
+                             mesh=MeshOfOne(), **kw)
+    w = Word2Vec(CollectionSentenceIterator(sents), **kw)
+    assert dw.data_parallelism == 1
+    dw.fit()
+    w.fit()
+    assert torch.equal(dw.syn0, w.syn0) and torch.equal(dw.syn1neg,
+                                                        w.syn1neg)

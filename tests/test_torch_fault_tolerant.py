@@ -7,7 +7,8 @@ snapshots the state before the next chunk runs; an injected
 ``preempt.chunk`` stops ``fit_epochs`` at a chunk boundary, and a fresh
 trainer's ``resume`` finishes the run with params bitwise those of an
 uninterrupted run; ``fit`` skips the consumed batches of a mid-epoch
-checkpoint; the A14 parts raise naming it; and a checkpoint the JAX
+checkpoint; the tracker's pointer and ``resume(mesh=, fsdp=)`` on a
+mesh of one device; and a checkpoint the JAX
 trainer wrote resumes in the port with the same weights (float32,
 bitwise: the zip carries them as they are) and cursors."""
 
@@ -197,13 +198,34 @@ def test_fit_preempts_mid_epoch_and_skips_consumed_batches(tmp_path):
 
 @pytest.mark.parametrize("call", ["tracker", "mesh", "fsdp"])
 def test_cluster_parts_raise_naming_a14(tmp_path, call):
-    with pytest.raises(NotImplementedError, match="A14"):
-        if call == "tracker":
-            FaultTolerantTrainer(_net(), str(tmp_path), tracker=object())
-        elif call == "mesh":
-            FaultTolerantTrainer(_net(), str(tmp_path)).resume(mesh=object())
-        else:
-            FaultTolerantTrainer(_net(), str(tmp_path)).resume(fsdp=True)
+    """The A14.3 parts are ported: a tracker's ``latest_checkpoint``
+    pointer is written and is a resume candidate; ``resume(mesh=)`` and
+    ``resume(fsdp=True)`` over a mesh of one device restore the same
+    state as ``resume()``."""
+    from deeplearning4j_tpu_torch.parallel import InMemoryStateTracker
+
+    class MeshOfOne:
+        mesh_dim_names, shape = ("data",), (1,)
+
+    net = _net()
+    net.fit_epochs(_it(), 1)
+    tracker = InMemoryStateTracker() if call == "tracker" else None
+    path = FaultTolerantTrainer(net, str(tmp_path / "a"),
+                                tracker=tracker).save()
+    n2 = _net(seed=8)
+    if call == "tracker":
+        assert tracker.get_meta("latest_checkpoint") == path
+        ft = FaultTolerantTrainer(n2, str(tmp_path / "empty"),
+                                  tracker=tracker)
+        assert ft._resume_candidates() == [path]
+        assert ft.resume()
+    elif call == "mesh":
+        assert FaultTolerantTrainer(n2, str(tmp_path / "a")).resume(
+            mesh=MeshOfOne())
+    else:
+        assert FaultTolerantTrainer(n2, str(tmp_path / "a")).resume(
+            fsdp=True)
+    assert _bitwise(n2, net)
 
 
 def test_jax_written_checkpoint_resumes_in_port(tmp_path):

@@ -470,16 +470,30 @@ def test_crash_eviction_with_evidence():
 
 
 def test_tracker_lease_and_autopilot_raise_naming_their_items(monkeypatch):
+    """``tracker=`` is ported (replicas beat through a HeartbeatMonitor,
+    the controller reads the beats); the lease and the autopilot still
+    raise naming A15."""
+    from deeplearning4j_tpu_torch.parallel import InMemoryStateTracker
+
     reps, router = _fleet_of_three()
-    with pytest.raises(NotImplementedError, match="A14"):
-        _replica("rx", tracker=object())
+    tracker = InMemoryStateTracker()
+    rx = _replica("rx", tracker=tracker, heartbeat_interval_s=0.02)
+    rx.start()
+    try:
+        deadline = time.monotonic() + 5.0
+        while (tracker.heartbeat_metrics("rx") is None
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        assert tracker.heartbeat_metrics("rx")["free_slots"] == 2
+    finally:
+        rx.stop()
+    assert rx.monitor is None
     with pytest.raises(NotImplementedError, match="A15"):
         _replica("rx", lease=object())
-    with pytest.raises(NotImplementedError, match="A14"):
-        FleetController(router, object())
-    with pytest.raises(NotImplementedError, match="A14"):
-        FleetRouter.build(_lm(), replicas=1, tracker=object(), slots=2,
-                          max_len=64, device="cpu")
+    assert FleetController(router, tracker).tracker is tracker
+    built = FleetRouter.build(_lm(), replicas=1, tracker=tracker, slots=2,
+                              max_len=64, device="cpu")
+    assert built.replicas[0].tracker is tracker
     with pytest.raises(NotImplementedError, match="A15"):
         FleetController(router, None, autopilot=object())
     monkeypatch.setenv("DL4J_AUTOPILOT", "1")
@@ -487,6 +501,35 @@ def test_tracker_lease_and_autopilot_raise_naming_their_items(monkeypatch):
         FleetController(router, None)
     monkeypatch.setenv("DL4J_AUTOPILOT", "off")
     FleetController(router, None)
+
+
+def test_silence_eviction_with_evidence():
+    """A replica whose beats stopped is evicted once the controller's
+    clock has moved ``evict_timeout_s`` past its last beat, with the
+    evidence on the log (reference ``tests/test_serving_fleet.py:431``);
+    the clock is a fake one, so nothing sleeps."""
+    from deeplearning4j_tpu_torch.parallel import InMemoryStateTracker
+
+    reps, router = _fleet_of_three()
+    tracker = InMemoryStateTracker()
+    now = {"t": time.time()}
+    controller = FleetController(router, tracker, evict_timeout_s=5.0,
+                                 clock=lambda: now["t"])
+    payload = {"occupancy": 1.0, "tpot_s": 0.02}
+    for r in ("r0", "r1", "r2"):
+        tracker.heartbeat(r, metrics=payload)
+    controller.tick()
+    assert controller.evicted == []
+    now["t"] += 6.0
+    for r in ("r1", "r2"):  # r0 went silent
+        tracker._beats[r] = now["t"]
+    controller.tick()
+    assert controller.evicted == ["r0"]
+    ev = controller.eviction_log[0]
+    assert ev["reason"] == "heartbeat_silence"
+    assert ev["silent_s"] >= 5.0 and ev["timeout_s"] == 5.0
+    assert ev["last_metrics"]["occupancy"] == 1.0
+    assert reps[0].dead and "r0" not in controller.tick()
 
 
 # ---------------------------------------------------------------------------

@@ -359,6 +359,39 @@ def test_step_graph_warms_up_captures_once_and_replays(monkeypatch):
     assert len(ran) == 3 and g.eager_calls == 2 and g.replays == 4
 
 
+def test_a_pool_whose_graphs_are_gone_is_replaced(monkeypatch):
+    """The graphs of one owner share a pool while any of them lives; once
+    all are gone (a program rebuilt for a new cache drops the only one)
+    the next capture takes a new pool: the allocator refuses a pool
+    whose use count fell to 0."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    pools = []
+
+    def graph(g, pool=None):
+        pools.append(pool)
+        return contextlib.nullcontext()
+
+    handles = iter(range(100))
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
+                        lambda: ("pool", next(handles)))
+    pool = step_graph.GraphPool()
+
+    def captured():
+        g = step_graph.StepGraph(lambda: None, "cpu", pool=pool)
+        g.graphed, g.warmed = True, True
+        g()
+        return g
+
+    a = captured()
+    b = captured()  # a lives: the same pool
+    del a, b
+    gc.collect()
+    c = captured()  # every graph of the pool gone: a new one
+    assert pools == [("pool", 0), ("pool", 0), ("pool", 1)]
+    assert c.captures == 1
+
+
 def test_capture_collects_dead_graphs_first_and_pauses_the_collector(
         monkeypatch):
     """Destroying a CUDA graph while a stream captures invalidates the

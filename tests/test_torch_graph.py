@@ -635,17 +635,26 @@ def test_clone_and_param_table():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda n, ds: n.fit_epochs(ds, 1, mesh=object()), "A14"),
-    (lambda n, ds: n.build_epoch_cache(ds, mesh=object()), "A14"),
-    (lambda n, ds: n.request_reshard(None), "A14"),
+    (lambda n, ds: n.fit_epochs(ds, 1, mesh=_MeshOfOne()), "A14.3"),
+    (lambda n, ds: n.build_epoch_cache(ds, mesh=_MeshOfOne()), "A14.3"),
+    (lambda n, ds: n.request_reshard(None), "A14.3"),
 ], ids=["fit_epochs", "build_epoch_cache", "request_reshard"])
 def test_features_outside_the_slice_raise(call, item):
+    """The mesh items (A14.3) are ported: over a mesh of one device the
+    fused epoch and its cache are the meshless ones, and a reshard
+    request is latched for the next chunk boundary."""
     net = ComputationGraph(_narrow_resnet(PORT, "float32"), device="cpu")
     x, y = _resnet_data()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        call(net, DataSet(x, y))
-    # the fused epoch path itself is ported; only the mesh is not
+    out = call(net, DataSet(x, y))
+    if out is None:
+        assert net._pending_mesh == (None,)
+    else:
+        assert getattr(out, "n_shard", 1) == 1
     assert net.fused_epochs_supported()
+
+
+class _MeshOfOne:
+    mesh_dim_names, shape = ("data",), (1,)
 
 
 def _outcome(fn):

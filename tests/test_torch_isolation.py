@@ -200,7 +200,7 @@ def test_front_door_entry_points_raise_without_a_card(monkeypatch, tmp_path):
 def test_embedding_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     """Word2Vec, SequenceVectors, ParagraphVectors, Glove, DeepWalk and
     the word-vector loader train or load on the card unless told ``cpu``;
-    the fused path over a mesh raises naming A14."""
+    over a mesh of one device the fused path is the meshless one."""
     from deeplearning4j_tpu_torch.graph import DeepWalk
     from deeplearning4j_tpu_torch.nlp import (
         CollectionSentenceIterator,
@@ -225,8 +225,11 @@ def test_embedding_entry_points_raise_without_a_card(monkeypatch, tmp_path):
             make()
     w = Word2Vec(it, min_word_frequency=1, layer_size=4, device="cpu")
     assert w.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        w.fit_epochs(1, mesh=object())
+    class MeshOfOne:
+        mesh_dim_names, shape = ("data",), (1,)
+
+    assert w.fit_epochs(1, mesh=MeshOfOne()).shape[0] == 1
+    assert w._fused_mode(MeshOfOne()) == "single"
     assert w.fit_epochs(1).shape[0] == 1
     path = str(tmp_path / "v.txt")
     write_word_vectors(w, path)
@@ -264,8 +267,8 @@ def test_tree_and_clustering_entry_points_raise_without_a_card(monkeypatch):
 
 def test_mesh_entry_points_raise_without_a_card(monkeypatch):
     """A mesh, and the wrappers that build one, are on the card unless
-    told ``cpu`` (the MoE's weights too); the later parallel items
-    raise naming theirs."""
+    told ``cpu`` (the MoE's weights too), and so is a
+    DistributedWord2Vec's; the config registry raises naming A15."""
     import deeplearning4j_tpu_torch.parallel as par
     from deeplearning4j_tpu_torch.models import zoo
     from deeplearning4j_tpu_torch.parallel import (
@@ -280,8 +283,15 @@ def test_mesh_entry_points_raise_without_a_card(monkeypatch):
         ParallelWrapper(zoo.mnist_mlp(hidden=8))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         par.init_moe_params(par.MoEConfig(4, 8, 2), torch.Generator())
-    for name, item in (("HeartbeatMonitor", "A14.3"),
-                       ("IterativeReduceWorkRouter", "A14.3"),
-                       ("ConfigRegistry", "A15")):
-        with pytest.raises(NotImplementedError, match=item):
-            getattr(par, name)()
+    from deeplearning4j_tpu_torch.nlp import CollectionSentenceIterator
+    from deeplearning4j_tpu_torch.nlp.distributed import DistributedWord2Vec
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DistributedWord2Vec(CollectionSentenceIterator(["a b"]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        par.NetworkWorkPerformer(zoo.mnist_mlp(hidden=8, device="cpu")
+                                 .conf.to_json())
+    assert par.HeartbeatMonitor(par.InMemoryStateTracker(), "w").worker_id \
+        == "w"
+    with pytest.raises(NotImplementedError, match="A15"):
+        par.ConfigRegistry()

@@ -312,14 +312,17 @@ def test_lenet_counts_its_params_without_drawing_them():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda n, ds: n.fit_epochs(ds, 1, mesh=object()), "A14"),
-    (lambda n, ds: n.build_epoch_cache(ds, mesh=object()), "A14"),
-    (lambda n, ds: n.request_reshard(None), "A14"),
+    (lambda n, ds: n.fit_epochs(ds, 1, mesh=_MeshOfOne()), "A14.3"),
+    (lambda n, ds: n.build_epoch_cache(ds, mesh=_MeshOfOne()), "A14.3"),
+    (lambda n, ds: n.request_reshard(None), "A14.3"),
     (lambda n, ds: n.pretrain([ds]), None),
 ], ids=["fit_epochs", "build_epoch_cache", "request_reshard", "pretrain"])
 def test_features_outside_the_slice_raise(call, item):
-    """The mesh (A14) raises; pretraining (A10.3) is ported, and on a
-    network without pretrain layers it changes nothing."""
+    """The mesh items (A14.3) are ported: over a mesh of one device the
+    fused epoch and its cache are the meshless ones, and a reshard
+    request is latched for the next chunk boundary; pretraining (A10.3)
+    is ported, and on a network without pretrain layers it changes
+    nothing."""
     net = zoo.mnist_mlp(hidden=8, device="cpu").init()
     x, y = _data("mnist_mlp")
     if item is None:
@@ -328,10 +331,16 @@ def test_features_outside_the_slice_raise(call, item):
         assert np.array_equal(net.get_flat_params(), before)
         assert net.pretrain_scores == {}
     else:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            call(net, DataSet(x, y))
-    # the fused epoch path itself is ported; only the mesh is not
+        out = call(net, DataSet(x, y))
+        if out is None:
+            assert net._pending_mesh == (None,)
+        else:
+            assert getattr(out, "n_shard", 1) == 1
     assert net.fused_epochs_supported()
+
+
+class _MeshOfOne:
+    mesh_dim_names, shape = ("data",), (1,)
 
 
 def test_solver_raises_with_its_item():

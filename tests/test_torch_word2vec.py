@@ -451,16 +451,27 @@ def test_fallbacks_run_the_host_loop(how, monkeypatch):
     assert a.epochs == 3
 
 
-def test_mesh_and_row_sharding_raise_naming_a14():
+def test_mesh_and_row_sharding_raise_naming_a14(monkeypatch):
+    """The mesh modes are ported (their world tests are
+    tests/test_torch_cluster.py): over a mesh of one device the fused
+    run is the meshless one, bitwise; ``DL4J_W2V_ROW_SHARD`` reads as
+    the reference's."""
+    class MeshOfOne:
+        mesh_dim_names, shape = ("data",), (1,)
+
     _, w = _pair(_sentences())
-    with pytest.raises(NotImplementedError, match="A14"):
-        w.fit_epochs(1, mesh=object())
-    with pytest.raises(NotImplementedError, match="A14"):
-        w.build_corpus_cache(mesh=object())
-    with pytest.raises(NotImplementedError, match="A14"):
-        ek.w2v_row_shard_mode()
-    with pytest.raises(NotImplementedError, match="A14"):
-        w._register_tables(None)
+    _, plain = _pair(_sentences())
+    cache = w.build_corpus_cache(mesh=MeshOfOne())
+    assert cache.mesh is not None and cache.n_shard == 1
+    assert w._fused_mode(MeshOfOne()) == "single"
+    assert torch.equal(w.fit_epochs(1, mesh=MeshOfOne()),
+                       plain.fit_epochs(1))
+    assert torch.equal(w.syn0, plain.syn0)
+    assert w._sharding_registry is not None
+    assert w._register_tables(plain._corpus_cache) is None
+    assert ek.w2v_row_shard_mode() == "auto"
+    monkeypatch.setenv("DL4J_W2V_ROW_SHARD", "0")
+    assert ek.w2v_row_shard_mode() == "0"
     assert w._fused_mode(None) == "single"
     assert ek.w2v_fused_enabled()
 

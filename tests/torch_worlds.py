@@ -318,6 +318,101 @@ def dp_cases(rank, n, payload):
     return out
 
 
+def _any_network(case):
+    """A CPU MultiLayerNetwork or ComputationGraph from the case's JSON
+    conf (``case["graph"]`` picks the class), carrying the JAX state."""
+    from deeplearning4j_tpu_torch.models.convert import load_network_from_jax
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf import (
+        ComputationGraphConfiguration)
+
+    if not case.get("graph"):
+        return _network(case)
+    net = ComputationGraph(ComputationGraphConfiguration.from_json(
+        case["conf"]), device="cpu").init()
+    return load_network_from_jax(net, *case["state"])
+
+
+def _epoch_data(case):
+    """The case's data: a ListDataSetIterator over one DataSet, or a
+    list of MultiDataSet batches (``case["multi"]``)."""
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet, ListDataSetIterator, MultiDataSet)
+
+    if case.get("multi"):
+        return [MultiDataSet(list(f), list(l)) for f, l in case["multi"]]
+    return ListDataSetIterator(DataSet(*case["arrays"]), case["batch"])
+
+
+def _all_ranks(obj):
+    import torch.distributed as dist
+
+    views = [None] * dist.get_world_size()
+    dist.all_gather_object(views, obj)
+    return views
+
+
+def dp_epoch_cases(rank, n, payload):
+    """Every mesh-epoch case at this world's size: ``fit_epochs`` through
+    ``ParallelWrapper`` (``mode`` ``wrapper``), ``net.fit_epochs(mesh=)``
+    (``net_mesh``) or the over-budget stream (``stream``, beside the
+    wrapper's ``fit`` run each epoch on a second network), with the
+    history, the sentinel and metrics, the whole state, each rank's
+    plans and, with ``one_device``, the port's own one-device run."""
+    from deeplearning4j_tpu_torch.dtypes import tree_leaves
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.resilience.guard import (
+        TrainingDivergedError)
+
+    out = {}
+    for key, case in payload["dp_epoch"].items():
+        if case["n"] != n:
+            continue
+        mesh = _mesh(data=n)
+        net = _any_network(case)
+        kw = case.get("fit", {})
+        res = {}
+        if case["mode"] == "net_mesh":
+            hist = net.fit_epochs(_epoch_data(case), case["epochs"],
+                                  mesh=mesh, **kw)
+            params, upd = net.params, net.updater_state
+        else:
+            w = ParallelWrapper(net, mesh=mesh, fsdp=case.get("fsdp", False))
+            try:
+                hist = w.fit_epochs(_epoch_data(case), case["epochs"], **kw)
+            except TrainingDivergedError as e:  # guard="raise"
+                hist = None
+                res["diverged"] = (e.epoch, e.step, e.batch_index,
+                                   e.n_trips)
+            res["local_numel"] = sum(x.numel()
+                                     for x in tree_leaves(net.params))
+            res["plans"] = _all_ranks(w._epoch_plans)
+            params, upd = w.gather()
+        if case["mode"] == "stream":
+            other = _any_network(case)
+            w2 = ParallelWrapper(other, mesh=mesh)
+            for _ in range(case["epochs"]):
+                w2.fit(_epoch_data(case))
+            res["fit_params"] = _tree_np(other.params)
+            res["fit_updater"] = _tree_np(other.updater_state)
+        if case.get("one_device"):
+            one = _any_network(case)
+            one_hist = one.fit_epochs(_epoch_data(case), case["epochs"],
+                                      **kw)
+            res["one_hist"] = _np(one_hist)
+            res["one_params"] = _tree_np(one.params)
+        res.update(
+            hist=None if hist is None else _np(hist),
+            params=_tree_np(params), updater=_tree_np(upd),
+            iteration=net.iteration_count,
+            sentinel=(None if net._last_sentinel is None
+                      else net._last_sentinel.copy()),
+            metrics=(None if net._last_metrics is None
+                     else _np(net._last_metrics)))
+        out[key] = res
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the model, pipe and expert axes (tests/test_torch_model_parallel.py)
 # ---------------------------------------------------------------------------
@@ -635,3 +730,180 @@ def moe_cases(rank, n, payload):
         losses.append(float(l_))
     res["losses"] = losses
     return res
+
+
+# ---------------------------------------------------------------------------
+# the cluster layer (tests/test_torch_cluster.py)
+# ---------------------------------------------------------------------------
+class _SubMesh:
+    """A mesh over 2 of the world's ranks (a reshard target to refuse)."""
+
+    mesh_dim_names = ("data",)
+    shape = (2,)
+
+
+def _wrapped(case, mesh, fsdp=False):
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+    return ParallelWrapper(_network(case), mesh=mesh, fsdp=fsdp)
+
+
+def elastic_case(rank, n, payload):
+    """The uninterrupted ``data=4`` run against one resharded between
+    chunks ``data=4 → None → data=2 × model=2 → data=4``; the reshard
+    counter, the shard shapes on the way and a refused sub-mesh."""
+    from deeplearning4j_tpu_torch.monitor import metrics
+
+    case = payload["elastic"]
+    m4, m22 = _mesh(data=4), _mesh(data=2, model=2)
+    base = _wrapped(case, m4)
+    base_hist = base.fit_epochs(_epoch_data(case), 4, chunk_epochs=1)
+    counter = metrics().counter("elastic_reshards_total")
+    before = counter.value(model="MultiLayerNetwork")
+    w = _wrapped(case, m4)
+    plan = {1: None, 2: m22, 3: m4}
+    seen = {}
+
+    def on_chunk(done):
+        net = w.network
+        seen[done] = (tuple(net.params["0"]["W"].shape),
+                      w.mesh is None, w.data_parallelism)
+        if done in plan:
+            w.request_reshard(plan[done])
+        return False
+
+    hist = w.fit_epochs(_epoch_data(case), 4, chunk_epochs=1,
+                        on_chunk=on_chunk)
+    refused = None
+    try:
+        w.request_reshard(_SubMesh())
+    except ValueError as e:
+        refused = str(e)
+    # a reshard that only rank 0 asks for: every rank stops alike
+    lone = _wrapped(case, m4)
+
+    def rank0_only(done):
+        if rank == 0:
+            lone.request_reshard(None)
+        return False
+
+    disagreed = None
+    try:
+        lone.fit_epochs(_epoch_data(case), 2, chunk_epochs=1,
+                        on_chunk=rank0_only)
+    except RuntimeError as e:
+        disagreed = str(e)
+    return {"disagreed": disagreed, "hist": _np(hist),
+            "base_hist": _np(base_hist),
+            "params": _tree_np(w.gather()[0]),
+            "base_params": _tree_np(base.gather()[0]),
+            "reshards": counter.value(model="MultiLayerNetwork") - before,
+            "seen": seen, "refused": refused,
+            "plans": _all_ranks(w._epoch_plans)}
+
+
+def resume_cases(rank, n, payload):
+    """``FaultTolerantTrainer`` on the wrapper's ``fit_epochs`` with a
+    ``FileStateTracker``: preempted after epoch 1 and resumed over
+    ``data=4`` (bitwise the uninterrupted run), over ``data=2 × model=2``
+    and with ``fsdp=True`` from a copy of the preempted checkpoint; every
+    rank's heartbeat in the tracker and its checkpoint pointer."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import (
+        FaultTolerantTrainer, FileStateTracker)
+    from deeplearning4j_tpu_torch.resilience import faults
+    from deeplearning4j_tpu_torch.resilience.preemption import (
+        PreemptionGuard)
+
+    case = payload["resume"]
+    root = case["dir"]
+    m4, m22 = _mesh(data=4), _mesh(data=2, model=2)
+    epochs = 3
+    base = _wrapped(case, m4)
+    base.fit_epochs(_epoch_data(case), epochs, chunk_epochs=1)
+    tracker = FileStateTracker(os.path.join(root, "tracker"))
+    ck = os.path.join(root, "ck")
+
+    def trainer(w, directory=ck):
+        return FaultTolerantTrainer(w, directory, tracker=tracker,
+                                    worker_id=f"rank-{rank}",
+                                    heartbeat_interval_s=0.05)
+
+    first = trainer(_wrapped(case, m4))
+    faults.install("preempt.chunk", faults.fail_nth(1))
+    try:
+        first.fit_epochs(_epoch_data(case), epochs,
+                         preemption=PreemptionGuard(signals=()))
+    finally:
+        faults.clear()
+    preempted = first.preempted
+    saved = os.path.join(root, "preempted")
+    if rank == 0:
+        shutil.copytree(ck, saved)
+    dist.barrier()
+    out = {"preempted": preempted,
+           "base_params": _tree_np(base.gather()[0]),
+           "pointer": tracker.get_meta("latest_checkpoint"),
+           "saved_dir": saved}
+    again = trainer(_wrapped(case, m4))
+    out["resumed"] = again.resume()
+    again.fit_epochs(_epoch_data(case), epochs)
+    out["same_world"] = _tree_np(again.network.gather()[0])
+    out["bitwise"] = _equal_trees(again.network.gather()[0],
+                                  base.gather()[0])
+    for name, kw in (("m22", dict(mesh=m22)), ("fsdp", dict(fsdp=True))):
+        other = os.path.join(root, f"from-{name}")
+        if rank == 0:
+            shutil.copytree(saved, other)
+        dist.barrier()
+        t = trainer(_wrapped(case, m4), other)
+        t.resume(**kw)
+        t.fit_epochs(_epoch_data(case), epochs)
+        out[name] = _tree_np(t.network.gather()[0])
+        out[f"{name}_local_w"] = tuple(t.network.network.params["0"]["W"]
+                                       .shape)
+    dist.barrier()
+    out["workers"] = sorted(tracker.workers())
+    # the tracker's pointer finds a checkpoint outside an empty directory
+    lone = trainer(_wrapped(case, m4), os.path.join(root, f"empty{rank}"))
+    out["pointer_resumes"] = lone.resume()
+    return out
+
+
+def w2v_cases(rank, n, payload):
+    """``DistributedWord2Vec`` over ``data=4`` and row-sharded over
+    ``data=2 × model=2``, fed the JAX plans: history, whole tables, the
+    mode and this rank's table rows."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nlp import CollectionSentenceIterator
+    from deeplearning4j_tpu_torch.nlp.distributed import DistributedWord2Vec
+
+    case = payload["w2v"]
+    out = {}
+    for name, spec in (("dp", dict(data=4)), ("rows", dict(data=2,
+                                                           model=2))):
+        mesh = _mesh(**spec)
+        dw = DistributedWord2Vec(CollectionSentenceIterator(case["sents"]),
+                                 mesh=mesh, device="cpu", **case["kw"])
+        dw.vocab = case["vocab"]
+        dw._table = case["table"]
+        dw.syn0 = torch.from_numpy(case["syn0"].copy())
+        dw.syn1neg = torch.from_numpy(case["syn1neg"].copy())
+        hist = dw.fit_epochs(2, _plan=case["plans"])
+        syn0, syn1neg = dw.gather_tables()
+        out[name] = {"hist": _np(hist), "syn0": _np(syn0),
+                     "syn1neg": _np(syn1neg), "mode": dw._fused_mode(mesh),
+                     "local_rows": int(dw.syn0.shape[0]),
+                     "batch": dw._corpus_cache.batch}
+    # the host loop over data=4: each rank's slice, tables averaged
+    dw = DistributedWord2Vec(CollectionSentenceIterator(case["sents"]),
+                             mesh=_mesh(data=4), device="cpu", **case["kw"])
+    dw.fit()
+    out["host_loop"] = {"syn0": _all_ranks(_np(dw.syn0)),
+                        "loss": float(dw._score)}
+    return out
