@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Seventeen phases; any failure exits non-zero and prints no result line.
+Eighteen phases; any failure exits non-zero and prints no result line.
 
 1. Build and device: compile every CUDA kernel from ``csrc/`` (one
    ``nvcc`` per source, all at once), print ptxas's registers and spill
@@ -377,6 +377,28 @@ Seventeen phases; any failure exits non-zero and prints no result line.
    1e-6); (f) ``train -runtime multihost`` as 4 processes on
    ``127.0.0.1`` against ``-runtime local`` (rtol 1e-4), wall time. Each
    cell prints its ms, memory and bytes per rank; no B1–B3 launch.
+18. The last host-side modules (A15): (a) phase 4's served model on 4
+   replicas, each started under a ``GrantLease`` around its warm-up (the
+   kernel library loaded, one B1 prefill): r1's first acquisition fails
+   at the ``grant.lease`` fault site and is re-acquired, r2's lease is
+   exhausted (dead, evicted), r3 is slowed 300 ms a loop step by a fault
+   hook and a ``FleetController(autopilot=GoodputAutopilot(...))``
+   evicts it after its straggler streak; 16 seeded greedy requests,
+   every stream equal to ``lm.generate``, none lost, the flight recorder
+   classifying the run ``reacquired`` and the ledger booking
+   ``grant_wait``, B1 ``num_layers`` launches a prefill and no B2/B3;
+   prints each lease's acquire ms, each autopilot decision with its
+   evidence and the fleet's tokens/s; (b) the program contracts over
+   phase 8's ``bench_epoch`` program and phase 13's fused skip-gram
+   epoch (zero violations) and over a step seeded with ``.item()`` and
+   a param replaced out of place (both reported); (c) an in-process
+   ``UiServer`` on 127.0.0.1: the three listeners over HTTP on LeNet-5's
+   ``fit`` and the histogram listener on phase 8's fused epoch through
+   ``chunk_done``, each GET held against the CPU's payload for the same
+   params (rtol 1e-5), ms per firing and the epoch's ms with the
+   listener and without; (d) ``NeuralNetClassification`` on the MNIST MLP
+   conf fitted on the card, its probabilities against a CPU run from the
+   same weights (float32, TF32 off, rtol 2e-3 / atol 1e-3).
 
 Output: metric lines, then a ``{"kernels": [...]}`` JSON line (each
 kernel's ``variant`` and ``launches`` counted over the train phase's
@@ -391,7 +413,9 @@ replays included, as ``launches_profile``; over phase 13 as
 over the four ranks, as ``launches_mesh``; over phase 16's TP train
 steps and its pipeline step, summed over the ranks, as ``launches_tp``
 and ``launches_pipe``; over phase 17, its ranks' summed with this
-process's, as ``launches_cluster``, which must be 0; and its train-shape
+process's, as ``launches_cluster``, which must be 0; over phase 18 as
+``launches_a15``, B1's the fleet's warm-ups and prefills, B2's and B3's
+0; and its train-shape
 numbers under
 ``train``) and the ``nvidia-smi``
 line,
@@ -6747,6 +6771,477 @@ def cluster_phase(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the last host-side modules (A15) — the served model's fleet
+# under grant leases and the goodput autopilot, the program contracts on
+# the captured programs, the training UI and the ml pipeline
+# ---------------------------------------------------------------------------
+A15_DEVICE = "cuda"  # "cpu" only to rehearse the phase
+# r0 starts clean, r1's first acquisition fails at the grant.lease fault
+# site and is re-acquired, r2's lease is exhausted (it dies and is
+# evicted), r3 is slowed and the autopilot evicts it. The straggler rule
+# needs three replicas reporting (workrouter.update_straggler_flags), so
+# the fleet has a fourth beside the three the cases name.
+A15_REPLICAS = 4
+A15_LEASE_FAULTS = {"r1": 1, "r2": 3}  # grant.lease failures at start
+A15_REACQUIRES = 2
+A15_BACKOFF_S = 0.05
+A15_REQUESTS, A15_RATE = 16, 200.0
+A15_SLOW_MS = 300.0  # r3's fault hook: a delay before each loop step
+A15_TICK_S = 0.05  # the controller's tick
+A15_UI_BATCH, A15_UI_FITS = 64, 3  # LeNet-5 fit under the three listeners
+A15_UI_RTOL = 1e-5
+A15_ML_ROWS, A15_ML_EPOCHS, A15_ML_BATCH = 2048, 1, 256
+A15_ML_TOL = dict(rtol=2e-3, atol=1e-3)  # the train phase's float32 gate
+A15_SEEDED = (64, 4)  # the seeded-violation network's batch and batches
+
+
+def _a15_sync() -> None:
+    import torch
+
+    if A15_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def a15_fleet(card: str) -> dict:
+    """(a): the d512·L8 serve model (``mixed_bf16``) on A15_REPLICAS
+    replicas, each started under a ``GrantLease`` around its warm-up (the
+    kernel library loaded and one B1 prefill), served threaded under a
+    ``FleetController`` with a ``GoodputAutopilot``. Every stream must
+    equal ``lm.generate``; r2 is evicted as crashed (its lease wedged),
+    r3 by the autopilot's straggler streak; the flight recorder must
+    classify the run ``reacquired`` and the ledger book the re-acquire as
+    ``grant_wait``; B1 launches num_layers times per prefill."""
+    import tempfile
+
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+    from deeplearning4j_tpu_torch.monitor import tracer
+    from deeplearning4j_tpu_torch.monitor.flight import (
+        FlightRecorder, classify_end_state, load_flight_records, set_flight)
+    from deeplearning4j_tpu_torch.monitor.ledger import (
+        RunLedger, ledger_chunk_done, ledger_chunk_start, ledger_run_end,
+        ledger_run_start, set_run_ledger)
+    from deeplearning4j_tpu_torch.resilience import (
+        GoodputAutopilot, GrantLease, faults)
+    from deeplearning4j_tpu_torch.serving.fleet import (
+        FleetController, FleetRouter, ServeReplica)
+
+    layers = SERVE_CFG["num_layers"]
+    lm = TransformerLM(**SERVE_CFG, device=A15_DEVICE).init()
+    sched = serve_schedule(A15_REQUESTS, A15_RATE, seed=9)
+    refs = {a.prompt.tobytes(): lm.generate(
+        a.prompt[None], a.max_new_tokens)[0].cpu().numpy() for a in sched}
+    reps = [ServeReplica(f"r{i}", lm, slots=SERVE_SLOTS,
+                         max_len=SERVE_MAX_LEN, device=A15_DEVICE)
+            for i in range(A15_REPLICAS)]
+    prefills = {"n": 0}
+    for r in reps:  # count every prefill (admissions and replays)
+        def counted(*a, _inner=r.server.engine.prefill, **kw):
+            prefills["n"] += 1
+            return _inner(*a, **kw)
+
+        r.server.engine.prefill = counted
+    flight_dir = tempfile.mkdtemp(prefix="a15_flight_")
+    rec = FlightRecorder(flight_dir, heartbeat_s_=60.0)
+    ledger = RunLedger(span_source=lambda: tracer().spans())
+    set_flight(rec)
+    set_run_ledger(ledger)
+    router = FleetRouter(reps)
+    ap = GoodputAutopilot(floor=0.0, silence_s=1e9, straggler_ticks=2)
+    controller = FleetController(router, None, evict_timeout_s=60.0,
+                                 autopilot=ap)
+    acquire_ms, warm = {}, {}
+    try:
+        ledger_run_start(model="a15_fleet", replicas=A15_REPLICAS)
+        for r in reps:
+            n_faults = A15_LEASE_FAULTS.get(r.replica_id)
+            r.lease = GrantLease(r.replica_id, r.warm_up,
+                                 max_reacquires=A15_REACQUIRES,
+                                 base_backoff_s=A15_BACKOFF_S)
+            b0 = launch_counts()["flash_attention_fwd"]
+            if n_faults:
+                faults.install("grant.lease", faults.fail_times(n_faults))
+            t = time.perf_counter()
+            try:
+                r.start()
+            finally:
+                if n_faults:
+                    faults.uninstall("grant.lease")
+            acquire_ms[r.replica_id] = (time.perf_counter() - t) * 1e3
+            warm[r.replica_id] = launch_counts()["flash_attention_fwd"] - b0
+        states = {r.replica_id: (r.lease.state, r.lease.reacquires)
+                  for r in reps}
+        print(f"a15 fleet leases: acquire_ms (kernel load and first B1 "
+              f"prefill included) "
+              f"{ {k: round(v, 3) for k, v in acquire_ms.items()} } "
+              f"state,reacquires={states} warm-up B1 launches={warm} "
+              f"dead={[r.replica_id for r in reps if r.dead]} [{card}]")
+        if states != {"r0": ("held", 0), "r1": ("held", 1),
+                      "r2": ("wedged", 0), "r3": ("held", 0)}:
+            raise AssertionError(f"lease states {states}")
+        if not reps[2].dead or reps[0].dead or reps[1].dead or reps[3].dead:
+            raise AssertionError("only r2 must die at start")
+        if any(warm[k] != layers for k in ("r0", "r1", "r3")) or warm["r2"]:
+            raise AssertionError(f"warm-up B1 launches {warm}")
+        before = launch_counts()
+        prefills["n"] = 0
+        ledger_chunk_start()
+        faults.install("serve.replica.step.r3", faults.delay(A15_SLOW_MS))
+        frs = [router.submit(a.prompt, a.max_new_tokens) for a in sched]
+        t0 = time.monotonic()
+        controller.start(interval_s=A15_TICK_S)
+        while time.monotonic() - t0 < 300 and router.unfinished():
+            time.sleep(0.02)
+        wall = time.monotonic() - t0
+        ledger_chunk_done()
+        ledger_run_end(status="clean")
+    finally:
+        faults.uninstall("serve.replica.step.r3")
+        controller.stop()
+        for r in reps:
+            r.stop()
+        set_flight(None)
+        set_run_ledger(None)
+        rec.close()
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    lost = sum(1 for fr in frs if not fr.finished)
+    diverged = [fr for fr in frs if fr.finished and not np.array_equal(
+        fr.output, refs[fr.prompt.tobytes()])]
+    tokens = sum(int(fr.output.shape[0] - fr.prompt.shape[0])
+                 for fr in frs if fr.finished)
+    verdict = classify_end_state(load_flight_records(flight_dir))
+    grant_wait = ledger.report()["states"].get("grant_wait", 0.0)
+    for d in ap.decisions:
+        print(f"a15 fleet autopilot decision: {json.dumps(d.to_json())} "
+              f"[{card}]")
+    print(f"a15 fleet served: requests={len(frs)} finished="
+          f"{len(frs) - lost} lost={lost} diverged={len(diverged)} "
+          f"evicted={controller.evicted} reasons="
+          f"{[e['reason'][:60] for e in controller.eviction_log]} "
+          f"wall_s={wall:.3f} tokens={tokens} tokens_per_sec="
+          f"{tokens / wall:.1f} prefills={prefills['n']} B1={launches['flash_attention_fwd']} "
+          f"B2={launches['flash_attention_bwd_dkdv']} "
+          f"B3={launches['flash_attention_bwd_dq']} flight_end_state="
+          f"{verdict['end_state']} ledger_grant_wait_s={grant_wait:.4f} "
+          f"[{card}]")
+    if lost or diverged:
+        raise AssertionError(
+            f"{lost} request(s) lost, {len(diverged)} diverged"
+            + ("" if not diverged else ": " + first_divergence(
+                diverged[0].output, refs[diverged[0].prompt.tobytes()], lm,
+                diverged[0].prompt)))
+    if controller.evicted != ["r2", "r3"]:
+        raise AssertionError(f"evicted {controller.evicted}")
+    reasons = [e["reason"] for e in controller.eviction_log]
+    if not (reasons[0].startswith("crashed: grant wedged")
+            and reasons[1] == "autopilot:straggler_streak"):
+        raise AssertionError(f"eviction reasons {reasons}")
+    if [(d.action, d.target) for d in ap.decisions] != [("evict", "r3")]:
+        raise AssertionError("the autopilot must decide one eviction, r3")
+    if launches["flash_attention_fwd"] != layers * prefills["n"] or \
+            launches["flash_attention_bwd_dkdv"] or \
+            launches["flash_attention_bwd_dq"]:
+        raise AssertionError(f"launches {launches} for {prefills['n']} "
+                             f"prefills of {layers} layers")
+    if verdict["end_state"] != "reacquired" or not grant_wait > 0:
+        raise AssertionError(f"flight {verdict}, grant_wait {grant_wait}")
+    return {"tokens_per_sec": tokens / wall, "acquire_ms": acquire_ms,
+            "prefills": prefills["n"]}
+
+
+def a15_contracts(card: str) -> None:
+    """(b): the program contracts over phase 8's bench_epoch program and
+    phase 13's fused skip-gram epoch (zero violations), and over a step
+    seeded with a ``.item()`` and a param replaced out of place (both
+    reported)."""
+    from deeplearning4j_tpu_torch.analysis.contracts import (
+        check_embedding_contracts, check_network_contracts)
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+
+    net = build_network("mnist_mlp", "bf16", A15_DEVICE)
+    cache = net.build_epoch_cache(ListDataSetIterator(epoch_data(),
+                                                      EPOCH_BATCH))
+    net.fit_epochs(cache, 1)
+    t = time.perf_counter()
+    res = check_network_contracts(net, cache, epochs=1)
+    ms = (time.perf_counter() - t) * 1e3
+    prog = next(iter(net._programs.values()))
+    print(f"a15 contracts bench_epoch mnist_mlp [{EPOCH_BATCHES} x "
+          f"{EPOCH_BATCH}, 784] bf16: programs={sorted(res)} violations="
+          f"{sum(map(len, res.values()))} captures={prog.graph.captures} "
+          f"replays={prog.graph.replays} eager_calls="
+          f"{prog.graph.eager_calls} check_ms={ms:.1f} [{card}]")
+    sentences, _ = zipf_corpus(W2V_SENTENCES, W2V_VOCAB)
+    m = make_w2v(sentences, 44, A15_DEVICE)
+    m.build_vocab()
+    m.reset_weights()
+    wcache = m.build_corpus_cache()
+    m.fit_epochs(1)
+    t = time.perf_counter()
+    emb = check_embedding_contracts(m, wcache, epochs=1)
+    ms = (time.perf_counter() - t) * 1e3
+    print(f"a15 contracts fused skip-gram [{W2V_SENTENCES} x {W2V_LEN}, "
+          f"d{W2V_CFG['layer_size']}]: programs={len(emb)} violations="
+          f"{sum(map(len, emb.values()))} check_ms={ms:.1f} [{card}]")
+    del net, cache, m, wcache
+    batch, n_batches = A15_SEEDED
+    bad = build_network("mnist_mlp", "bf16", A15_DEVICE)
+    bcache = bad.build_epoch_cache(ListDataSetIterator(
+        epoch_data(batch, n_batches), batch))
+    bad.fit_epochs(bcache, 1)
+    prog = next(iter(bad._programs.values()))
+    body, st = prog.graph.fn, bad._static
+    kept = []  # the captured graph still writes the replaced tensor
+
+    def seeded():
+        body()
+        prog.row[0, 0].item()
+        kept.append(st.params["0"]["W"])
+        st.params["0"]["W"] = st.params["0"]["W"] * 1.0
+
+    prog.graph.fn = seeded
+    found = [v for vs in check_network_contracts(
+        bad, bcache, epochs=1, raise_on_violation=False).values()
+        for v in vs]
+    reads = [v for v in found if "host readback" in v]
+    moved = [v for v in found if "lost their storage" in v]
+    print(f"a15 contracts seeded step (.item() and a param replaced out of "
+          f"place): reported={len(found)} host_readback={bool(reads)} "
+          f"out_of_place={bool(moved)} first={found[:2]} [{card}]")
+    if not reads or not moved:
+        raise AssertionError(f"the seeded violations were not both "
+                             f"reported: {found}")
+
+
+def _a15_json(url: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return json.loads(r.read())
+
+
+def _a15_close(got, want, path="$"):
+    """Equal JSON trees, floats within A15_UI_RTOL of the larger one."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise AssertionError(f"{path}: keys differ")
+        for k in want:
+            _a15_close(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            raise AssertionError(f"{path}: lengths differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _a15_close(g, w, f"{path}[{i}]")
+    elif isinstance(want, float):
+        if abs(got - want) > A15_UI_RTOL * max(1.0, abs(want)):
+            raise AssertionError(f"{path}: {got} != {want}")
+    elif got != want:
+        raise AssertionError(f"{path}: {got} != {want}")
+
+
+def _a15_host_copy(net, name: str, policy: str):
+    """The network ``net`` on the CPU: same conf, its tensors copied."""
+    from deeplearning4j_tpu_torch.dtypes import tree_map
+
+    host = build_network(name, policy, "cpu")
+    host.params = tree_map(lambda t: t.detach().cpu().clone(), net.params)
+    host.net_state = tree_map(lambda t: t.detach().cpu().clone(),
+                              net.net_state)
+    host.iteration_count = net.iteration_count
+    return host
+
+
+def _a15_timed(listener, times: list):
+    inner = listener.iteration_done
+
+    def timed(model, iteration):
+        t = time.perf_counter()
+        inner(model, iteration)
+        times.append((time.perf_counter() - t) * 1e3)
+
+    listener.iteration_done = timed
+    return listener
+
+
+def a15_ui(card: str) -> None:
+    """(c): an in-process ``UiServer`` on 127.0.0.1, port 0: the three
+    listeners over HTTP on LeNet-5's ``fit`` and the histogram listener on
+    phase 8's fused epoch through ``chunk_done``. Each GET returns what
+    was posted; the histogram payload equals the CPU's for the same
+    params (float32 rtol 1e-5)."""
+    import json as _json
+
+    import numpy as np
+    from deeplearning4j_tpu_torch import ui
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+
+    srv = ui.UiServer(port=0, host="127.0.0.1")
+    try:
+        net = build_network("lenet5", "bf16", A15_DEVICE)
+        times = {"histogram": [], "flow": [], "conv": []}
+        listeners = [
+            _a15_timed(ui.HistogramIterationListener(
+                url=srv.url, session_id="lenet"), times["histogram"]),
+            _a15_timed(ui.FlowIterationListener(
+                url=srv.url, session_id="lenet", frequency=1),
+                times["flow"]),
+            _a15_timed(ui.ConvolutionalIterationListener(
+                url=srv.url, session_id="lenet", frequency=1, max_rows=2),
+                times["conv"])]
+        net.set_listeners(*listeners)
+        x, y = network_data("lenet5", A15_UI_BATCH)
+        for _ in range(A15_UI_FITS):
+            net.fit(DataSet(x, y))
+        _a15_sync()
+        host = _a15_host_copy(net, "lenet5", "bf16")
+        host.score_value = net.score_value
+        got = _a15_json(f"{srv.url}/weights/data?sid=lenet")
+        want = _json.loads(_json.dumps(ui.HistogramIterationListener(
+            server=object())._payload(host, net.iteration_count)))
+        grads = got.pop("gradients", None)
+        _a15_close(got, want)
+        flow = _a15_json(f"{srv.url}/flow/data?sid=lenet")
+        _a15_close(flow["nodes"], _json.loads(_json.dumps(
+            ui.FlowIterationListener.describe(host)))["nodes"])
+        act = _a15_json(f"{srv.url}/activations/data?sid=lenet")
+        sink = []
+
+        class Sink:
+            def post_update(self, kind, payload, sid="default"):
+                sink.append(payload)
+
+        host._last_input = x
+        ui.ConvolutionalIterationListener(
+            server=Sink(), frequency=1, max_rows=2).iteration_done(
+            host, net.iteration_count)
+        if act["shape"] != sink[0]["shape"] or act["iteration"] != \
+                net.iteration_count:
+            raise AssertionError("the activation tile differs")
+        print(f"a15 ui lenet5 fit x{A15_UI_FITS} [{A15_UI_BATCH}, 28, 28, "
+              f"1] bf16: weights GET equals the CPU payload (rtol "
+              f"{A15_UI_RTOL}), gradients panel "
+              f"{'present' if grads else 'missing'}, flow nodes "
+              f"{len(flow['nodes'])}, activation shape {act['shape']}; ms "
+              f"per firing histogram="
+              f"{np.mean(times['histogram']):.3f} flow="
+              f"{np.mean(times['flow']):.3f} conv="
+              f"{np.mean(times['conv']):.3f} [{card}]")
+        if not grads:
+            raise AssertionError("no gradients panel after three fits")
+        # phase 8's fused epoch, the histogram listener through chunk_done
+        epoch = build_network("mnist_mlp", "bf16", A15_DEVICE)
+        cache = epoch.build_epoch_cache(ListDataSetIterator(epoch_data(),
+                                                            EPOCH_BATCH))
+        epoch.fit_epochs(cache, 1, chunk_epochs=1)  # warm-up and capture
+        wall_off, _ = timed(lambda: epoch.fit_epochs(
+            cache, EPOCH_EPOCHS, chunk_epochs=1))
+        fired = []
+        epoch.set_listeners(_a15_timed(ui.HistogramIterationListener(
+            server=srv, session_id="epoch", frequency=EPOCH_BATCHES),
+            fired))
+        chunks = []
+        inner = epoch.listeners[0].chunk_done
+
+        def chunk_done(model, iteration0, losses, metrics=None):
+            t = time.perf_counter()
+            inner(model, iteration0, losses, metrics)
+            chunks.append((time.perf_counter() - t) * 1e3)
+
+        epoch.listeners[0].chunk_done = chunk_done
+        out = {}
+        wall_on, _ = timed(lambda: out.setdefault("hist", epoch.fit_epochs(
+            cache, EPOCH_EPOCHS, chunk_epochs=1)))
+        hist = out["hist"]
+        posted = _a15_json(f"{srv.url}/weights/data?sid=epoch")
+        host = _a15_host_copy(epoch, "mnist_mlp", "bf16")
+        want = _json.loads(_json.dumps(ui.HistogramIterationListener(
+            server=object())._payload(host, epoch.iteration_count)))
+        _a15_close(posted["parameters"], want["parameters"])
+        curve = posted["loss_history"]["losses"]
+        last = hist[-1].float().cpu().numpy()
+        if not np.allclose(curve, last, rtol=A15_UI_RTOL, atol=0):
+            raise AssertionError("the posted loss curve is not the chunk's")
+        if len(chunks) != EPOCH_EPOCHS:
+            raise AssertionError(f"chunk_done fired {len(chunks)} times")
+        print(f"a15 ui fused epoch mnist_mlp [{EPOCH_BATCHES} x "
+              f"{EPOCH_BATCH}, 784] bf16 x{EPOCH_EPOCHS}, chunks of 1: "
+              f"chunk_done posts={len(chunks)} ms per firing="
+              f"{np.mean(chunks):.3f}; epoch ms with the listener "
+              f"{wall_on / EPOCH_EPOCHS * 1e3:.3f} without "
+              f"{wall_off / EPOCH_EPOCHS * 1e3:.3f}; parameters and loss "
+              f"curve equal the CPU's [{card}]")
+    finally:
+        srv.stop()
+
+
+def a15_ml(card: str) -> None:
+    """(d): ``NeuralNetClassification`` on the MNIST MLP conf fitted on
+    the card; its predictions against a CPU run from the same carried
+    weights (float32, TF32 off, the train phase's gate)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import ml
+    from deeplearning4j_tpu_torch.models import zoo
+
+    rng = np.random.default_rng(0)
+    data = {"features": rng.random((A15_ML_ROWS, 784), np.float32),
+            "label": rng.integers(0, 10, A15_ML_ROWS)}
+    conf = zoo.mnist_mlp(hidden=256, device="cpu").conf
+    est = ml.NeuralNetClassification(conf, num_classes=10,
+                                     epochs=A15_ML_EPOCHS,
+                                     batch_size=A15_ML_BATCH,
+                                     device=A15_DEVICE)
+    t = time.perf_counter()
+    model = est.fit(data)
+    _a15_sync()
+    fit_ms = (time.perf_counter() - t) * 1e3
+    host = _a15_host_copy(model.network, "mnist_mlp", "float32")
+    host_model = ml.NeuralNetClassificationModel(
+        host, features_col="features", prediction_col="prediction",
+        probability_col="probability")
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = model.transform(data)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    want = host_model.transform(data)
+    err = float(np.abs(got["probability"] - want["probability"]).max())
+    ok = np.allclose(got["probability"], want["probability"], **A15_ML_TOL)
+    top2 = np.sort(want["probability"], axis=1)[:, -2:]
+    near_tie = (top2[:, 1] - top2[:, 0]) <= 2 * A15_ML_TOL["atol"]
+    differ = got["prediction"] != want["prediction"]
+    print(f"a15 ml NeuralNetClassification mnist_mlp [{A15_ML_ROWS}, 784] "
+          f"float32 x{A15_ML_EPOCHS} epoch(s) batch {A15_ML_BATCH}: fit_ms="
+          f"{fit_ms:.1f} probability max_abs_err {err:.3e} gate rtol "
+          f"{A15_ML_TOL['rtol']} atol {A15_ML_TOL['atol']} ok={ok} "
+          f"predictions differ on {int(differ.sum())} row(s), all near a "
+          f"tie={bool(near_tie[differ].all())} [{card}]")
+    if not ok or not near_tie[differ].all():
+        raise AssertionError("the card's predictions differ from the CPU's")
+
+
+def a15_phase(card: str) -> dict:
+    """Phase 18; returns B1–B3's launches over the phase (B1 only in the
+    fleet's warm-ups and prefills)."""
+    t0 = time.monotonic()
+    reset_launch_counts()
+    fleet = a15_fleet(card)
+    a15_contracts(card)
+    a15_ui(card)
+    a15_ml(card)
+    total = launch_counts()
+    if total["flash_attention_bwd_dkdv"] or total["flash_attention_bwd_dq"]:
+        raise AssertionError(f"phase 18 launched a backward kernel: {total}")
+    print(f"a15: phase wall {time.monotonic() - t0:.1f} s, launches {total} "
+          f"(fleet prefills {fleet['prefills']}) [{card}]")
+    return total
+
+
 def main() -> None:
     try:
         import torch
@@ -6779,11 +7274,11 @@ def main() -> None:
     serve_launches = train_launches = fused_launches = cli_launches = None
     extras_launches = data_launches = profile_launches = None
     embed_launches = trees_launches = mesh_launches = None
-    model_launches = cluster_launches = None
+    model_launches = cluster_launches = a15_launches = None
     for phase in ("flash", "flash_bwd", "serve", "train", "networks",
                   "recurrent", "fused", "cli", "serve_extras", "data",
                   "monitor", "embeddings", "trees", "mesh", "model",
-                  "cluster"):
+                  "cluster", "a15"):
         try:
             if phase == "flash":
                 entries["flash_attention_fwd"] = check_flash(card)
@@ -6822,8 +7317,10 @@ def main() -> None:
                 mesh_launches = mesh_phase(card)
             elif phase == "model":
                 model_launches = model_phase(card)
-            else:
+            elif phase == "cluster":
                 cluster_launches = cluster_phase(card)
+            else:
+                a15_launches = a15_phase(card)
         except Exception:
             traceback.print_exc()
             failed.append(phase)
@@ -6850,6 +7347,9 @@ def main() -> None:
         if not e["launches_tp"] or not e["launches_pipe"]:
             fail(f"{name} was not launched on the TP or pipeline path")
         e["launches_cluster"] = cluster_launches[name]
+        e["launches_a15"] = a15_launches[name]
+    if not entries["flash_attention_fwd"]["launches_a15"]:
+        fail("flash_attention_fwd was not launched on the A15 fleet")
     entries["flash_attention_fwd"]["launches_serve"] = serve_launches
     entries["flash_attention_fwd"]["launches_serve_extras"] = extras_launches
     print(json.dumps({"kernels": list(entries.values())}))

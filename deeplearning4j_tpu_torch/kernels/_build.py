@@ -34,6 +34,10 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel library could not be built (no ``nvcc``, or it failed)."""
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -42,8 +46,9 @@ def nvcc_path() -> str:
                         "bin", "nvcc")
     if os.path.exists(cand):
         return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
-                       "machine with the card (set CUDA_HOME or PATH)")
+    raise KernelBuildError("nvcc not found: the CUDA kernels are built on "
+                           "the machine with the card (set CUDA_HOME or "
+                           "PATH)")
 
 
 def library_path(name: str) -> str:
@@ -91,7 +96,7 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
         else:
             os.replace(tmp, paths[name])
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelBuildError("\n".join(errors))
     return paths
 
 

@@ -71,6 +71,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from deeplearning4j_tpu_torch import dtypes as dtypes_mod
+from deeplearning4j_tpu_torch.analysis.annotations import traced
 from deeplearning4j_tpu_torch._device import resolve_device
 from deeplearning4j_tpu_torch.kernels.flash_attention import flash_attention
 from deeplearning4j_tpu_torch.ops.attention import grouped_query_attention
@@ -1261,6 +1262,7 @@ class _CapturedSteps:
             step=torch.zeros((), dtype=torch.int32, device=lm.device),
             loss=None)
 
+        @traced
         def body():
             _, _, loss = self.step(prog.params, prog.opt_state, prog.tokens,
                                    prog.step)

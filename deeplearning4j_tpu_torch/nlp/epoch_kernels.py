@@ -55,9 +55,9 @@ modes (``Word2Vec._fused_mode``):
   one-device deltas (a ``V``-row transient, so the repeats sum in the
   one-device order).
 
-The reference marks its plan functions ``@traced`` for its jaxpr lint
-engine; the port has no such engine yet (ROADMAP A15) and leaves the
-marker out.
+The plan functions and the chunk's step carry ``@traced``: the port's
+dl4j-lint (``analysis/``) holds everything they reach free of host
+readbacks.
 """
 
 from __future__ import annotations
@@ -70,6 +70,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.analysis.annotations import traced
 from deeplearning4j_tpu_torch.nlp.word2vec import (
     _joint_scales,
     _neg_loss_terms,
@@ -146,6 +147,7 @@ def epoch_keys_for(seed: int, start: int, count: int) -> List[int]:
             for e in range(start, start + count)]
 
 
+@traced
 def skipgram_pair_plan(gen: torch.Generator, tokens, mask, keep_prob,
                        window: int, out=None):
     """One epoch's pair candidates from the ``[S, L]`` corpus stacks.
@@ -188,6 +190,7 @@ def skipgram_pair_plan(gen: torch.Generator, tokens, mask, keep_prob,
     return centers, contexts, valid
 
 
+@traced
 def skipgram_negatives(gen: torch.Generator, contexts, table, k: int,
                        out=None):
     """``[P, k]`` int32 unigram-table draws with ONE collision redraw
@@ -218,6 +221,7 @@ def _permute_(a: torch.Tensor, order: torch.Tensor,
     bits.copy_(scratch)
 
 
+@traced
 def skipgram_epoch_plan(gen: torch.Generator, tokens, mask, keep_prob,
                         table, window: int, negative: int, n_batches: int,
                         batch: int, out=None):
@@ -341,14 +345,14 @@ def _neg_epoch_math_dp(syn0, syn1neg, centers, contexts, valid, negatives,
 
 def _fetch_rows(local, lo: int, idx, group):
     """``whole_table[idx]`` from every rank's rows ``[lo, lo + len)``."""
+    from deeplearning4j_tpu_torch.parallel.collectives import all_reduce_
+
     uniq, inverse = torch.unique(idx, return_inverse=True)
     rows = torch.zeros((uniq.shape[0], local.shape[1]), dtype=local.dtype,
                        device=local.device)
     own = (uniq >= lo) & (uniq < lo + local.shape[0])
     rows[own] = local[uniq[own] - lo]
-    import torch.distributed as dist
-
-    dist.all_reduce(rows, group=group)
+    all_reduce_(rows, group)
     return rows[inverse]
 
 
@@ -561,6 +565,7 @@ class SkipGramChunk:
         self.launch = ProfiledProgram(self._launch, name="w2v_epoch_chunk",
                                       key=key)
 
+    @traced
     def _step(self) -> None:
         i = self.cursor
         cen, ctx, val, neg = (p.index_select(0, i).squeeze(0)

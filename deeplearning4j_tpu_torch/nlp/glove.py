@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch._device import resolve_device
+from deeplearning4j_tpu_torch.analysis.annotations import traced
 from deeplearning4j_tpu_torch.nlp.sentence_iterator import SentenceIterator
 from deeplearning4j_tpu_torch.nlp.tokenization import (
     DefaultTokenizerFactory,
@@ -95,6 +96,7 @@ class _GloveRun:
         self.row = torch.zeros((n_batches,), **f32)
         self.graph = StepGraph(self._step, device)
 
+    @traced
     def _step(self) -> None:
         i = self.cursor
         r, c, lx, f = (a.index_select(0, i).squeeze(0) for a in self.batch)

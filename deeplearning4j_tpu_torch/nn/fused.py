@@ -47,6 +47,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.analysis.annotations import traced
 from deeplearning4j_tpu_torch.dtypes import tree_leaves, tree_map
 from deeplearning4j_tpu_torch.monitor import fused_metrics_stride
 from deeplearning4j_tpu_torch.monitor.profile import ProfiledProgram
@@ -306,6 +307,7 @@ class FusedTraining:
             prog.batch = static_clone(batch)
             prog.loss = None
 
+            @traced
             def body():
                 p2, u2, s2, _, loss = self._step_impl(
                     st.params, st.updater_state, st.net_state, st.it, st.lr,
@@ -357,6 +359,7 @@ class FusedTraining:
                                      device=self.device)
             prog.loss = None
 
+            @traced
             def body():
                 sub = _map(lambda a, w: a if w else
                            a.index_select(0, prog.index).squeeze(0),
@@ -579,6 +582,7 @@ class FusedTraining:
             prog.row = torch.zeros((n, width), dtype=hdtype,
                                    device=self.device)
 
+            @traced
             def body():
                 i = prog.order.index_select(0, prog.cursor)
                 batch = _map(lambda a: a.index_select(0, i).squeeze(0),

@@ -311,6 +311,7 @@ class MultiLayerNetwork(FusedTraining):
                 continue
             x, y = self._dev(ds.features), self._dev(ds.labels)
             fm, lm = self._dev(ds.features_mask), self._dev(ds.labels_mask)
+            self._last_input = ds.features  # for the UI activation listener
             for _ in range(max(1, gc.iterations)):
                 self._sgd_step(x, y, fm, lm)
                 self._post_iteration()
@@ -384,6 +385,7 @@ class MultiLayerNetwork(FusedTraining):
         batch = (self._dev(ds.features), self._dev(ds.labels),
                  self._dev(ds.features_mask), self._dev(ds.labels_mask))
         self._fused_fit_steps(batch, n_steps * max(1, gc.iterations))
+        self._last_input = ds.features
         for listener in self.listeners:
             listener.iteration_done(self, self.iteration_count)
         return self

@@ -228,11 +228,9 @@ def dp_sum(x: torch.Tensor) -> torch.Tensor:
     scope = _DP_SCOPE.get()
     if scope is None:
         return x
-    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.parallel.collectives import all_reduce_
 
-    out = x.detach().clone()
-    dist.all_reduce(out, group=scope[0])
-    return out
+    return all_reduce_(x.detach().clone(), scope[0])
 
 
 def dp_penalty(penalty: torch.Tensor) -> torch.Tensor:

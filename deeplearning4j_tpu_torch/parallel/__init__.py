@@ -18,9 +18,7 @@ schedule over ``pipe`` (:mod:`.pipeline_parallel`) and the MoE FFN over
 with its elastic reshard (``ParallelWrapper.fit_epochs``), the state
 tracker (:mod:`.statetracker`), the multi-host runtime and
 ``FaultTolerantTrainer`` (:mod:`.cluster`) and the work router
-(:mod:`.workrouter`) (A14.3).
-
-Importable but raising, naming its item: the config registry (A15).
+(:mod:`.workrouter`) (A14.3); the config registry (:mod:`.registry`).
 """
 
 from deeplearning4j_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -82,16 +80,4 @@ from deeplearning4j_tpu_torch.parallel.expert_parallel import (  # noqa: F401
     moe_ffn,
     shard_moe_params,
 )
-
-
-def _later(name: str, item: str, what: str):
-    """A name of the reference's ``parallel`` that raises when used."""
-    def raise_later(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} ({what}) is not ported yet (ROADMAP {item})")
-
-    raise_later.__name__ = raise_later.__qualname__ = name
-    return raise_later
-
-
-ConfigRegistry = _later("ConfigRegistry", "A15", "the config registry")
+from deeplearning4j_tpu_torch.parallel.registry import ConfigRegistry  # noqa: F401

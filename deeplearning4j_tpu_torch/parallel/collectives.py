@@ -34,10 +34,32 @@ matrix library, whose order may).
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Sequence
 
 import torch
 import torch.distributed as dist
+
+# the open record_collectives() blocks (usually none)
+_RECORDERS: List[list] = []
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Every collective this module issues inside the block, as ``(op,
+    group)`` pairs in issue order (the program contracts check each group
+    against the mesh axes the sharding registry declared)."""
+    calls: list = []
+    _RECORDERS.append(calls)
+    try:
+        yield calls
+    finally:
+        _RECORDERS.remove(calls)
+
+
+def _note(op: str, group) -> None:
+    for calls in _RECORDERS:
+        calls.append((op, group))
 
 
 def _pack(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -71,6 +93,7 @@ def rotate(tensors: Sequence[torch.Tensor], group, shift: int
     send[(me - shift) % n] = flat.numel()
     recv[(me + shift) % n] = flat.numel()
     dst = torch.empty_like(flat)
+    _note("rotate", group)
     dist.all_to_all_single(dst, flat, recv, send, group=group)
     return _unpack(dst, tensors)
 
@@ -80,12 +103,14 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     ``[n, ...]`` whose chunk j came from group index j."""
     src = x.contiguous()
     dst = torch.empty_like(src)
+    _note("all_to_all", group)
     dist.all_to_all_single(dst, src, group=group)
     return dst
 
 
 def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
     """Sum ``x`` over ``group`` in place; returns ``x``."""
+    _note("all_reduce", group)
     dist.all_reduce(x, group=group)
     return x
 
@@ -110,6 +135,7 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     order (all members' ``x`` have one shape)."""
     src = x.contiguous()
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    _note("all_gather", group)
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim)
 

@@ -67,6 +67,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import types
 from typing import Any, Optional
 
 import torch
@@ -121,6 +122,7 @@ class ParallelWrapper:
         self._donate = donate
         self.fsdp = fsdp
         self._epoch_plans = []  # each epoch's order, as every rank drew it
+        self._programs = {}  # the epoch programs fit_epochs ran, by key
         self._set_mesh(mesh if mesh is not None else build_mesh(
             device=network.device))
 
@@ -447,26 +449,31 @@ class ParallelWrapper:
     def _epoch_launch(self, cache, shuffle: bool, accum: int, guarded: bool,
                       stride: int):
         """``launch(k)`` for the chunk driver: k epochs of eager steps on
-        this rank's rows of every batch, in the plan every rank shares."""
+        this rank's rows of every batch, in the plan every rank shares.
+        The program (its ``launch``, its ``step(i, it)`` on batch i from
+        the network's live state, its history ``width`` and ``hdtype``)
+        is kept in ``_programs`` under ``(shuffle, accum, guard,
+        stride)``, where the program contracts find it."""
         from deeplearning4j_tpu_torch.nn.fused import _map
 
         net = self.network
         width = 1 + int(guarded) + (4 if stride else 0)
         hdtype = torch.promote_types(net._policy.output_dtype, torch.float32)
 
+        def step(i: int, it: int):
+            # resolved per call: a reshard between chunks swaps both
+            batch = _map(lambda a: a[i], cache.batch_stacks())
+            return self._sharded_step(
+                net.params, net.updater_state, net.net_state, it, batch,
+                self._cache_group(cache), accum, guarded, stride, net._rng)
+
         def launch(k: int):
             n = cache.n_batches
             out = torch.empty((k, n, width), dtype=hdtype, device=net.device)
             it = net.iteration_count
             for e in range(k):
-                # resolved per epoch: a reshard between chunks swaps them
-                stacks = cache.batch_stacks()
-                group = self._cache_group(cache)
                 for j, i in enumerate(self._plan(n, shuffle)):
-                    batch = _map(lambda a: a[i], stacks)
-                    p, u, s, loss, tripped, mets = self._sharded_step(
-                        net.params, net.updater_state, net.net_state, it,
-                        batch, group, accum, guarded, stride, net._rng)
+                    p, u, s, loss, tripped, mets = step(i, it)
                     net.params, net.updater_state, net.net_state = p, u, s
                     vals = [loss.reshape(1)]
                     if guarded:
@@ -482,6 +489,9 @@ class ParallelWrapper:
                     if stride else None)
             return hist, trips, mets
 
+        self._programs[(shuffle, accum, guarded, stride)] = (
+            types.SimpleNamespace(launch=launch, step=step, width=width,
+                                  hdtype=hdtype, cache=cache))
         return launch
 
     def _sharded_step(self, params, upd, nst, it: int, batch, group,

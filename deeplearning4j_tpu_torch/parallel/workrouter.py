@@ -11,14 +11,14 @@ Workers are threads or processes sharing a ``StateTracker`` (in-memory or
 file-backed); the master loop is ``DistributedTrainer``, and the math inside
 each ``perform()`` is the network's own step on its device. This layer is
 the control plane: gradient sync inside one world is ``ParallelWrapper``'s
-collectives. The goodput autopilot (``autopilot=``, ``DL4J_AUTOPILOT``) is
-not ported yet and raises naming ROADMAP A15.
+collectives. The goodput autopilot (``autopilot=``, ``DL4J_AUTOPILOT``)
+rides the master tick and evicts through the trainer's own evidence-logged
+``evict_worker``.
 """
 
 from __future__ import annotations
 
 import logging
-import os
 import statistics
 import threading
 import time
@@ -30,12 +30,6 @@ from deeplearning4j_tpu_torch.monitor import metrics, record_counter, tracer
 from deeplearning4j_tpu_torch.parallel.statetracker import StateTracker
 
 logger = logging.getLogger(__name__)
-
-
-def _autopilot_requested() -> bool:
-    """Whether ``DL4J_AUTOPILOT`` opts the goodput autopilot in."""
-    return os.environ.get("DL4J_AUTOPILOT", "").strip().lower() in (
-        "1", "on", "true")
 
 
 # ---------------------------------------------------------------------------
@@ -238,13 +232,20 @@ class DistributedTrainer:
         # the fleet median gets flagged (>=3 reporting workers, so one
         # slow pair can't nominate each other)
         self.straggler_ratio = float(straggler_ratio)
-        # the goodput autopilot: a duck-typed ``bind``/``observe`` object
-        # may be passed; the default policy (DL4J_AUTOPILOT) is ROADMAP A15
-        if autopilot is None and _autopilot_requested():
-            raise NotImplementedError(
-                "the goodput autopilot (DL4J_AUTOPILOT) needs "
-                "resilience/autopilot.py, which is not ported yet "
-                "(ROADMAP A15)")
+        # the goodput autopilot (observe→act over the fleet gauges this
+        # tick aggregates): pass an instance, or set DL4J_AUTOPILOT=1 for
+        # the default policy with the trainer's own evict path wired in
+        if autopilot is None:
+            from deeplearning4j_tpu_torch.resilience.autopilot import (
+                GoodputAutopilot, autopilot_enabled)
+
+            if autopilot_enabled():
+                # silence threshold = the eviction timeout (one policy,
+                # two detectors); 120 s without timeout-based eviction
+                autopilot = GoodputAutopilot(
+                    silence_s=(eviction_timeout_s
+                               if eviction_timeout_s is not None
+                               else 120.0))
         self.autopilot = autopilot
         if autopilot is not None:
             autopilot.bind(

@@ -137,9 +137,12 @@ class StepGraph:
 
     ``generators`` are the CUDA generators the step draws from; each is
     registered with the graph. ``pool`` is the owner's :class:`GraphPool`
-    (None: a pool of the graph's own). Counts ``eager_calls``,
-    ``captures`` and ``replays``; ``recorded`` holds the kernel launches
-    of one replay."""
+    (None: a pool of the graph's own). Counts ``eager_calls`` (of which
+    ``requested_eager`` ran eagerly on the card because an
+    :func:`eager_steps` block asked), ``captures`` and ``replays``;
+    ``recorded`` holds the kernel launches of one replay. On the card
+    every eager call is the warm-up or a requested one: nothing falls
+    back (the program contracts check that)."""
 
     def __init__(self, fn: Callable[[], None], device, *,
                  generators: Iterable[Optional[torch.Generator]] = (),
@@ -153,6 +156,7 @@ class StepGraph:
         self.graph = None
         self.warmed = False
         self.eager_calls = 0
+        self.requested_eager = 0
         self.captures = 0
         self.replays = 0
         self.recorded: Dict[str, int] = {}
@@ -161,6 +165,7 @@ class StepGraph:
         if not self.graphed or _EAGER.get():
             self.fn()
             self.eager_calls += 1
+            self.requested_eager += self.graphed
         elif not self.warmed:
             self._warm_up()
         else:

@@ -1,7 +1,6 @@
-"""Robustness around the fused training paths.
+"""Robustness around the fused training paths and the fleets.
 
-Port of the parts of ``deeplearning4j_tpu/resilience`` that
-``perf/epoch_cache.drive_epoch_chunks`` uses:
+Port of ``deeplearning4j_tpu/resilience``:
 
 - :mod:`~deeplearning4j_tpu_torch.resilience.guard` — the numeric
   sentinel and the ``DL4J_NAN_GUARD`` policy;
@@ -13,9 +12,15 @@ Port of the parts of ``deeplearning4j_tpu/resilience`` that
 - :mod:`~deeplearning4j_tpu_torch.resilience.retry` — ``RetryPolicy``
   (the fetchers' downloads);
 - :mod:`~deeplearning4j_tpu_torch.resilience.preemption` —
-  ``PreemptionGuard`` (``FaultTolerantTrainer``).
-
-Leases and the autopilot are not ported yet (ROADMAP A15).
+  ``PreemptionGuard`` (``FaultTolerantTrainer``);
+- :mod:`~deeplearning4j_tpu_torch.resilience.lease` — ``GrantLease``, a
+  bounded watchdog around a backend acquisition (a serve replica's
+  warm-up) that releases and re-acquires a wedged one under escalating
+  backoff;
+- :mod:`~deeplearning4j_tpu_torch.resilience.autopilot` —
+  ``GoodputAutopilot``: goodput below the floor, a straggler streak or
+  heartbeat silence become evict/reshard/re-admit decisions, each
+  evidence-logged as an ``autopilot.decision`` event.
 """
 
 from deeplearning4j_tpu_torch.resilience.faults import (  # noqa: F401
@@ -33,11 +38,23 @@ from deeplearning4j_tpu_torch.resilience.faults import (  # noqa: F401
     parse_spec,
     uninstall,
 )
+from deeplearning4j_tpu_torch.resilience.autopilot import (  # noqa: F401
+    AutopilotDecision,
+    GoodputAutopilot,
+    autopilot_enabled,
+    goodput_floor,
+)
 from deeplearning4j_tpu_torch.resilience.guard import (  # noqa: F401
     NAN_GUARD_POLICIES,
     TrainingDivergedError,
     nan_guard_policy,
     tree_all_finite,
+)
+from deeplearning4j_tpu_torch.resilience.lease import (  # noqa: F401
+    GrantLease,
+    GrantWedgedError,
+    grant_lease_s,
+    grant_reacquires,
 )
 from deeplearning4j_tpu_torch.resilience.preemption import (  # noqa: F401
     PREEMPT_CHUNK_SITE,

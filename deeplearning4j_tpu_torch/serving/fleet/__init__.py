@@ -19,9 +19,11 @@ Port of ``deeplearning4j_tpu/serving/fleet``, in one process on one card:
   virtual per-replica timelines with measured (or pinned) step costs.
 
 Replicas beat to a ``parallel.StateTracker`` when given ``tracker=``, and
-the controller evicts one silent past its timeout. The grant lease and the
-goodput autopilot are ROADMAP A15: ``lease=`` and ``DL4J_AUTOPILOT`` raise
-``NotImplementedError`` naming it.
+the controller evicts one silent past its timeout. A replica started with
+``lease=`` (a ``resilience.GrantLease``, around :meth:`ServeReplica
+.warm_up`) dies when the lease wedges on every attempt; the controller
+with ``autopilot=`` (or ``DL4J_AUTOPILOT``) evicts a straggler through
+its own ``evict``.
 """
 
 from deeplearning4j_tpu_torch.serving.fleet.controller import (  # noqa: F401

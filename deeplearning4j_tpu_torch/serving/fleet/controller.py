@@ -4,8 +4,9 @@ Copy of ``deeplearning4j_tpu/serving/fleet/controller.py`` on the port's
 modules. With ``tracker=`` every tick reads the replicas' beat payloads
 off the state tracker and evicts a replica silent past the timeout;
 without one it reads the in-process replicas' payloads directly. The
-goodput autopilot (``DL4J_AUTOPILOT``, ``autopilot=``) is ROADMAP A15 and
-raises. The loop closes the way ``DistributedTrainer``'s master tick does
+goodput autopilot (``DL4J_AUTOPILOT``, ``autopilot=``) observes every
+tick's payloads and straggler flags and evicts through the controller's
+own evidence-logged ``evict``. The loop closes the way ``DistributedTrainer``'s master tick does
 for training workers, on the heartbeat channel:
 
 - **aggregate** — every tick reads each replica's newest beat payload
@@ -38,7 +39,7 @@ for training workers, on the heartbeat channel:
 
 from __future__ import annotations
 
-import os
+import logging
 import threading
 import time
 from typing import Dict, List, Optional
@@ -49,13 +50,6 @@ from deeplearning4j_tpu_torch.serving.fleet.router import FleetRouter
 from deeplearning4j_tpu_torch.serving.scheduler import serve_evict_s
 
 __all__ = ["FleetController"]
-
-def _autopilot_requested() -> bool:
-    """Whether ``DL4J_AUTOPILOT`` opts the goodput autopilot in
-    (``1``/``on``/``true``, as the reference's ``autopilot_enabled``)."""
-    return os.environ.get("DL4J_AUTOPILOT", "").strip().lower() in (
-        "1", "on", "true")
-
 
 #: per-replica gauges the controller owns (published on tick, removed
 #: on eviction so a dead replica stops reporting as current)
@@ -75,11 +69,6 @@ class FleetController:
                  evict_timeout_s: Optional[float] = None,
                  straggler_ratio: float = 3.0,
                  clock=time.time, autopilot=None):
-        if autopilot is not None or _autopilot_requested():
-            raise NotImplementedError(
-                "the serve autopilot (DL4J_AUTOPILOT, autopilot=) needs "
-                "resilience/autopilot.py, which is not ported yet "
-                "(ROADMAP A15)")
         self.router = router
         self.tracker = tracker
         self.evict_timeout_s = (evict_timeout_s
@@ -98,6 +87,25 @@ class FleetController:
         self._stop: Optional[threading.Event] = None
         self._thread: Optional[threading.Thread] = None
         self._reg = metrics()
+        # the goodput autopilot rides the controller tick as it rides the
+        # training master's: DL4J_AUTOPILOT=1 builds the default policy,
+        # autopilot= passes one. Its evict actuator is the controller's
+        # own evidence-logged evict: one eviction path whoever decided
+        if autopilot is None:
+            from deeplearning4j_tpu_torch.resilience.autopilot import (
+                GoodputAutopilot, autopilot_enabled)
+
+            if autopilot_enabled():
+                autopilot = GoodputAutopilot(
+                    silence_s=self.evict_timeout_s, clock=clock)
+        self.autopilot = autopilot
+        if autopilot is not None:
+            autopilot.bind(evict=lambda rid, d: self.evict(
+                rid, reason=f"autopilot:{d.reason}",
+                silent_s=d.gauges.get("silent_s"),
+                last_metrics={k: v for k, v in d.gauges.items()
+                              if k not in ("silent_s",
+                                           "silence_timeout_s")}))
 
     # ------------------------------------------------------------------
     def _payload(self, replica) -> Optional[dict]:
@@ -131,6 +139,21 @@ class FleetController:
             counter_name="fleet_serve_stragglers_total",
             event_name="serve.straggler")
         self._evict_pass(now, fleet)
+        if self.autopilot is not None:
+            try:
+                live = [r.replica_id for r in self.router.replicas
+                        if r.replica_id not in self._evicted_set]
+                self.autopilot.observe(
+                    fleet, stragglers=set(self.stragglers),
+                    last_beat=(
+                        {rid: self.tracker.last_heartbeat(rid)
+                         for rid in live}
+                        if self.tracker is not None else None),
+                    now=now)
+            except Exception:  # noqa: BLE001 — observing must not take
+                # the serve control loop down
+                logging.getLogger(__name__).exception(
+                    "serve autopilot observe pass failed")
         alive = [r for r in self.router.replicas
                  if r.replica_id not in self._evicted_set and r.alive]
         self._reg.gauge("fleet_serve_replicas",
@@ -173,8 +196,9 @@ class FleetController:
               last_metrics: Optional[dict] = None) -> dict:
         """Evict one replica: evidence-logged decision, gauges dropped,
         in-flight requests failed over. Also the bench/dryrun's forced-
-        eviction hook. Idempotent: only the first eviction of a replica
-        acts."""
+        eviction hook. Idempotent: the crash sweep and an
+        autopilot-directed eviction may both reach the same replica, and
+        only the first one acts."""
         if replica_id in self._evicted_set:
             return {"replica": replica_id, "reason": "already_evicted"}
         replica = self.router._by_id[replica_id]

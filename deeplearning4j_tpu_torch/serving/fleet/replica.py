@@ -4,8 +4,11 @@ Port of ``deeplearning4j_tpu/serving/fleet/replica.py``. With
 ``tracker=`` a started replica beats through a
 ``parallel.cluster.HeartbeatMonitor``, each beat carrying
 :meth:`heartbeat_payload`; without one an in-process fleet's controller
-reads the payload directly. The grant lease (``lease=``,
-``resilience/lease.py``) is not ported yet and raises (ROADMAP A15). A
+reads the payload directly. With ``lease=`` (a
+``resilience.lease.GrantLease``, typically around :meth:`warm_up`),
+``start`` acquires it first; a lease that wedges on every attempt marks
+the replica dead and the controller's crash path evicts it, while a
+kernel that fails to build or launch propagates from ``start``. A
 sampled request's stream is a ``torch.Generator`` seeded with
 its seed (the reference's ``jax.random.PRNGKey(seed)``). Several replicas
 started on one card share its default stream; a killed replica dies
@@ -38,6 +41,8 @@ import time
 from collections import deque
 from typing import Deque, Optional
 
+import numpy as np
+
 from deeplearning4j_tpu_torch.monitor import metrics, tracer
 from deeplearning4j_tpu_torch.resilience import faults
 from deeplearning4j_tpu_torch.serving.fleet.handoff import (
@@ -67,14 +72,16 @@ class ServeReplica:
         if self.role not in SERVE_ROLES:
             raise ValueError(
                 f"role={self.role!r} must be one of {SERVE_ROLES}")
-        if lease is not None:
-            raise NotImplementedError(
-                "a grant lease needs resilience/lease.py, which is not "
-                "ported yet (ROADMAP A15)")
         self.server = server if server is not None else DecodeServer(
             model, clock=clock, **server_kw)
         self.tracker = tracker
+        # grant lease around this replica's backend acquisition (its
+        # warm-up): a wedged acquisition re-acquires under the lease's
+        # bounded watchdog; exhaustion marks the replica dead so the
+        # controller evicts it. None: an acquire-free start
+        self.lease = lease
         self.monitor = None  # the HeartbeatMonitor while started
+        self._monitor_lock = threading.Lock()
         self.heartbeat_interval_s = heartbeat_interval_s
         self.poll_s = poll_s
         self.clock = clock
@@ -249,17 +256,47 @@ class ServeReplica:
     # real-time lifecycle (threads; the bench's virtual driver calls
     # step_once directly instead)
     # ------------------------------------------------------------------
+    def warm_up(self, prompt=None) -> int:
+        """The replica's backend acquisition, for a ``GrantLease``: on the
+        card, load the kernel library (built on first use) and run one
+        prefill of ``prompt`` (default one token) into a scratch slot,
+        which launches B1 once a layer on a flash model; returns the
+        first token (reading it waits for the card). Run it before
+        ``start``: the slot is overwritten by the next admission."""
+        engine = self.server.engine
+        if engine.device.type == "cuda":
+            from deeplearning4j_tpu_torch.kernels import _build
+
+            _build.load("flash_fwd")
+        prompt = np.zeros((1,), np.int64) if prompt is None else prompt
+        return int(engine.prefill(prompt, _PREFILL_SCRATCH_SLOT,
+                                  self.server._generator(0)))
+
     def start(self) -> "ServeReplica":
         if self._thread is not None and self._thread.is_alive():
             return self
+        if self.lease is not None:
+            from deeplearning4j_tpu_torch.resilience.lease import (
+                GrantWedgedError)
+
+            try:
+                self.lease.acquire()
+            except GrantWedgedError as e:
+                # a replica that never got its grant is a dead replica:
+                # the controller's crash path evicts it with the lease's
+                # evidence and fails its (zero) requests over
+                self._die(f"grant wedged: {e}")
+                return self
         if self.tracker is not None and self.monitor is None:
             from deeplearning4j_tpu_torch.parallel.cluster import (
                 HeartbeatMonitor)
 
-            self.monitor = HeartbeatMonitor(
+            monitor = HeartbeatMonitor(
                 self.tracker, self.replica_id,
                 interval_s=self.heartbeat_interval_s,
                 payload_fn=self.heartbeat_payload).start()
+            with self._monitor_lock:
+                self.monitor = monitor
         stop = threading.Event()
         self._stop = stop
 
@@ -288,7 +325,10 @@ class ServeReplica:
         self._stop_beats()
 
     def _stop_beats(self) -> None:
-        monitor, self.monitor = self.monitor, None
+        # the loop thread (a crash) and the controller (a kill) may both
+        # get here: the lock makes one of them stop the monitor
+        with self._monitor_lock:
+            monitor, self.monitor = self.monitor, None
         if monitor is not None:
             monitor.stop()
 

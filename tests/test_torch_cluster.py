@@ -143,7 +143,8 @@ def world(tmp_path_factory):
     payload = {"elastic": _mlp_case(),
                "resume": {**_mlp_case(), "dir": root}, "w2v": w2v}
     out = torch_worlds.run_world(
-        4, ["elastic_case", "resume_cases", "w2v_cases"], payload,
+        4, ["elastic_case", "resume_cases", "w2v_cases", "contract_cases"],
+        payload,
         os.path.join(root, "world"))
     return payload, out, (ref, port, plans)
 
@@ -214,6 +215,24 @@ def test_a_4_rank_checkpoint_resumes_on_one_device(world, tmp_path):
     ft.fit_epochs(ListDataSetIterator(DataSet(*case["arrays"]), 32), 3)
     _close(jax.tree_util.tree_map(lambda t: t.numpy(), net.params),
            got["base_params"], **ELASTIC_TOL)
+
+
+def test_program_contracts_over_the_mesh(world):
+    """Check 3 over a mesh (``analysis/contracts.py``): the wrapper's
+    epoch program and the distributed skip-gram chunk over ``data=4``
+    hold every contract in every rank and are left as they were; a step
+    that also sums over a ``model`` line of another mesh is reported in
+    every rank."""
+    _, out, _ = world
+    got = out["contract_cases"]
+    assert list(got["clean"].values()) == [[]]
+    assert got["unchanged"] and got["tables_unchanged"]
+    assert list(got["embedding"].values()) == [[]]
+    (violations,) = got["seeded"].values()
+    assert len(violations) == 1
+    assert "undeclared mesh axis '<unnamed>'" in violations[0]
+    assert "all_reduce" in violations[0]
+    assert got["found_in"] == [1, 1, 1, 1]
 
 
 def test_heartbeats_and_the_tracker_pointer(world):
@@ -625,11 +644,24 @@ def test_partial_final_round_not_discarded():
 
 
 def test_autopilot_env_raises_naming_a15(monkeypatch):
+    """``DL4J_AUTOPILOT=1`` builds the default goodput autopilot, its
+    silence bound the trainer's eviction timeout (120 s without one), its
+    evict actuator the trainer's own ``evict_worker``."""
+    from deeplearning4j_tpu_torch.resilience import GoodputAutopilot
+
     monkeypatch.setenv("DL4J_AUTOPILOT", "1")
     tr = InMemoryStateTracker()
-    with pytest.raises(NotImplementedError, match="A15"):
-        DistributedTrainer(tr, IterativeReduceWorkRouter(tr),
-                           lambda: _ConstPerformer([1.0]))
+    trainer = DistributedTrainer(tr, IterativeReduceWorkRouter(tr),
+                                 lambda: _ConstPerformer([1.0]))
+    assert isinstance(trainer.autopilot, GoodputAutopilot)
+    assert trainer.autopilot.silence_s == 120.0
+    tr.heartbeat("w9")
+    trainer.autopilot._evict("w9", None)
+    assert trainer.evicted == ["w9"]
+    monkeypatch.setenv("DL4J_AUTOPILOT", "0")
+    assert DistributedTrainer(tr, IterativeReduceWorkRouter(tr),
+                              lambda: _ConstPerformer([1.0])
+                              ).autopilot is None
 
 
 def _router_run(package, conf_json, jobs, start):

@@ -602,7 +602,7 @@ def test_unmapped_leaf_raises():
         reg._expand({"w": torch.zeros(2)}, {"w": "data"}, (), "m")
 
 
-def test_later_items_raise_naming_them(world_of_one):
+def test_later_items_raise_naming_them(world_of_one, tmp_path):
     import deeplearning4j_tpu_torch.parallel as par
 
     mesh = build_mesh(device="cpu")
@@ -640,8 +640,9 @@ def test_later_items_raise_naming_them(world_of_one):
     assert all(sh.is_replicated for sh in reg.tree_leaves_of(outs[0]))
     assert par.ClusterConfig().num_processes == 1
     assert par.InMemoryStateTracker().jobs() == []
-    with pytest.raises(NotImplementedError, match="A15"):
-        par.ConfigRegistry()
+    reg_dir = str(tmp_path / "registry")
+    par.ConfigRegistry(reg_dir).register("h", "t", {"mesh": "data=1"})
+    assert par.ConfigRegistry(reg_dir).retrieve("h", "t") == {"mesh": "data=1"}
 
 
 @pytest.mark.parametrize("shape", [(784, 256), (256,), (10,), (3, 5),

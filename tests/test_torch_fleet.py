@@ -1,8 +1,8 @@
 """The serve fleet on port replicas: ``deeplearning4j_tpu_torch.serving
 .fleet`` re-running the cases of ``tests/test_serving_fleet.py`` and
 ``tests/test_serve_overload.py`` with the same assertions, plus a
-JAX-against-port run of the fleet load driver and the port's own
-limits (no ``StateTracker``, lease or autopilot yet) and compile cache.
+JAX-against-port run of the fleet load driver, the tracker, lease and
+autopilot wiring, and the port's compile cache.
 
 The load-bearing claims:
 
@@ -470,10 +470,15 @@ def test_crash_eviction_with_evidence():
 
 
 def test_tracker_lease_and_autopilot_raise_naming_their_items(monkeypatch):
-    """``tracker=`` is ported (replicas beat through a HeartbeatMonitor,
-    the controller reads the beats); the lease and the autopilot still
-    raise naming A15."""
+    """``tracker=`` (replicas beat through a HeartbeatMonitor, the
+    controller reads the beats), the grant lease (``lease=``: acquired by
+    ``start``; a wedge on every attempt marks the replica dead and the
+    controller's crash path evicts it) and the autopilot (``autopilot=``
+    or ``DL4J_AUTOPILOT``: bound to the controller's evict) on port
+    replicas."""
     from deeplearning4j_tpu_torch.parallel import InMemoryStateTracker
+    from deeplearning4j_tpu_torch.resilience import (
+        GoodputAutopilot, GrantLease)
 
     reps, router = _fleet_of_three()
     tracker = InMemoryStateTracker()
@@ -488,19 +493,38 @@ def test_tracker_lease_and_autopilot_raise_naming_their_items(monkeypatch):
     finally:
         rx.stop()
     assert rx.monitor is None
-    with pytest.raises(NotImplementedError, match="A15"):
-        _replica("rx", lease=object())
+    # a lease around the warm-up: acquired once, the replica serves
+    ry = _replica("ry")
+    ry.lease = GrantLease("ry", ry.warm_up, bounded=False,
+                          sleep=lambda s: None)
+    ry.start()
+    try:
+        assert ry.lease.state == "held" and ry.alive
+    finally:
+        ry.stop()
+    # a lease that wedges on every attempt: a dead replica, evicted
+    wedged = GrantLease("r2", lambda: (_ for _ in ()).throw(
+        OSError("wedged")), bounded=False, max_reacquires=1,
+        sleep=lambda s: None)
+    reps[2].lease = wedged
+    reps[2].start()
+    assert reps[2].dead and reps[2].dead_reason.startswith("grant wedged")
     assert FleetController(router, tracker).tracker is tracker
     built = FleetRouter.build(_lm(), replicas=1, tracker=tracker, slots=2,
                               max_len=64, device="cpu")
     assert built.replicas[0].tracker is tracker
-    with pytest.raises(NotImplementedError, match="A15"):
-        FleetController(router, None, autopilot=object())
+    ap = GoodputAutopilot(floor=0.0, silence_s=1e9)
+    controller = FleetController(router, None, autopilot=ap)
+    assert controller.autopilot is ap
+    controller.tick()
+    assert controller.evicted == ["r2"]
+    assert controller.eviction_log[0]["reason"].startswith(
+        "crashed: grant wedged")
     monkeypatch.setenv("DL4J_AUTOPILOT", "1")
-    with pytest.raises(NotImplementedError, match="A15"):
-        FleetController(router, None)
+    assert isinstance(FleetController(router, None).autopilot,
+                      GoodputAutopilot)
     monkeypatch.setenv("DL4J_AUTOPILOT", "off")
-    FleetController(router, None)
+    assert FleetController(router, None).autopilot is None
 
 
 def test_silence_eviction_with_evidence():

@@ -907,3 +907,67 @@ def w2v_cases(rank, n, payload):
     out["host_loop"] = {"syn0": _all_ranks(_np(dw.syn0)),
                         "loss": float(dw._score)}
     return out
+
+
+def contract_cases(rank, n, payload):
+    """The program contracts over a mesh: a ``ParallelWrapper`` epoch
+    program over ``data=4`` and a ``DistributedWord2Vec`` chunk over
+    ``data=4`` hold all four, the network's state is what it was before
+    the check, and a step that also sums over a group of another mesh (a
+    ``model`` line of ``data=2 × model=2``, no axis of ``data=4``) is
+    reported."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.analysis.contracts import (
+        check_embedding_contracts, check_network_contracts)
+    from deeplearning4j_tpu_torch.nlp import CollectionSentenceIterator
+    from deeplearning4j_tpu_torch.nlp.distributed import DistributedWord2Vec
+    from deeplearning4j_tpu_torch.parallel.collectives import all_reduce_
+    from deeplearning4j_tpu_torch.parallel.mesh import axis_group
+
+    case = payload["elastic"]
+    m4, m22 = _mesh(data=4), _mesh(data=2, model=2)
+    w = _wrapped(case, m4)
+    cache = w.build_epoch_cache(_epoch_data(case))
+    w.fit_epochs(cache, 1)
+    before = _tree_np(w.network.params)
+    clean = check_network_contracts(w, cache, raise_on_violation=False)
+    after = _tree_np(w.network.params)
+    unchanged = all(np.array_equal(a, b) for a, b in zip(
+        _leaves_np(before), _leaves_np(after)))
+    (key, prog), = w._programs.items()
+    step = prog.step
+    stray = axis_group(m22, "model")
+
+    def seeded(i, it):
+        out = step(i, it)
+        all_reduce_(torch.zeros(1), stray)
+        return out
+
+    prog.step = seeded
+    seeded_out = check_network_contracts(w, cache, raise_on_violation=False)
+    prog.step = step
+    w2v = payload["w2v"]
+    dw = DistributedWord2Vec(CollectionSentenceIterator(w2v["sents"]),
+                             mesh=m4, device="cpu", **w2v["kw"])
+    dw.vocab = w2v["vocab"]
+    dw._table = w2v["table"]
+    dw.syn0 = torch.from_numpy(w2v["syn0"].copy())
+    dw.syn1neg = torch.from_numpy(w2v["syn1neg"].copy())
+    dw.fit_epochs(1, _plan=w2v["plans"][:1])
+    syn0 = dw.syn0.clone()
+    emb = check_embedding_contracts(dw, dw._corpus_cache, epochs=1,
+                                    raise_on_violation=False)
+    return {"clean": {repr(k): v for k, v in clean.items()},
+            "seeded": {repr(k): v for k, v in seeded_out.items()},
+            "unchanged": unchanged,
+            "embedding": {repr(k): v for k, v in emb.items()},
+            "tables_unchanged": bool(torch.equal(dw.syn0, syn0)),
+            "found_in": _all_ranks(sum(len(v) for v in seeded_out.values()))}
+
+
+def _leaves_np(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves_np(tree[k])]
+    return [tree]
