@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Eighteen phases; any failure exits non-zero and prints no result line.
+Nineteen phases; any failure exits non-zero and prints no result line.
 
 1. Build and device: compile every CUDA kernel from ``csrc/`` (one
    ``nvcc`` per source, all at once), print ptxas's registers and spill
@@ -399,6 +399,30 @@ Eighteen phases; any failure exits non-zero and prints no result line.
    listener and without; (d) ``NeuralNetClassification`` on the MNIST MLP
    conf fitted on the card, its probabilities against a CPU run from the
    same weights (float32, TF32 off, rtol 2e-3 / atol 1e-3).
+19. Every head dimension: (a) B1, B2 and B3 against their plain
+   versions (TF32 off) at head_dim 16, 32, 72, 80, 96, 100, 112, 192,
+   256, 320 and 512, in f32 and bf16: causal at P = 1, 17 and 1000,
+   windowed at P = 1000 w = 65, non-causal tq=300/tkv=700, and
+   ``[8200, 16, 8, 64]`` causal (b·h 65,600). Gates: f32 out/lse 2e-5,
+   gradients 1e-4; bf16 2e-2, or at d >= 192 the kernel's error against
+   the f32 oracle within SDPA's plus 2e-2. Prints each launch plan
+   (route, variant, tier, slices), the instantiations' spills and the
+   cold build time, and B1–B3's times in bf16 at ``[2, 2048, 32, 80]``,
+   ``[2, 2048, 16, 256]``, ``[1, 2048, 8, 512]`` and ``[16, 1024, 8,
+   64]`` beside their plain versions, bounds and SDPA. (b) The LM at OPT-2.7B's widths (vocab
+   50272, d2560, 32 heads of 80, d_ff 10240, learned positions, max_len
+   2048, ``mixed_bf16``, ``attn_impl="auto"``) cut to depth 8: three
+   ``fit_batch`` steps on ``[2, 2048]`` through B1–B3 (8 each a step),
+   then the same from the same seeded weights on plain attention
+   (loss 2e-2, params 1e-2); prints ms and tokens/s a step and the share
+   of the bf16 peak. (c) The same widths at full depth 32 behind
+   ``DecodeServer(slots=8)``, ``attn_impl="flash"``: 8 seeded greedy
+   requests (prompts 20–1900 tokens), streams equal ``lm.generate``, B1
+   32 a prefill, B2/B3 0; prints TTFT p50, tokens/s and the KV pool's
+   bytes. (d) ``bench.py``'s fleet model (vocab 512, d128, 8 heads over
+   4 kv heads: head_dim 16, L2, RoPE, ``bf16``) under
+   ``attn_impl="flash"`` the same way, B1 2 a prefill. Weights are drawn
+   on the card from a seed (``seeded_on_card``).
 
 Output: metric lines, then a ``{"kernels": [...]}`` JSON line (each
 kernel's ``variant`` and ``launches`` counted over the train phase's
@@ -415,7 +439,8 @@ steps and its pipeline step, summed over the ranks, as ``launches_tp``
 and ``launches_pipe``; over phase 17, its ranks' summed with this
 process's, as ``launches_cluster``, which must be 0; over phase 18 as
 ``launches_a15``, B1's the fleet's warm-ups and prefills, B2's and B3's
-0; and its train-shape
+0; over phase 19's (b)–(d) as ``launches_headdim``, with phase 19's
+times under ``headdim_times``; and its train-shape
 numbers under
 ``train``) and the ``nvidia-smi``
 line,
@@ -424,6 +449,7 @@ then ``{"ok": true, "device": {...}}`` last.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -7242,6 +7268,551 @@ def a15_phase(card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 19: B1–B3 at every head dimension, and the LM at OPT-2.7B's widths
+# ---------------------------------------------------------------------------
+HEADDIM_DEVICE = "cuda"  # "cpu" only to rehearse the phase
+# head dims from 16 to 512: at least one in each padded tier, and 300
+# (wide, rows not 16-byte aligned, a partial chunk and slice)
+HEADDIM_DIMS = (16, 32, 40, 60, 72, 80, 96, 100, 112, 120, 144, 192, 208,
+                256, 300, 320, 512)
+HEADDIM_BATCH, HEADDIM_HEADS = 2, 4
+HEADDIM_SDPA_FROM = 192  # bf16 above this may be held to SDPA's error + 2e-2
+HEADDIM_BIG_BATCH = (8200, 16, 8, 64)  # b·h 65,600: past the old 65,535
+# inputs one element past a 16-byte boundary: the exact head dims take the
+# padded tier (bf16) or chunked (f32) kernels with element copies
+HEADDIM_UNALIGNED = (64, 128, 320)
+# facebook/opt-2.7b config.json: vocab 50272, hidden 2560, 32 heads, ffn
+# 10240, 32 layers, 2048 positions (learned)
+OPT_CFG = dict(vocab_size=50272, d_model=2560, num_heads=32, num_layers=8,
+               d_ff=10240, max_len=2048, seed=0, pos_encoding="learned",
+               dtype_policy="mixed_bf16", attn_impl="auto")
+OPT_BATCH, OPT_T, OPT_STEPS = 2, 2048, 3
+OPT_SERVE_LAYERS = 32
+OPT_SERVE_PROMPTS = (20, 150, 480, 900, 1300, 1900)
+OPT_SERVE_NEW = (8, 16)
+OPT_TOL = {"loss": 2e-2}  # mixed_bf16, the train gate on 3 steps' losses
+# first-step gradients, ||a - b|| / ||b|| a leaf: mixed_bf16 flash against
+# plain attention (2x the worst leaf of a sound run, 2.064e-2), flash's
+# error against the f32 oracle within twice plain bf16's (the control; a
+# sound run's worst ratio 1.58, at the attention projections: the kernels
+# round ds to bf16 as the reference's do), and the float32 LM's flash
+# (the f32 kernels) against its plain attention
+OPT_GRAD_TOL = {"bf16": 4e-2, "control": 2.0, "floor": 1e-3, "f32": 1e-4}
+# bench.py's fleet model (_bench_serve_run): head_dim 16, GQA, RoPE
+GQA_CFG = dict(vocab_size=512, d_model=128, num_heads=8, num_kv_heads=4,
+               num_layers=2, max_len=512, seed=7, dtype_policy="bf16",
+               pos_encoding="rope", attn_impl="flash")
+HEADDIM_TIMED = (("opt-2.7b train", 2, 2048, 32, 80, "bfloat16"),
+                 ("opt-2.7b train f32", 2, 2048, 32, 80, "float32"),
+                 ("d256", 2, 2048, 16, 256, "bfloat16"),
+                 ("d512 wide", 1, 2048, 8, 512, "bfloat16"),
+                 ("main path", 16, 1024, 8, 64, "bfloat16"))
+BUILD_S = []  # the kernels' cold build time (main), for phase 19's line
+KERNEL_KEY = {"flash_attention_fwd": "fwd",
+              "flash_attention_bwd_dkdv": "dkdv",
+              "flash_attention_bwd_dq": "dq"}
+
+
+def headdim_cases():
+    """(label, b, tq, tkv, h, d, causal, window, offset) of phase 19's
+    sweep; ``offset`` elements put every input off a 16-byte boundary."""
+    b, h = HEADDIM_BATCH, HEADDIM_HEADS
+    cases = []
+    for d in HEADDIM_DIMS:
+        cases += [(f"d={d} causal P={p}", b, p, p, h, d, True, None, 0)
+                  for p in (1, 17, 1000)]
+        cases += [(f"d={d} windowed P=1000 w=65", b, 1000, 1000, h, d, True,
+                   65, 0),
+                  (f"d={d} non-causal tq=300 tkv=700", b, 300, 700, h, d,
+                   False, None, 0)]
+    cases += [(f"d={d} unaligned causal P=1000", b, 1000, 1000, h, d, True,
+               None, 1) for d in HEADDIM_UNALIGNED]
+    bb, t, hh, d = HEADDIM_BIG_BATCH
+    cases.append((f"b·h={bb * hh} causal P={t}", bb, t, t, hh, d, True, None,
+                  0))
+    return cases
+
+
+def _sdpa_grads(q, k, v, do, causal, window, dtype):
+    """``F.scaled_dot_product_attention``'s out and (dq, dk, dv) with its
+    inputs in ``dtype``, as f32 BTHD: the yardstick of the bf16 rule."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.detach().to(dtype).transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    mask = None
+    if window is not None:
+        i = torch.arange(q.shape[1], device=q.device)
+        mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                         is_causal=causal and mask is None)
+    grads = torch.autograd.grad(out, (qt, kt, vt),
+                                do.to(dtype).transpose(1, 2))
+    return (out.detach().transpose(1, 2).float(),
+            *(g.transpose(1, 2).float() for g in grads))
+
+
+def _oracle_and_sdpa(q, k, v, do, kw):
+    """Each kernel's outputs from the f32 oracle (the plain versions on
+    the inputs widened to f32) and from SDPA in the inputs' dtype."""
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    o32, l32 = fa.flash_attention_fwd_reference(qf, kf, vf, **kw)
+    g32 = fa.flash_attention_bwd_reference(qf, kf, vf, o32, l32, dof, **kw)
+    sd = _sdpa_grads(q, k, v, do, kw["causal"], kw["window"], q.dtype)
+    return ({"fwd": (o32,), "dkdv": g32[1:], "dq": g32[:1]},
+            {"fwd": sd[:1], "dkdv": sd[2:], "dq": sd[1:2]})
+
+
+def _hold(kern, got, want, dtype, d, oracle) -> tuple:
+    """One kernel's outputs against its plain version's on the same
+    inputs, at phases 2 and 3's gates; a bf16 miss at d >= 192 passes
+    only if the kernel's error against the f32 oracle is within SDPA's
+    plus 2e-2 (``oracle()`` gives both). Returns (ok, err, rule)."""
+    import torch
+
+    name = str(dtype).replace("torch.", "")
+    tol = (TOL if kern == "fwd" else BWD_TOL)[name]
+    err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    ok = finite and err <= tol
+    rule = f"tol {tol:.0e}"
+    if not finite:
+        rule += ", NOT FINITE"
+    elif not ok and dtype == torch.bfloat16 and d >= HEADDIM_SDPA_FROM:
+        ref, sdpa = (x[kern] for x in oracle())
+        k_err = max(float((a - w).abs().max())
+                    for a, w in zip(got[:len(ref)], ref))
+        s_err = max(float((a - w).abs().max()) for a, w in zip(sdpa, ref))
+        ok = k_err <= s_err + 2e-2
+        rule = (f"oracle_err={k_err:.3e} sdpa_err={s_err:.3e} (kernel "
+                f"within SDPA + 2e-2)")
+    return ok, err, rule
+
+
+def headdim_case(case, dtype, gen, card: str) -> list:
+    """One sweep case: B1, B2 and B3 against their plain versions on the
+    same inputs; returns the failures."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+
+    label, b, tq, tkv, h, d, causal, window, offset = case
+    name = str(dtype).replace("torch.", "")
+
+    def draw(t):
+        x = torch.randn((b, t, h, d), generator=gen, device=HEADDIM_DEVICE)
+        if not offset:
+            return x.to(dtype)
+        buf = torch.empty(x.numel() + offset, dtype=dtype,
+                          device=HEADDIM_DEVICE)
+        view = buf[offset:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    q, k, v, do = (draw(t) for t in (tq, tkv, tkv, tq))
+    kw = dict(causal=causal, window=window)
+    plan = fa.launch_plan(q.shape, k.shape, dtype, **kw,
+                          aligned=fa._aligned(q, k, v, do))
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    delta = fa._delta(ref_out, do)
+    args = (q, k, v, do, ref_lse, delta)
+    dk, dv = fa.flash_attention_bwd_dkdv(*args, **kw)
+    dq = fa.flash_attention_bwd_dq(*args, **kw)
+    ref = fa.flash_attention_bwd_reference(q, k, v, ref_out, ref_lse, do,
+                                           **kw)
+    torch.cuda.synchronize()
+    got = {"fwd": (out.float(), lse), "dkdv": (dk, dv), "dq": (dq,)}
+    want = {"fwd": (ref_out.float(), ref_lse), "dkdv": ref[1:],
+            "dq": ref[:1]}
+    cache = []
+
+    def oracle():
+        if not cache:
+            cache.append(_oracle_and_sdpa(q, k, v, do, kw))
+        return cache[0]
+
+    failures = []
+    for kern in ("fwd", "dkdv", "dq"):
+        ok, err, rule = _hold(kern, got[kern], want[kern], dtype, d, oracle)
+        print(f"headdim {kern} {label} {name} [{plan.route} {plan.variant}"
+              f" tier {plan.tier} vec {int(plan.vec)}]: "
+              f"max_abs_err={err:.3e} ({rule}) "
+              f"{'ok' if ok else 'MISMATCH'} [{card}]")
+        if not ok:
+            failures.append(f"{kern} {label} {name}: err {err} ({rule})")
+    return failures
+
+
+def headdim_timed(card: str) -> tuple:
+    """B1–B3 at OPT-2.7B's training shape (bf16 and f32), at d 256 and 512
+    and at the main path's shape: each kernel's output against its plain
+    version's on the same inputs (the sweep's gates), and its time beside
+    the plain version's, the bound and SDPA's (forward; the backward of
+    B2 and B3 together). Returns (timings, failures)."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=HEADDIM_DEVICE).manual_seed(19)
+    out, failures = {}, []
+    for label, b, t, h, d, dname in HEADDIM_TIMED:
+        dt = getattr(torch, dname)
+        q, k, v, do = (torch.randn((b, t, h, d), generator=gen,
+                                   device=HEADDIM_DEVICE).to(dt)
+                       for _ in range(4))
+        kw = dict(causal=True, window=None)
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        delta = fa._delta(o, do)
+        args = (q, k, v, do, lse, delta)
+        keep = fa._keep(t, t, True, None, device=HEADDIM_DEVICE)
+        scale = fa._scale(q, None)
+        dk, dv = fa.flash_attention_bwd_dkdv(*args, **kw)
+        dq = fa.flash_attention_bwd_dq(*args, **kw)
+        ref_o, ref_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+        got = {"fwd": (o.float(), lse), "dkdv": (dk, dv), "dq": (dq,)}
+        want = {"fwd": (ref_o.float(), ref_lse),
+                "dkdv": fa._dkdv(*args, keep, scale),
+                "dq": (fa._dq(*args, keep, scale),)}
+        torch.cuda.synchronize()
+        plan = fa.launch_plan(q.shape, k.shape, dt, causal=True)
+        held = {kern: _hold(kern, got[kern], want[kern], dt, d,
+                            lambda: _oracle_and_sdpa(q, k, v, do, kw))
+                for kern in got}
+        del got, want, ref_o, ref_lse, dk, dv, dq
+        torch.cuda.empty_cache()
+        ms = {"fwd": cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw)),
+              "dkdv": cuda_ms(lambda: fa.flash_attention_bwd_dkdv(*args,
+                                                                  **kw)),
+              "dq": cuda_ms(lambda: fa.flash_attention_bwd_dq(*args, **kw))}
+        plain = {"fwd": cuda_ms(lambda: fa.flash_attention_fwd_reference(
+                     q, k, v, **kw), iters=3),
+                 "dkdv": cuda_ms(lambda: fa._dkdv(*args, keep, scale),
+                                 iters=3),
+                 "dq": cuda_ms(lambda: fa._dq(*args, keep, scale), iters=3)}
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = {"fwd": cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))}
+        lib["dkdv"] = lib["dq"] = sdpa_backward_ms(q, k, v, do, True, None)
+        bound = {"fwd": fa.flash_bound(b, t, t, h, d, dt, causal=True)}
+        bound.update(fa.flash_bwd_bound(b, t, t, h, d, dt, causal=True))
+        for kern in ("fwd", "dkdv", "dq"):
+            ok, err, rule = held[kern]
+            print(f"headdim time {kern} {label} [{b}, {t}, {h}, {d}] "
+                  f"{dname} causal [{plan.route} {plan.variant} tier "
+                  f"{plan.tier}]: kernel_ms={ms[kern]:.5f} "
+                  f"plain_ms={plain[kern]:.5f} library_ms={lib[kern]:.5f} "
+                  f"bound_ms={bound[kern]['bound_ms']:.6f} "
+                  f"({bound[kern]['bound_by']}) max_abs_err={err:.3e} "
+                  f"({rule}) {'ok' if ok else 'MISMATCH'} [{card}]")
+            if not ok:
+                failures.append(f"timed {kern} {label}: err {err} ({rule})")
+        out[label] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                      "bound": {k_: bound[k_]["bound_ms"] for k_ in ms},
+                      "bound_by": {k_: bound[k_]["bound_by"] for k_ in ms},
+                      "max_abs_err": {k_: held[k_][1] for k_ in ms},
+                      "shape": [b, t, h, d], "dtype": dname}
+        del q, k, v, do, o, lse, delta, args, keep
+        torch.cuda.empty_cache()
+    return out, failures
+
+
+def seeded_on_card(lm, seed: int, adam: bool = True):
+    """``init()``'s layout and scales with the weights drawn on the card
+    from ``seed`` (``init`` draws them on the host, one tensor at a time:
+    tens of seconds at 2.7 B weights); the same seed gives the same
+    weights. ``adam=False`` leaves out the Adam moments (a server needs
+    none)."""
+    import torch
+    from deeplearning4j_tpu_torch.dtypes import tree_map
+
+    gen = torch.Generator(device=HEADDIM_DEVICE).manual_seed(seed)
+    D, F_, V, L = lm.d_model, lm.d_ff, lm.vocab_size, lm.max_len
+    kv = lm.num_kv_heads * (D // lm.num_heads)
+    dt = lm.policy.param_dtype
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=HEADDIM_DEVICE,
+                           dtype=dt)
+
+    def dense(fan_in, fan_out):
+        return normal(fan_in, fan_out) * math.sqrt(2.0 / (fan_in + fan_out))
+
+    def norm():
+        return {"g": torch.ones(D, dtype=dt, device=HEADDIM_DEVICE),
+                "b": torch.zeros(D, dtype=dt, device=HEADDIM_DEVICE)}
+
+    params = {"embed": normal(V, D) * 0.02, "ln_f": norm(), "blocks": []}
+    if lm.pos_encoding == "learned":
+        params["pos"] = normal(L, D) * 0.02
+    for _ in range(lm.num_layers):
+        params["blocks"].append({
+            "ln1": norm(),
+            "attn": {"wq": dense(D, D), "wk": dense(D, kv),
+                     "wv": dense(D, kv), "wo": dense(D, D)},
+            "ln2": norm(),
+            "mlp": {"w1": dense(D, F_),
+                    "b1": torch.zeros(F_, dtype=dt,
+                                      device=HEADDIM_DEVICE),
+                    "w2": dense(F_, D),
+                    "b2": torch.zeros(D, dtype=dt, device=HEADDIM_DEVICE)}})
+    lm.params = params
+    lm.opt_state = tree_map(
+        lambda p: {"m": torch.zeros_like(p), "v": torch.zeros_like(p)},
+        params) if adam else None
+    return lm
+
+
+def _named_leaves(tree, prefix: str = ""):
+    """(name, tensor) of every leaf of a nested dict/list, in
+    ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in _named_leaves(v, f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in _named_leaves(v, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
+
+
+def first_step_grads(lm, tok, impl: str) -> dict:
+    """The loss's gradient at ``lm``'s weights, by leaf name, with the
+    attention path ``impl`` (the first step's gradients: no optimizer)."""
+    import torch
+    from deeplearning4j_tpu_torch.dtypes import tree_map
+
+    saved, lm.attn_impl = lm.attn_impl, impl
+    try:
+        params = tree_map(lambda p: p.detach().requires_grad_(), lm.params)
+        named = _named_leaves(params)
+        loss = lm.loss(params, tok, train=True)
+        grads = torch.autograd.grad(loss, [x for _, x in named])
+    finally:
+        lm.attn_impl = saved
+    return {name: g for (name, _), g in zip(named, grads)}
+
+
+def _rel(a, b) -> float:
+    """||a − b|| / ||b|| (Frobenius, in f64)."""
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def opt_train(card: str) -> dict:
+    """(b): the LM at OPT-2.7B's widths (depth 8). First its first-step
+    gradients, leaf by leaf (``OPT_GRAD_TOL``): through B1–B3 and through
+    plain attention under ``mixed_bf16``, both against plain attention in
+    float32 (the oracle; the plain bf16 path's own error there is the
+    control), and the float32 LM through the f32 kernels. Then
+    three ``fit_batch`` steps through B1–B3, and the same from the same
+    seeded weights on the plain-attention path (built after the flash
+    model is freed: both models and their captured steps do not fit the
+    card together). Returns the fit steps' launches."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flash = seeded_on_card(TransformerLM(**OPT_CFG, device=HEADDIM_DEVICE),
+                           OPT_CFG["seed"])
+    impl = flash._attn_impl(OPT_T, train=True)
+    if impl != "flash":
+        raise AssertionError(f"attn_impl='auto' resolved to {impl!r} at "
+                             "head_dim 80, not 'flash'")
+    fpt = flash.flops_per_token(OPT_T)
+    tok = torch.as_tensor(np.random.default_rng(19).integers(
+        0, OPT_CFG["vocab_size"], (OPT_BATCH, OPT_T)),
+        device=HEADDIM_DEVICE)
+    before = launch_counts()
+    g_flash = first_step_grads(flash, tok, "flash")
+    grad_launches = {k: n - before[k] for k, n in launch_counts().items()}
+    g_plain = first_step_grads(flash, tok, "xla")
+    f32 = TransformerLM(**{**OPT_CFG, "dtype_policy": "float32"},
+                        device=HEADDIM_DEVICE)
+    f32.params = flash.params
+    g_f32 = first_step_grads(f32, tok, "xla")
+    g_f32_flash = first_step_grads(f32, tok, "flash")  # the f32 kernels
+    del f32
+    rows = [(name, _rel(g_flash[name], g_plain[name]),
+             _rel(g_flash[name], g_f32[name]),
+             _rel(g_plain[name], g_f32[name]),
+             _rel(g_f32_flash[name], g_f32[name])) for name in g_flash]
+    del g_flash, g_plain, g_f32, g_f32_flash
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, fp, f, p, f32_err in sorted(rows, key=lambda r: -r[1])[:4]:
+        print(f"opt-2.7b grad {name}: flash_vs_plain={fp:.3e} "
+              f"flash_vs_f32={f:.3e} plain_vs_f32={p:.3e} "
+              f"f32_flash_vs_f32={f32_err:.3e} [{card}]")
+    worst = {i: max(rows, key=lambda r: r[i]) for i in (1, 4)}
+    ratio = max(rows, key=lambda r: r[2] / r[3])
+    print(f"opt-2.7b first-step grads over {len(rows)} leaves: "
+          f"flash_vs_plain {worst[1][1]:.3e} ({worst[1][0]}; tol "
+          f"{OPT_GRAD_TOL['bf16']:.0e}); flash_vs_f32 / plain_vs_f32 "
+          f"{ratio[2] / ratio[3]:.3f} ({ratio[0]}; tol "
+          f"{OPT_GRAD_TOL['control']} x + {OPT_GRAD_TOL['floor']:.0e}); "
+          f"float32 flash_vs_plain {worst[4][4]:.3e} ({worst[4][0]}; tol "
+          f"{OPT_GRAD_TOL['f32']:.0e}); launches {grad_launches} [{card}]")
+    bad = [r[0] for r in rows
+           if r[1] > OPT_GRAD_TOL["bf16"] or r[4] > OPT_GRAD_TOL["f32"]
+           or r[2] > OPT_GRAD_TOL["control"] * r[3] + OPT_GRAD_TOL["floor"]]
+    if bad:
+        raise AssertionError(f"first-step gradients through B1–B3 miss "
+                             f"their gates at {bad}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, per_step, step_ms = [], [], []
+    for _ in range(OPT_STEPS):
+        before = launch_counts()
+        t = time.monotonic()
+        losses.append(float(flash.fit_batch(tok)))
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t) * 1e3)
+        per_step.append({k: n - before[k]
+                         for k, n in launch_counts().items()})
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_layers = flash.num_layers
+    # a captured step and its closure form a reference cycle: collect it,
+    # or its graph pool outlives the model
+    del flash
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = seeded_on_card(
+        TransformerLM(**{**OPT_CFG, "attn_impl": "xla"},
+                      device=HEADDIM_DEVICE), OPT_CFG["seed"])
+    plain_losses = [float(plain.fit_batch(tok)) for _ in range(OPT_STEPS)]
+    torch.cuda.synchronize()
+    err_l = max(abs(a - b) for a, b in zip(losses, plain_losses))
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    tps = OPT_BATCH * OPT_T / (step_ms[-1] / 1e3)
+    print(f"opt-2.7b train L{OPT_CFG['num_layers']} [{OPT_BATCH}, {OPT_T}]"
+          f" head_dim 80 mixed_bf16 attn={impl}: losses={losses} "
+          f"plain_losses={plain_losses} loss_err={err_l:.3e} (tol "
+          f"{OPT_TOL['loss']:.0e}) ms_per_step={step_ms} "
+          f"tokens_per_sec={tps} flops_per_token={fpt} "
+          f"share_of_bf16_peak={fpt * tps / H100_BF16_FLOPS} "
+          f"peak_mem_bytes={peak} launches={per_step} [{card}]")
+    if not all(math.isfinite(x) for x in losses + plain_losses):
+        raise AssertionError(f"non-finite loss: {losses} {plain_losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    for i, counts in enumerate(per_step):
+        if any(n != n_layers for n in counts.values()):
+            raise AssertionError(f"step {i} launched {counts}, expected "
+                                 f"{n_layers} of each kernel")
+    if err_l > OPT_TOL["loss"]:
+        raise AssertionError(f"flash training at head_dim 80 disagrees "
+                             f"with plain attention: loss {err_l}")
+    return launches
+
+
+def headdim_serve(cfg: dict, label: str, prompts, new, max_len: int,
+                  card: str, seed: int) -> None:
+    """A ``DecodeServer(slots=8)`` answering 8 seeded greedy requests;
+    every stream must equal ``lm.generate`` and B1 must launch
+    ``num_layers`` times an admission prefill (B2, B3 never)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.kernels.flash_attention import (
+        launch_counts as wrapper_counts)
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+    from deeplearning4j_tpu_torch.serving import (
+        DecodeServer, poisson_schedule, run_open_loop)
+
+    t0 = time.monotonic()
+    lm = seeded_on_card(TransformerLM(**cfg, device=HEADDIM_DEVICE),
+                        cfg["seed"], adam=False)
+    sched = poisson_schedule(8, 20.0, vocab_size=cfg["vocab_size"],
+                             prompt_lens=prompts, max_new_tokens=new,
+                             seed=seed)
+    refs = {a.prompt.tobytes(): lm.generate(a.prompt[None],
+                                            a.max_new_tokens)[0].cpu().numpy()
+            for a in sched}
+    srv = DecodeServer(lm, slots=8, max_len=max_len, device=HEADDIM_DEVICE)
+    torch.cuda.synchronize()
+    before = wrapper_counts()
+    report = run_open_loop(srv, sched)
+    torch.cuda.synchronize()
+    counts = {k: n - before[k] for k, n in wrapper_counts().items()}
+    s, st = report.summary(), srv.stats()
+    print(f"{label} serve L{lm.num_layers} head_dim "
+          f"{lm.d_model // lm.num_heads}: finished={s['finished']} "
+          f"tokens={s['tokens']} tokens_per_sec={s['tokens_per_sec']} "
+          f"ttft_p50_ms={s['ttft_p50_ms']} "
+          f"kv_pool_bytes={st['kv_pool_bytes']} launches={counts} "
+          f"wall_s={time.monotonic() - t0:.1f} [{card}]")
+    if s["finished"] != len(sched):
+        raise AssertionError(f"{label}: {s['finished']} of {len(sched)} "
+                             "requests finished")
+    if counts["flash_attention_fwd"] != lm.num_layers * len(sched) or \
+            counts["flash_attention_bwd_dkdv"] or \
+            counts["flash_attention_bwd_dq"]:
+        raise AssertionError(f"{label}: launches {counts}, expected B1 "
+                             f"{lm.num_layers} a prefill and no B2/B3")
+    for req in srv.finished:
+        want = refs[req.prompt.tobytes()]
+        if not np.array_equal(req.output, want):
+            raise AssertionError(
+                f"{label}: the {req.prompt.shape[0]}-token prompt's stream "
+                f"differs from lm.generate at index "
+                f"{int(np.argmax(req.output != want))}")
+    print(f"{label}: {len(srv.finished)} greedy streams equal lm.generate "
+          f"[{card}]")
+
+
+def headdim_phase(card: str) -> dict:
+    """Phase 19; returns B1–B3's launches over (b)–(d)."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import KERNEL_SOURCES, _build
+
+    t0 = time.monotonic()
+    ptx = [line for name in KERNEL_SOURCES
+           for line in ptxas_lines(_build.LOGS.get(name, ""))]
+    spills = [line for line in ptx if not re.search(
+        r"0 bytes spill stores, 0 bytes spill loads", line)]
+    print(f"headdim: {len(ptx)} kernel instantiations, cold build "
+          f"{BUILD_S[0] if BUILD_S else float('nan'):.1f} s, spilling: "
+          f"{spills or 'none'} [{card}]")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()  # earlier phases' captured steps (reference cycles)
+    torch.cuda.empty_cache()
+    failures = []
+    gen = torch.Generator(device=HEADDIM_DEVICE).manual_seed(1919)
+    for case in headdim_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            failures += headdim_case(case, dtype, gen, card)
+            torch.cuda.empty_cache()
+    print(f"headdim: sweep {time.monotonic() - t0:.1f} s [{card}]")
+    if failures:
+        raise AssertionError("head-dim sweep: " + "; ".join(failures))
+    timings, timed_failures = headdim_timed(card)
+    if timed_failures:
+        raise AssertionError("head-dim timings: " + "; ".join(timed_failures))
+    t1 = time.monotonic()
+    reset_launch_counts()
+    opt_train(card)
+    torch.cuda.empty_cache()
+    print(f"headdim: (b) {time.monotonic() - t1:.1f} s [{card}]")
+    headdim_serve({**OPT_CFG, "num_layers": OPT_SERVE_LAYERS,
+                   "attn_impl": "flash"}, "opt-2.7b", OPT_SERVE_PROMPTS,
+                  OPT_SERVE_NEW, OPT_CFG["max_len"], card, seed=19)
+    torch.cuda.empty_cache()
+    headdim_serve(GQA_CFG, "gqa head_dim 16", (8, 16, 24, 48), (8, 16),
+                  256, card, seed=1)
+    launches = launch_counts()
+    print(f"headdim: phase wall {time.monotonic() - t0:.1f} s, launches "
+          f"{launches} [{card}]")
+    return {"launches": launches, "timed": timings}
+
+
 def main() -> None:
     try:
         import torch
@@ -7261,8 +7832,9 @@ def main() -> None:
     t0 = time.monotonic()
     try:
         _build.build_all(KERNEL_SOURCES)
+        BUILD_S.append(time.monotonic() - t0)
         print(f"build: {len(KERNEL_SOURCES)} kernel(s) in "
-              f"{time.monotonic() - t0:.1f} s [{card}]")
+              f"{BUILD_S[0]:.1f} s [{card}]")
         for name in KERNEL_SOURCES:
             for line in ptxas_lines(_build.LOGS.get(name, "")):
                 print(f"ptxas {name}.cu {line}")
@@ -7275,10 +7847,11 @@ def main() -> None:
     extras_launches = data_launches = profile_launches = None
     embed_launches = trees_launches = mesh_launches = None
     model_launches = cluster_launches = a15_launches = None
+    headdim = None
     for phase in ("flash", "flash_bwd", "serve", "train", "networks",
                   "recurrent", "fused", "cli", "serve_extras", "data",
                   "monitor", "embeddings", "trees", "mesh", "model",
-                  "cluster", "a15"):
+                  "cluster", "a15", "headdim"):
         try:
             if phase == "flash":
                 entries["flash_attention_fwd"] = check_flash(card)
@@ -7319,8 +7892,10 @@ def main() -> None:
                 model_launches = model_phase(card)
             elif phase == "cluster":
                 cluster_launches = cluster_phase(card)
-            else:
+            elif phase == "a15":
                 a15_launches = a15_phase(card)
+            else:
+                headdim = headdim_phase(card)
         except Exception:
             traceback.print_exc()
             failed.append(phase)
@@ -7348,6 +7923,15 @@ def main() -> None:
             fail(f"{name} was not launched on the TP or pipeline path")
         e["launches_cluster"] = cluster_launches[name]
         e["launches_a15"] = a15_launches[name]
+        e["launches_headdim"] = headdim["launches"][name]
+        if not e["launches_headdim"]:
+            fail(f"{name} was not launched at OPT-2.7B's head_dim 80")
+        e["headdim_times"] = {
+            label: {key: t[key][KERNEL_KEY[name]]
+                    for key in ("ms", "plain_ms", "library_ms", "bound",
+                                "bound_by", "max_abs_err")}
+            | {"shape": t["shape"], "dtype": t["dtype"]}
+            for label, t in headdim["timed"].items()}
     if not entries["flash_attention_fwd"]["launches_a15"]:
         fail("flash_attention_fwd was not launched on the A15 fleet")
     entries["flash_attention_fwd"]["launches_serve"] = serve_launches

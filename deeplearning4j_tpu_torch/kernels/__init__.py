@@ -6,3 +6,15 @@ use. Each wrapper counts its launches in a plain integer attribute.
 
 #: kernel sources this package builds (``csrc/<name>.cu``)
 KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
+
+#: widths the padded bf16 tensor-core flash kernels are compiled for: one
+#: instantiation of each kernel a width, dispatched by the C entry points
+MMA_TIERS = (16, 32, 48, 64, 80, 96, 112, 128, 160, 192, 224, 256)
+
+#: ``nvcc`` flags of each source beyond ``_build.NVCC_FLAGS``: the flash
+#: sources take the tier list as ``DL4J_MMA_TIERS``, an X-macro of
+#: ``DL4J_TIER(width)`` entries
+SOURCE_FLAGS = {
+    name: ("-DDL4J_MMA_TIERS=" + "".join(f"DL4J_TIER({t})"
+                                         for t in MMA_TIERS),)
+    for name in ("flash_fwd", "flash_bwd")}

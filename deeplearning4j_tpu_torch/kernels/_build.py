@@ -2,9 +2,10 @@
 with ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
-into ``_build/lib<name>-<hash>.so`` (the directory is git-ignored). The
-hash covers the source, every shared header ``csrc/*.cuh`` and the
-compiler flags, so a stale library is impossible to load. Nothing is
+into ``_build/lib<name>-<hash>.so`` (the directory is git-ignored), with
+``NVCC_FLAGS`` and the source's own flags (``SOURCE_FLAGS`` of the
+package). The hash covers the source, every shared header ``csrc/*.cuh``
+and the flags, so a stale library is impossible to load. Nothing is
 built when a module is imported: the CPU tests import every module on
 machines without ``nvcc``. ``LOGS`` keeps each build's compiler output,
 with ptxas's register and spill counts.
@@ -51,11 +52,19 @@ def nvcc_path() -> str:
                            "PATH)")
 
 
+def nvcc_flags(name: str) -> tuple:
+    """The compiler flags of ``csrc/<name>.cu``: ``NVCC_FLAGS`` and the
+    source's own."""
+    from deeplearning4j_tpu_torch.kernels import SOURCE_FLAGS
+
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> str:
     """Where ``csrc/<name>.cu`` builds to: the file name carries a hash of
     the source, of every ``csrc/*.cuh`` (sorted by name) and of the
     flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags(name)).encode())
     headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     for path in [os.path.join(CSRC, f"{name}.cu")] + headers:
         h.update(os.path.basename(path).encode())
@@ -65,7 +74,7 @@ def library_path(name: str) -> str:
 
 
 def _compile_cmd(name: str, out: str) -> List[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", out,
+    return [nvcc_path(), *nvcc_flags(name), "-o", out,
             os.path.join(CSRC, f"{name}.cu")]
 
 

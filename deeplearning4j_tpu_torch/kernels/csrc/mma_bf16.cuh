@@ -136,4 +136,37 @@ __device__ __forceinline__ void cp_tile_64(__nv_bfloat16* dst,
   }
 }
 
+// Rows [t0, t0 + R) of one head of a BTHD bf16 tensor whose rows hold
+// d elements in device memory into an [R][D + 8] shared tile: columns at
+// or past d are zero-filled as well as rows at or past `len` (zero
+// columns add nothing to a product over d; d may exceed D, and then only
+// the first D columns are read). With `vec` (every row start 16-byte
+// aligned: d % 8 == 0 and 16-byte aligned tensors) whole 16-byte chunks
+// go by cp.async; otherwise element by element through registers, which
+// arrive synchronously and need no cp.async wait.
+template <int D, int threads, int R = 64>
+__device__ __forceinline__ void cp_tile_pad(__nv_bfloat16* dst,
+                                            const __nv_bfloat16* src, int t0,
+                                            int len, int64_t tstride, int d,
+                                            bool vec) {
+  if (vec) {
+    constexpr int kChunks = D / 8;
+    static_assert((R * kChunks) % threads == 0, "uneven tile copy");
+#pragma unroll
+    for (int it = 0; it < R * kChunks / threads; ++it) {
+      const int i = threadIdx.x + it * threads;
+      const int r = i / kChunks, c = i % kChunks, t = t0 + r;
+      const bool in = t < len && c * 8 < d;
+      cp_async_16(dst + r * (D + 8) + c * 8,
+                  src + (in ? t * tstride + c * 8 : 0), in ? 16 : 0);
+    }
+  } else {
+    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    for (int i = threadIdx.x; i < R * D; i += threads) {
+      const int r = i / D, c = i % D, t = t0 + r;
+      dst[r * (D + 8) + c] = t < len && c < d ? src[t * tstride + c] : zero;
+    }
+  }
+}
+
 }  // namespace dl4j_mma

@@ -9,13 +9,30 @@ flash_attention.py`` (B1–B3 in PERF.md):
 - B2, ``_bwd_dkdv_kernel``, and B3, ``_bwd_dq_kernel``, both behind
   ``flash_backward_pallas`` → ``csrc/flash_bwd.cu``.
 
-Each C entry point picks its kernel by dtype. Every kernel has two
-variants: bf16 inputs run a tensor-core kernel ("mma.sync bf16": warp
-``mma.sync`` with f32 accumulators, ``ldmatrix`` and a two-stage
-``cp.async`` ring, from the shared header ``csrc/mma_bf16.cuh``); f32
-inputs run the first, CUDA-core kernel ("fma f32"), since TF32 tensor
-cores could not meet the f32 tolerances. Each source's note states the
-design and what it leaves on the table.
+Every head dimension the reference's kernel takes runs here too.
+:func:`launch_plan` picks, from the shapes and the dtype alone, one of
+four routes for all three kernels (the C side owns each route's grid and
+column slices):
+
+- ``exact``: head_dim 64 or 128 (the main path's), the unpadded
+  instantiations. bf16 inputs run a tensor-core kernel ("mma.sync
+  bf16": warp ``mma.sync`` with f32 accumulators, ``ldmatrix`` and a
+  two-stage ``cp.async`` ring, from the shared header
+  ``csrc/mma_bf16.cuh``); f32 inputs the first, CUDA-core kernel ("fma
+  f32"), since TF32 tensor cores could not meet the f32 tolerances.
+- ``tier``: any other bf16 head_dim up to 256. The same tensor-core
+  kernels, compiled for the next width of :data:`MMA_TIERS`, with each
+  row zero-padded to it in shared memory (zero columns add nothing to
+  q·kᵀ, and padded output columns are not stored). Above 128, B2 splits
+  its dk/dv columns in two slices (a third grid dimension).
+- ``wide``: bf16 above 256. Tensor-core kernels that stream ``d`` in
+  chunks of :data:`CHUNK` columns for q·kᵀ (and dO·vᵀ) and write one
+  slice of 128 output columns a block; each slice recomputes the scores
+  over the whole ``d``.
+- ``chunked``: f32 at any other head_dim. CUDA-core kernels with the
+  same chunks and slices of :data:`CHUNK` output columns.
+
+Each source's note states the design and what it leaves on the table.
 
 Bounds on an H100 (SXM, 700 W data sheet), against 989 TFLOP/s for bf16
 operands, 67 TFLOP/s for f32 and 3.35 TB/s, counting
@@ -60,33 +77,114 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
+from deeplearning4j_tpu_torch.kernels import MMA_TIERS
+
 MASK_VALUE = -1e30
-HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims of the unpadded instantiations (the main path's)
+EXACT_HEAD_DIMS = (64, 128)
+#: columns of ``d`` a chunk in the wide and chunked kernels
+CHUNK = 64
+_ROUTE_CODE = {"exact": 0, "tier": 1, "chunked": 2, "wide": 3}
+_TILE = 64  # query and key rows a tile: the grid's y
+_GRID_Y_MAX = 65535
+_INT_MAX = 2 ** 31 - 1
 
 # H100 SXM data-sheet peaks (dense): memory rate and per-type FLOP rates
 H100_BYTES_PER_S = 3.35e12
 H100_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
-def _check(q, k, v, causal, window):
+def _check_shapes(q_shape, k_shape, v_shape, causal, window):
+    """What the reference's kernel refuses too: a window without causal,
+    shapes that do not match, causal with ``tq != tkv``."""
     if window is not None and (not causal or window < 1):
         raise ValueError("window requires causal=True and window >= 1")
-    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+    q_shape, k_shape, v_shape = (tuple(x) for x in (q_shape, k_shape,
+                                                     v_shape))
+    if len(q_shape) != 4 or len(k_shape) != 4 or len(v_shape) != 4:
         raise ValueError("q, k, v must be [b, t, h, d]")
-    if k.shape != v.shape or q.shape[0] != k.shape[0] \
-            or q.shape[2:] != k.shape[2:]:
-        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if causal and q.shape[1] != k.shape[1]:
+    if k_shape != v_shape or q_shape[0] != k_shape[0] \
+            or q_shape[2:] != k_shape[2:]:
+        raise ValueError(f"shape mismatch: q {q_shape}, k {k_shape}, "
+                         f"v {v_shape}")
+    if causal and q_shape[1] != k_shape[1]:
         raise ValueError(
             f"flash_attention(causal=True) requires tq == tkv (got "
-            f"tq={q.shape[1]}, tkv={k.shape[1]}); self-attention "
+            f"tq={q_shape[1]}, tkv={k_shape[1]}); self-attention "
             "positions must align")
+
+
+def _check(q, k, v, causal, window):
+    _check_shapes(q.shape, k.shape, v.shape, causal, window)
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How the three kernels take one call's shapes (:func:`launch_plan`).
+
+    ``route`` is ``"exact"``, ``"tier"``, ``"wide"`` or ``"chunked"``
+    (the module note); ``tier`` the width a row is padded to in shared
+    memory (exact, tier) or the chunk width (wide, chunked); ``vec``
+    whether rows move in 16-byte ``cp.async`` copies (else element by
+    element)."""
+
+    route: str
+    variant: str
+    tier: int
+    vec: bool
+
+    def c_args(self) -> tuple:
+        """The integers the C entry points take: route, tier, vec."""
+        return (_ROUTE_CODE[self.route], self.tier, int(self.vec))
+
+
+def launch_plan(q_shape, k_shape, dtype: torch.dtype, *,
+                causal: bool = False, window: Optional[int] = None,
+                aligned: bool = True) -> LaunchPlan:
+    """The kernels' plan for q ``[b, tq, h, d]`` and k/v ``[b, tkv, h,
+    d]`` in ``dtype``: a pure function of the shapes, so the CPU tests
+    hold the card's acceptance rule. Takes every ``d >= 1``, f32 or
+    bf16, and any ``b·h`` that fits an int; raises on what the
+    reference's kernel refuses too (:func:`_check_shapes`), on another
+    dtype, on an empty tensor and on more than 65,535 row tiles of 64
+    (4,194,240 rows: the grid's y limit). ``aligned`` says that every
+    input starts on a 16-byte boundary (the wrappers check the
+    pointers); the exact route and 16-byte copies need it."""
+    _check_shapes(q_shape, k_shape, k_shape, causal, window)
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash kernel takes float32 or bfloat16 inputs "
+                        f"(got {dtype})")
+    b, tq, h, d = (int(x) for x in q_shape)
+    tkv = int(k_shape[1])
+    if min(b, tq, tkv, h, d) < 1:
+        raise ValueError(f"flash kernel takes no empty tensor (q "
+                         f"{tuple(q_shape)}, k {tuple(k_shape)})")
+    if b * h > _INT_MAX:
+        raise ValueError(f"batch x heads = {b * h} does not fit an int")
+    if -(-max(tq, tkv) // _TILE) > _GRID_Y_MAX:
+        raise ValueError(f"flash kernel takes at most "
+                         f"{_GRID_Y_MAX * _TILE} rows (got tq={tq}, "
+                         f"tkv={tkv})")
+    bf16 = dtype == torch.bfloat16
+    if d in EXACT_HEAD_DIMS and aligned:
+        route, tier = "exact", d
+    elif bf16 and d <= MMA_TIERS[-1]:
+        route, tier = "tier", next(t for t in MMA_TIERS if t >= d)
+    else:
+        route, tier = ("wide" if bf16 else "chunked"), CHUNK
+    return LaunchPlan(route=route,
+                      variant="mma.sync bf16" if bf16 else "fma f32",
+                      tier=tier, vec=aligned and d % 8 == 0)
+
+
+def _aligned(*tensors) -> bool:
+    return all(x.data_ptr() % 16 == 0 for x in tensors)
 
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
@@ -140,7 +238,7 @@ def _lib():
         # c_void_p for every pointer and the stream: a bare Python int
         # would be passed as a 32-bit int and cut the address
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
                        + [ctypes.c_float, ctypes.c_void_p])
     return fn
 
@@ -152,9 +250,9 @@ def flash_attention_fwd(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash-attention forward. q: [b, tq, h, d]; k/v: [b, tkv, h, d].
     Returns ``(out [b, tq, h, d], lse [b, h, tq])``. On CUDA tensors this
-    launches the kernel (f32 or bf16, head_dim 64 or 128, contiguous) on
-    the current stream: the tensor-core kernel for bf16, the FMA kernel
-    for f32. Anything else raises. CPU tensors take the plain version."""
+    launches the kernel (f32 or bf16, any head_dim, contiguous) on the
+    current stream, by :func:`launch_plan`'s route. Anything else raises.
+    CPU tensors take the plain version."""
     _check(q, k, v, causal, window)
     devices = {q.device, k.device, v.device}
     if devices == {torch.device("cpu")}:
@@ -168,12 +266,11 @@ def flash_attention_fwd(
         raise TypeError(f"flash kernel takes float32 or bfloat16 inputs of "
                         f"one dtype (got {q.dtype}, {k.dtype}, {v.dtype})")
     b, tq, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS} "
-                         f"(got {d})")
     if not (q.is_contiguous() and k.is_contiguous()
             and v.is_contiguous()):
         raise ValueError("flash kernel needs contiguous BTHD inputs")
+    plan = launch_plan(q.shape, k.shape, q.dtype, causal=causal,
+                       window=window, aligned=_aligned(q, k, v))
     scale = _scale(q, scale)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
@@ -182,7 +279,7 @@ def flash_attention_fwd(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), b, h, tq, k.shape[1], d,
-                 _DTYPE_CODE[q.dtype], int(causal),
+                 *plan.c_args(), _DTYPE_CODE[q.dtype], int(causal),
                  0 if window is None else int(window), float(scale),
                  stream)
     if err != 0:
@@ -291,12 +388,12 @@ def _bwd_lib():
         fn = getattr(lib, name)
         if fn.argtypes is None:
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 11
                            + [ctypes.c_float, ctypes.c_void_p])
     return lib
 
 
-def _bwd_launch(name, q, k, v, do, lse, delta, outs, causal, scale,
+def _bwd_launch(kernel, q, k, v, do, lse, delta, outs, causal, scale,
                 window):
     """Check what a backward kernel takes and launch it on the current
     stream; raises on anything else and on a refused launch."""
@@ -312,9 +409,6 @@ def _bwd_launch(name, q, k, v, do, lse, delta, outs, causal, scale,
                         f"do of one dtype (got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}, {do.dtype})")
     b, tq, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS} "
-                         f"(got {d})")
     if do.shape != q.shape or lse.shape != (b, h, tq) \
             or delta.shape != (b, h, tq) or lse.dtype != torch.float32 \
             or delta.dtype != torch.float32:
@@ -324,11 +418,15 @@ def _bwd_launch(name, q, k, v, do, lse, delta, outs, causal, scale,
                          f"{tuple(delta.shape)} {delta.dtype})")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("flash kernel needs contiguous BTHD inputs")
+    plan = launch_plan(q.shape, k.shape, q.dtype, causal=causal,
+                       window=window, aligned=_aligned(q, k, v, do))
+    name = f"dl4j_flash_bwd_{kernel}"
     fn = getattr(_bwd_lib(), name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*(x.data_ptr() for x in tensors + outs),
-                 b, h, tq, k.shape[1], d, _DTYPE_CODE[q.dtype], int(causal),
+                 b, h, tq, k.shape[1], d, *plan.c_args(),
+                 _DTYPE_CODE[q.dtype], int(causal),
                  0 if window is None else int(window),
                  float(_scale(q, scale)), stream)
     if err != 0:
@@ -346,7 +444,7 @@ def flash_attention_bwd_dkdv(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B2: f32 ``(dk, dv)`` in BTHD. ``do`` is in ``q.dtype``; ``lse``
     and ``delta`` are ``[b, h, tq]`` f32. CUDA tensors launch the kernel
-    (the tensor-core kernel for bf16, the FMA kernel for f32; counted in
+    (by :func:`launch_plan`'s route; counted in
     ``flash_attention_bwd_dkdv.launches``) or raise; CPU tensors take the
     plain version."""
     if _all_cpu(q, k, v, do, lse, delta):
@@ -354,7 +452,7 @@ def flash_attention_bwd_dkdv(
         return _dkdv(q, k, v, do, lse, delta, keep, _scale(q, scale))
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty_like(dk)
-    _bwd_launch("dl4j_flash_bwd_dkdv", q, k, v, do, lse, delta, (dk, dv),
+    _bwd_launch("dkdv", q, k, v, do, lse, delta, (dk, dv),
                 causal, scale, window)
     flash_attention_bwd_dkdv.launches += 1
     _note_work("dkdv", q, k, causal, window)
@@ -370,15 +468,15 @@ def flash_attention_bwd_dq(
     scale: Optional[float] = None, window: Optional[int] = None,
 ) -> torch.Tensor:
     """B3: f32 ``dq`` in BTHD, from the same inputs as
-    :func:`flash_attention_bwd_dkdv`. CUDA tensors launch the kernel (the
-    tensor-core kernel for bf16, the FMA kernel for f32; counted in
+    :func:`flash_attention_bwd_dkdv`. CUDA tensors launch the kernel (by
+    :func:`launch_plan`'s route; counted in
     ``flash_attention_bwd_dq.launches``) or raise; CPU tensors take the
     plain version."""
     if _all_cpu(q, k, v, do, lse, delta):
         keep = _keep(q.shape[1], k.shape[1], causal, window, device=q.device)
         return _dq(q, k, v, do, lse, delta, keep, _scale(q, scale))
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _bwd_launch("dl4j_flash_bwd_dq", q, k, v, do, lse, delta, (dq,),
+    _bwd_launch("dq", q, k, v, do, lse, delta, (dq,),
                 causal, scale, window)
     flash_attention_bwd_dq.launches += 1
     _note_work("dq", q, k, causal, window)
