@@ -29,11 +29,12 @@ Nineteen phases; any failure exits non-zero and prints no result line.
 3. Flash backward: the dk/dv kernel (B2) and the dq kernel (B3) against
    their plain versions on the card with TF32 off, on the forward
    phase's cases and the training shape, in f32 (1e-4) and bf16 (2e-2)
-   on dq, dk and dv. Prints each kernel's variant and time, the plain
-   version's, the bound and the backward of
+   on dq, dk and dv. Prints each kernel's variant ("mma.sync bf16", or
+   "mma.sync 3xtf32" for f32) and time, the plain version's, the bound
+   (for f32 also at the CUDA cores' rate) and the backward of
    ``F.scaled_dot_product_attention`` (B2 and B3 together), a yardstick
    the port never calls; asserts that two launches of B2 and of B3 at the
-   training shape give bitwise identical gradients.
+   training shape give bitwise identical gradients, in both dtypes.
 4. Serve: the d512·L8·H8 ``TransformerLM`` (vocab 8192, d_ff 2048,
    learned positions, max_len 1024, ``mixed_bf16``, ``attn_impl="flash"``,
    random weights from seed 0) first has its logits on a 77-token prompt
@@ -423,6 +424,16 @@ Nineteen phases; any failure exits non-zero and prints no result line.
    4 kv heads: head_dim 16, L2, RoPE, ``bf16``) under
    ``attn_impl="flash"`` the same way, B1 2 a prefill. Weights are drawn
    on the card from a seed (``seeded_on_card``).
+20. The float32 LM: the train cell's model (``TRAIN_CFG``: vocab 8192,
+   d512, 8 heads of 64, L8, ``[16, 1024]``) under ``dtype_policy=
+   "float32"`` and ``attn_impl="auto"``, which resolves to flash, so
+   B2 and B3 run their f32 kernels ("mma.sync 3xtf32", 3xTF32 on the
+   tensor cores) and B1 its f32 one. (a) First-step gradients through
+   B1–B3 against plain attention, leaf by leaf, TF32 off (1e-4
+   relative, phase 19's float32 gate); (b) ``TRAIN_WARMUP`` +
+   ``TRAIN_STEPS`` ``fit_batch`` steps: losses finite and falling, B1–B3
+   8 each a timed step; (c) ms and tokens/s a step, and B2 + B3's share
+   of a step's device time from the profiler.
 
 Output: metric lines, then a ``{"kernels": [...]}`` JSON line (each
 kernel's ``variant`` and ``launches`` counted over the train phase's
@@ -442,7 +453,9 @@ process's, as ``launches_cluster``, which must be 0; over phase 18 as
 0; over phase 19's (b)–(d) as ``launches_headdim``, with phase 19's
 times under ``headdim_times``; and its train-shape
 numbers under
-``train``) and the ``nvidia-smi``
+``train``; then B2's and B3's float32 entries at the train shape from
+phase 4, with both bounds (3xTF32 and the CUDA cores') and their
+launches over phase 20's timed steps) and the ``nvidia-smi``
 line,
 then ``{"ok": true, "device": {...}}`` last.
 """
@@ -481,15 +494,18 @@ TRAIN_CFG = {**SERVE_CFG, "attn_impl": "auto"}
 TRAIN_BATCH, TRAIN_T = 16, 1024
 TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 H100_BF16_FLOPS = 989e12
-# the kernels whose bf16 launches run on the tensor cores (csrc/ notes);
-# every f32 launch runs the FMA kernels
-MMA_BF16 = ("fwd", "dkdv", "dq")
 
 
 def variant(kernel: str, dtype: str) -> str:
-    """The CUDA kernel a wrapper launches: "mma.sync bf16" or "fma f32"."""
-    return ("mma.sync bf16" if dtype == "bfloat16" and kernel in MMA_BF16
-            else "fma f32")
+    """The CUDA kernel family a wrapper launches for ``dtype`` inputs, as
+    ``launch_plan`` names it (one family a kernel and dtype, whatever the
+    route): "mma.sync bf16" (bf16), "mma.sync 3xtf32" (f32 B2 and B3) or
+    "fma f32" (f32 B1)."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+
+    x = (1, 64, 1, 64)
+    return fa.launch_plan(x, x, getattr(torch, dtype)).kernel(kernel).variant
 
 
 def fail(msg: str) -> None:
@@ -535,6 +551,13 @@ def same_twice(fn) -> bool:
     if isinstance(a, torch.Tensor):
         a, b = (a,), (b,)
     return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def cuda_core(bound: dict) -> str:
+    """A bound's f32 figure at the CUDA cores' rate, for a metric line
+    ("" for bf16)."""
+    ms = bound.get("cuda_core_bound_ms")
+    return "" if ms is None else f" cuda_core_bound_ms={ms:.6f}"
 
 
 _SLEEP_CYCLES_PER_MS = []
@@ -656,8 +679,9 @@ def check_flash(card: str) -> dict:
                   f"max_abs_err={err:.3e} "
                   f"(tol {TOL[name]:.0e}) kernel_ms={ms:.5f} "
                   f"plain_ms={plain_ms:.5f} library_ms={lib_ms:.5f} "
-                  f"bound_ms={bound['bound_ms']:.6f} ({bound['bound_by']}) "
-                  f"{'ok' if ok else 'MISMATCH'} [{card}]")
+                  f"bound_ms={bound['bound_ms']:.6f} ({bound['bound_by']})"
+                  f"{cuda_core(bound)} {'ok' if ok else 'MISMATCH'} "
+                  f"[{card}]")
             if not ok:
                 failures.append(f"{label} {name}: err {err} finite {finite}")
             if label == train_case()[0] and dtype == torch.bfloat16:
@@ -859,14 +883,14 @@ def check_flash_bwd(card: str) -> list:
                       f"(tol {BWD_TOL[name]:.0e}) kernel_ms={ms[kern]:.5f} "
                       f"plain_ms={plain_ms[kern]:.5f} "
                       f"bound_ms={bound[kern]['bound_ms']:.6f} "
-                      f"({bound[kern]['bound_by']}) "
+                      f"({bound[kern]['bound_by']}){cuda_core(bound[kern])} "
                       f"{'ok' if ok else 'MISMATCH'} [{card}]")
             print(f"flash_bwd {label} {name}: B2+B3 kernel_ms="
                   f"{ms['dkdv'] + ms['dq']:.5f} sdpa_backward_ms={lib_ms:.5f}"
                   f" [{card}]")
             if not ok:
                 failures.append(f"{label} {name}: err {err} finite {finite}")
-            if label == train_case()[0] and dtype == torch.bfloat16:
+            if label == train_case()[0]:
                 for kern, fn in (("dkdv", fa.flash_attention_bwd_dkdv),
                                  ("dq", fa.flash_attention_bwd_dq)):
                     same = same_twice(lambda: fn(*args, **kw))
@@ -895,6 +919,9 @@ def check_flash_bwd(card: str) -> list:
                                         "backward (dq, dk, dv)",
                         "shape": [b, tq, h, d], "dtype": name,
                     })
+                    if "cuda_core_bound_ms" in bound[kern]:
+                        entries[-1]["cuda_core_bound_ms"] = \
+                            bound[kern]["cuda_core_bound_ms"]
             del q, k, v, do, out, lse, delta, args, dq, dk, dv, keep
     if failures:
         raise AssertionError("flash backward kernels disagree with their "
@@ -1629,7 +1656,8 @@ def profiled(fn, units: int) -> dict:
     of ``units``: the host's launch calls by API (``cudaGraphLaunch`` is
     one replay), the device's events (kernels, copies, memsets), its
     busy time (their union) and the hand-written kernels it ran
-    (``kernels``, by wrapper name)."""
+    (``kernels``, by wrapper name) with their device time
+    (``kernel_ms``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1647,6 +1675,9 @@ def profiled(fn, units: int) -> dict:
             host[e.name] = host.get(e.name, 0) + 1
     kernels = {k: sum(tag in e.name for e in device) / units
                for k, tag in KERNEL_TRACE_NAMES.items()}
+    kernel_ms = {k: sum(e.time_range.end - e.time_range.start
+                        for e in device if tag in e.name) / 1e3 / units
+                 for k, tag in KERNEL_TRACE_NAMES.items()}
     return {"host_launches": {k: v / units for k, v in sorted(host.items())},
             "replays": host.get("cudaGraphLaunch", 0) / units,
             "other_host_launches": sum(v for k, v in host.items()
@@ -1655,7 +1686,7 @@ def profiled(fn, units: int) -> dict:
             "device_busy_ms": busy_union_s(
                 [(e.time_range.start, e.time_range.end)
                  for e in device]) * 1e3 / units,
-            "kernels": kernels}
+            "kernels": kernels, "kernel_ms": kernel_ms}
 
 
 def traced_launches(fn, what: str, card: str, calls: int = 2) -> dict:
@@ -7438,8 +7469,9 @@ def headdim_case(case, dtype, gen, card: str) -> list:
     failures = []
     for kern in ("fwd", "dkdv", "dq"):
         ok, err, rule = _hold(kern, got[kern], want[kern], dtype, d, oracle)
-        print(f"headdim {kern} {label} {name} [{plan.route} {plan.variant}"
-              f" tier {plan.tier} vec {int(plan.vec)}]: "
+        kp = plan.kernel(kern)
+        print(f"headdim {kern} {label} {name} [{kp.route} {kp.variant}"
+              f" tier {kp.tier} vec {int(kp.vec)}]: "
               f"max_abs_err={err:.3e} ({rule}) "
               f"{'ok' if ok else 'MISMATCH'} [{card}]")
         if not ok:
@@ -7501,13 +7533,15 @@ def headdim_timed(card: str) -> tuple:
         bound.update(fa.flash_bwd_bound(b, t, t, h, d, dt, causal=True))
         for kern in ("fwd", "dkdv", "dq"):
             ok, err, rule = held[kern]
+            kp = plan.kernel(kern)
             print(f"headdim time {kern} {label} [{b}, {t}, {h}, {d}] "
-                  f"{dname} causal [{plan.route} {plan.variant} tier "
-                  f"{plan.tier}]: kernel_ms={ms[kern]:.5f} "
+                  f"{dname} causal [{kp.route} {kp.variant} tier "
+                  f"{kp.tier}]: kernel_ms={ms[kern]:.5f} "
                   f"plain_ms={plain[kern]:.5f} library_ms={lib[kern]:.5f} "
                   f"bound_ms={bound[kern]['bound_ms']:.6f} "
-                  f"({bound[kern]['bound_by']}) max_abs_err={err:.3e} "
-                  f"({rule}) {'ok' if ok else 'MISMATCH'} [{card}]")
+                  f"({bound[kern]['bound_by']}){cuda_core(bound[kern])} "
+                  f"max_abs_err={err:.3e} ({rule}) "
+                  f"{'ok' if ok else 'MISMATCH'} [{card}]")
             if not ok:
                 failures.append(f"timed {kern} {label}: err {err} ({rule})")
         out[label] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
@@ -7813,6 +7847,93 @@ def headdim_phase(card: str) -> dict:
     return {"launches": launches, "timed": timings}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the float32 LM, B2 and B3 on the tensor cores (3xTF32)
+# ---------------------------------------------------------------------------
+F32_TRAIN_CFG = {**TRAIN_CFG, "dtype_policy": "float32"}
+
+
+def f32_train(card: str) -> dict:
+    """Phase 20: the train cell's model under the reference's default
+    ``float32`` policy. (a) first-step gradients through B1–B3 against
+    plain attention (TF32 off on both sides), leaf by leaf, at
+    ``OPT_GRAD_TOL["f32"]``; (b) ``TRAIN_WARMUP`` + ``TRAIN_STEPS``
+    ``fit_batch`` steps, losses finite and falling, B1–B3
+    ``num_layers`` each a timed step; (c) the step's ms and tokens/s and
+    B2 + B3's share of its device time from the profiler. Returns B1–B3's
+    launches over the timed steps."""
+    import torch
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+
+    t0 = time.monotonic()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lm = TransformerLM(**F32_TRAIN_CFG).init()
+    impl = lm._attn_impl(TRAIN_T, train=True)
+    if impl != "flash":
+        raise AssertionError(f"attn_impl='auto' resolved to {impl!r} for "
+                             "float32 training, not 'flash'")
+    tok = torch.as_tensor(train_tokens(), device="cuda")
+    before = launch_counts()
+    g_flash = first_step_grads(lm, tok, "flash")
+    grad_launches = {k: n - before[k] for k, n in launch_counts().items()}
+    g_plain = first_step_grads(lm, tok, "xla")
+    rows = sorted(((_rel(g_flash[n], g_plain[n]), n) for n in g_flash),
+                  reverse=True)
+    del g_flash, g_plain
+    print(f"f32 lm first-step grads over {len(rows)} leaves: flash_vs_plain "
+          f"worst {rows[0][0]:.3e} ({rows[0][1]}), then "
+          f"{', '.join(f'{e:.3e} ({n})' for e, n in rows[1:4])} (tol "
+          f"{OPT_GRAD_TOL['f32']:.0e}); launches {grad_launches} [{card}]")
+    bad = [n for e, n in rows if not e <= OPT_GRAD_TOL["f32"]]
+    if bad:
+        raise AssertionError(f"float32 first-step gradients through B1–B3 "
+                             f"miss {OPT_GRAD_TOL['f32']} at {bad}")
+    if any(n != lm.num_layers for n in grad_launches.values()):
+        raise AssertionError(f"the flash gradient launched {grad_launches}")
+
+    warm = [lm.fit_batch(tok) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses, per_step = [], []
+    t1 = time.monotonic()
+    for _ in range(TRAIN_STEPS):
+        before = launch_counts()
+        losses.append(lm.fit_batch(tok, block=False))
+        per_step.append({k: n - before[k]
+                         for k, n in launch_counts().items()})
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t1
+    launches = launch_counts()
+    losses = [float(x) for x in losses]
+    ms_step = wall / TRAIN_STEPS * 1e3
+    prof = profiled(lambda: lm.fit_batch(tok), 1)
+    bwd_ms = (prof["kernel_ms"]["flash_attention_bwd_dkdv"] +
+              prof["kernel_ms"]["flash_attention_bwd_dq"])
+    print(f"f32 lm train [{TRAIN_BATCH}, {TRAIN_T}] float32 attn={impl} "
+          f"B2/B3 [{variant('dkdv', 'float32')}] B1 "
+          f"[{variant('fwd', 'float32')}]: warmup_losses={warm} "
+          f"losses={losses} ms_per_step={ms_step} tokens_per_sec="
+          f"{TRAIN_BATCH * TRAIN_T * TRAIN_STEPS / wall} "
+          f"profiled_device_busy_ms={prof['device_busy_ms']:.3f} "
+          f"kernel_ms={json.dumps(prof['kernel_ms'])} "
+          f"b2_b3_share_of_busy={bwd_ms / prof['device_busy_ms']:.4f} "
+          f"launches={launches} phase_s={time.monotonic() - t0:.1f} "
+          f"[{card}]")
+    if not all(math.isfinite(x) for x in warm + losses):
+        raise AssertionError(f"non-finite loss: {warm + losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall on a repeated batch: "
+                             f"{losses}")
+    for i, counts in enumerate(per_step):
+        if any(n != lm.num_layers for n in counts.values()):
+            raise AssertionError(f"step {i} launched {counts}, expected "
+                                 f"{lm.num_layers} of each kernel")
+    del lm
+    gc.collect()
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -7847,17 +7968,21 @@ def main() -> None:
     extras_launches = data_launches = profile_launches = None
     embed_launches = trees_launches = mesh_launches = None
     model_launches = cluster_launches = a15_launches = None
-    headdim = None
+    headdim = f32_launches = None
+    f32_entries = []  # B2's and B3's float32 entries (phase 4, phase 20)
     for phase in ("flash", "flash_bwd", "serve", "train", "networks",
                   "recurrent", "fused", "cli", "serve_extras", "data",
                   "monitor", "embeddings", "trees", "mesh", "model",
-                  "cluster", "a15", "headdim"):
+                  "cluster", "a15", "headdim", "f32_train"):
         try:
             if phase == "flash":
                 entries["flash_attention_fwd"] = check_flash(card)
             elif phase == "flash_bwd":
                 for e in check_flash_bwd(card):
-                    entries[e["name"]] = e
+                    if e["dtype"] == "bfloat16":
+                        entries[e["name"]] = e
+                    else:
+                        f32_entries.append(e)
             elif phase == "serve":
                 reset_launch_counts()
                 serve_launches = serve(card)
@@ -7894,8 +8019,10 @@ def main() -> None:
                 cluster_launches = cluster_phase(card)
             elif phase == "a15":
                 a15_launches = a15_phase(card)
-            else:
+            elif phase == "headdim":
                 headdim = headdim_phase(card)
+            else:
+                f32_launches = f32_train(card)
         except Exception:
             traceback.print_exc()
             failed.append(phase)
@@ -7936,7 +8063,12 @@ def main() -> None:
         fail("flash_attention_fwd was not launched on the A15 fleet")
     entries["flash_attention_fwd"]["launches_serve"] = serve_launches
     entries["flash_attention_fwd"]["launches_serve_extras"] = extras_launches
-    print(json.dumps({"kernels": list(entries.values())}))
+    for e in f32_entries:
+        e["launches"] = f32_launches[e["name"]]
+        if not e["launches"]:
+            fail(f"{e['name']} (float32) was not launched on phase 20's "
+                 "float32 train path")
+    print(json.dumps({"kernels": list(entries.values()) + f32_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -64,45 +64,90 @@
 //   in registers and fed straight back as the A operand of dQ += dS.K, K
 //   read again by ldmatrix.trans. ds never touches shared memory.
 //
-// B2 and B3 f32 (dtype 0): "fma f32", the first kernels of this file,
-// which take f32 inputs only since every bf16 launch runs on the tensor
-// cores. One block of 256 threads; K, V, Q and dO staged in shared
-// memory as f32 tiles; p and ds passed through shared memory; scalar f32
-// FMAs. A tensor-core f32 path would need TF32, which cannot pass the
-// f32 gate (1e-4).
+// B2 and B3 f32 (dtype 0): "mma.sync 3xtf32", the same two loops on the
+// tensor cores at f32 accuracy (building blocks in mma_tf32.cuh).
+// - Arithmetic. Each of the five products (S^T, dP^T, dV, dK in B2; S,
+//   dP, dQ in B3) runs on mma.sync m16n8k8 with TF32 operands: every f32
+//   operand x, p and ds included, is split into big = cvt.rna.tf32(x) and
+//   small = cvt.rna.tf32(x - big), and a.b is summed in f32 as
+//   small_a.big_b + big_a.small_b + big_a.big_b. That keeps about 2^-22
+//   of each product, within the f32 gate (1e-4 on the gradients) with
+//   more than 10x to spare, where one TF32 product (about 2^-11) misses
+//   it by an order of magnitude (tests/test_torch_flash_tf32.py emulates
+//   both).
+// - The loops are the bf16 kernels': warps of 16 key (B2) or query (B3)
+//   rows; Q, dO (B2) or K, V (B3) tiles stream through a two-stage
+//   cp.async ring while K, V (B2) or Q, dO (B3) stay in shared memory;
+//   the A fragment of the resident rows is read and split once a k-step
+//   and meets every B fragment of that step. p and ds stay in registers:
+//   an accumulator tile is the A operand of the next product over a
+//   permuted contraction index (columns 2t, 2t+1 as k = t, t+4), and
+//   the B operand that meets it (dO, Q or K rows) is read by plain 32-bit
+//   loads in the same order (ldmatrix.trans cannot transpose 32-bit
+//   words). Shared rows are padded by 4 floats, so every fragment load is
+//   free of bank conflicts. The k-steps over d are not unrolled (their
+//   loads and splits would be hoisted into registers the accumulators
+//   need).
+// - Widths. A row of up to 128 floats stays whole (exact at 64 and 128,
+//   else padded to the next tier up to 128): B2 keeps K and V and a
+//   two-stage ring of Q and dO, 6 x 64 rows x (W + 4) floats, 203,776
+//   bytes at 128 and 251,904 at the next tier, 160, past the 232,448 a
+//   block may use; and B2's dk and dv accumulators take W registers a
+//   thread, which at 160 leaves too few of the 255 for s, dp and the split
+//   fragments. Up to 64 a block is 4 warps, one a 16-row group, and two
+//   blocks share an SM (105,472 bytes each at 64). Above 64 the tiles
+//   leave room for one block an SM, so a block is 8 warps: two a 16-row
+//   group, each taking half of every tile's queries (B2) or keys (B3),
+//   and the two halves' partial dk, dv or dq are added through shared
+//   memory once, at the end, in a fixed order (no atomics, bitwise the
+//   same run to run). B2 takes its queries in passes of 64 up to 64, of
+//   32 up to 96 and of 16 above, to leave registers for the
+//   accumulators. Above 128 the "wide" f32 kernels stream d in chunks of
+//   64 columns (256 bytes a row) and write slices of 64 output columns
+//   (grid z), with the bf16 wide kernels' schedule otherwise.
+// - Sums. The tensor core rounds its own sum toward zero, so a chain of
+//   hundreds of MMAs into one accumulator biases dk, dv and dq by about
+//   1e-4 of their size; each k-step's three products go to a fresh tile
+//   that an f32 add puts into the running sum (`mma_3x`). S and dP take
+//   fresh tiles too: chained straight into their accumulators they ran
+//   4-12 % faster but at 3-5x the error (an emulation of the rounding in
+//   tests/test_torch_flash_tf32.py).
+// - Bound: the 3xTF32 rate, 495 / 3 = 165 TFLOP/s, the least time the
+//   card could take at f32 accuracy (the CUDA cores' 67 TFLOP/s is
+//   reported beside it). Left on the table: wgmma and TMA (mma.sync
+//   reaches a part of the TF32 peak only), splitting each operand once
+//   instead of once a warp that reads it (every warp re-splits the
+//   streamed tile's fragments), more than 8 warps an SM above 64, and
+//   the causal schedule as below.
 //
 // Every head_dim the reference takes runs, by the route the Python launch
-// plan chose (`launch_plan` in kernels/flash_attention.py), as in
-// flash_fwd.cu:
+// plan chose (`launch_plan` in kernels/flash_attention.py):
 // - exact (d 64 or 128): the kernels above and below, unpadded;
-// - tier (bf16, any other d up to 256): the tensor-core kernels compiled
-//   for the next width of DL4J_MMA_TIERS, rows zero-padded to it in
-//   shared memory, padded columns never stored, rows that are not
-//   16-byte aligned copied element by element. Above 128, B2's dk and dv
-//   accumulators would take the tier's width in registers a thread, so
-//   each B2 block writes one of two column slices (grid z) and recomputes
-//   S^T and dP^T over the whole d (1.5x B2's products); B3 takes each
-//   key tile in passes of 32 keys to shrink its s and dp registers (at
-//   256 ptxas spills a few bytes of B2 and B3; passes of 16, which spill
-//   none, ran 8-10 % slower);
-// - wide (bf16 above 256): the tensor-core kernels with d streamed in
-//   chunks of 64 columns for S and dP (two-stage cp.async rings) and the
-//   output in slices of 128 columns (grid z), recomputing S and dP over
-//   the whole d for each slice. B2 takes query tiles of 32 rows there:
-//   its 128 dk and dv accumulator floats a thread leave room for the s
-//   and dp of 32 queries, not 64;
-// - chunked (f32 at any other d): "fma f32", CUDA-core kernels that take
-//   d in chunks of 64 columns for S and dP and write one slice of 64
-//   output columns a block (grid z), recomputing S and dP over the whole
-//   d for each slice.
+// - tier (bf16 any other d up to 256, f32 up to 128): the tensor-core
+//   kernels compiled for the next width of DL4J_MMA_TIERS, rows
+//   zero-padded to it in shared memory, padded columns never stored, rows
+//   that are not 16-byte aligned copied element by element. Above 128,
+//   the bf16 B2's dk and dv accumulators would take the tier's width in
+//   registers a thread, so each B2 block writes one of two column slices
+//   (grid z) and recomputes S^T and dP^T over the whole d (1.5x B2's
+//   products); B3 takes each key tile in passes of 32 keys to shrink its
+//   s and dp registers (at 256 ptxas spills a few bytes of B2 and B3;
+//   passes of 16, which spill none, ran 8-10 % slower);
+// - wide (bf16 above 256, f32 above 128): the tensor-core kernels with d
+//   streamed in chunks of 64 columns for S and dP (two-stage cp.async
+//   rings) and the output in slices of 128 columns (bf16) or 64 (f32)
+//   on grid z, recomputing S and dP over the whole d for each slice. B2
+//   takes query tiles of 32 rows there: the bf16 kernel's 128 dk and dv
+//   accumulator floats a thread leave room for the s and dp of 32
+//   queries, not 64.
 // Every kernel puts batch*head on grid x (up to 2^31 - 1).
 //
 // Bound on an H100: B2 does 8*b*h*d*sum(visible keys) FLOPs (s, dp, dv,
 // dk), B3 6*b*h*d*sum(visible) (s, dp, dq), against 989 TFLOP/s (bf16)
-// or 67 TFLOP/s (f32); both read q, k, v, do once in the input dtype and
-// lse, delta in f32, and write their outputs in f32, against 3.35 TB/s.
-// Left on the table: wgmma, TMA and warp specialisation, and a schedule
-// that balances the causal key tiles across the 132 SMs.
+// or 165 TFLOP/s (f32 as 3xTF32); both read q, k, v, do once in the input
+// dtype and lse, delta in f32, and write their outputs in f32, against
+// 3.35 TB/s. Left on the table: wgmma, TMA and warp specialisation, and a
+// schedule that balances the causal key tiles across the 132 SMs.
 //
 // C entry points `dl4j_flash_bwd_dkdv` and `dl4j_flash_bwd_dq` (loaded
 // with ctypes) return the CUDA error code of the launch (0 on success).
@@ -112,304 +157,13 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 #include "smem_attr.cuh"
 
 namespace {
 
 constexpr int kBQ = 64;        // query rows per tile
 constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 x 16 thread grid
-
-// rows [t0, t0 + 64) of one head of a BTHD f32 tensor into a [64][D+1]
-// tile; rows at or past `len` are zeros
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int t0, int len, int64_t tstride) {
-  for (int i = threadIdx.x; i < 64 * D; i += kThreads) {
-    const int r = i / D, c = i % D, t = t0 + r;
-    dst[r * (D + 1) + c] = t < len ? src[t * tstride + c] : 0.f;
-  }
-}
-
-__device__ __forceinline__ bool visible(int qi, int kj, int tq, int tkv,
-                                        int causal, int window) {
-  bool keep = qi < tq && kj < tkv;
-  if (causal) keep = keep && qi >= kj;
-  if (window > 0) keep = keep && qi - kj < window;
-  return keep;
-}
-
-template <int D>
-constexpr size_t dkdv_smem_floats() {
-  // K, V, Q, dO [64][D+1]; P, dS [BK][BQ+1]; lse, delta [BQ]
-  return 4 * 64 * (D + 1) + 2 * kBK * (kBQ + 1) + 2 * kBQ;
-}
-
-template <int D>
-constexpr size_t dq_smem_floats() {
-  // Q, dO, K, V [64][D+1]; dS [BQ][BK+1]; lse, delta [BQ]
-  return 4 * 64 * (D + 1) + kBQ * (kBK + 1) + 2 * kBQ;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      float* __restrict__ dk, float* __restrict__ dv,
-                      int heads, int tq, int tkv, int causal, int window,
-                      float scale) {
-  extern __shared__ float smem[];
-  float* Ks = smem;                        // [BK][D+1]
-  float* Vs = Ks + kBK * (D + 1);          // [BK][D+1]
-  float* Qs = Vs + kBK * (D + 1);          // [BQ][D+1]
-  float* dOs = Qs + kBQ * (D + 1);         // [BQ][D+1]
-  float* Ps = dOs + kBQ * (D + 1);         // [BK][BQ+1] p
-  float* dSs = Ps + kBK * (kBQ + 1);       // [BK][BQ+1] ds
-  float* lse_s = dSs + kBK * (kBQ + 1);    // [BQ]
-  float* delta_s = lse_s + kBQ;            // [BQ]
-
-  const int bh = blockIdx.x;
-  const int b = bh / heads, h = bh % heads;
-  const int k0 = blockIdx.y * kBK;  // causal: the heaviest tiles come first
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int64_t tstride = (int64_t)heads * D;
-  const int64_t qoff = ((int64_t)b * tq * heads + h) * D;
-  const int64_t koff = ((int64_t)b * tkv * heads + h) * D;
-  const float* lse_b = lse + (int64_t)bh * tq;
-  const float* delta_b = delta + (int64_t)bh * tq;
-
-  load_tile<D>(Ks, k + koff, k0, tkv, tstride);
-  load_tile<D>(Vs, v + koff, k0, tkv, tstride);
-
-  constexpr int CJ = D / 16;
-  float dk_acc[4][CJ], dv_acc[4][CJ];  // key rows ty + 16*i, cols tx + 16*j
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  // query range that can see this key tile: the causal diagonal bounds it
-  // from below, the window's far edge from above
-  int q_lo = 0, q_hi = tq;
-  if (causal) q_lo = k0;
-  if (window > 0) q_hi = min(tq, k0 + kBK - 1 + window);
-  const int qt_lo = q_lo / kBQ, qt_hi = (q_hi + kBQ - 1) / kBQ;
-
-  for (int qt = qt_lo; qt < qt_hi; ++qt) {
-    const int q0 = qt * kBQ;
-    __syncthreads();  // the previous tile's Q/dO/P/dS reads are done
-    load_tile<D>(Qs, q + qoff, q0, tq, tstride);
-    load_tile<D>(dOs, dout + qoff, q0, tq, tstride);
-    if (tid < kBQ) {
-      const int t = q0 + tid;
-      lse_s[tid] = t < tq ? lse_b[t] : 0.f;
-      delta_s[tid] = t < tq ? delta_b[t] : 0.f;
-    }
-    __syncthreads();
-
-    // s = K.Q^T and dp = V.dO^T for a 4 x 4 micro-tile per thread
-    // (key rows ty + 16*i, query columns tx + 16*j)
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[4], dov[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = Ks[(ty + 16 * i) * (D + 1) + d];
-        vv[i] = Vs[(ty + 16 * i) * (D + 1) + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = Qs[(tx + 16 * j) * (D + 1) + d];
-        dov[j] = dOs[(tx + 16 * j) * (D + 1) + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], dov[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool keep = visible(q0 + c, k0 + r, tq, tkv, causal, window);
-        const float p = keep ? expf(s[i][j] * scale - lse_s[c]) : 0.f;
-        Ps[r * (kBQ + 1) + c] = p;
-        dSs[r * (kBQ + 1) + c] = p * (dp[i][j] - delta_s[c]) * scale;
-      }
-    }
-    __syncthreads();
-
-    // dv += P.dO, dk += dS.Q over this tile's queries
-#pragma unroll 4
-    for (int qq = 0; qq < kBQ; ++qq) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = Ps[(ty + 16 * i) * (kBQ + 1) + qq];
-        ds[i] = dSs[(ty + 16 * i) * (kBQ + 1) + qq];
-      }
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const float dov = dOs[qq * (D + 1) + tx + 16 * j];
-        const float qv = Qs[qq * (D + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          dv_acc[i][j] = fmaf(p[i], dov, dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(ds[i], qv, dk_acc[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = k0 + ty + 16 * i;
-    if (t < tkv) {
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        dk[koff + t * tstride + tx + 16 * j] = dk_acc[i][j];
-        dv[koff + t * tstride + tx + 16 * j] = dv_acc[i][j];
-      }
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int heads, int tq, int tkv, int causal, int window,
-                    float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                        // [BQ][D+1]
-  float* dOs = Qs + kBQ * (D + 1);         // [BQ][D+1]
-  float* Ks = dOs + kBQ * (D + 1);         // [BK][D+1]
-  float* Vs = Ks + kBK * (D + 1);          // [BK][D+1]
-  float* dSs = Vs + kBK * (D + 1);         // [BQ][BK+1] ds
-  float* lse_s = dSs + kBQ * (kBK + 1);    // [BQ]
-  float* delta_s = lse_s + kBQ;            // [BQ]
-
-  const int bh = blockIdx.x;
-  const int b = bh / heads, h = bh % heads;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy tiles first
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int64_t tstride = (int64_t)heads * D;
-  const int64_t qoff = ((int64_t)b * tq * heads + h) * D;
-  const int64_t koff = ((int64_t)b * tkv * heads + h) * D;
-
-  load_tile<D>(Qs, q + qoff, q0, tq, tstride);
-  load_tile<D>(dOs, dout + qoff, q0, tq, tstride);
-  if (tid < kBQ) {
-    const int t = q0 + tid;
-    lse_s[tid] = t < tq ? lse[(int64_t)bh * tq + t] : 0.f;
-    delta_s[tid] = t < tq ? delta[(int64_t)bh * tq + t] : 0.f;
-  }
-
-  constexpr int CJ = D / 16;
-  float dq_acc[4][CJ];  // query rows ty + 16*i, cols tx + 16*j
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) dq_acc[i][j] = 0.f;
-
-  // key band of this query tile, as in the forward
-  int k_lo = 0, k_hi = tkv;
-  if (causal) k_hi = min(tkv, q0 + kBQ);
-  if (window > 0) k_lo = max(0, q0 - window + 1);
-  const int kt_lo = k_lo / kBK, kt_hi = (k_hi + kBK - 1) / kBK;
-
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's K/dS reads are done
-    load_tile<D>(Ks, k + koff, k0, tkv, tstride);
-    load_tile<D>(Vs, v + koff, k0, tkv, tstride);
-    __syncthreads();
-
-    // s = Q.K^T and dp = dO.V^T (query rows ty + 16*i, key columns
-    // tx + 16*j)
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], dov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty + 16 * i) * (D + 1) + d];
-        dov[i] = dOs[(ty + 16 * i) * (D + 1) + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-        vv[j] = Vs[(tx + 16 * j) * (D + 1) + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool keep = visible(q0 + r, k0 + c, tq, tkv, causal, window);
-        const float p = keep ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        dSs[r * (kBK + 1) + c] = p * (dp[i][j] - delta_s[r]) * scale;
-      }
-    }
-    __syncthreads();
-
-    // dq += dS.K over this tile's keys
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dSs[(ty + 16 * i) * (kBK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const float kv = Ks[kk * (D + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dq_acc[i][j] = fmaf(ds[i], kv, dq_acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t < tq) {
-#pragma unroll
-      for (int j = 0; j < CJ; ++j)
-        dq[qoff + t * tstride + tx + 16 * j] = dq_acc[i][j];
-    }
-  }
-}
 
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
@@ -417,381 +171,6 @@ struct Args {
   float scale;
   cudaStream_t stream;
 };
-
-template <int D>
-int launch_dkdv(const Args& a, void* dk, void* dv) {
-  const size_t bytes = dkdv_smem_floats<D>() * sizeof(float);
-  cudaError_t err = dl4j_smem::set_max_dynamic_smem(
-      reinterpret_cast<const void*>(flash_bwd_dkdv_kernel<D>), (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.batch * a.heads, (a.tkv + kBK - 1) / kBK);
-  flash_bwd_dkdv_kernel<D><<<grid, kThreads, bytes, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), a.heads, a.tq,
-      a.tkv, a.causal, a.window, a.scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_dq(const Args& a, void* dq) {
-  const size_t bytes = dq_smem_floats<D>() * sizeof(float);
-  cudaError_t err = dl4j_smem::set_max_dynamic_smem(
-      reinterpret_cast<const void*>(flash_bwd_dq_kernel<D>), (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.batch * a.heads, (a.tq + kBQ - 1) / kBQ);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, bytes, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<float*>(dq), a.heads, a.tq, a.tkv, a.causal, a.window,
-      a.scale);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// B2 and B3 f32 at any other head_dim: the FMA kernels with d in chunks
-// ---------------------------------------------------------------------------
-constexpr int kC = 64;       // columns a chunk of S/dP and a slice of output
-constexpr int kLC = kC + 1;  // padded shared row of a chunk, floats
-
-// columns [c0, c0 + C) of rows [t0, t0 + 64) of one head of a BTHD f32
-// tensor into a [64][C+1] tile; rows at or past `len` and columns at or
-// past `d` are zeros
-__device__ __forceinline__ void load_chunk(float* dst, const float* src,
-                                           int t0, int len, int c0, int d,
-                                           int64_t tstride) {
-  for (int i = threadIdx.x; i < 64 * kC; i += kThreads) {
-    const int r = i / kC, c = i % kC, t = t0 + r, col = c0 + c;
-    dst[r * kLC + c] = t < len && col < d ? src[t * tstride + col] : 0.f;
-  }
-}
-
-constexpr size_t dkdv_chunked_smem_floats() {
-  // K, V, Q, dO chunks and P, dS [64][C+1]; lse, delta [BQ]
-  return 6 * 64 * kLC + 2 * kBQ;
-}
-
-constexpr size_t dq_chunked_smem_floats() {
-  // Q, dO, K, V chunks and dS [64][C+1]; lse, delta [BQ]
-  return 5 * 64 * kLC + 2 * kBQ;
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_chunked_kernel(const float* __restrict__ q,
-                              const float* __restrict__ k,
-                              const float* __restrict__ v,
-                              const float* __restrict__ dout,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ delta,
-                              float* __restrict__ dk, float* __restrict__ dv,
-                              int heads, int tq, int tkv, int d, int causal,
-                              int window, float scale) {
-  extern __shared__ float smem[];
-  float* Ks = smem;                  // [BK][C+1] a chunk of K
-  float* Vs = Ks + kBK * kLC;        // [BK][C+1] a chunk of V
-  float* Qs = Vs + kBK * kLC;        // [BQ][C+1] a chunk, then the slice
-  float* dOs = Qs + kBQ * kLC;       // [BQ][C+1] a chunk, then the slice
-  float* Ps = dOs + kBQ * kLC;       // [BK][C+1] p
-  float* dSs = Ps + kBK * kLC;       // [BK][C+1] ds
-  float* lse_s = dSs + kBK * kLC;    // [BQ]
-  float* delta_s = lse_s + kBQ;      // [BQ]
-
-  const int bh = blockIdx.x;
-  const int b = bh / heads, h = bh % heads;
-  const int k0 = blockIdx.y * kBK;  // causal: the heaviest tiles come first
-  const int c0 = blockIdx.z * kC;   // this block's dk and dv columns
-  const int nch = (d + kC - 1) / kC;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int64_t tstride = (int64_t)heads * d;
-  const int64_t qoff = ((int64_t)b * tq * heads + h) * d;
-  const int64_t koff = ((int64_t)b * tkv * heads + h) * d;
-  const float* lse_b = lse + (int64_t)bh * tq;
-  const float* delta_b = delta + (int64_t)bh * tq;
-
-  // one chunk: K and V stay in shared memory for the whole block
-  if (nch == 1) {
-    load_chunk(Ks, k + koff, k0, tkv, 0, d, tstride);
-    load_chunk(Vs, v + koff, k0, tkv, 0, d, tstride);
-  }
-  float dk_acc[4][4], dv_acc[4][4];  // key rows ty + 16*i, cols c0+tx+16*j
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  int q_lo = 0, q_hi = tq;
-  if (causal) q_lo = k0;
-  if (window > 0) q_hi = min(tq, k0 + kBK - 1 + window);
-  const int qt_lo = q_lo / kBQ, qt_hi = (q_hi + kBQ - 1) / kBQ;
-
-  for (int qt = qt_lo; qt < qt_hi; ++qt) {
-    const int q0 = qt * kBQ;
-    // s = K.Q^T and dp = V.dO^T over the whole d, chunk by chunk (key
-    // rows ty + 16*i, query columns tx + 16*j)
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int ch = 0; ch < nch; ++ch) {
-      __syncthreads();  // the previous chunk's (or tile's) reads are done
-      if (nch > 1) {
-        load_chunk(Ks, k + koff, k0, tkv, ch * kC, d, tstride);
-        load_chunk(Vs, v + koff, k0, tkv, ch * kC, d, tstride);
-      }
-      load_chunk(Qs, q + qoff, q0, tq, ch * kC, d, tstride);
-      load_chunk(dOs, dout + qoff, q0, tq, ch * kC, d, tstride);
-      if (ch == 0 && tid < kBQ) {
-        const int t = q0 + tid;
-        lse_s[tid] = t < tq ? lse_b[t] : 0.f;
-        delta_s[tid] = t < tq ? delta_b[t] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int dd = 0; dd < kC; ++dd) {
-        float kv[4], vv[4], qv[4], dov[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = Ks[(ty + 16 * i) * kLC + dd];
-          vv[i] = Vs[(ty + 16 * i) * kLC + dd];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = Qs[(tx + 16 * j) * kLC + dd];
-          dov[j] = dOs[(tx + 16 * j) * kLC + dd];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], dov[j], dp[i][j]);
-          }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool keep = visible(q0 + c, k0 + r, tq, tkv, causal, window);
-        const float p = keep ? expf(s[i][j] * scale - lse_s[c]) : 0.f;
-        Ps[r * kLC + c] = (p);
-        dSs[r * kLC + c] = (p * (dp[i][j] - delta_s[c]) * scale);
-      }
-    }
-    if (nch > 1) {  // this block's columns of Q and dO for dk and dv
-      __syncthreads();
-      load_chunk(Qs, q + qoff, q0, tq, c0, d, tstride);
-      load_chunk(dOs, dout + qoff, q0, tq, c0, d, tstride);
-    }
-    __syncthreads();
-
-    // dv += P.dO, dk += dS.Q over this tile's queries, this slice's columns
-#pragma unroll 4
-    for (int qq = 0; qq < kBQ; ++qq) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = Ps[(ty + 16 * i) * kLC + qq];
-        ds[i] = dSs[(ty + 16 * i) * kLC + qq];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float dov = dOs[qq * kLC + tx + 16 * j];
-        const float qv = Qs[qq * kLC + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          dv_acc[i][j] = fmaf(p[i], dov, dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(ds[i], qv, dk_acc[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = k0 + ty + 16 * i;
-    if (t < tkv) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = c0 + tx + 16 * j;
-        if (col < d) {
-          dk[koff + t * tstride + col] = dk_acc[i][j];
-          dv[koff + t * tstride + col] = dv_acc[i][j];
-        }
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_chunked_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            const float* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
-                            float* __restrict__ dq, int heads, int tq,
-                            int tkv, int d, int causal, int window,
-                            float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                  // [BQ][C+1] a chunk of Q
-  float* dOs = Qs + kBQ * kLC;       // [BQ][C+1] a chunk of dO
-  float* Ks = dOs + kBQ * kLC;       // [BK][C+1] a chunk, then the slice
-  float* Vs = Ks + kBK * kLC;        // [BK][C+1] a chunk of V
-  float* dSs = Vs + kBK * kLC;       // [BQ][C+1] ds
-  float* lse_s = dSs + kBQ * kLC;    // [BQ]
-  float* delta_s = lse_s + kBQ;      // [BQ]
-
-  const int bh = blockIdx.x;
-  const int b = bh / heads, h = bh % heads;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy tiles first
-  const int c0 = blockIdx.z * kC;  // this block's dq columns
-  const int nch = (d + kC - 1) / kC;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int64_t tstride = (int64_t)heads * d;
-  const int64_t qoff = ((int64_t)b * tq * heads + h) * d;
-  const int64_t koff = ((int64_t)b * tkv * heads + h) * d;
-
-  if (nch == 1) {  // one chunk: Q and dO stay in shared memory
-    load_chunk(Qs, q + qoff, q0, tq, 0, d, tstride);
-    load_chunk(dOs, dout + qoff, q0, tq, 0, d, tstride);
-  }
-  if (tid < kBQ) {
-    const int t = q0 + tid;
-    lse_s[tid] = t < tq ? lse[(int64_t)bh * tq + t] : 0.f;
-    delta_s[tid] = t < tq ? delta[(int64_t)bh * tq + t] : 0.f;
-  }
-  float dq_acc[4][4];  // query rows ty + 16*i, cols c0 + tx + 16*j
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dq_acc[i][j] = 0.f;
-
-  int k_lo = 0, k_hi = tkv;
-  if (causal) k_hi = min(tkv, q0 + kBQ);
-  if (window > 0) k_lo = max(0, q0 - window + 1);
-  const int kt_lo = k_lo / kBK, kt_hi = (k_hi + kBK - 1) / kBK;
-
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * kBK;
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int ch = 0; ch < nch; ++ch) {
-      __syncthreads();  // the previous chunk's (or tile's) reads are done
-      if (nch > 1) {
-        load_chunk(Qs, q + qoff, q0, tq, ch * kC, d, tstride);
-        load_chunk(dOs, dout + qoff, q0, tq, ch * kC, d, tstride);
-      }
-      load_chunk(Ks, k + koff, k0, tkv, ch * kC, d, tstride);
-      load_chunk(Vs, v + koff, k0, tkv, ch * kC, d, tstride);
-      __syncthreads();
-#pragma unroll 4
-      for (int dd = 0; dd < kC; ++dd) {
-        float qv[4], dov[4], kv[4], vv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          qv[i] = Qs[(ty + 16 * i) * kLC + dd];
-          dov[i] = dOs[(ty + 16 * i) * kLC + dd];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          kv[j] = Ks[(tx + 16 * j) * kLC + dd];
-          vv[j] = Vs[(tx + 16 * j) * kLC + dd];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-            dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-          }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool keep = visible(q0 + r, k0 + c, tq, tkv, causal, window);
-        const float p = keep ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        dSs[r * kLC + c] = (p * (dp[i][j] - delta_s[r]) * scale);
-      }
-    }
-    if (nch > 1) {  // this block's columns of K for dq
-      __syncthreads();
-      load_chunk(Ks, k + koff, k0, tkv, c0, d, tstride);
-    }
-    __syncthreads();
-
-    // dq += dS.K over this tile's keys, this slice's columns
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dSs[(ty + 16 * i) * kLC + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float kv = Ks[kk * kLC + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dq_acc[i][j] = fmaf(ds[i], kv, dq_acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t < tq) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = c0 + tx + 16 * j;
-        if (col < d) dq[qoff + t * tstride + col] = dq_acc[i][j];
-      }
-    }
-  }
-}
-
-int launch_dkdv_chunked(const Args& a, void* dk, void* dv) {
-  const size_t bytes = dkdv_chunked_smem_floats() * sizeof(float);
-  cudaError_t err = dl4j_smem::set_max_dynamic_smem(
-      reinterpret_cast<const void*>(flash_bwd_dkdv_chunked_kernel),
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.batch * a.heads, (a.tkv + kBK - 1) / kBK, (a.d + kC - 1) / kC);
-  flash_bwd_dkdv_chunked_kernel<<<grid, kThreads, bytes, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), a.heads, a.tq,
-      a.tkv, a.d, a.causal, a.window, a.scale);
-  return (int)cudaGetLastError();
-}
-
-int launch_dq_chunked(const Args& a, void* dq) {
-  const size_t bytes = dq_chunked_smem_floats() * sizeof(float);
-  cudaError_t err = dl4j_smem::set_max_dynamic_smem(
-      reinterpret_cast<const void*>(flash_bwd_dq_chunked_kernel),
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.batch * a.heads, (a.tq + kBQ - 1) / kBQ, (a.d + kC - 1) / kC);
-  flash_bwd_dq_chunked_kernel<<<grid, kThreads, bytes, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<float*>(dq), a.heads, a.tq, a.tkv, a.d, a.causal,
-      a.window, a.scale);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // B2 bf16 tensor-core variant
@@ -1685,6 +1064,910 @@ int launch_dq_wide(const Args& a, void* dq) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// B2 and B3 f32 on the tensor cores (3xTF32, mma_tf32.cuh): rows of up to
+// 128 floats whole in shared memory
+// ---------------------------------------------------------------------------
+// the widest f32 row a tile keeps whole: given by the build
+// (kernels/_build.py) from kernels/__init__.py's F32_TIER_MAX
+#ifndef DL4J_F32_TIER_MAX
+#error "DL4J_F32_TIER_MAX must be defined by the build"
+#endif
+constexpr int kF32TierMax = DL4J_F32_TIER_MAX;
+
+// Warps of a block of the f32 tile kernels: 4 warps of 16 rows up to 64
+// (two blocks an SM), 8 above, two warps a 16-row group, each taking half
+// of every tile's columns (one block an SM: the tiles need more than half
+// of its shared memory)
+template <int D>
+constexpr int kTf32Warps = D > 64 ? 8 : 4;
+
+template <int D>
+constexpr size_t dkdv_tf32_smem_bytes() {
+  // K, V [64][D+4] and Q, dO [2 stages][64][D+4] in f32; lse and delta
+  // [2 stages][64]
+  return ((size_t)6 * 64 * (D + 4) + (size_t)2 * 2 * kBQ) * sizeof(float);
+}
+
+// B2's tensor-core loop in f32: D the width rows take in shared memory;
+// kPad: rows hold d <= D floats in device memory (a padded tier), else
+// d == D.
+template <int D, bool kPad>
+__global__ void __launch_bounds__(32 * kTf32Warps<D>)
+flash_bwd_dkdv_tf32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dk, float* __restrict__ dv,
+                           int heads, int tq, int tkv, int d, int vec,
+                           int causal, int window, float scale) {
+  using namespace dl4j_tf32;
+  using dl4j_mma::cp_async_4;
+  using dl4j_mma::cp_async_commit;
+  using dl4j_mma::cp_async_wait;
+  constexpr int kThreads = 32 * kTf32Warps<D>;
+  constexpr int LD = D + 4;              // padded shared row, floats
+  constexpr int KC = D / 8;              // k-steps over d of S^T and dP^T
+  constexpr int NO = D / 8;              // 8-wide column tiles of dk, dv
+  constexpr int QH = kBQ * 4 / kTf32Warps<D>;  // a warp's queries a tile
+  // query columns a pass: fewer at the widths whose dk and dv
+  // accumulators leave fewer registers for s and dp
+  constexpr int QS = D <= 64 ? 64 : D <= 96 ? 32 : 16;
+  constexpr int NS = QS / 8;             // 8-query column tiles a pass
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);  // [64][LD]
+  float* Vs = Ks + kBK * LD;                       // [64][LD]
+  float* Qs = Vs + kBK * LD;                       // [2][64][LD]
+  float* dOs = Qs + 2 * kBQ * LD;                  // [2][64][LD]
+  float* lse_s = dOs + 2 * kBQ * LD;               // [2][64]
+  float* delta_s = lse_s + 2 * kBQ;                // [2][64]
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads, h = bh % heads;
+  const int k0 = blockIdx.y * kBK;  // causal: the heaviest tiles come first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int half = warp / 4;  // which of a tile's query halves (8 warps)
+  const int dh = kPad ? d : D;  // floats a row in device memory
+  const int64_t tstride = (int64_t)heads * dh;
+  const int64_t qoff = ((int64_t)b * tq * heads + h) * dh;
+  const int64_t koff = ((int64_t)b * tkv * heads + h) * dh;
+  const float* lse_b = lse + (int64_t)bh * tq;
+  const float* delta_b = delta + (int64_t)bh * tq;
+  auto load = [&](float* dst, const float* src, int t0, int len) {
+    cp_tile_f32<D, kThreads>(dst, src, t0, len, tstride, dh, !kPad || vec);
+  };
+
+  // query tiles that can see this key tile: the causal diagonal bounds
+  // them from below, the window's far edge from above
+  int q_lo = 0, q_hi = tq;
+  if (causal) q_lo = k0;
+  if (window > 0) q_hi = min(tq, k0 + kBK - 1 + window);
+  const int qt_lo = q_lo / kBQ, qt_hi = (q_hi + kBQ - 1) / kBQ;
+
+  // one stage of the ring: Q, dO, lse and delta of query tile qt
+  auto load_q_tile = [&](int qt, int stage) {
+    const int q0 = qt * kBQ;
+    load(Qs + stage * kBQ * LD, q + qoff, q0, tq);
+    load(dOs + stage * kBQ * LD, dout + qoff, q0, tq);
+    if (threadIdx.x < 2 * kBQ) {
+      const int i = threadIdx.x % kBQ, t = q0 + i;
+      const float* src = threadIdx.x < kBQ ? lse_b : delta_b;
+      float* dst = (threadIdx.x < kBQ ? lse_s : delta_s) + stage * kBQ + i;
+      cp_async_4(dst, src + (t < tq ? t : 0), t < tq ? 4 : 0);
+    }
+  };
+
+  load(Ks, k + koff, k0, tkv);
+  load(Vs, v + koff, k0, tkv);
+  if (qt_lo < qt_hi) load_q_tile(qt_lo, 0);
+  cp_async_commit();
+
+  const int krow = (warp % 4) * 16;  // this warp's key rows in the tile
+  float dk_acc[NO][4], dv_acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int qt = qt_lo; qt < qt_hi; ++qt) {
+    const int stage = (qt - qt_lo) & 1;
+    if (qt + 1 < qt_hi) load_q_tile(qt + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and K, V) have landed
+    __syncthreads();
+    const float* Qt = Qs + stage * kBQ * LD;
+    const float* dOt = dOs + stage * kBQ * LD;
+    const float* lse_t = lse_s + stage * kBQ;
+    const float* delta_t = delta_s + stage * kBQ;
+    const int q0 = qt * kBQ;
+    const bool edge = q0 + kBQ > tq || k0 + kBK > tkv ||
+                      (causal && k0 + kBK - 1 > q0) ||
+                      (window > 0 && q0 + kBQ - 1 - k0 >= window);
+
+#pragma unroll 1
+    for (int qs = half * QH; qs < (half + 1) * QH; qs += QS) {
+      // S^T = K.Q^T and dP^T = V.dO^T: K and V rows are the A operands
+      // (split once a k-step), Q and dO rows the B operands' columns
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 1
+      for (int kc = 0; kc < KC; ++kc) {
+        FragA ka, va;
+        frag_a(ka, Ks, LD, krow, kc * 8);
+        frag_a(va, Vs, LD, krow, kc * 8);
+#pragma unroll
+        for (int jp = 0; jp < NS / 2; ++jp) {
+          float bq[4], bo[4];
+          frag_b_nk(bq, Qt, LD, qs + jp * 16, kc * 8);
+          mma_3x(s[2 * jp], ka, bq[0], bq[1]);
+          mma_3x(s[2 * jp + 1], ka, bq[2], bq[3]);
+          frag_b_nk(bo, dOt, LD, qs + jp * 16, kc * 8);
+          mma_3x(dp[2 * jp], va, bo[0], bo[1]);
+          mma_3x(dp[2 * jp + 1], va, bo[2], bo[3]);
+        }
+      }
+
+      // p^T = exp(s.scale - lse), 0 where masked (evaluated only on tiles
+      // that cross the diagonal, the window edge or a sequence end);
+      // ds^T = p^T (dp^T - delta) scale
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = qs + j * 8 + 2 * t4 + e % 2;  // column in the tile
+          float p = expf(s[j][e] * scale - lse_t[qc]);
+          if (edge) {
+            const int qi = q0 + qc, kj = k0 + krow + g + (e / 2) * 8;
+            bool keep = qi < tq && kj < tkv;
+            if (causal) keep = keep && qi >= kj;
+            if (window > 0) keep = keep && qi - kj < window;
+            p = keep ? p : 0.f;
+          }
+          dp[j][e] = p * (dp[j][e] - delta_t[qc]) * scale;
+          s[j][e] = p;
+        }
+
+      // dV += P^T.dO and dK += dS^T.Q: the A operands are the
+      // accumulators above over permuted queries, the B operands dO and Q
+      // rows read in the same order
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        FragA pa, da;
+        c_as_a(pa, s[kk]);
+        c_as_a(da, dp[kk]);
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          float b0, b1;
+          frag_b_kn(b0, b1, dOt, LD, qs + kk * 8, n * 8);
+          mma_3x(dv_acc[n], pa, b0, b1);
+          frag_b_kn(b0, b1, Qt, LD, qs + kk * 8, n * 8);
+          mma_3x(dk_acc[n], da, b0, b1);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  if constexpr (kTf32Warps<D> == 8) {
+    // the second query half's dk and dv partials through shared memory
+    // (the Q and dO ring is free; 128 threads x D floats fit in it), added
+    // in a fixed order
+    cp_async_wait<0>();
+    __syncthreads();
+    float* part = Qs;  // [D][128]: value i of thread j at i * 128 + j
+    const int j = threadIdx.x % 128;
+    if (half == 1) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          part[(n * 8 + e) * 128 + j] = dk_acc[n][e];
+          part[(n * 8 + 4 + e) * 128 + j] = dv_acc[n][e];
+        }
+    }
+    __syncthreads();
+    if (half == 1) return;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dk_acc[n][e] += part[(n * 8 + e) * 128 + j];
+        dv_acc[n][e] += part[(n * 8 + 4 + e) * 128 + j];
+      }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = k0 + krow + g + i * 8;
+    if (t < tkv) {
+      const int64_t row = koff + t * tstride + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        if constexpr (kPad) {  // padded columns are not stored
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            if (n * 8 + 2 * t4 + j < d) {
+              dk[row + n * 8 + j] = dk_acc[n][2 * i + j];
+              dv[row + n * 8 + j] = dv_acc[n][2 * i + j];
+            }
+          }
+        } else {
+          *reinterpret_cast<float2*>(dk + row + n * 8) =
+              make_float2(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
+          *reinterpret_cast<float2*>(dv + row + n * 8) =
+              make_float2(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dq_tf32_smem_bytes() {
+  // Q, dO [64][D+4] and K, V [2 stages][64][D+4], f32
+  return (size_t)6 * 64 * (D + 4) * sizeof(float);
+}
+
+// B3's tensor-core loop in f32, one 64-key tile a step; D and kPad as in
+// the B2 kernel above.
+template <int D, bool kPad>
+__global__ void __launch_bounds__(32 * kTf32Warps<D>)
+flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dq, int heads, int tq, int tkv,
+                         int d, int vec, int causal, int window,
+                         float scale) {
+  using namespace dl4j_tf32;
+  using dl4j_mma::cp_async_commit;
+  using dl4j_mma::cp_async_wait;
+  constexpr int kThreads = 32 * kTf32Warps<D>;
+  constexpr int LD = D + 4;     // padded shared row, floats
+  constexpr int KC = D / 8;     // k-steps over d of S and dP
+  constexpr int KH = kBK * 4 / kTf32Warps<D>;  // a warp's keys a tile
+  constexpr int NS = KH / 8;    // 8-key column tiles of S and dP a warp
+  constexpr int NO = D / 8;     // 8-wide column tiles of dq
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // [64][LD]
+  float* dOs = Qs + kBQ * LD;                      // [64][LD]
+  float* Ks = dOs + kBQ * LD;                      // [2][64][LD]
+  float* Vs = Ks + 2 * kBK * LD;                   // [2][64][LD]
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads, h = bh % heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy tiles first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int half = warp / 4;  // which of a tile's key halves (8 warps)
+  const int dh = kPad ? d : D;  // floats a row in device memory
+  const int64_t tstride = (int64_t)heads * dh;
+  const int64_t qoff = ((int64_t)b * tq * heads + h) * dh;
+  const int64_t koff = ((int64_t)b * tkv * heads + h) * dh;
+  auto load = [&](float* dst, const float* src, int t0, int len) {
+    cp_tile_f32<D, kThreads>(dst, src, t0, len, tstride, dh, !kPad || vec);
+  };
+
+  // the key tiles this query tile can see, as in the forward
+  int k_lo = 0, k_hi = tkv;
+  if (causal) k_hi = min(tkv, q0 + kBQ);
+  if (window > 0) k_lo = max(0, q0 - window + 1);
+  const int kt_lo = k_lo / kBK, kt_hi = (k_hi + kBK - 1) / kBK;
+
+  load(Qs, q + qoff, q0, tq);
+  load(dOs, dout + qoff, q0, tq);
+  load(Ks, k + koff, kt_lo * kBK, tkv);
+  load(Vs, v + koff, kt_lo * kBK, tkv);
+  cp_async_commit();
+
+  // this thread's rows of the warp's 16: r0 = q0 + 16*warp + g, r0 + 8;
+  // rows past tq read lse = delta = 0 and are masked and never written
+  const int qrow = (warp % 4) * 16;
+  const int r0 = q0 + qrow + g;
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + i * 8;
+    lse_r[i] = r < tq ? lse[(int64_t)bh * tq + r] : 0.f;
+    delta_r[i] = r < tq ? delta[(int64_t)bh * tq + r] : 0.f;
+  }
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int stage = (kt - kt_lo) & 1;
+    if (kt + 1 < kt_hi) {  // prefetch the next tile into the other stage
+      const int next = (stage ^ 1) * kBK * LD;
+      load(Ks + next, k + koff, (kt + 1) * kBK, tkv);
+      load(Vs + next, v + koff, (kt + 1) * kBK, tkv);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and Q, dO) have landed
+    __syncthreads();
+    const float* Kt = Ks + stage * kBK * LD;
+    const float* Vt = Vs + stage * kBK * LD;
+    const int k0 = kt * kBK;
+    const bool edge = q0 + kBQ > tq || k0 + kBK > tkv ||
+                      (causal && k0 + kBK - 1 > q0) ||
+                      (window > 0 && q0 + kBQ - 1 - k0 >= window);
+
+    {
+      const int ks = half * KH;  // this warp's keys of the tile
+      // S = Q.K^T and dP = dO.V^T over keys ks..ks+KH-1: Q and dO rows are
+      // the A operands (split once a k-step), K and V rows the B operands'
+      // columns
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 1
+      for (int kc = 0; kc < KC; ++kc) {
+        FragA qa, oa;
+        frag_a(qa, Qs, LD, qrow, kc * 8);
+        frag_a(oa, dOs, LD, qrow, kc * 8);
+#pragma unroll
+        for (int jp = 0; jp < NS / 2; ++jp) {
+          float bk[4], bv[4];
+          frag_b_nk(bk, Kt, LD, ks + jp * 16, kc * 8);
+          mma_3x(s[2 * jp], qa, bk[0], bk[1]);
+          mma_3x(s[2 * jp + 1], qa, bk[2], bk[3]);
+          frag_b_nk(bv, Vt, LD, ks + jp * 16, kc * 8);
+          mma_3x(dp[2 * jp], oa, bv[0], bv[1]);
+          mma_3x(dp[2 * jp + 1], oa, bv[2], bv[3]);
+        }
+      }
+
+      // p = exp(s.scale - lse), 0 where masked (edge tiles only); ds = p
+      // (dp - delta) scale
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e / 2;
+          float p = expf(s[j][e] * scale - lse_r[i]);
+          if (edge) {
+            const int qi = r0 + i * 8;
+            const int kj = k0 + ks + j * 8 + 2 * t4 + e % 2;
+            bool keep = qi < tq && kj < tkv;
+            if (causal) keep = keep && qi >= kj;
+            if (window > 0) keep = keep && qi - kj < window;
+            p = keep ? p : 0.f;
+          }
+          dp[j][e] = p * (dp[j][e] - delta_r[i]) * scale;
+        }
+
+      // dQ += dS.K: dS from the accumulators over permuted keys, K rows
+      // read in the same order
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        FragA da;
+        c_as_a(da, dp[kk]);
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          float b0, b1;
+          frag_b_kn(b0, b1, Kt, LD, ks + kk * 8, n * 8);
+          mma_3x(acc[n], da, b0, b1);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  if constexpr (kTf32Warps<D> == 8) {
+    // the second key half's dq partials through shared memory (the K ring
+    // is free), added in a fixed order
+    cp_async_wait<0>();
+    __syncthreads();
+    float* part = Ks;  // [D/2][128]: value i of thread j at i * 128 + j
+    const int j = threadIdx.x % 128;
+    if (half == 1) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[(n * 4 + e) * 128 + j] = acc[n][e];
+    }
+    __syncthreads();
+    if (half == 1) return;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[(n * 4 + e) * 128 + j];
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + i * 8;
+    if (r < tq) {
+      float* row = dq + qoff + r * tstride + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        if constexpr (kPad) {  // padded columns are not stored
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            if (n * 8 + 2 * t4 + j < d) row[n * 8 + j] = acc[n][2 * i + j];
+        } else {
+          *reinterpret_cast<float2*>(row + n * 8) =
+              make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int D, bool kPad>
+int launch_dkdv_tf32(const Args& a, void* dk, void* dv) {
+  if (a.d > D || (!kPad && a.d != D)) return (int)cudaErrorInvalidValue;
+  const size_t bytes = dkdv_tf32_smem_bytes<D>();
+  cudaError_t err = dl4j_smem::set_max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_bwd_dkdv_tf32_kernel<D, kPad>),
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.batch * a.heads, (a.tkv + kBK - 1) / kBK);
+  flash_bwd_dkdv_tf32_kernel<D, kPad>
+      <<<grid, 32 * kTf32Warps<D>, bytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), a.heads, a.tq,
+      a.tkv, a.d, a.vec, a.causal, a.window, a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool kPad>
+int launch_dq_tf32(const Args& a, void* dq) {
+  if (a.d > D || (!kPad && a.d != D)) return (int)cudaErrorInvalidValue;
+  const size_t bytes = dq_tf32_smem_bytes<D>();
+  cudaError_t err = dl4j_smem::set_max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_bwd_dq_tf32_kernel<D, kPad>),
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.batch * a.heads, (a.tq + kBQ - 1) / kBQ);
+  flash_bwd_dq_tf32_kernel<D, kPad>
+      <<<grid, 32 * kTf32Warps<D>, bytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(dq), a.heads, a.tq, a.tkv, a.d, a.vec, a.causal,
+      a.window, a.scale);
+  return (int)cudaGetLastError();
+}
+
+// the f32 instantiation of a padded tier (widths up to kF32TierMax only;
+// wider f32 rows take the wide kernels below)
+template <int T>
+int launch_dkdv_tf32_tier(const Args& a, void* dk, void* dv) {
+  if constexpr (T <= kF32TierMax)
+    return launch_dkdv_tf32<T, true>(a, dk, dv);
+  else
+    return (int)cudaErrorInvalidValue;
+}
+
+template <int T>
+int launch_dq_tf32_tier(const Args& a, void* dq) {
+  if constexpr (T <= kF32TierMax)
+    return launch_dq_tf32<T, true>(a, dq);
+  else
+    return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// B2 and B3 f32 above 128: the 3xTF32 kernels with d streamed in chunks
+// ---------------------------------------------------------------------------
+constexpr int kFC = 64;   // columns of a (key or query) tile a chunk, f32
+constexpr int kFS = 64;   // output columns a block (grid z), f32
+
+constexpr size_t dkdv_wide_tf32_smem_bytes() {
+  // K, V [2 stages][64][kFC+4] and Q, dO [2 stages][32][kFC+4] chunks;
+  // the Q and dO slices [32][kFS+4]; lse and delta [32]; all f32
+  return ((size_t)2 * (2 * kBK + 2 * kWQ) * (kFC + 4) +
+          (size_t)2 * kWQ * (kFS + 4) + (size_t)2 * kWQ) * sizeof(float);
+}
+
+// The bf16 wide B2's schedule in f32: one block per (batch*head, 64-key
+// tile, 64-column slice of dk and dv), 4 warps of 16 key rows, query
+// tiles of 32 rows; S^T and dP^T summed over d in chunks of 64 columns of
+// K, V, Q and dO through a two-stage cp.async ring; the tile's Q and dO
+// slices, lse and delta arrive with its first chunk.
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkdv_wide_tf32_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
+                                const float* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                float* __restrict__ dk,
+                                float* __restrict__ dv, int heads, int tq,
+                                int tkv, int d, int vec, int causal,
+                                int window, float scale) {
+  using namespace dl4j_tf32;
+  using dl4j_mma::cp_async_4;
+  using dl4j_mma::cp_async_commit;
+  using dl4j_mma::cp_async_wait;
+  constexpr int LC = kFC + 4, LS = kFS + 4;  // padded shared rows
+  constexpr int KC = kFC / 8;                // k-steps a chunk
+  constexpr int NS = kWQ / 8;                // 8-query column tiles of S^T
+  constexpr int NO = kFS / 8;                // 8-wide column tiles of dk, dv
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Kc = reinterpret_cast<float*>(smem_raw);  // [2][64][LC]
+  float* Vc = Kc + 2 * kBK * LC;                   // [2][64][LC]
+  float* Qc = Vc + 2 * kBK * LC;                   // [2][32][LC]
+  float* dOc = Qc + 2 * kWQ * LC;                  // [2][32][LC]
+  float* Qsl = dOc + 2 * kWQ * LC;                 // [32][LS]
+  float* dOsl = Qsl + kWQ * LS;                    // [32][LS]
+  float* lse_s = dOsl + kWQ * LS;                  // [32]
+  float* delta_s = lse_s + kWQ;                    // [32]
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads, h = bh % heads;
+  const int k0 = blockIdx.y * kBK;  // causal: the heaviest tiles come first
+  const int c0 = blockIdx.z * kFS;  // this block's dk and dv columns
+  const int nch = (d + kFC - 1) / kFC;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int64_t tstride = (int64_t)heads * d;
+  const int64_t qoff = ((int64_t)b * tq * heads + h) * d;
+  const int64_t koff = ((int64_t)b * tkv * heads + h) * d;
+  const float* lse_b = lse + (int64_t)bh * tq;
+  const float* delta_b = delta + (int64_t)bh * tq;
+
+  int q_lo = 0, q_hi = tq;
+  if (causal) q_lo = k0;
+  if (window > 0) q_hi = min(tq, k0 + kBK - 1 + window);
+  const int qt_lo = q_lo / kWQ, qt_hi = (q_hi + kWQ - 1) / kWQ;
+  const int steps = max(qt_hi - qt_lo, 0) * nch;
+
+  // step i: chunk i % nch of query tile qt_lo + i / nch, into stage i % 2
+  auto load_step = [&](int i) {
+    const int c = (i % nch) * kFC, st = i & 1;
+    const int q0 = (qt_lo + i / nch) * kWQ;
+    cp_tile_f32<kFC, kMmaThreads>(Kc + st * kBK * LC, k + koff + c, k0, tkv,
+                                  tstride, d - c, vec);
+    cp_tile_f32<kFC, kMmaThreads>(Vc + st * kBK * LC, v + koff + c, k0, tkv,
+                                  tstride, d - c, vec);
+    cp_tile_f32<kFC, kMmaThreads, kWQ>(Qc + st * kWQ * LC, q + qoff + c, q0,
+                                       tq, tstride, d - c, vec);
+    cp_tile_f32<kFC, kMmaThreads, kWQ>(dOc + st * kWQ * LC, dout + qoff + c,
+                                       q0, tq, tstride, d - c, vec);
+  };
+  if (steps > 0) load_step(0);
+  cp_async_commit();
+
+  const int krow = warp * 16;
+  float dk_acc[NO][4], dv_acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  float s[NS][4], dp[NS][4];
+
+  for (int i = 0; i < steps; ++i) {
+    const int ch = i % nch, st = i & 1;
+    const int q0 = (qt_lo + i / nch) * kWQ;
+    if (ch == 0) {
+      // the previous tile's products are done (the barrier closing each
+      // step): this tile's Q and dO slices, lse and delta
+      cp_tile_f32<kFS, kMmaThreads, kWQ>(Qsl, q + qoff + c0, q0, tq, tstride,
+                                         d - c0, vec);
+      cp_tile_f32<kFS, kMmaThreads, kWQ>(dOsl, dout + qoff + c0, q0, tq,
+                                         tstride, d - c0, vec);
+      if (threadIdx.x < 2 * kWQ) {
+        const int r = threadIdx.x % kWQ, t = q0 + r;
+        const float* src = threadIdx.x < kWQ ? lse_b : delta_b;
+        float* dst = (threadIdx.x < kWQ ? lse_s : delta_s) + r;
+        cp_async_4(dst, src + (t < tq ? t : 0), t < tq ? 4 : 0);
+      }
+      cp_async_commit();
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+    if (i + 1 < steps) load_step(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the prefetch have landed
+    __syncthreads();
+
+    const float* Kt = Kc + st * kBK * LC;
+    const float* Vt = Vc + st * kBK * LC;
+    const float* Qt = Qc + st * kWQ * LC;
+    const float* dOt = dOc + st * kWQ * LC;
+#pragma unroll 1
+    for (int kc = 0; kc < KC; ++kc) {
+      FragA ka, va;
+      frag_a(ka, Kt, LC, krow, kc * 8);
+      frag_a(va, Vt, LC, krow, kc * 8);
+#pragma unroll
+      for (int jp = 0; jp < NS / 2; ++jp) {
+        float bq[4], bo[4];
+        frag_b_nk(bq, Qt, LC, jp * 16, kc * 8);
+        mma_3x(s[2 * jp], ka, bq[0], bq[1]);
+        mma_3x(s[2 * jp + 1], ka, bq[2], bq[3]);
+        frag_b_nk(bo, dOt, LC, jp * 16, kc * 8);
+        mma_3x(dp[2 * jp], va, bo[0], bo[1]);
+        mma_3x(dp[2 * jp + 1], va, bo[2], bo[3]);
+      }
+    }
+
+    if (ch == nch - 1) {  // S^T and dP^T are whole: p^T, ds^T, products
+      const bool edge = q0 + kWQ > tq || k0 + kBK > tkv ||
+                        (causal && k0 + kBK - 1 > q0) ||
+                        (window > 0 && q0 + kWQ - 1 - k0 >= window);
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = j * 8 + 2 * t4 + e % 2;  // column in the tile
+          float p = expf(s[j][e] * scale - lse_s[qc]);
+          if (edge) {
+            const int qi = q0 + qc, kj = k0 + krow + g + (e / 2) * 8;
+            bool keep = qi < tq && kj < tkv;
+            if (causal) keep = keep && qi >= kj;
+            if (window > 0) keep = keep && qi - kj < window;
+            p = keep ? p : 0.f;
+          }
+          dp[j][e] = p * (dp[j][e] - delta_s[qc]) * scale;
+          s[j][e] = p;
+        }
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        FragA pa, da;
+        c_as_a(pa, s[kk]);
+        c_as_a(da, dp[kk]);
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          float b0, b1;
+          frag_b_kn(b0, b1, dOsl, LS, kk * 8, n * 8);
+          mma_3x(dv_acc[n], pa, b0, b1);
+          frag_b_kn(b0, b1, Qsl, LS, kk * 8, n * 8);
+          mma_3x(dk_acc[n], da, b0, b1);
+        }
+      }
+    }
+    __syncthreads();  // this stage, and at a tile's end the slices, are free
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = k0 + krow + g + i * 8;
+    if (t < tkv) {
+      const int64_t row = koff + t * tstride;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = c0 + n * 8 + 2 * t4 + j;
+          if (col < d) {
+            dk[row + col] = dk_acc[n][2 * i + j];
+            dv[row + col] = dv_acc[n][2 * i + j];
+          }
+        }
+    }
+  }
+}
+
+constexpr size_t dq_wide_tf32_smem_bytes() {
+  // Q, dO, K, V chunks [2 stages][64][kFC+4] and the K slice [64][kFS+4]
+  return ((size_t)8 * 64 * (kFC + 4) + (size_t)64 * (kFS + 4)) *
+         sizeof(float);
+}
+
+// The bf16 wide B3's schedule in f32: one block per (batch*head, 64-query
+// tile, 64-column slice of dq), 4 warps of 16 query rows; each key
+// tile's S and dP summed over d in chunks of 64 columns of Q, dO, K and V
+// through a two-stage cp.async ring; the tile's K slice arrives with its
+// first chunk.
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_wide_tf32_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              float* __restrict__ dq, int heads, int tq,
+                              int tkv, int d, int vec, int causal, int window,
+                              float scale) {
+  using namespace dl4j_tf32;
+  using dl4j_mma::cp_async_commit;
+  using dl4j_mma::cp_async_wait;
+  constexpr int LC = kFC + 4, LS = kFS + 4;  // padded shared rows
+  constexpr int KC = kFC / 8;                // k-steps a chunk
+  constexpr int NS = kBK / 8;                // 8-key column tiles of S, dP
+  constexpr int NO = kFS / 8;                // 8-wide column tiles of dq
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qc = reinterpret_cast<float*>(smem_raw);  // [2][64][LC]
+  float* dOc = Qc + 2 * kBQ * LC;                  // [2][64][LC]
+  float* Kc = dOc + 2 * kBQ * LC;                  // [2][64][LC]
+  float* Vc = Kc + 2 * kBK * LC;                   // [2][64][LC]
+  float* Ksl = Vc + 2 * kBK * LC;                  // [64][LS]
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads, h = bh % heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy tiles first
+  const int c0 = blockIdx.z * kFS;  // this block's dq columns
+  const int nch = (d + kFC - 1) / kFC;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int64_t tstride = (int64_t)heads * d;
+  const int64_t qoff = ((int64_t)b * tq * heads + h) * d;
+  const int64_t koff = ((int64_t)b * tkv * heads + h) * d;
+
+  int k_lo = 0, k_hi = tkv;
+  if (causal) k_hi = min(tkv, q0 + kBQ);
+  if (window > 0) k_lo = max(0, q0 - window + 1);
+  const int kt_lo = k_lo / kBK, kt_hi = (k_hi + kBK - 1) / kBK;
+  const int steps = (kt_hi - kt_lo) * nch;
+
+  // step i: chunk i % nch of key tile kt_lo + i / nch, into stage i % 2
+  auto load_step = [&](int i) {
+    const int c = (i % nch) * kFC, st = i & 1;
+    const int k0 = (kt_lo + i / nch) * kBK;
+    cp_tile_f32<kFC, kMmaThreads>(Qc + st * kBQ * LC, q + qoff + c, q0, tq,
+                                  tstride, d - c, vec);
+    cp_tile_f32<kFC, kMmaThreads>(dOc + st * kBQ * LC, dout + qoff + c, q0,
+                                  tq, tstride, d - c, vec);
+    cp_tile_f32<kFC, kMmaThreads>(Kc + st * kBK * LC, k + koff + c, k0, tkv,
+                                  tstride, d - c, vec);
+    cp_tile_f32<kFC, kMmaThreads>(Vc + st * kBK * LC, v + koff + c, k0, tkv,
+                                  tstride, d - c, vec);
+  };
+  load_step(0);
+  cp_async_commit();
+
+  // rows past tq read lse = delta = 0 and are masked and never written
+  const int qrow = warp * 16;
+  const int r0 = q0 + qrow + g;
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + i * 8;
+    lse_r[i] = r < tq ? lse[(int64_t)bh * tq + r] : 0.f;
+    delta_r[i] = r < tq ? delta[(int64_t)bh * tq + r] : 0.f;
+  }
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float s[NS][4], dp[NS][4];
+
+  for (int i = 0; i < steps; ++i) {
+    const int ch = i % nch, st = i & 1;
+    const int k0 = (kt_lo + i / nch) * kBK;
+    if (ch == 0) {
+      // the previous tile's dS.K is done (the barrier closing each step)
+      cp_tile_f32<kFS, kMmaThreads>(Ksl, k + koff + c0, k0, tkv, tstride,
+                                    d - c0, vec);
+      cp_async_commit();
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+    if (i + 1 < steps) load_step(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the prefetch have landed
+    __syncthreads();
+
+    const float* Qt = Qc + st * kBQ * LC;
+    const float* dOt = dOc + st * kBQ * LC;
+    const float* Kt = Kc + st * kBK * LC;
+    const float* Vt = Vc + st * kBK * LC;
+#pragma unroll 1
+    for (int kc = 0; kc < KC; ++kc) {
+      FragA qa, oa;
+      frag_a(qa, Qt, LC, qrow, kc * 8);
+      frag_a(oa, dOt, LC, qrow, kc * 8);
+#pragma unroll
+      for (int jp = 0; jp < NS / 2; ++jp) {
+        float bk[4], bv[4];
+        frag_b_nk(bk, Kt, LC, jp * 16, kc * 8);
+        mma_3x(s[2 * jp], qa, bk[0], bk[1]);
+        mma_3x(s[2 * jp + 1], qa, bk[2], bk[3]);
+        frag_b_nk(bv, Vt, LC, jp * 16, kc * 8);
+        mma_3x(dp[2 * jp], oa, bv[0], bv[1]);
+        mma_3x(dp[2 * jp + 1], oa, bv[2], bv[3]);
+      }
+    }
+
+    if (ch == nch - 1) {  // S and dP are whole: p, ds, dQ += dS.K
+      const bool edge = q0 + kBQ > tq || k0 + kBK > tkv ||
+                        (causal && k0 + kBK - 1 > q0) ||
+                        (window > 0 && q0 + kBQ - 1 - k0 >= window);
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2;
+          float p = expf(s[j][e] * scale - lse_r[r]);
+          if (edge) {
+            const int qi = r0 + r * 8;
+            const int kj = k0 + j * 8 + 2 * t4 + e % 2;
+            bool keep = qi < tq && kj < tkv;
+            if (causal) keep = keep && qi >= kj;
+            if (window > 0) keep = keep && qi - kj < window;
+            p = keep ? p : 0.f;
+          }
+          dp[j][e] = p * (dp[j][e] - delta_r[r]) * scale;
+        }
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        FragA da;
+        c_as_a(da, dp[kk]);
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          float b0, b1;
+          frag_b_kn(b0, b1, Ksl, LS, kk * 8, n * 8);
+          mma_3x(acc[n], da, b0, b1);
+        }
+      }
+    }
+    __syncthreads();  // this stage, and at a tile's end Ksl, are free
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + i * 8;
+    if (r < tq) {
+      float* row = dq + qoff + r * tstride;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = c0 + n * 8 + 2 * t4 + j;
+          if (col < d) row[col] = acc[n][2 * i + j];
+        }
+    }
+  }
+}
+
+int launch_dkdv_wide_tf32(const Args& a, void* dk, void* dv) {
+  const size_t bytes = dkdv_wide_tf32_smem_bytes();
+  cudaError_t err = dl4j_smem::set_max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_bwd_dkdv_wide_tf32_kernel),
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.batch * a.heads, (a.tkv + kBK - 1) / kBK,
+                  (a.d + kFS - 1) / kFS);
+  flash_bwd_dkdv_wide_tf32_kernel<<<grid, kMmaThreads, bytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), a.heads, a.tq,
+      a.tkv, a.d, a.vec, a.causal, a.window, a.scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_dq_wide_tf32(const Args& a, void* dq) {
+  const size_t bytes = dq_wide_tf32_smem_bytes();
+  cudaError_t err = dl4j_smem::set_max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_bwd_dq_wide_tf32_kernel),
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.batch * a.heads, (a.tq + kBQ - 1) / kBQ,
+                  (a.d + kFS - 1) / kFS);
+  flash_bwd_dq_wide_tf32_kernel<<<grid, kMmaThreads, bytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(dq), a.heads, a.tq, a.tkv, a.d, a.vec, a.causal,
+      a.window, a.scale);
+  return (int)cudaGetLastError();
+}
+
 bool valid(const Args& a) {
   return a.batch >= 1 && a.heads >= 1 && a.tq >= 1 && a.tkv >= 1 &&
          a.d >= 1 && (int64_t)a.batch * a.heads <= 0x7fffffff &&
@@ -1700,10 +1983,11 @@ bool valid(const Args& a) {
 #error "DL4J_MMA_TIERS must be defined by the build"
 #endif
 
-// route: 0 = exact (head_dim 64 or 128, unpadded), 1 = tier (bf16, rows
-// padded to `tier`), 2 = chunked (f32, any head_dim), 3 = wide (bf16
-// above 256). vec: rows may move in 16-byte cp.async copies (tier, wide).
-// dtype: 0 = float32, 1 = bfloat16. window <= 0 means no window.
+// route: 0 = exact (head_dim 64 or 128, unpadded), 1 = tier (rows padded
+// to `tier`: bf16 up to 256, f32 up to 128), 3 = wide (d streamed in
+// chunks: bf16 above 256, f32 above 128); 2 (chunked) is B1's f32 route
+// only. vec: rows may move in 16-byte cp.async copies (tier, wide).
+// dtype: 0 = float32 (3xTF32), 1 = bfloat16. window <= 0 means no window.
 // q, k, v, dout: BTHD in the input dtype; lse, delta: [batch*heads, tq]
 // f32; dk, dv: BTHD f32 [batch, tkv, heads, head_dim].
 extern "C" int dl4j_flash_bwd_dkdv(const void* q, const void* k,
@@ -1718,8 +2002,10 @@ extern "C" int dl4j_flash_bwd_dkdv(const void* q, const void* k,
                static_cast<cudaStream_t>(stream)};
   if (!valid(a)) return (int)cudaErrorInvalidValue;
   if (route == 0) {
-    if (dtype == 0 && head_dim == 64) return launch_dkdv<64>(a, dk, dv);
-    if (dtype == 0 && head_dim == 128) return launch_dkdv<128>(a, dk, dv);
+    if (dtype == 0 && head_dim == 64)
+      return launch_dkdv_tf32<64, false>(a, dk, dv);
+    if (dtype == 0 && head_dim == 128)
+      return launch_dkdv_tf32<128, false>(a, dk, dv);
     if (dtype == 1 && head_dim == 64)
       return launch_dkdv_mma<64, 64, false>(a, dk, dv);
     if (dtype == 1 && head_dim == 128)
@@ -1732,10 +2018,18 @@ extern "C" int dl4j_flash_bwd_dkdv(const void* q, const void* k,
       DL4J_MMA_TIERS
 #undef DL4J_TIER
     }
-  } else if (route == 2 && dtype == 0) {
-    return launch_dkdv_chunked(a, dk, dv);
+  } else if (route == 1 && dtype == 0) {
+    switch (tier) {
+#define DL4J_TIER(T) \
+  case T:            \
+    return launch_dkdv_tf32_tier<T>(a, dk, dv);
+      DL4J_MMA_TIERS
+#undef DL4J_TIER
+    }
   } else if (route == 3 && dtype == 1) {
     return launch_dkdv_wide(a, dk, dv);
+  } else if (route == 3 && dtype == 0) {
+    return launch_dkdv_wide_tf32(a, dk, dv);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1753,8 +2047,9 @@ extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
                static_cast<cudaStream_t>(stream)};
   if (!valid(a)) return (int)cudaErrorInvalidValue;
   if (route == 0) {
-    if (dtype == 0 && head_dim == 64) return launch_dq<64>(a, dq);
-    if (dtype == 0 && head_dim == 128) return launch_dq<128>(a, dq);
+    if (dtype == 0 && head_dim == 64) return launch_dq_tf32<64, false>(a, dq);
+    if (dtype == 0 && head_dim == 128)
+      return launch_dq_tf32<128, false>(a, dq);
     if (dtype == 1 && head_dim == 64) return launch_dq_mma<64, false>(a, dq);
     if (dtype == 1 && head_dim == 128)
       return launch_dq_mma<128, false>(a, dq);
@@ -1766,10 +2061,18 @@ extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
       DL4J_MMA_TIERS
 #undef DL4J_TIER
     }
-  } else if (route == 2 && dtype == 0) {
-    return launch_dq_chunked(a, dq);
+  } else if (route == 1 && dtype == 0) {
+    switch (tier) {
+#define DL4J_TIER(T) \
+  case T:            \
+    return launch_dq_tf32_tier<T>(a, dq);
+      DL4J_MMA_TIERS
+#undef DL4J_TIER
+    }
   } else if (route == 3 && dtype == 1) {
     return launch_dq_wide(a, dq);
+  } else if (route == 3 && dtype == 0) {
+    return launch_dq_wide_tf32(a, dq);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -58,13 +58,16 @@
 //
 // f32 (dtype 0): "fma f32", the first kernel of this file. One block of
 // 256 threads per (batch*head, 64-row query tile), K/V staged in shared
-// memory as f32, scalar f32 FMAs. A tensor-core f32 path would need TF32,
-// which keeps about three digits and cannot pass the f32 gate (2e-5).
+// memory as f32, scalar f32 FMAs. One TF32 product a tensor-core step
+// keeps about three digits and cannot pass the f32 gate (2e-5); the
+// 3xTF32 split the f32 backward kernels use (mma_tf32.cuh) keeps about
+// 2^-22 and is this kernel's tensor-core route, not written yet.
 // Every kernel puts batch*head on grid x (up to 2^31 - 1) and the query
 // tiles on grid y, heaviest first.
 //
 // Bound on an H100: FLOPs 4*b*h*d*sum(visible keys) against 989 TFLOP/s
-// (bf16) or 67 TFLOP/s (f32), bytes (q + k + v + out) * elem + lse * 4
+// (bf16) or 165 TFLOP/s (f32, the 3xTF32 rate; the CUDA cores' 67
+// TFLOP/s beside it), bytes (q + k + v + out) * elem + lse * 4
 // against 3.35 TB/s. Left on the table: wgmma and TMA with warp
 // specialisation, and a persistent schedule that balances causal tiles
 // across the 132 SMs.

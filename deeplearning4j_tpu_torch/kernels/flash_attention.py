@@ -10,32 +10,39 @@ flash_attention.py`` (B1–B3 in PERF.md):
   ``flash_backward_pallas`` → ``csrc/flash_bwd.cu``.
 
 Every head dimension the reference's kernel takes runs here too.
-:func:`launch_plan` picks, from the shapes and the dtype alone, one of
-four routes for all three kernels (the C side owns each route's grid and
-column slices):
+:func:`launch_plan` picks, from the shapes and the dtype alone, a route
+for the forward and one for the backward pair (the C side owns each
+route's grid and column slices), and names each kernel's variant:
 
 - ``exact``: head_dim 64 or 128 (the main path's), the unpadded
-  instantiations. bf16 inputs run a tensor-core kernel ("mma.sync
-  bf16": warp ``mma.sync`` with f32 accumulators, ``ldmatrix`` and a
-  two-stage ``cp.async`` ring, from the shared header
-  ``csrc/mma_bf16.cuh``); f32 inputs the first, CUDA-core kernel ("fma
-  f32"), since TF32 tensor cores could not meet the f32 tolerances.
-- ``tier``: any other bf16 head_dim up to 256. The same tensor-core
+  instantiations. bf16 inputs run tensor-core kernels ("mma.sync bf16":
+  warp ``mma.sync`` with f32 accumulators, ``ldmatrix`` and a two-stage
+  ``cp.async`` ring, from the shared header ``csrc/mma_bf16.cuh``). f32
+  inputs run B2 and B3 on the tensor cores too ("mma.sync 3xtf32",
+  ``csrc/mma_tf32.cuh``: every operand split in two TF32 parts, three
+  ``mma.sync`` m16n8k8 products summed in f32, which keeps the f32
+  gates that one TF32 product misses) and B1 on the CUDA cores ("fma
+  f32", its first kernel).
+- ``tier``: any other bf16 head_dim up to 256, and for B2 and B3 any
+  other f32 head_dim up to :data:`F32_TIER_MAX`. The same tensor-core
   kernels, compiled for the next width of :data:`MMA_TIERS`, with each
   row zero-padded to it in shared memory (zero columns add nothing to
-  q·kᵀ, and padded output columns are not stored). Above 128, B2 splits
-  its dk/dv columns in two slices (a third grid dimension).
-- ``wide``: bf16 above 256. Tensor-core kernels that stream ``d`` in
-  chunks of :data:`CHUNK` columns for q·kᵀ (and dO·vᵀ) and write one
-  slice of 128 output columns a block; each slice recomputes the scores
-  over the whole ``d``.
-- ``chunked``: f32 at any other head_dim. CUDA-core kernels with the
-  same chunks and slices of :data:`CHUNK` output columns.
+  q·kᵀ, and padded output columns are not stored). Above 128, the bf16
+  B2 splits its dk/dv columns in two slices (a third grid dimension).
+- ``wide``: bf16 above 256, and B2 and B3 in f32 above
+  :data:`F32_TIER_MAX`. Tensor-core kernels that stream ``d`` in chunks
+  of :data:`CHUNK` columns for q·kᵀ (and dO·vᵀ) and write one slice of
+  output columns a block (128 in bf16, 64 in f32); each slice recomputes
+  the scores over the whole ``d``.
+- ``chunked``: B1 in f32 at any other head_dim. A CUDA-core kernel with
+  the same chunks and slices of :data:`CHUNK` output columns.
 
 Each source's note states the design and what it leaves on the table.
 
 Bounds on an H100 (SXM, 700 W data sheet), against 989 TFLOP/s for bf16
-operands, 67 TFLOP/s for f32 and 3.35 TB/s, counting
+operands, 165 TFLOP/s for f32 (the 3xTF32 rate, 495 / 3: the least time
+the card could take at f32 accuracy; the CUDA cores' 67 TFLOP/s is kept
+as ``cuda_core_bound_ms`` beside it) and 3.35 TB/s, counting
 ``Σ(visible keys)`` (:func:`visible_keys`) for the FLOPs and each input
 read once and each output written once for the bytes:
 
@@ -82,7 +89,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from deeplearning4j_tpu_torch.kernels import MMA_TIERS
+from deeplearning4j_tpu_torch.kernels import F32_TIER_MAX, MMA_TIERS
 
 MASK_VALUE = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -95,9 +102,12 @@ _TILE = 64  # query and key rows a tile: the grid's y
 _GRID_Y_MAX = 65535
 _INT_MAX = 2 ** 31 - 1
 
-# H100 SXM data-sheet peaks (dense): memory rate and per-type FLOP rates
+# H100 SXM data-sheet peaks (dense): memory rate and per-type FLOP rates.
+# float32 at f32 accuracy: 3xTF32 on the tensor cores, a third of TF32's
+# 495 TFLOP/s; the CUDA cores' float32 FMA rate is kept beside it.
 H100_BYTES_PER_S = 3.35e12
-H100_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+H100_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
+H100_F32_CUDA_CORE_FLOPS = 67e12
 
 
 def _check_shapes(q_shape, k_shape, v_shape, causal, window):
@@ -125,14 +135,14 @@ def _check(q, k, v, causal, window):
 
 
 @dataclass(frozen=True)
-class LaunchPlan:
-    """How the three kernels take one call's shapes (:func:`launch_plan`).
-
-    ``route`` is ``"exact"``, ``"tier"``, ``"wide"`` or ``"chunked"``
-    (the module note); ``tier`` the width a row is padded to in shared
-    memory (exact, tier) or the chunk width (wide, chunked); ``vec``
-    whether rows move in 16-byte ``cp.async`` copies (else element by
-    element)."""
+class KernelPlan:
+    """How one kernel takes a call's shapes: ``route`` is ``"exact"``,
+    ``"tier"``, ``"wide"`` or ``"chunked"`` (the module note); ``variant``
+    the CUDA kernel family that launches (``"mma.sync bf16"``,
+    ``"mma.sync 3xtf32"`` or ``"fma f32"``); ``tier`` the width a row is
+    padded to in shared memory (exact, tier) or the chunk width (wide,
+    chunked); ``vec`` whether rows move in 16-byte ``cp.async`` copies
+    (else element by element)."""
 
     route: str
     variant: str
@@ -142,6 +152,35 @@ class LaunchPlan:
     def c_args(self) -> tuple:
         """The integers the C entry points take: route, tier, vec."""
         return (_ROUTE_CODE[self.route], self.tier, int(self.vec))
+
+
+@dataclass(frozen=True)
+class LaunchPlan(KernelPlan):
+    """How the three kernels take one call's shapes (:func:`launch_plan`):
+    B1's plan in the fields of :class:`KernelPlan`, B2 and B3's (one
+    route for the pair) in ``bwd``."""
+
+    bwd: KernelPlan = None
+
+    def kernel(self, name: str) -> KernelPlan:
+        """The plan of ``"fwd"`` (B1), ``"dkdv"`` (B2) or ``"dq"`` (B3)."""
+        if name == "fwd":
+            return KernelPlan(self.route, self.variant, self.tier, self.vec)
+        if name in ("dkdv", "dq"):
+            return self.bwd
+        raise ValueError(f"no flash kernel {name!r}")
+
+
+def _route(d: int, aligned: bool, whole_up_to: int,
+           streamed: str) -> Tuple[str, int]:
+    """(route, tier): exact at 64/128 on aligned inputs, else the next
+    tier while ``d <= whole_up_to``, else ``streamed`` (``"wide"`` or
+    ``"chunked"``) at the chunk width."""
+    if d in EXACT_HEAD_DIMS and aligned:
+        return "exact", d
+    if d <= whole_up_to:
+        return "tier", next(t for t in MMA_TIERS if t >= d)
+    return streamed, CHUNK
 
 
 def launch_plan(q_shape, k_shape, dtype: torch.dtype, *,
@@ -172,15 +211,21 @@ def launch_plan(q_shape, k_shape, dtype: torch.dtype, *,
                          f"{_GRID_Y_MAX * _TILE} rows (got tq={tq}, "
                          f"tkv={tkv})")
     bf16 = dtype == torch.bfloat16
-    if d in EXACT_HEAD_DIMS and aligned:
-        route, tier = "exact", d
-    elif bf16 and d <= MMA_TIERS[-1]:
-        route, tier = "tier", next(t for t in MMA_TIERS if t >= d)
-    else:
-        route, tier = ("wide" if bf16 else "chunked"), CHUNK
+    vec = aligned and d % 8 == 0
+    # B1: bf16 on the tensor cores at every d; f32 on the CUDA cores, its
+    # unpadded kernels at 64/128 and the chunked one elsewhere
+    route, tier = _route(d, aligned, MMA_TIERS[-1] if bf16 else 0,
+                         "wide" if bf16 else "chunked")
+    # B2 and B3: the tensor cores in both dtypes, rows whole up to the
+    # widest tier (bf16) or F32_TIER_MAX (f32), streamed above
+    b_route, b_tier = _route(d, aligned,
+                             MMA_TIERS[-1] if bf16 else F32_TIER_MAX, "wide")
+    bwd = KernelPlan(route=b_route,
+                     variant="mma.sync bf16" if bf16 else "mma.sync 3xtf32",
+                     tier=b_tier, vec=vec)
     return LaunchPlan(route=route,
                       variant="mma.sync bf16" if bf16 else "fma f32",
-                      tier=tier, vec=aligned and d % 8 == 0)
+                      tier=tier, vec=vec, bwd=bwd)
 
 
 def _aligned(*tensors) -> bool:
@@ -419,7 +464,7 @@ def _bwd_launch(kernel, q, k, v, do, lse, delta, outs, causal, scale,
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("flash kernel needs contiguous BTHD inputs")
     plan = launch_plan(q.shape, k.shape, q.dtype, causal=causal,
-                       window=window, aligned=_aligned(q, k, v, do))
+                       window=window, aligned=_aligned(q, k, v, do)).bwd
     name = f"dl4j_flash_bwd_{kernel}"
     fn = getattr(_bwd_lib(), name)
     with torch.cuda.device(q.device):
@@ -578,22 +623,34 @@ def visible_keys(tq: int, tkv: int, *, causal: bool,
     return w * (w + 1) // 2 + (tq - w) * w
 
 
+def _bound(nbytes: int, flops: int, dtype: torch.dtype) -> dict:
+    """The larger of bytes over the memory rate and FLOPs over the peak
+    rate for ``dtype``; f32 also under the CUDA cores' rate
+    (``cuda_core_bound_ms``)."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FLOPS[dtype] * 1e3
+    out = {"bytes": nbytes, "flops": flops,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if dtype == torch.float32:
+        out["cuda_core_bound_ms"] = max(
+            t_bytes, flops / H100_F32_CUDA_CORE_FLOPS * 1e3)
+    return out
+
+
 def flash_bound(b: int, tq: int, tkv: int, h: int, d: int,
                 dtype: torch.dtype, *, causal: bool,
                 window: Optional[int] = None) -> dict:
     """Least time an H100 could take for this call: the larger of its
     bytes over the memory rate and its FLOPs over the peak rate for the
-    operand type."""
+    operand type (:data:`H100_FLOPS`; f32 also at the CUDA cores' rate,
+    ``cuda_core_bound_ms``)."""
     elem = torch.finfo(dtype).bits // 8
     nbytes = elem * (2 * b * tq * h * d + 2 * b * tkv * h * d) \
         + 4 * b * h * tq
     flops = 4 * b * h * d * visible_keys(tq, tkv, causal=causal,
                                          window=window)
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FLOPS[dtype] * 1e3
-    return {"bytes": nbytes, "flops": flops,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return _bound(nbytes, flops, dtype)
 
 
 def flash_bwd_bound(b: int, tq: int, tkv: int, h: int, d: int,
@@ -608,14 +665,6 @@ def flash_bwd_bound(b: int, tq: int, tkv: int, h: int, d: int,
     reads = elem * (2 * b * tq * h * d + 2 * b * tkv * h * d) \
         + 2 * 4 * b * h * tq
     pairs = b * h * d * visible_keys(tq, tkv, causal=causal, window=window)
-    out = {}
-    for name, nbytes, flops in (
-            ("dkdv", reads + 2 * 4 * b * tkv * h * d, 8 * pairs),
-            ("dq", reads + 4 * b * tq * h * d, 6 * pairs)):
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = flops / H100_FLOPS[dtype] * 1e3
-        out[name] = {"bytes": nbytes, "flops": flops,
-                     "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops
-                     else "operations"}
-    return out
+    return {"dkdv": _bound(reads + 2 * 4 * b * tkv * h * d, 8 * pairs,
+                           dtype),
+            "dq": _bound(reads + 4 * b * tq * h * d, 6 * pairs, dtype)}

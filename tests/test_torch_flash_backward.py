@@ -237,4 +237,36 @@ def test_bwd_bound_counts_each_kernels_work():
                            causal=True, window=128)
     vis = fa.visible_keys(1000, 1000, causal=True, window=128)
     assert w["dq"]["flops"] == 6 * 8 * 64 * vis
-    assert w["dkdv"]["bound_by"] == "operations"
+    # at the 3xTF32 rate (165 TFLOP/s) the window's 2.98 us of operations
+    # fall under its 3.69 us of bytes; at the CUDA cores' 67 TFLOP/s the
+    # operations would bound it (7.33 us)
+    assert w["dkdv"]["bound_by"] == "bytes"
+    assert w["dkdv"]["cuda_core_bound_ms"] == pytest.approx(
+        w["dkdv"]["flops"] / 67e12 * 1e3)
+    assert w["dkdv"]["cuda_core_bound_ms"] > w["dkdv"]["bound_ms"]
+
+
+def test_f32_bounds_take_the_3xtf32_rate():
+    """float32 work is bounded at the 3xTF32 tensor-core rate, a third of
+    TF32's 495 TFLOP/s: the least time the card could take at f32
+    accuracy. The CUDA cores' 67 TFLOP/s stays under a key of its own."""
+    assert fa.H100_FLOPS[torch.float32] == 495e12 / 3
+    assert fa.H100_F32_CUDA_CORE_FLOPS == 67e12
+    shape = (16, 1024, 1024, 8, 64)
+    fwd = fa.flash_bound(*shape, torch.float32, causal=True)
+    bwd = fa.flash_bwd_bound(*shape, torch.float32, causal=True)
+    for b in (fwd, bwd["dkdv"], bwd["dq"]):
+        assert b["bound_by"] == "operations"
+        assert b["bound_ms"] == pytest.approx(b["flops"] / 165e12 * 1e3)
+        assert b["cuda_core_bound_ms"] == pytest.approx(
+            b["flops"] / 67e12 * 1e3)
+    assert fwd["bound_ms"] == pytest.approx(0.1042, abs=1e-4)
+    assert bwd["dkdv"]["bound_ms"] == pytest.approx(0.2084, abs=1e-4)
+    assert bwd["dq"]["bound_ms"] == pytest.approx(0.1563, abs=1e-4)
+    opt = fa.flash_bwd_bound(2, 2048, 2048, 32, 80, torch.float32,
+                             causal=True)
+    assert opt["dkdv"]["bound_ms"] == pytest.approx(0.5209, abs=1e-4)
+    assert opt["dq"]["bound_ms"] == pytest.approx(0.3906, abs=1e-4)
+    # bf16 has one rate, and no second key
+    assert "cuda_core_bound_ms" not in fa.flash_bound(*shape, torch.bfloat16,
+                                                      causal=True)

@@ -29,6 +29,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import chip_smoke
 from deeplearning4j_tpu.models import transformer as jax_tm
 from deeplearning4j_tpu_torch.dtypes import tree_leaves
 from deeplearning4j_tpu_torch.kernels import _build
@@ -160,6 +161,58 @@ def test_launch_plan_takes_every_head_dim(dtype):
                           torch.bfloat16, causal=True).tier == 80
 
 
+def _expected_bwd_route(d, dtype):
+    if d in fa.EXACT_HEAD_DIMS:
+        return "exact", d
+    widest = fa.MMA_TIERS[-1] if dtype == torch.bfloat16 else fa.F32_TIER_MAX
+    if d <= widest:
+        return "tier", min(t for t in fa.MMA_TIERS if t >= d)
+    return "wide", fa.CHUNK
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_launch_plan_names_each_kernels_variant(dtype):
+    """B2 and B3 share one plan. In f32 it is the 3xTF32 tensor-core
+    kernels at every d (rows whole up to ``F32_TIER_MAX``, streamed in
+    chunks above), while B1 keeps its CUDA-core plan; in bf16 all three
+    take the same plan. ``chip_smoke.variant`` prints what the plan
+    says."""
+    name = str(dtype).replace("torch.", "")
+    b, t, h = 2, 130, 3
+    for d in range(1, 513):
+        plan = fa.launch_plan((b, t, h, d), (b, t, h, d), dtype,
+                              causal=True)
+        bwd = plan.kernel("dkdv")
+        assert plan.kernel("dq") == bwd == plan.bwd
+        route, tier = _expected_bwd_route(d, dtype)
+        assert (bwd.route, bwd.tier, bwd.vec) == (route, tier, d % 8 == 0), d
+        assert bwd.c_args() == ({"exact": 0, "tier": 1, "wide": 3}[route],
+                                tier, int(d % 8 == 0))
+        if route != "wide":
+            assert d <= bwd.tier
+        fwd = plan.kernel("fwd")
+        assert (fwd.route, fwd.variant, fwd.tier, fwd.vec) == \
+            (plan.route, plan.variant, plan.tier, plan.vec)
+        if dtype == torch.float32:
+            assert bwd.variant == "mma.sync 3xtf32"
+            assert (fwd.route, fwd.variant) == (
+                "exact" if d in fa.EXACT_HEAD_DIMS else "chunked", "fma f32")
+        else:
+            assert bwd == fwd and bwd.variant == "mma.sync bf16"
+        for kern in ("fwd", "dkdv", "dq"):
+            assert chip_smoke.variant(kern, name) == \
+                plan.kernel(kern).variant
+    # an input off a 16-byte boundary: the padded tier of 64 with element
+    # copies for B2 and B3, the chunked kernel for the f32 B1
+    plan = fa.launch_plan((1, 8, 2, 64), (1, 8, 2, 64), dtype,
+                          aligned=False)
+    assert (plan.bwd.route, plan.bwd.tier, plan.bwd.vec) == ("tier", 64,
+                                                             False)
+    with pytest.raises(ValueError, match="kernel"):
+        plan.kernel("bwd")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 def test_launch_plan_takes_batch_times_heads_past_the_grid_y_limit(dtype):
@@ -223,3 +276,20 @@ def test_tier_list_reaches_nvcc(monkeypatch):
         before = _build.library_path(name)
         monkeypatch.setitem(kernels.SOURCE_FLAGS, name, (flag + "X",))
         assert _build.library_path(name) != before
+
+
+def test_f32_tier_max_reaches_nvcc():
+    """The f32 backward's widest whole row is written once, in the
+    package: the plan reads it and ``flash_bwd.cu`` gets it as a compiler
+    flag (its text holds no width of its own)."""
+    from deeplearning4j_tpu_torch import kernels
+
+    flag = f"-DDL4J_F32_TIER_MAX={kernels.F32_TIER_MAX}"
+    assert fa.F32_TIER_MAX == kernels.F32_TIER_MAX
+    assert flag in _build.nvcc_flags("flash_bwd")
+    assert not any("F32_TIER_MAX" in f for f in _build.nvcc_flags("flash_fwd"))
+    with open(os.path.join(_build.CSRC, "flash_bwd.cu")) as f:
+        src = f.read()
+    assert "kF32TierMax = DL4J_F32_TIER_MAX;" in src
+    assert not re.search(r"kF32TierMax = \d", src)
+
