@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Nineteen phases; any failure exits non-zero and prints no result line.
+Twenty phases; any failure exits non-zero and prints no result line.
 
 1. Build and device: compile every CUDA kernel from ``csrc/`` (one
    ``nvcc`` per source, all at once), print ptxas's registers and spill
@@ -20,10 +20,13 @@ Nineteen phases; any failure exits non-zero and prints no result line.
    TF32 off, at f32 2e-5 and bf16 2e-2 on out and lse. The short and
    windowed cases put sequence ends and mask edges inside one 16-row MMA
    tile and one zero-filled ``cp.async`` row. Prints each kernel's
-   variant ("mma.sync bf16" or "fma f32") and time beside the plain
-   version's, ``F.scaled_dot_product_attention`` as a yardstick the port
-   never calls, and the H100 bound; asserts that two launches at the
-   training shape give bitwise identical outputs. Times are CUDA events
+   variant ("mma.sync bf16" or "mma.sync 3xtf32") and time beside the
+   plain version's, ``F.scaled_dot_product_attention`` as a yardstick the
+   port never calls, and the H100 bound (for f32 also at the CUDA cores'
+   rate); asserts, in both dtypes, that two launches at the training
+   shape give bitwise identical outputs and that rows 0–899 of a causal
+   P=1024 call at the serve model's heads equal a P=900 call's, bitwise
+   (a padded prompt's rows are its exact call's). Times are CUDA events
    over 20 launches queued behind a sleep kernel (``cuda_ms``), so small
    shapes show the card's time and not the host's launch rate.
 3. Flash backward: the dk/dv kernel (B2) and the dq kernel (B3) against
@@ -427,13 +430,13 @@ Nineteen phases; any failure exits non-zero and prints no result line.
 20. The float32 LM: the train cell's model (``TRAIN_CFG``: vocab 8192,
    d512, 8 heads of 64, L8, ``[16, 1024]``) under ``dtype_policy=
    "float32"`` and ``attn_impl="auto"``, which resolves to flash, so
-   B2 and B3 run their f32 kernels ("mma.sync 3xtf32", 3xTF32 on the
-   tensor cores) and B1 its f32 one. (a) First-step gradients through
-   B1–B3 against plain attention, leaf by leaf, TF32 off (1e-4
-   relative, phase 19's float32 gate); (b) ``TRAIN_WARMUP`` +
-   ``TRAIN_STEPS`` ``fit_batch`` steps: losses finite and falling, B1–B3
-   8 each a timed step; (c) ms and tokens/s a step, and B2 + B3's share
-   of a step's device time from the profiler.
+   B1, B2 and B3 run their f32 kernels ("mma.sync 3xtf32", 3xTF32 on
+   the tensor cores). (a) First-step gradients through B1–B3 against
+   plain attention, leaf by leaf, TF32 off (1e-4 relative, phase 19's
+   float32 gate); (b) ``TRAIN_WARMUP`` + ``TRAIN_STEPS`` ``fit_batch``
+   steps: losses finite and falling, B1–B3 8 each a timed step; (c) ms
+   and tokens/s a step, and B1's and B2 + B3's shares of a step's device
+   time from the profiler.
 
 Output: metric lines, then a ``{"kernels": [...]}`` JSON line (each
 kernel's ``variant`` and ``launches`` counted over the train phase's
@@ -453,9 +456,9 @@ process's, as ``launches_cluster``, which must be 0; over phase 18 as
 0; over phase 19's (b)–(d) as ``launches_headdim``, with phase 19's
 times under ``headdim_times``; and its train-shape
 numbers under
-``train``; then B2's and B3's float32 entries at the train shape from
-phase 4, with both bounds (3xTF32 and the CUDA cores') and their
-launches over phase 20's timed steps) and the ``nvidia-smi``
+``train``; then B1's, B2's and B3's float32 entries at the train shape
+from phases 2 and 3, with both bounds (3xTF32 and the CUDA cores') and
+their launches over phase 20's timed steps) and the ``nvidia-smi``
 line,
 then ``{"ok": true, "device": {...}}`` last.
 """
@@ -498,9 +501,8 @@ H100_BF16_FLOPS = 989e12
 
 def variant(kernel: str, dtype: str) -> str:
     """The CUDA kernel family a wrapper launches for ``dtype`` inputs, as
-    ``launch_plan`` names it (one family a kernel and dtype, whatever the
-    route): "mma.sync bf16" (bf16), "mma.sync 3xtf32" (f32 B2 and B3) or
-    "fma f32" (f32 B1)."""
+    ``launch_plan`` names it (one family a dtype, whatever the kernel and
+    route): "mma.sync bf16" (bf16) or "mma.sync 3xtf32" (f32)."""
     import torch
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
 
@@ -638,7 +640,10 @@ def train_case():
             TRAIN_T, h, TRAIN_CFG["d_model"] // h, True, None)
 
 
-def check_flash(card: str) -> dict:
+def check_flash(card: str) -> tuple:
+    """Phase 2. Returns the bf16 kernels-line entry (the serve shape's
+    numbers, the train shape's under ``train``) and the f32 entry at the
+    train shape."""
     import torch
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
@@ -646,7 +651,7 @@ def check_flash(card: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    failures, entry, train = [], None, None
+    failures, entry, train, f32_entry = [], None, None, None
     for label, b, tq, tkv, h, d, causal, window in flash_cases():
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
@@ -684,17 +689,38 @@ def check_flash(card: str) -> dict:
                   f"[{card}]")
             if not ok:
                 failures.append(f"{label} {name}: err {err} finite {finite}")
-            if label == train_case()[0] and dtype == torch.bfloat16:
+            if label == train_case()[0]:
                 same = same_twice(lambda: fa.flash_attention_fwd(q, k, v,
                                                                  **kw))
                 print(f"flash_fwd {label} {name}: two launches bitwise "
                       f"identical: {same} [{card}]")
                 if not same:
                     failures.append(f"{label} {name}: two launches differ")
+            if label == train_case()[0] and dtype == torch.bfloat16:
                 train = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                          "bound_ms": bound["bound_ms"],
                          "bound_by": bound["bound_by"], "max_abs_err": err,
                          "shape": [b, tq, h, d]}
+            if label == train_case()[0] and dtype == torch.float32:
+                f32_entry = {
+                    "name": "flash_attention_fwd",
+                    "route": "cuda",
+                    "variant": variant("fwd", name),
+                    "source": "deeplearning4j_tpu_torch/kernels/csrc/"
+                              "flash_fwd.cu",
+                    "replaces": "deeplearning4j_tpu/pallas/"
+                                "flash_attention.py:49",
+                    "launches": None,
+                    "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound["bound_ms"],
+                    "bound_by": bound["bound_by"],
+                    "cuda_core_bound_ms": bound["cuda_core_bound_ms"],
+                    "library_ms": lib_ms,
+                    "library_call": "F.scaled_dot_product_attention "
+                                    "(float32)",
+                    "shape": [b, tq, h, d], "dtype": name,
+                }
             if label == flash_cases()[-1][0] and dtype == torch.bfloat16:
                 entry = {
                     "name": "flash_attention_fwd",
@@ -712,11 +738,38 @@ def check_flash(card: str) -> dict:
                     "library_ms": lib_ms,
                     "shape": [b, tq, h, d], "dtype": name,
                 }
+    failures += check_prefill_padding(gen, card)
     if failures:
         raise AssertionError("flash kernel disagrees with its plain "
                              "version: " + "; ".join(failures))
     entry["train"] = train  # the same kernel at the train step's shape
-    return entry
+    return entry, f32_entry
+
+
+def check_prefill_padding(gen, card: str) -> list:
+    """A causal prompt of 900 tokens padded to 1024 (the serve phase's
+    bucket) at the serve model's heads: rows 0–899 of out and lse equal
+    the exact call's, bitwise, in both dtypes. Returns the failures."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+
+    h = SERVE_CFG["num_heads"]
+    d = SERVE_CFG["d_model"] // h
+    failures = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        q, k, v = (torch.randn((1, 1024, h, d), generator=gen,
+                               device="cuda").to(dtype) for _ in range(3))
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        cut = fa.flash_attention_fwd(*(x[:, :900].contiguous()
+                                       for x in (q, k, v)), causal=True)
+        same = torch.equal(out[:, :900], cut[0]) and \
+            torch.equal(lse[..., :900], cut[1])
+        print(f"flash_fwd prefill P=900 padded to 1024 {name}: rows 0-899 "
+              f"bitwise the exact call's: {same} [{card}]")
+        if not same:
+            failures.append(f"P=900 padded to 1024 {name}: rows differ")
+    return failures
 
 
 # ---------------------------------------------------------------------------
@@ -1631,8 +1684,8 @@ PROGRAMS_NET, PROGRAMS_BATCHES = "resnet18", 4
 HOST_LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
                     "cudaMemcpyAsync", "cudaMemsetAsync")
-# the hand-written kernels by the names the card's trace gives them (both
-# variants of each: flash_fwd_kernel, flash_fwd_mma_kernel, ...)
+# the hand-written kernels by the names the card's trace gives them (every
+# variant of each: flash_fwd_mma_kernel, flash_fwd_tf32_kernel, ...)
 KERNEL_TRACE_NAMES = {"flash_attention_fwd": "flash_fwd_",
                       "flash_attention_bwd_dkdv": "flash_bwd_dkdv_",
                       "flash_attention_bwd_dq": "flash_bwd_dq_"}
@@ -7311,7 +7364,7 @@ HEADDIM_BATCH, HEADDIM_HEADS = 2, 4
 HEADDIM_SDPA_FROM = 192  # bf16 above this may be held to SDPA's error + 2e-2
 HEADDIM_BIG_BATCH = (8200, 16, 8, 64)  # b·h 65,600: past the old 65,535
 # inputs one element past a 16-byte boundary: the exact head dims take the
-# padded tier (bf16) or chunked (f32) kernels with element copies
+# padded tier kernels with element copies (both dtypes), 320 the wide ones
 HEADDIM_UNALIGNED = (64, 128, 320)
 # facebook/opt-2.7b config.json: vocab 50272, hidden 2560, 32 heads, ffn
 # 10240, 32 layers, 2048 positions (learned)
@@ -7860,8 +7913,8 @@ def f32_train(card: str) -> dict:
     ``OPT_GRAD_TOL["f32"]``; (b) ``TRAIN_WARMUP`` + ``TRAIN_STEPS``
     ``fit_batch`` steps, losses finite and falling, B1–B3
     ``num_layers`` each a timed step; (c) the step's ms and tokens/s and
-    B2 + B3's share of its device time from the profiler. Returns B1–B3's
-    launches over the timed steps."""
+    B1's and B2 + B3's shares of its device time from the profiler.
+    Returns B1–B3's launches over the timed steps."""
     import torch
     from deeplearning4j_tpu_torch.models.transformer import TransformerLM
 
@@ -7908,15 +7961,16 @@ def f32_train(card: str) -> dict:
     losses = [float(x) for x in losses]
     ms_step = wall / TRAIN_STEPS * 1e3
     prof = profiled(lambda: lm.fit_batch(tok), 1)
+    fwd_ms = prof["kernel_ms"]["flash_attention_fwd"]
     bwd_ms = (prof["kernel_ms"]["flash_attention_bwd_dkdv"] +
               prof["kernel_ms"]["flash_attention_bwd_dq"])
     print(f"f32 lm train [{TRAIN_BATCH}, {TRAIN_T}] float32 attn={impl} "
-          f"B2/B3 [{variant('dkdv', 'float32')}] B1 "
-          f"[{variant('fwd', 'float32')}]: warmup_losses={warm} "
+          f"B1–B3 [{variant('fwd', 'float32')}]: warmup_losses={warm} "
           f"losses={losses} ms_per_step={ms_step} tokens_per_sec="
           f"{TRAIN_BATCH * TRAIN_T * TRAIN_STEPS / wall} "
           f"profiled_device_busy_ms={prof['device_busy_ms']:.3f} "
           f"kernel_ms={json.dumps(prof['kernel_ms'])} "
+          f"b1_share_of_busy={fwd_ms / prof['device_busy_ms']:.4f} "
           f"b2_b3_share_of_busy={bwd_ms / prof['device_busy_ms']:.4f} "
           f"launches={launches} phase_s={time.monotonic() - t0:.1f} "
           f"[{card}]")
@@ -7969,14 +8023,15 @@ def main() -> None:
     embed_launches = trees_launches = mesh_launches = None
     model_launches = cluster_launches = a15_launches = None
     headdim = f32_launches = None
-    f32_entries = []  # B2's and B3's float32 entries (phase 4, phase 20)
+    f32_entries = []  # B1–B3's float32 entries (phases 2, 3; phase 20)
     for phase in ("flash", "flash_bwd", "serve", "train", "networks",
                   "recurrent", "fused", "cli", "serve_extras", "data",
                   "monitor", "embeddings", "trees", "mesh", "model",
                   "cluster", "a15", "headdim", "f32_train"):
         try:
             if phase == "flash":
-                entries["flash_attention_fwd"] = check_flash(card)
+                entries["flash_attention_fwd"], f32_fwd = check_flash(card)
+                f32_entries.append(f32_fwd)
             elif phase == "flash_bwd":
                 for e in check_flash_bwd(card):
                     if e["dtype"] == "bfloat16":

@@ -1985,8 +1985,8 @@ bool valid(const Args& a) {
 
 // route: 0 = exact (head_dim 64 or 128, unpadded), 1 = tier (rows padded
 // to `tier`: bf16 up to 256, f32 up to 128), 3 = wide (d streamed in
-// chunks: bf16 above 256, f32 above 128); 2 (chunked) is B1's f32 route
-// only. vec: rows may move in 16-byte cp.async copies (tier, wide).
+// chunks: bf16 above 256, f32 above 128); the codes are the forward's.
+// vec: rows may move in 16-byte cp.async copies (tier, wide).
 // dtype: 0 = float32 (3xTF32), 1 = bfloat16. window <= 0 means no window.
 // q, k, v, dout: BTHD in the input dtype; lse, delta: [batch*heads, tq]
 // f32; dk, dv: BTHD f32 [batch, tkv, heads, head_dim].

@@ -14,22 +14,19 @@
 // the route that the Python launch plan chose (`launch_plan` in
 // kernels/flash_attention.py) from the shapes and the dtype:
 // - exact (d 64 or 128): the two variants below, unpadded, by dtype;
-// - tier (bf16, any other d up to 256): the tensor-core kernel compiled
-//   for the next width of DL4J_MMA_TIERS, each row zero-padded to it in
-//   shared memory. Zero columns add nothing to Q.K^T; padded output
-//   columns are never stored; the scale is the real d's. Above 128 the
-//   Q fragments no longer fit beside the output accumulators (D/2
-//   floats a thread) and are re-read from shared memory per key tile;
-//   at 256 a key tile is taken in passes of 32 keys.
+// - tier (bf16 any other d up to 256, f32 up to 128): the tensor-core
+//   kernel compiled for the next width of DL4J_MMA_TIERS, each row
+//   zero-padded to it in shared memory. Zero columns add nothing to
+//   Q.K^T; padded output columns are never stored; the scale is the real
+//   d's. Above 128 the bf16 Q fragments no longer fit beside the output
+//   accumulators (D/2 floats a thread) and are re-read from shared memory
+//   per key tile; at 256 a key tile is taken in passes of 32 keys.
 //   Rows whose starts are not 16-byte aligned (d % 8 != 0) are copied
 //   element by element instead of by 16-byte cp.async;
-// - wide (bf16 above 256): the tensor-core kernel with d streamed in
-//   chunks of 64 columns for Q.K^T and the output in slices of 128
-//   columns (grid z); each slice recomputes the scores over the whole d
-//   (QK^T ceil(d/128) times);
-// - chunked (f32 at any other d): "fma f32" with d taken in chunks of 64
-//   columns for Q.K^T and one slice of 64 output columns a block (grid
-//   z); each slice recomputes the scores over the whole d.
+// - wide (bf16 above 256, f32 above 128): the tensor-core kernel with d
+//   streamed in chunks of 64 columns for Q.K^T and the output in slices
+//   of 128 columns (bf16) or 64 (f32) on grid z; each slice recomputes
+//   the scores over the whole d.
 //
 // bf16 (dtype 1): "mma.sync bf16", a FlashAttention-2-style kernel on the
 // tensor cores (building blocks in mma_bf16.cuh).
@@ -43,34 +40,73 @@
 // - S = Q.K^T by mma.sync with f32 accumulators in registers. The online
 //   softmax stays in registers: a row's 64 scores sit in one quad of
 //   lanes, reduced with __shfl_xor over 1 and 2. Masked scores become
-//   -inf and the running max starts at -1e30, as before; only tiles that
-//   cross the causal diagonal, the window edge or the sequence end
-//   evaluate the mask.
+//   -inf and the running max starts at -1e30, as in the reference; only
+//   tiles that cross the causal diagonal, the window edge or the sequence
+//   end evaluate the mask.
 // - l sums the unrounded f32 p (the reference's `_fwd_kernel:93`); p is
 //   rounded to bf16 only as the A operand of P.V, taken straight from the
 //   S accumulators, with V's B operand read by ldmatrix.trans.
-// - Key tiles are visited in the same order, with the same per-row
-//   arithmetic, whatever tq is, so a query row's result does not depend
-//   on how far the prompt was padded (the server's bucketed prefill
-//   equals `generate`'s exact one).
-// - The grid is (batch*head, query tile) with the query tiles issued
-//   last-first: under causal masking the heaviest blocks start first.
 //
-// f32 (dtype 0): "fma f32", the first kernel of this file. One block of
-// 256 threads per (batch*head, 64-row query tile), K/V staged in shared
-// memory as f32, scalar f32 FMAs. One TF32 product a tensor-core step
-// keeps about three digits and cannot pass the f32 gate (2e-5); the
-// 3xTF32 split the f32 backward kernels use (mma_tf32.cuh) keeps about
-// 2^-22 and is this kernel's tensor-core route, not written yet.
-// Every kernel puts batch*head on grid x (up to 2^31 - 1) and the query
-// tiles on grid y, heaviest first.
+// f32 (dtype 0): "mma.sync 3xtf32", the same loop on the tensor cores at
+// f32 accuracy (building blocks in mma_tf32.cuh).
+// - Arithmetic. Q.K^T and P.V run on mma.sync m16n8k8 with TF32
+//   operands: every f32 operand (q, k, p, v) is split into big =
+//   cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big), and a k-step of 8
+//   products is small_a.big_b + big_a.small_b + big_a.big_b, three MMAs
+//   into a zeroed tile that an f32 add puts into the running sum
+//   (`mma_3x`): the tensor core rounds its own sums toward zero, and
+//   chained over a row's keys that bias would add up. One TF32 product a
+//   k-step misses the f32 gate (2e-5 on out and lse) about 45x; the three
+//   stay as close to the exact result as the plain f32 version
+//   (tests/test_torch_flash_tf32.py emulates both).
+// - S = Q.K^T: Q rows are the A operand, split once a block into two TF32
+//   planes in shared memory and read by ldmatrix with no conversion in
+//   the loop; K rows are the B operand's columns, read by plain ldmatrix
+//   from the [key][d] tile and split a fragment at a time by every warp
+//   that reads them. s = S * scale, then B1's online softmax in registers
+//   (masked scores -inf, the mask on edge tiles only); l sums the
+//   unrounded p.
+// - O += P.V: p straight from the S accumulators as the A operand over a
+//   permuted contraction index (`c_as_a`: columns 2t, 2t+1 as k = t,
+//   t+4), split in registers; V's rows read in that order by 32-bit loads
+//   (ldmatrix.trans cannot transpose 32-bit words).
+// - K and V stream raw through a two-stage 16-byte cp.async ring of f32
+//   rows padded by 4 floats (every fragment load free of bank conflicts).
+//   Pre-split K and V planes would spare the warps their splits but
+//   double the ring: at 64 a block would take 174,080 bytes, one block an
+//   SM instead of two (one block an SM alone ran 7 % slower), and at 128
+//   two stages no longer fit (337,920 bytes of the 232,448 a block may
+//   use).
+// - Widths. Rows of up to 128 floats: 8 warps a block, two a 16-row
+//   group, each taking 32 of every tile's 64 keys with its own running
+//   max, normaliser and output; the two states are merged once, at the
+//   end, through shared memory in a fixed order. Up to 64 two blocks
+//   share an SM (104,448 bytes each at 64) and ptxas is held to the 128
+//   registers a thread that leaves (it spills up to 72 bytes at 64; 4
+//   warps a block with no spill ran 21 % slower). Above 64 one block an
+//   SM (202,752 bytes at 128) may take 255 registers (a thread's output
+//   accumulators alone are 64 at 128; without the explicit bound ptxas
+//   kept to 182-198 and ran 27-29 % slower). Above 128 (wide): 4 warps
+//   of 16 rows; Q and K chunks stream through the ring and each chunk's
+//   Q.K^T is summed in its own tile, added to the scores in f32 (a sum
+//   over d in two levels, which cuts the emulated error at d 320 by a
+//   sixth).
+//
+// Both dtypes: key tiles are visited in the same order, with the same
+// per-row arithmetic, whatever tq is (a tile past a row's keys adds exact
+// zeros), so a query row's result does not depend on how far the prompt
+// was padded: the server's bucketed prefill equals `generate`'s exact one.
+// No atomics: two launches give the same bits. Every kernel puts
+// batch*head on grid x (up to 2^31 - 1) and the query tiles on grid y,
+// issued last-first: under causal masking the heaviest blocks start first.
 //
 // Bound on an H100: FLOPs 4*b*h*d*sum(visible keys) against 989 TFLOP/s
 // (bf16) or 165 TFLOP/s (f32, the 3xTF32 rate; the CUDA cores' 67
 // TFLOP/s beside it), bytes (q + k + v + out) * elem + lse * 4
 // against 3.35 TB/s. Left on the table: wgmma and TMA with warp
-// specialisation, and a persistent schedule that balances causal tiles
-// across the 132 SMs.
+// specialisation (mma.sync reaches a part of the tensor cores' rate),
+// splitting K and V once a block instead of once a warp (f32), and a
+// persistent schedule that balances causal tiles across the 132 SMs.
 //
 // C entry point `dl4j_flash_fwd` (loaded with ctypes) returns the CUDA
 // error code of the launch (0 on success).
@@ -80,402 +116,14 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 #include "smem_attr.cuh"
 
 namespace {
 
 constexpr int kBQ = 64;          // query rows per block
 constexpr int kBK = 64;          // keys per shared-memory tile
-constexpr int kThreads = 256;    // 16 x 16 thread grid
 constexpr float kMaskValue = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, like astype
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int D>
-constexpr size_t smem_floats() {
-  // Q [BQ][D+1], K [BK][D+1], V [BK][D], S [BQ][BK+1], m/l/corr [BQ]
-  return kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1) + 3 * kBQ;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int heads, int tq, int tkv,
-                 int causal, int window, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                        // [BQ][D+1]
-  float* Ks = Qs + kBQ * (D + 1);          // [BK][D+1]
-  float* Vs = Ks + kBK * (D + 1);          // [BK][D]
-  float* Ss = Vs + kBK * D;                // [BQ][BK+1] scores, then p
-  float* m_s = Ss + kBQ * (kBK + 1);       // running max per row
-  float* l_s = m_s + kBQ;                  // running normaliser per row
-  float* c_s = l_s + kBQ;                  // this tile's rescale per row
-
-  const int bh = blockIdx.x;
-  const int b = bh / heads, h = bh % heads;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy tiles first
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int warp = tid / 32, lane = tid % 32;
-  // BTHD: consecutive time steps of one head are heads*D elements apart
-  const int64_t tstride = (int64_t)heads * D;
-  const T* qb = q + ((int64_t)b * tq * heads + h) * D;
-  const T* kb = k + ((int64_t)b * tkv * heads + h) * D;
-  const T* vb = v + ((int64_t)b * tkv * heads + h) * D;
-
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, c = i % D, t = q0 + r;
-    Qs[r * (D + 1) + c] = t < tq ? to_f32(qb[t * tstride + c]) : 0.f;
-  }
-  if (tid < kBQ) {
-    m_s[tid] = kMaskValue;
-    l_s[tid] = 0.f;
-  }
-
-  constexpr int CJ = D / 16;
-  float acc[4][CJ];  // rows ty + 16*i, columns tx + 16*j
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
-
-  // key range this query tile can see: the causal diagonal caps it from
-  // above, the window band from below; dead tiles are never loaded
-  int k_lo = 0, k_hi = tkv;
-  if (causal) k_hi = min(tkv, q0 + kBQ);
-  if (window > 0) k_lo = max(0, q0 - window + 1);
-  const int kt_lo = k_lo / kBK, kt_hi = (k_hi + kBK - 1) / kBK;
-
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's K/V/S reads are done
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, c = i % D, t = k0 + r;
-      const bool in = t < tkv;
-      Ks[r * (D + 1) + c] = in ? to_f32(kb[t * tstride + c]) : 0.f;
-      Vs[r * D + c] = in ? to_f32(vb[t * tstride + c]) : 0.f;
-    }
-    __syncthreads();
-
-    // scores for a 4 x 4 micro-tile per thread
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-    // masked scores become -inf: they never raise the running max (which
-    // starts at -1e30, as in the reference) and exp() sends them to 0
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, qi = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j, kj = k0 + c;
-        bool keep = qi < tq && kj < tkv;
-        if (causal) keep = keep && qi >= kj;
-        if (window > 0) keep = keep && qi - kj < window;
-        Ss[r * (kBK + 1) + c] = keep ? s[i][j] * scale : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: one warp per 8 rows, two columns per lane
-    for (int rr = 0; rr < kBQ / 8; ++rr) {
-      const int r = warp * (kBQ / 8) + rr;
-      float* srow = Ss + r * (kBK + 1);
-      const float m_prev = m_s[r];
-      const float a = srow[lane], c = srow[lane + 32];
-      const float m_next = fmaxf(m_prev, warp_max(fmaxf(a, c)));
-      const float pa = expf(a - m_next), pc = expf(c - m_next);
-      const float psum = warp_sum(pa + pc);
-      srow[lane] = to_f32(from_f32<T>(pa));
-      srow[lane + 32] = to_f32(from_f32<T>(pc));
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_next);
-        l_s[r] = l_s[r] * corr + psum;
-        m_s[r] = m_next;
-        c_s[r] = corr;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + p . v
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float corr = c_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) acc[i][j] *= corr;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ss[(ty + 16 * i) * (kBK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const float vv = Vs[kk * D + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
-      }
-    }
-  }
-  __syncthreads();
-
-  T* ob = out + ((int64_t)b * tq * heads + h) * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, t = q0 + r;
-    if (t < tq) {
-      const float l = l_s[r];
-      const float safe_l = l == 0.f ? 1.f : l;
-#pragma unroll
-      for (int j = 0; j < CJ; ++j)
-        ob[t * tstride + tx + 16 * j] = from_f32<T>(acc[i][j] / safe_l);
-    }
-  }
-  if (tid < kBQ && q0 + tid < tq) {
-    const float l = l_s[tid];
-    lse[(int64_t)bh * tq + q0 + tid] = m_s[tid] + logf(l == 0.f ? 1.f : l);
-  }
-}
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out,
-           void* lse, int batch, int heads, int tq, int tkv, int causal,
-           int window, float scale, cudaStream_t stream) {
-  const size_t bytes = smem_floats<D>() * sizeof(float);
-  cudaError_t err = dl4j_smem::set_max_dynamic_smem(
-      reinterpret_cast<const void*>(flash_fwd_kernel<T, D>), (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(batch * heads, (tq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), heads, tq, tkv, causal, window, scale);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// f32 at any other head_dim: the FMA kernel with d taken in chunks
-// ---------------------------------------------------------------------------
-constexpr int kC = 64;  // columns a chunk of Q.K^T and a slice of the output
-
-constexpr size_t chunked_smem_floats() {
-  // Q and K chunks [BQ][C+1], the V slice [BK][C], S [BQ][BK+1], m/l/corr
-  return kBQ * (kC + 1) + kBK * (kC + 1) + kBK * kC + kBQ * (kBK + 1) +
-         3 * kBQ;
-}
-
-// columns [c0, c0 + C) of rows [t0, t0 + 64) of one head of a BTHD f32
-// tensor into a [64][ld] tile; rows at or past `len` and columns at or
-// past `d` are zeros
-__device__ __forceinline__ void load_chunk(float* dst, int ld,
-                                           const float* src, int t0, int len,
-                                           int c0, int d, int64_t tstride) {
-  for (int i = threadIdx.x; i < 64 * kC; i += kThreads) {
-    const int r = i / kC, c = i % kC, t = t0 + r, col = c0 + c;
-    dst[r * ld + c] = t < len && col < d ? src[t * tstride + col] : 0.f;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_chunked_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ out,
-                         float* __restrict__ lse, int heads, int tq, int tkv,
-                         int d, int causal, int window, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                        // [BQ][C+1] a chunk of Q
-  float* Ks = Qs + kBQ * (kC + 1);         // [BK][C+1] a chunk of K
-  float* Vs = Ks + kBK * (kC + 1);         // [BK][C] this block's V slice
-  float* Ss = Vs + kBK * kC;               // [BQ][BK+1] scores, then p
-  float* m_s = Ss + kBQ * (kBK + 1);
-  float* l_s = m_s + kBQ;
-  float* c_s = l_s + kBQ;
-
-  const int bh = blockIdx.x;
-  const int b = bh / heads, h = bh % heads;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy tiles first
-  const int c0 = blockIdx.z * kC;  // this block's output columns
-  const int nch = (d + kC - 1) / kC;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int warp = tid / 32, lane = tid % 32;
-  const int64_t tstride = (int64_t)heads * d;
-  const float* qb = q + ((int64_t)b * tq * heads + h) * d;
-  const float* kb = k + ((int64_t)b * tkv * heads + h) * d;
-  const float* vb = v + ((int64_t)b * tkv * heads + h) * d;
-
-  // one chunk: Q stays in shared memory for the whole block
-  if (nch == 1) load_chunk(Qs, kC + 1, qb, q0, tq, 0, d, tstride);
-  if (tid < kBQ) {
-    m_s[tid] = kMaskValue;
-    l_s[tid] = 0.f;
-  }
-  float acc[4][4];  // rows ty + 16*i, columns c0 + tx + 16*j
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  int k_lo = 0, k_hi = tkv;
-  if (causal) k_hi = min(tkv, q0 + kBQ);
-  if (window > 0) k_lo = max(0, q0 - window + 1);
-  const int kt_lo = k_lo / kBK, kt_hi = (k_hi + kBK - 1) / kBK;
-
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * kBK;
-    // scores over the whole d, chunk by chunk (4 x 4 micro-tile a thread)
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int ch = 0; ch < nch; ++ch) {
-      __syncthreads();  // the previous chunk's (or tile's) reads are done
-      if (ch == 0) load_chunk(Vs, kC, vb, k0, tkv, c0, d, tstride);
-      if (nch > 1) load_chunk(Qs, kC + 1, qb, q0, tq, ch * kC, d, tstride);
-      load_chunk(Ks, kC + 1, kb, k0, tkv, ch * kC, d, tstride);
-      __syncthreads();
-#pragma unroll 8
-      for (int dd = 0; dd < kC; ++dd) {
-        float qv[4], kv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * (kC + 1) + dd];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * (kC + 1) + dd];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, qi = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j, kj = k0 + c;
-        bool keep = qi < tq && kj < tkv;
-        if (causal) keep = keep && qi >= kj;
-        if (window > 0) keep = keep && qi - kj < window;
-        Ss[r * (kBK + 1) + c] = keep ? s[i][j] * scale : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // online softmax, as in the exact kernel; every slice computes the
-    // same m and l
-    for (int rr = 0; rr < kBQ / 8; ++rr) {
-      const int r = warp * (kBQ / 8) + rr;
-      float* srow = Ss + r * (kBK + 1);
-      const float m_prev = m_s[r];
-      const float a = srow[lane], c = srow[lane + 32];
-      const float m_next = fmaxf(m_prev, warp_max(fmaxf(a, c)));
-      const float pa = expf(a - m_next), pc = expf(c - m_next);
-      const float psum = warp_sum(pa + pc);
-      srow[lane] = pa;
-      srow[lane + 32] = pc;
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_next);
-        l_s[r] = l_s[r] * corr + psum;
-        m_s[r] = m_next;
-        c_s[r] = corr;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float corr = c_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= corr;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ss[(ty + 16 * i) * (kBK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float vv = Vs[kk * kC + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
-      }
-    }
-  }
-  __syncthreads();
-
-  float* ob = out + ((int64_t)b * tq * heads + h) * d;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, t = q0 + r;
-    if (t < tq) {
-      const float l = l_s[r];
-      const float safe_l = l == 0.f ? 1.f : l;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = c0 + tx + 16 * j;
-        if (col < d) ob[t * tstride + col] = acc[i][j] / safe_l;
-      }
-    }
-  }
-  if (blockIdx.z == 0 && tid < kBQ && q0 + tid < tq) {
-    const float l = l_s[tid];
-    lse[(int64_t)bh * tq + q0 + tid] = m_s[tid] + logf(l == 0.f ? 1.f : l);
-  }
-}
-
-int launch_chunked(const void* q, const void* k, const void* v, void* out,
-                   void* lse, int batch, int heads, int tq, int tkv, int d,
-                   int causal, int window, float scale, cudaStream_t stream) {
-  const size_t bytes = chunked_smem_floats() * sizeof(float);
-  cudaError_t err = dl4j_smem::set_max_dynamic_smem(
-      reinterpret_cast<const void*>(flash_fwd_chunked_kernel), (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(batch * heads, (tq + kBQ - 1) / kBQ, (d + kC - 1) / kC);
-  flash_fwd_chunked_kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out),
-      static_cast<float*>(lse), heads, tq, tkv, d, causal, window, scale);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bf16 tensor-core variant
@@ -531,7 +179,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_tile_64<D, kMmaThreads>(dst, src, t0, len, tstride);
   };
 
-  // the key tiles this query tile can see, as in the f32 kernel
+  // the key tiles this query tile can see: the causal diagonal caps them
+  // from above, the window band from below; dead tiles are never loaded
   int k_lo = 0, k_hi = tkv;
   if (causal) k_hi = min(tkv, q0 + kBQ);
   if (window > 0) k_lo = max(0, q0 - window + 1);
@@ -934,18 +583,503 @@ int launch_wide(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// f32 tensor-core variant (3xTF32, mma_tf32.cuh)
+// ---------------------------------------------------------------------------
+// the widest f32 row a tile keeps whole: given by the build
+// (kernels/_build.py) from kernels/__init__.py's F32_TIER_MAX
+#ifndef DL4J_F32_TIER_MAX
+#error "DL4J_F32_TIER_MAX must be defined by the build"
+#endif
+constexpr int kF32TierMax = DL4J_F32_TIER_MAX;
+
+// A block of the f32 tile kernel: 8 warps, two a 16-row group, each
+// taking half of every key tile. Up to 64 two blocks share an SM and
+// ptxas is held to the 128 registers a thread that leaves; above, one
+// block an SM may take all 255.
+constexpr int kTf32Threads = 256;
+template <int D>
+constexpr int kTf32BlocksPerSm = D <= 64 ? 2 : 1;
+
+template <int D>
+constexpr size_t tf32_smem_bytes() {
+  // Q's big and small planes [64][D+4] and K, V [2 stages][64][D+4], f32
+  return (size_t)6 * 64 * (D + 4) * sizeof(float);
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// One online-softmax step of a warp's 16 rows over NS x 8 keys, the first
+// at key kj0: s = S * scale, masked scores -inf (evaluated on edge tiles
+// only), then the running max m_run, this lane's share of the normaliser
+// l_part and the output o rescaled; s leaves holding the unrounded p. r0:
+// this thread's first row (the second is r0 + 8).
+template <int NS, int NO>
+__device__ __forceinline__ void softmax_step(float (&s)[NS][4],
+                                             float (&o)[NO][4],
+                                             float (&m_run)[2],
+                                             float (&l_part)[2], float scale,
+                                             bool edge, int r0, int kj0,
+                                             int tkv, int causal,
+                                             int window) {
+  const int t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[j][e] * scale;
+      if (edge) {
+        const int qi = r0 + (e / 2) * 8;
+        const int kj = kj0 + j * 8 + 2 * t4 + e % 2;
+        bool keep = kj < tkv;
+        if (causal) keep = keep && qi >= kj;
+        if (window > 0) keep = keep && qi - kj < window;
+        x = keep ? x : -INFINITY;
+      }
+      s[j][e] = x;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_next = fmaxf(m_run[i], mx);
+    const float corr = expf(m_run[i] - m_next);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const float p0 = expf(s[j][2 * i] - m_next);
+      const float p1 = expf(s[j][2 * i + 1] - m_next);
+      s[j][2 * i] = p0;
+      s[j][2 * i + 1] = p1;
+      sum += p0 + p1;
+    }
+    l_part[i] = l_part[i] * corr + sum;
+    m_run[i] = m_next;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][2 * i] *= corr;
+      o[n][2 * i + 1] *= corr;
+    }
+  }
+}
+
+// O += P.V over NS x 8 keys in 3xTF32: p from the S registers as the A
+// operand over permuted keys, V's rows kv0.. of a row-major [key][col]
+// tile (rows `ld` floats apart) read in the same order.
+template <int NS, int NO>
+__device__ __forceinline__ void pv_tf32(float (&o)[NO][4],
+                                        const float (&s)[NS][4],
+                                        const float* V, int ld, int kv0) {
+  using namespace dl4j_tf32;
+#pragma unroll
+  for (int kk = 0; kk < NS; ++kk) {
+    FragA pa;
+    c_as_a(pa, s[kk]);
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      float b0, b1;
+      frag_b_kn(b0, b1, V, ld, kv0 + kk * 8, n * 8);
+      mma_3x(o[n], pa, b0, b1);
+    }
+  }
+}
+
+// B1's loop in f32 on rows of up to 128 floats: D the width rows take in
+// shared memory; kPad: rows hold d <= D floats in device memory (a padded
+// tier), else d == D.
+template <int D, bool kPad>
+__global__ void __launch_bounds__(kTf32Threads, kTf32BlocksPerSm<D>)
+flash_fwd_tf32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out,
+                      float* __restrict__ lse, int heads, int tq, int tkv,
+                      int d, int vec, int causal, int window, float scale) {
+  using namespace dl4j_tf32;
+  using dl4j_mma::cp_async_commit;
+  using dl4j_mma::cp_async_wait;
+  constexpr int kThreads = kTf32Threads;
+  constexpr int LD = D + 4;       // padded shared row, floats
+  constexpr int KC = D / 8;       // k-steps of Q.K^T
+  constexpr int KH = kBK / 2;     // a warp's keys a tile
+  constexpr int NS = KH / 8;      // 8-key column tiles of S a warp
+  constexpr int NO = D / 8;       // 8-wide column tiles of the output
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qb = reinterpret_cast<float*>(smem_raw);  // [64][LD] Q's big parts
+  float* Qs = Qb + kBQ * LD;                       // [64][LD] small parts
+  float* Ks = Qs + kBQ * LD;                       // [2][64][LD]
+  float* Vs = Ks + 2 * kBK * LD;                   // [2][64][LD]
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads, h = bh % heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy tiles first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int half = warp / 4;    // which half of every key tile
+  const int dh = kPad ? d : D;  // floats a row in device memory
+  const int64_t tstride = (int64_t)heads * dh;
+  const int64_t qoff = ((int64_t)b * tq * heads + h) * dh;
+  const int64_t koff = ((int64_t)b * tkv * heads + h) * dh;
+  auto load = [&](float* dst, const float* src, int t0, int len) {
+    cp_tile_f32<D, kThreads>(dst, src, t0, len, tstride, dh, !kPad || vec);
+  };
+
+  // the key tiles this query tile can see, as in the bf16 kernel
+  int k_lo = 0, k_hi = tkv;
+  if (causal) k_hi = min(tkv, q0 + kBQ);
+  if (window > 0) k_lo = max(0, q0 - window + 1);
+  const int kt_lo = k_lo / kBK, kt_hi = (k_hi + kBK - 1) / kBK;
+
+  load(Qb, q + qoff, q0, tq);
+  load(Ks, k + koff, kt_lo * kBK, tkv);
+  load(Vs, v + koff, kt_lo * kBK, tkv);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  // Q split once a block: the big parts in place, the small ones beside;
+  // the barrier after the first tile's wait orders these stores before
+  // the fragment loads
+  for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
+    float* x = Qb + (i / D) * LD + i % D;
+    uint32_t big, small;
+    split(*x, big, small);
+    x[0] = __uint_as_float(big);
+    x[kBQ * LD] = __uint_as_float(small);
+  }
+
+  // this thread's rows of the warp's 16: r0 = q0 + qrow + g, r0 + 8
+  const int qrow = (warp % 4) * 16;
+  const int r0 = q0 + qrow + g;
+  const int ks = half * KH;  // this warp's keys of every tile
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_run[2] = {kMaskValue, kMaskValue};
+  float l_part[2] = {0.f, 0.f};  // this lane's share of each row's l
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int stage = (kt - kt_lo) & 1;
+    if (kt + 1 < kt_hi) {  // prefetch the next tile into the other stage
+      const int next = (stage ^ 1) * kBK * LD;
+      load(Ks + next, k + koff, (kt + 1) * kBK, tkv);
+      load(Vs + next, v + koff, (kt + 1) * kBK, tkv);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile has landed
+    __syncthreads();
+    const float* Kt = Ks + stage * kBK * LD;
+    const float* Vt = Vs + stage * kBK * LD;
+    const int k0 = kt * kBK;
+    const bool edge = k0 + kBK > tkv || (causal && k0 + kBK - 1 > q0) ||
+                      (window > 0 && q0 + kBQ - 1 - k0 >= window);
+
+    // S = Q.K^T over this warp's keys: Q from its planes, K rows the B
+    // operand's columns
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 1
+    for (int kc = 0; kc < KC; ++kc) {
+      FragA qa;
+      frag_a_planes(qa, Qb, Qs, LD, qrow, kc * 8);
+#pragma unroll
+      for (int jp = 0; jp < NS / 2; ++jp) {
+        float bk[4];
+        frag_b_nk(bk, Kt, LD, ks + jp * 16, kc * 8);
+        mma_3x(s[2 * jp], qa, bk[0], bk[1]);
+        mma_3x(s[2 * jp + 1], qa, bk[2], bk[3]);
+      }
+    }
+    softmax_step(s, o, m_run, l_part, scale, edge, r0, k0 + ks, tkv, causal,
+                 window);
+    pv_tf32(o, s, Vt, LD, ks);
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  // the second key half's state through shared memory (the K ring is
+  // free; 128 threads x (D/2 + 4) floats fit in it), merged into the
+  // first's in a fixed order
+  cp_async_wait<0>();
+  __syncthreads();
+  float* part = Ks;  // value i of thread j at i * 128 + j
+  const int j = threadIdx.x % 128;
+  if (half == 1) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[(n * 4 + e) * 128 + j] = o[n][e];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      part[(NO * 4 + i) * 128 + j] = m_run[i];
+      part[(NO * 4 + 2 + i) * 128 + j] = l_part[i];
+    }
+  }
+  __syncthreads();
+  if (half == 1) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m1 = part[(NO * 4 + i) * 128 + j];
+    const float m = fmaxf(m_run[i], m1);
+    const float c0 = expf(m_run[i] - m), c1 = expf(m1 - m);
+    l_part[i] = l_part[i] * c0 + part[(NO * 4 + 2 + i) * 128 + j] * c1;
+    m_run[i] = m;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int e = 2 * i + jj;
+        o[n][e] = o[n][e] * c0 + part[(n * 4 + e) * 128 + j] * c1;
+      }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float l = quad_sum(l_part[i]);
+    const float safe_l = l == 0.f ? 1.f : l;
+    const int r = r0 + i * 8;
+    if (r < tq) {
+      float* row = out + qoff + r * tstride + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        if constexpr (kPad) {  // padded columns are not stored
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj)
+            if (n * 8 + 2 * t4 + jj < d)
+              row[n * 8 + jj] = o[n][2 * i + jj] / safe_l;
+        } else {
+          *reinterpret_cast<float2*>(row + n * 8) =
+              make_float2(o[n][2 * i] / safe_l, o[n][2 * i + 1] / safe_l);
+        }
+      }
+      if (t4 == 0) lse[(int64_t)bh * tq + r] = m_run[i] + logf(safe_l);
+    }
+  }
+}
+
+template <int D, bool kPad>
+int launch_tf32(const void* q, const void* k, const void* v, void* out,
+                void* lse, int batch, int heads, int tq, int tkv, int d,
+                int vec, int causal, int window, float scale,
+                cudaStream_t stream) {
+  if (d > D || (!kPad && d != D)) return (int)cudaErrorInvalidValue;
+  const size_t bytes = tf32_smem_bytes<D>();
+  cudaError_t err = dl4j_smem::set_max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_fwd_tf32_kernel<D, kPad>),
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(batch * heads, (tq + kBQ - 1) / kBQ);
+  flash_fwd_tf32_kernel<D, kPad><<<grid, kTf32Threads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), heads, tq, tkv, d, vec, causal, window,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+// the f32 instantiation of a padded tier (widths up to kF32TierMax only;
+// wider f32 rows take the wide kernel below)
+template <int T>
+int launch_tf32_tier(const void* q, const void* k, const void* v, void* out,
+                     void* lse, int batch, int heads, int tq, int tkv, int d,
+                     int vec, int causal, int window, float scale,
+                     cudaStream_t stream) {
+  if constexpr (T <= kF32TierMax)
+    return launch_tf32<T, true>(q, k, v, out, lse, batch, heads, tq, tkv, d,
+                                vec, causal, window, scale, stream);
+  else
+    return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// f32 above 128: the 3xTF32 kernel with d streamed in chunks
+// ---------------------------------------------------------------------------
+constexpr int kFC = 64;  // columns of Q and K a chunk, f32
+constexpr int kFS = 64;  // output columns a block (grid z), f32
+
+constexpr size_t wide_tf32_smem_bytes() {
+  // Q and K chunks [2 stages][64][kFC+4] and the V slice [64][kFS+4], f32
+  return ((size_t)4 * 64 * (kFC + 4) + (size_t)64 * (kFS + 4)) *
+         sizeof(float);
+}
+
+// The bf16 wide kernel's schedule in f32: one block of 4 warps per
+// (batch*head, 64-row query tile, 64-column output slice); each key
+// tile's scores summed over d a chunk of 64 columns at a time, each
+// chunk's Q.K^T in its own tile added to the scores in f32; Q and K
+// chunks stream through a two-stage cp.async ring, the tile's V slice
+// arrives with its first chunk. Every slice computes the same m and l, so
+// lse comes from slice 0.
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_wide_tf32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, float* __restrict__ lse,
+                           int heads, int tq, int tkv, int d, int vec,
+                           int causal, int window, float scale) {
+  using namespace dl4j_tf32;
+  using dl4j_mma::cp_async_commit;
+  using dl4j_mma::cp_async_wait;
+  constexpr int LC = kFC + 4, LS = kFS + 4;  // padded shared rows
+  constexpr int KC = kFC / 8;                // k-steps a chunk
+  constexpr int NS = kBK / 8;                // 8-key column tiles of S
+  constexpr int NO = kFS / 8;                // 8-wide output column tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qc = reinterpret_cast<float*>(smem_raw);  // [2][64][LC]
+  float* Kc = Qc + 2 * kBQ * LC;                   // [2][64][LC]
+  float* Vsl = Kc + 2 * kBK * LC;                  // [64][LS]
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads, h = bh % heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy tiles first
+  const int c0 = blockIdx.z * kFS;  // this block's output columns
+  const int nch = (d + kFC - 1) / kFC;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int64_t tstride = (int64_t)heads * d;
+  const int64_t qoff = ((int64_t)b * tq * heads + h) * d;
+  const int64_t koff = ((int64_t)b * tkv * heads + h) * d;
+
+  int k_lo = 0, k_hi = tkv;
+  if (causal) k_hi = min(tkv, q0 + kBQ);
+  if (window > 0) k_lo = max(0, q0 - window + 1);
+  const int kt_lo = k_lo / kBK, kt_hi = (k_hi + kBK - 1) / kBK;
+  const int steps = (kt_hi - kt_lo) * nch;
+
+  // step i: chunk i % nch of key tile kt_lo + i / nch, into stage i % 2
+  auto load_step = [&](int i) {
+    const int c = (i % nch) * kFC, st = i & 1;
+    cp_tile_f32<kFC, kMmaThreads>(Qc + st * kBQ * LC, q + qoff + c, q0, tq,
+                                  tstride, d - c, vec);
+    cp_tile_f32<kFC, kMmaThreads>(Kc + st * kBK * LC, k + koff + c,
+                                  (kt_lo + i / nch) * kBK, tkv, tstride,
+                                  d - c, vec);
+  };
+  load_step(0);
+  cp_async_commit();
+
+  const int qrow = warp * 16;
+  const int r0 = q0 + qrow + g;
+  float o[NO][4], s[NS][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_run[2] = {kMaskValue, kMaskValue};
+  float l_part[2] = {0.f, 0.f};
+
+  for (int i = 0; i < steps; ++i) {
+    const int ch = i % nch, st = i & 1;
+    const int k0 = (kt_lo + i / nch) * kBK;
+    if (ch == 0) {
+      // the previous tile's P.V is done (the barrier closing each step)
+      cp_tile_f32<kFS, kMmaThreads>(Vsl, v + koff + c0, k0, tkv, tstride,
+                                    d - c0, vec);
+      cp_async_commit();
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    }
+    if (i + 1 < steps) load_step(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the prefetch have landed
+    __syncthreads();
+
+    const float* Qt = Qc + st * kBQ * LC;
+    const float* Kt = Kc + st * kBK * LC;
+    float sc[NS][4];  // this chunk's share of the scores
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll 1
+    for (int kc = 0; kc < KC; ++kc) {
+      FragA qa;
+      frag_a(qa, Qt, LC, qrow, kc * 8);
+#pragma unroll
+      for (int jp = 0; jp < NS / 2; ++jp) {
+        float bk[4];
+        frag_b_nk(bk, Kt, LC, jp * 16, kc * 8);
+        mma_3x(sc[2 * jp], qa, bk[0], bk[1]);
+        mma_3x(sc[2 * jp + 1], qa, bk[2], bk[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += sc[j][e];
+
+    if (ch == nch - 1) {  // the tile's scores are whole: softmax, P.V
+      const bool edge = k0 + kBK > tkv || (causal && k0 + kBK - 1 > q0) ||
+                        (window > 0 && q0 + kBQ - 1 - k0 >= window);
+      softmax_step(s, o, m_run, l_part, scale, edge, r0, k0, tkv, causal,
+                   window);
+      pv_tf32(o, s, Vsl, LS, 0);
+    }
+    __syncthreads();  // this stage, and at a tile's end Vsl, are free
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float l = quad_sum(l_part[i]);
+    const float safe_l = l == 0.f ? 1.f : l;
+    const int r = r0 + i * 8;
+    if (r < tq) {
+      float* row = out + qoff + r * tstride;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int col = c0 + n * 8 + 2 * t4 + jj;
+          if (col < d) row[col] = o[n][2 * i + jj] / safe_l;
+        }
+      if (blockIdx.z == 0 && t4 == 0)
+        lse[(int64_t)bh * tq + r] = m_run[i] + logf(safe_l);
+    }
+  }
+}
+
+int launch_wide_tf32(const void* q, const void* k, const void* v, void* out,
+                     void* lse, int batch, int heads, int tq, int tkv, int d,
+                     int vec, int causal, int window, float scale,
+                     cudaStream_t stream) {
+  const size_t bytes = wide_tf32_smem_bytes();
+  cudaError_t err = dl4j_smem::set_max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_fwd_wide_tf32_kernel), (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(batch * heads, (tq + kBQ - 1) / kBQ, (d + kFS - 1) / kFS);
+  flash_fwd_wide_tf32_kernel<<<grid, kMmaThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), heads, tq, tkv, d, vec, causal, window,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// The padded bf16 tiers, one `DL4J_TIER(width)` entry each: given by the
-// build (kernels/_build.py) from kernels/__init__.py's MMA_TIERS
+// The padded tiers, one `DL4J_TIER(width)` entry each: given by the build
+// (kernels/_build.py) from kernels/__init__.py's MMA_TIERS; f32 takes
+// those up to DL4J_F32_TIER_MAX
 #ifndef DL4J_MMA_TIERS
 #error "DL4J_MMA_TIERS must be defined by the build"
 #endif
 
-// route: 0 = exact (head_dim 64 or 128, unpadded), 1 = tier (bf16, rows
-// padded to `tier`), 2 = chunked (f32, any head_dim), 3 = wide (bf16
-// above 256). vec: rows may move in 16-byte cp.async copies (tier, wide).
-// dtype: 0 = float32, 1 = bfloat16. window <= 0 means no window.
+// route: 0 = exact (head_dim 64 or 128, unpadded), 1 = tier (rows padded
+// to `tier`: bf16 up to 256, f32 up to 128), 3 = wide (d streamed in
+// chunks: bf16 above 256, f32 above 128). vec: rows may move in 16-byte
+// cp.async copies (tier, wide). dtype: 0 = float32 (3xTF32), 1 =
+// bfloat16. window <= 0 means no window.
 extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
                               void* out, void* lse, int batch, int heads,
                               int tq, int tkv, int head_dim, int route,
@@ -958,11 +1092,11 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
   const int d = head_dim;
   if (route == 0) {
     if (dtype == 0 && d == 64)
-      return launch<float, 64>(q, k, v, out, lse, batch, heads, tq, tkv,
-                               causal, window, scale, s);
+      return launch_tf32<64, false>(q, k, v, out, lse, batch, heads, tq, tkv,
+                                    d, 1, causal, window, scale, s);
     if (dtype == 0 && d == 128)
-      return launch<float, 128>(q, k, v, out, lse, batch, heads, tq, tkv,
-                                causal, window, scale, s);
+      return launch_tf32<128, false>(q, k, v, out, lse, batch, heads, tq,
+                                     tkv, d, 1, causal, window, scale, s);
     if (dtype == 1 && d == 64)
       return launch_mma<64, false>(q, k, v, out, lse, batch, heads, tq, tkv,
                                    d, 1, causal, window, scale, s);
@@ -978,12 +1112,21 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
       DL4J_MMA_TIERS
 #undef DL4J_TIER
     }
-  } else if (route == 2 && dtype == 0) {
-    return launch_chunked(q, k, v, out, lse, batch, heads, tq, tkv, d,
-                          causal, window, scale, s);
+  } else if (route == 1 && dtype == 0) {
+    switch (tier) {
+#define DL4J_TIER(T)                                                    \
+  case T:                                                               \
+    return launch_tf32_tier<T>(q, k, v, out, lse, batch, heads, tq, tkv, \
+                               d, vec, causal, window, scale, s);
+      DL4J_MMA_TIERS
+#undef DL4J_TIER
+    }
   } else if (route == 3 && dtype == 1) {
     return launch_wide(q, k, v, out, lse, batch, heads, tq, tkv, d, vec,
                        causal, window, scale, s);
+  } else if (route == 3 && dtype == 0) {
+    return launch_wide_tf32(q, k, v, out, lse, batch, heads, tq, tkv, d, vec,
+                            causal, window, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

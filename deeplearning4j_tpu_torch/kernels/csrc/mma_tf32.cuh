@@ -1,6 +1,6 @@
 // 3xTF32 tensor-core building blocks of the float32 flash-attention
-// backward (flash_bwd.cu): warp-level `mma.sync` m16n8k8 with TF32
-// operands and f32 accumulators, each f32 operand split in two TF32
+// kernels (flash_fwd.cu, flash_bwd.cu): warp-level `mma.sync` m16n8k8 with
+// TF32 operands and f32 accumulators, each f32 operand split in two TF32
 // parts, fragment loads from f32 shared tiles, and 16-byte `cp.async`
 // staging of f32 rows.
 //
@@ -133,6 +133,19 @@ __device__ __forceinline__ void frag_a(FragA& a, const float* tile, int ld,
   ldsm_x4(x, tile + (r0 + lane % 8 + ((lane / 8) % 2) * 8) * ld + k0 +
                  (lane / 16) * 4);
   split_a(a, x);
+}
+
+// The same A fragment from two row-major planes that already hold the
+// TF32 parts of the tile (`big` and `small`, split once by the block): two
+// ldmatrix, no conversion.
+__device__ __forceinline__ void frag_a_planes(FragA& a, const float* big,
+                                              const float* small, int ld,
+                                              int r0, int k0) {
+  const int lane = threadIdx.x % 32;
+  const int off = (r0 + lane % 8 + ((lane / 8) % 2) * 8) * ld + k0 +
+                  (lane / 16) * 4;
+  dl4j_mma::ldmatrix_x4(a.big, big + off);
+  dl4j_mma::ldmatrix_x4(a.small, small + off);
 }
 
 // The B fragments of two 8-column tiles, columns n0..n0+7 and

@@ -18,24 +18,23 @@ route's grid and column slices), and names each kernel's variant:
   instantiations. bf16 inputs run tensor-core kernels ("mma.sync bf16":
   warp ``mma.sync`` with f32 accumulators, ``ldmatrix`` and a two-stage
   ``cp.async`` ring, from the shared header ``csrc/mma_bf16.cuh``). f32
-  inputs run B2 and B3 on the tensor cores too ("mma.sync 3xtf32",
+  inputs run all three on the tensor cores too ("mma.sync 3xtf32",
   ``csrc/mma_tf32.cuh``: every operand split in two TF32 parts, three
   ``mma.sync`` m16n8k8 products summed in f32, which keeps the f32
-  gates that one TF32 product misses) and B1 on the CUDA cores ("fma
-  f32", its first kernel).
-- ``tier``: any other bf16 head_dim up to 256, and for B2 and B3 any
-  other f32 head_dim up to :data:`F32_TIER_MAX`. The same tensor-core
-  kernels, compiled for the next width of :data:`MMA_TIERS`, with each
-  row zero-padded to it in shared memory (zero columns add nothing to
+  gates that one TF32 product misses).
+- ``tier``: any other bf16 head_dim up to 256, and any other f32
+  head_dim up to :data:`F32_TIER_MAX`. The same tensor-core kernels,
+  compiled for the next width of :data:`MMA_TIERS`, with each row
+  zero-padded to it in shared memory (zero columns add nothing to
   q·kᵀ, and padded output columns are not stored). Above 128, the bf16
   B2 splits its dk/dv columns in two slices (a third grid dimension).
-- ``wide``: bf16 above 256, and B2 and B3 in f32 above
-  :data:`F32_TIER_MAX`. Tensor-core kernels that stream ``d`` in chunks
-  of :data:`CHUNK` columns for q·kᵀ (and dO·vᵀ) and write one slice of
-  output columns a block (128 in bf16, 64 in f32); each slice recomputes
-  the scores over the whole ``d``.
-- ``chunked``: B1 in f32 at any other head_dim. A CUDA-core kernel with
-  the same chunks and slices of :data:`CHUNK` output columns.
+- ``wide``: bf16 above 256, f32 above :data:`F32_TIER_MAX`. Tensor-core
+  kernels that stream ``d`` in chunks of :data:`CHUNK` columns for q·kᵀ
+  (and dO·vᵀ) and write one slice of output columns a block (128 in
+  bf16, 64 in f32); each slice recomputes the scores over the whole
+  ``d``.
+
+The three kernels take one plan in either dtype.
 
 Each source's note states the design and what it leaves on the table.
 
@@ -95,9 +94,9 @@ MASK_VALUE = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims of the unpadded instantiations (the main path's)
 EXACT_HEAD_DIMS = (64, 128)
-#: columns of ``d`` a chunk in the wide and chunked kernels
+#: columns of ``d`` a chunk in the wide kernels
 CHUNK = 64
-_ROUTE_CODE = {"exact": 0, "tier": 1, "chunked": 2, "wide": 3}
+_ROUTE_CODE = {"exact": 0, "tier": 1, "wide": 3}
 _TILE = 64  # query and key rows a tile: the grid's y
 _GRID_Y_MAX = 65535
 _INT_MAX = 2 ** 31 - 1
@@ -136,13 +135,13 @@ def _check(q, k, v, causal, window):
 
 @dataclass(frozen=True)
 class KernelPlan:
-    """How one kernel takes a call's shapes: ``route`` is ``"exact"``,
-    ``"tier"``, ``"wide"`` or ``"chunked"`` (the module note); ``variant``
-    the CUDA kernel family that launches (``"mma.sync bf16"``,
-    ``"mma.sync 3xtf32"`` or ``"fma f32"``); ``tier`` the width a row is
-    padded to in shared memory (exact, tier) or the chunk width (wide,
-    chunked); ``vec`` whether rows move in 16-byte ``cp.async`` copies
-    (else element by element)."""
+    """How the three kernels take one call's shapes (:func:`launch_plan`:
+    one plan for B1, B2 and B3): ``route`` is ``"exact"``, ``"tier"`` or
+    ``"wide"`` (the module note); ``variant`` the CUDA kernel family that
+    launches (``"mma.sync bf16"`` or ``"mma.sync 3xtf32"``); ``tier`` the
+    width a row is padded to in shared memory (exact, tier) or the chunk
+    width (wide); ``vec`` whether rows move in 16-byte ``cp.async``
+    copies (else element by element)."""
 
     route: str
     variant: str
@@ -153,39 +152,27 @@ class KernelPlan:
         """The integers the C entry points take: route, tier, vec."""
         return (_ROUTE_CODE[self.route], self.tier, int(self.vec))
 
-
-@dataclass(frozen=True)
-class LaunchPlan(KernelPlan):
-    """How the three kernels take one call's shapes (:func:`launch_plan`):
-    B1's plan in the fields of :class:`KernelPlan`, B2 and B3's (one
-    route for the pair) in ``bwd``."""
-
-    bwd: KernelPlan = None
-
-    def kernel(self, name: str) -> KernelPlan:
-        """The plan of ``"fwd"`` (B1), ``"dkdv"`` (B2) or ``"dq"`` (B3)."""
-        if name == "fwd":
-            return KernelPlan(self.route, self.variant, self.tier, self.vec)
-        if name in ("dkdv", "dq"):
-            return self.bwd
-        raise ValueError(f"no flash kernel {name!r}")
+    def kernel(self, name: str) -> "KernelPlan":
+        """The plan of ``"fwd"`` (B1), ``"dkdv"`` (B2) or ``"dq"`` (B3):
+        this one."""
+        if name not in ("fwd", "dkdv", "dq"):
+            raise ValueError(f"no flash kernel {name!r}")
+        return self
 
 
-def _route(d: int, aligned: bool, whole_up_to: int,
-           streamed: str) -> Tuple[str, int]:
+def _route(d: int, aligned: bool, whole_up_to: int) -> Tuple[str, int]:
     """(route, tier): exact at 64/128 on aligned inputs, else the next
-    tier while ``d <= whole_up_to``, else ``streamed`` (``"wide"`` or
-    ``"chunked"``) at the chunk width."""
+    tier while ``d <= whole_up_to``, else wide at the chunk width."""
     if d in EXACT_HEAD_DIMS and aligned:
         return "exact", d
     if d <= whole_up_to:
         return "tier", next(t for t in MMA_TIERS if t >= d)
-    return streamed, CHUNK
+    return "wide", CHUNK
 
 
 def launch_plan(q_shape, k_shape, dtype: torch.dtype, *,
                 causal: bool = False, window: Optional[int] = None,
-                aligned: bool = True) -> LaunchPlan:
+                aligned: bool = True) -> KernelPlan:
     """The kernels' plan for q ``[b, tq, h, d]`` and k/v ``[b, tkv, h,
     d]`` in ``dtype``: a pure function of the shapes, so the CPU tests
     hold the card's acceptance rule. Takes every ``d >= 1``, f32 or
@@ -211,21 +198,12 @@ def launch_plan(q_shape, k_shape, dtype: torch.dtype, *,
                          f"{_GRID_Y_MAX * _TILE} rows (got tq={tq}, "
                          f"tkv={tkv})")
     bf16 = dtype == torch.bfloat16
-    vec = aligned and d % 8 == 0
-    # B1: bf16 on the tensor cores at every d; f32 on the CUDA cores, its
-    # unpadded kernels at 64/128 and the chunked one elsewhere
-    route, tier = _route(d, aligned, MMA_TIERS[-1] if bf16 else 0,
-                         "wide" if bf16 else "chunked")
-    # B2 and B3: the tensor cores in both dtypes, rows whole up to the
-    # widest tier (bf16) or F32_TIER_MAX (f32), streamed above
-    b_route, b_tier = _route(d, aligned,
-                             MMA_TIERS[-1] if bf16 else F32_TIER_MAX, "wide")
-    bwd = KernelPlan(route=b_route,
-                     variant="mma.sync bf16" if bf16 else "mma.sync 3xtf32",
-                     tier=b_tier, vec=vec)
-    return LaunchPlan(route=route,
-                      variant="mma.sync bf16" if bf16 else "fma f32",
-                      tier=tier, vec=vec, bwd=bwd)
+    # B1–B3: the tensor cores in both dtypes, rows whole up to the widest
+    # tier (bf16) or F32_TIER_MAX (f32), streamed above
+    route, tier = _route(d, aligned, MMA_TIERS[-1] if bf16 else F32_TIER_MAX)
+    return KernelPlan(route=route,
+                      variant="mma.sync bf16" if bf16 else "mma.sync 3xtf32",
+                      tier=tier, vec=aligned and d % 8 == 0)
 
 
 def _aligned(*tensors) -> bool:
@@ -464,7 +442,7 @@ def _bwd_launch(kernel, q, k, v, do, lse, delta, outs, causal, scale,
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("flash kernel needs contiguous BTHD inputs")
     plan = launch_plan(q.shape, k.shape, q.dtype, causal=causal,
-                       window=window, aligned=_aligned(q, k, v, do)).bwd
+                       window=window, aligned=_aligned(q, k, v, do))
     name = f"dl4j_flash_bwd_{kernel}"
     fn = getattr(_bwd_lib(), name)
     with torch.cuda.device(q.device):

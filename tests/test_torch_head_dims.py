@@ -128,13 +128,14 @@ def test_lm_at_head_dim_80_matches_reference():
 
 
 def _expected_route(d, dtype):
+    """B1–B3's route and width in either dtype: rows whole up to the
+    widest tier (bf16) or ``F32_TIER_MAX`` (f32), streamed above."""
     if d in fa.EXACT_HEAD_DIMS:
         return "exact", d
-    if dtype == torch.bfloat16:
-        if d <= 256:
-            return "tier", min(t for t in fa.MMA_TIERS if t >= d)
-        return "wide", fa.CHUNK
-    return "chunked", fa.CHUNK
+    widest = fa.MMA_TIERS[-1] if dtype == torch.bfloat16 else fa.F32_TIER_MAX
+    if d <= widest:
+        return "tier", min(t for t in fa.MMA_TIERS if t >= d)
+    return "wide", fa.CHUNK
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -152,40 +153,30 @@ def test_launch_plan_takes_every_head_dim(dtype):
         assert plan.vec == (d % 8 == 0)
         if route in ("exact", "tier"):
             assert d <= plan.tier
-        assert plan.c_args() == ({"exact": 0, "tier": 1, "chunked": 2,
-                                  "wide": 3}[route], tier, int(plan.vec))
+        assert plan.c_args() == ({"exact": 0, "tier": 1, "wide": 3}[route],
+                                 tier, int(plan.vec))
         assert plan.variant == ("mma.sync bf16" if dtype == torch.bfloat16
-                                else "fma f32")
+                                else "mma.sync 3xtf32")
     # OPT-2.7B's head_dim runs at its own width, not padded to 128
     assert fa.launch_plan((2, 2048, 32, 80), (2, 2048, 32, 80),
                           torch.bfloat16, causal=True).tier == 80
 
 
-def _expected_bwd_route(d, dtype):
-    if d in fa.EXACT_HEAD_DIMS:
-        return "exact", d
-    widest = fa.MMA_TIERS[-1] if dtype == torch.bfloat16 else fa.F32_TIER_MAX
-    if d <= widest:
-        return "tier", min(t for t in fa.MMA_TIERS if t >= d)
-    return "wide", fa.CHUNK
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 def test_launch_plan_names_each_kernels_variant(dtype):
-    """B2 and B3 share one plan. In f32 it is the 3xTF32 tensor-core
-    kernels at every d (rows whole up to ``F32_TIER_MAX``, streamed in
-    chunks above), while B1 keeps its CUDA-core plan; in bf16 all three
-    take the same plan. ``chip_smoke.variant`` prints what the plan
-    says."""
+    """B1, B2 and B3 share one plan in both dtypes. In f32 it is the
+    3xTF32 tensor-core kernels at every d (rows whole up to
+    ``F32_TIER_MAX``, streamed in chunks above). ``chip_smoke.variant``
+    prints what the plan says."""
     name = str(dtype).replace("torch.", "")
     b, t, h = 2, 130, 3
     for d in range(1, 513):
         plan = fa.launch_plan((b, t, h, d), (b, t, h, d), dtype,
                               causal=True)
         bwd = plan.kernel("dkdv")
-        assert plan.kernel("dq") == bwd == plan.bwd
-        route, tier = _expected_bwd_route(d, dtype)
+        assert plan.kernel("dq") == bwd == plan
+        route, tier = _expected_route(d, dtype)
         assert (bwd.route, bwd.tier, bwd.vec) == (route, tier, d % 8 == 0), d
         assert bwd.c_args() == ({"exact": 0, "tier": 1, "wide": 3}[route],
                                 tier, int(d % 8 == 0))
@@ -194,21 +185,17 @@ def test_launch_plan_names_each_kernels_variant(dtype):
         fwd = plan.kernel("fwd")
         assert (fwd.route, fwd.variant, fwd.tier, fwd.vec) == \
             (plan.route, plan.variant, plan.tier, plan.vec)
-        if dtype == torch.float32:
-            assert bwd.variant == "mma.sync 3xtf32"
-            assert (fwd.route, fwd.variant) == (
-                "exact" if d in fa.EXACT_HEAD_DIMS else "chunked", "fma f32")
-        else:
-            assert bwd == fwd and bwd.variant == "mma.sync bf16"
+        assert bwd == fwd and bwd.variant == (
+            "mma.sync 3xtf32" if dtype == torch.float32 else "mma.sync bf16")
         for kern in ("fwd", "dkdv", "dq"):
             assert chip_smoke.variant(kern, name) == \
                 plan.kernel(kern).variant
     # an input off a 16-byte boundary: the padded tier of 64 with element
-    # copies for B2 and B3, the chunked kernel for the f32 B1
+    # copies for all three kernels
     plan = fa.launch_plan((1, 8, 2, 64), (1, 8, 2, 64), dtype,
                           aligned=False)
-    assert (plan.bwd.route, plan.bwd.tier, plan.bwd.vec) == ("tier", 64,
-                                                             False)
+    assert (plan.route, plan.tier, plan.vec) == ("tier", 64, False)
+    assert plan.kernel("fwd") == plan.kernel("dkdv") == plan
     with pytest.raises(ValueError, match="kernel"):
         plan.kernel("bwd")
 
@@ -251,11 +238,10 @@ def test_launch_plan_keeps_the_references_refusals():
                        causal=True)
     # an input off a 16-byte boundary leaves the exact route and the
     # 16-byte copies
-    for dtype, route in ((torch.bfloat16, "tier"),
-                         (torch.float32, "chunked")):
+    for dtype in (torch.bfloat16, torch.float32):
         plan = fa.launch_plan((1, 8, 2, 64), (1, 8, 2, 64), dtype,
                               aligned=False)
-        assert plan.route == route and not plan.vec
+        assert plan.route == "tier" and not plan.vec
 
 
 def test_tier_list_reaches_nvcc(monkeypatch):
@@ -279,17 +265,17 @@ def test_tier_list_reaches_nvcc(monkeypatch):
 
 
 def test_f32_tier_max_reaches_nvcc():
-    """The f32 backward's widest whole row is written once, in the
-    package: the plan reads it and ``flash_bwd.cu`` gets it as a compiler
-    flag (its text holds no width of its own)."""
+    """The f32 kernels' widest whole row is written once, in the
+    package: the plan reads it and both flash sources get it as a
+    compiler flag (their text holds no width of its own)."""
     from deeplearning4j_tpu_torch import kernels
 
     flag = f"-DDL4J_F32_TIER_MAX={kernels.F32_TIER_MAX}"
     assert fa.F32_TIER_MAX == kernels.F32_TIER_MAX
-    assert flag in _build.nvcc_flags("flash_bwd")
-    assert not any("F32_TIER_MAX" in f for f in _build.nvcc_flags("flash_fwd"))
-    with open(os.path.join(_build.CSRC, "flash_bwd.cu")) as f:
-        src = f.read()
-    assert "kF32TierMax = DL4J_F32_TIER_MAX;" in src
-    assert not re.search(r"kF32TierMax = \d", src)
+    for name in ("flash_fwd", "flash_bwd"):
+        assert flag in _build.nvcc_flags(name)
+        with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
+            src = f.read()
+        assert "kF32TierMax = DL4J_F32_TIER_MAX;" in src
+        assert not re.search(r"kF32TierMax = \d", src), name
 
