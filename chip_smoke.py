@@ -354,9 +354,18 @@ Twenty phases; any failure exits non-zero and prints no result line.
    d_ff 2048, E=8, top-2, capacity 1.25) over ``expert=4`` on ``[4,
    1024, 512]`` f32 against one device (rtol 1e-4, atol 1e-5); (e) the
    MNIST MLP at ``[4096, 784]`` f32 under ``shard_network_params`` over
-   ``model=4``, 3 fits against ``fit`` (rtol 1e-4, atol 1e-6). Each cell
-   prints its ms, params and peak memory per rank, and one ``[16, 1024,
-   512]`` f32 all-reduce's ms. Then B1/B2/B3 at the two per-rank shapes
+   ``model=4``, 3 fits against ``fit`` (rtol 1e-4, atol 1e-6); (f) the
+   same MLP on SGD at the zoo's lr through ``ParallelWrapper`` over
+   ``data=2 x model=2`` under each of the four L2 gradient
+   normalizations (threshold 0.5, below the first step's layer norms,
+   which it prints), 3 fits against one device (rtol 1e-4, atol 1e-6)
+   and a control (normalized against unnormalized, at least 10x the
+   gate); (g) ``ParallelWrapper(fsdp=True)`` over ``data=2 x model=2``
+   under ``ClipL2PerLayer``: 3 fits, then 2 epochs of ``fit_epochs`` on
+   bench_epoch, against one device, with each rank's elements beside
+   TP alone and FSDP alone over ``data=4``; (f) and (g) launch no B1–B3.
+   Each cell prints its ms, params and peak memory per rank, and one
+   ``[16, 1024, 512]`` f32 all-reduce's ms. Then B1/B2/B3 at the two per-rank shapes
    against their bounds, plain versions and SDPA (CUDA events).
 17. Cluster (the fused epoch over a mesh and the cluster layer): (a) an
    NCCL world of one: ``ParallelWrapper(build_mesh()).fit_epochs`` on
@@ -5765,6 +5774,22 @@ MOE_SHAPE = (4, 1024, 512)
 MOE_TOL = dict(rtol=1e-4, atol=1e-5)
 MODEL_BF16_TOL = 2e-2  # outputs and gradients, of each tensor's largest
 MODEL_KERNEL_SHAPES = ((16, 1024, 2, 64), (8, 1024, 4, 64))  # per rank
+# cells (f) and (g): the MNIST MLP (the zoo's widths, seed and lr) on
+# SGD: Adam's step hardly moves when its gradient is scaled, so it would
+# hide a wrong norm. At the zoo's lr a split run sits well inside the
+# float32 gate while a norm left unreduced over model lands far outside
+# it; at lr 0.1 every data or model layout (FSDP alone too) crosses the
+# gate with no normalization at all: its sums round in another order
+# and SGD steps of 0.1 carry that past atol 1e-6
+# (scripts/torch_split_norm_witness.py). The threshold lies below the
+# first step's layer norms (1.6-2.4) and its weights' and above its
+# biases' (0.17-0.20): the per-layer clips engage everywhere, the
+# per-leaf ones on the weights only
+MODEL_L2_MODES = ("RenormalizeL2PerLayer", "ClipL2PerLayer",
+                  "RenormalizeL2PerParamType", "ClipL2PerParamType")
+MODEL_L2_LR = 1e-3
+MODEL_L2_THRESHOLD = 0.5
+MODEL_FSDP_EPOCHS = 2  # (g): bench_epoch's epochs after its 3 fits
 
 
 def _launch_delta(before) -> dict:
@@ -6041,6 +6066,134 @@ def model_mlp(rank: int, meshes: dict) -> dict:
     return res
 
 
+def l2_mlp(mode: str, device: str):
+    """The MNIST MLP (784-256-256-10, the zoo's seed and init) on SGD at
+    ``MODEL_L2_LR`` under the gradient normalization ``mode`` at
+    ``MODEL_L2_THRESHOLD``."""
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf.neural_net import (
+        MultiLayerConfiguration)
+
+    conf = json.loads(zoo.mnist_mlp(hidden=256, device=device).conf
+                      .to_json())
+    for layer in conf["layers"]:
+        layer.update(updater="SGD", learning_rate=MODEL_L2_LR,
+                     gradient_normalization=mode,
+                     gradient_normalization_threshold=MODEL_L2_THRESHOLD)
+    return MultiLayerNetwork(MultiLayerConfiguration.from_json(
+        json.dumps(conf)), device=device).init()
+
+
+def gate_ratio(a, b, rtol: float = MESH_F32_TOL["rtol"],
+               atol: float = MESH_F32_TOL["atol"]) -> float:
+    """The largest ``|a - b| / (atol + rtol·|b|)`` over two trees: under
+    1 where ``tree_close`` holds."""
+    from deeplearning4j_tpu_torch.dtypes import tree_leaves
+
+    return max(float(((x.double() - y.double()).abs()
+                      / (atol + rtol * y.double().abs())).max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def first_grad_norms(net, ds) -> dict:
+    """The L2 norms of ``net``'s gradient on ``ds`` before any
+    normalization, by layer and by leaf."""
+    import torch
+
+    x = torch.as_tensor(ds.features, device=net.device)
+    y = torch.as_tensor(ds.labels, device=net.device)
+    grads = net._loss_grads(net.params, net.net_state, x, y)[2]
+    return {k: {"layer": float(torch.sqrt(sum(
+        (g.double() ** 2).sum() for g in layer.values()))),
+        **{name: float(g.double().norm()) for name, g in layer.items()}}
+        for k, layer in grads.items()}
+
+
+def model_l2(rank: int, meshes: dict) -> dict:
+    """Cell (f): the MNIST MLP's widths at ``[4096, 784]`` f32 over
+    ``data=2 x model=2`` (``ParallelWrapper``: rows over data, layers
+    split by ``shard_network_params``) under each L2 normalization: 3
+    fits against ``fit`` on one device (rank 0), which also takes the
+    first step's norms before the clip."""
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+    batches = mesh_batches()
+    res = {}
+    if rank == 0:   # the norms before the clip; the run with none
+        plain = l2_mlp("None", "cuda")
+        res["pre_clip"] = first_grad_norms(plain, batches[0])
+        plain.fit(batches)
+    for mode in MODEL_L2_MODES:
+        w = ParallelWrapper(l2_mlp(mode, "cuda"),
+                            mesh=meshes["data=2 x model=2"])
+        _, ms, launches = _timed_barrier(lambda: w.fit(batches))
+        params = w.gather()[0]
+        res[mode] = {"ms_per_fit": ms / len(batches), "launches": launches,
+                     "kinds": [type(l).__name__ for l in w.network.layers],
+                     "params_this_rank": _local_numel(w.network.params)}
+        if rank == 0:
+            ref = l2_mlp(mode, "cuda")
+            ref.fit(batches)
+            res[mode].update(err=tree_err(params, ref.params),
+                             ok=tree_close(params, ref.params,
+                                           **MESH_F32_TOL),
+                             gate_share=gate_ratio(params, ref.params),
+                             moved=gate_ratio(ref.params, plain.params))
+        del w
+    return res
+
+
+def model_fsdp(rank: int, meshes: dict) -> dict:
+    """Cell (g): ``ParallelWrapper(fsdp=True)`` over ``data=2 x
+    model=2`` on cell (f)'s net under ``ClipL2PerLayer``: 3 fits, then
+    ``fit_epochs`` on bench_epoch, each against one device (rank 0); each
+    rank's params + updater elements beside TP alone (the same mesh) and
+    FSDP alone over ``data=4``."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+    mode = "ClipL2PerLayer"
+    m22 = meshes["data=2 x model=2"]
+    held = {}
+    for name, mesh, fsdp in (("tp", m22, False),
+                             ("fsdp data=4", meshes["data=4"], True),
+                             ("tp+fsdp", m22, True)):
+        w = ParallelWrapper(l2_mlp(mode, "cuda"), mesh=mesh,
+                            fsdp=fsdp)
+        held[name] = (_local_numel(w.network.params)
+                      + _local_numel(w.network.updater_state))
+    batches = mesh_batches()
+    _, ms_fit, n_fit = _timed_barrier(lambda: w.fit(batches))
+    fit_params = w.gather()[0]
+    it = ListDataSetIterator(epoch_data(), EPOCH_BATCH)
+    hist, ms_epochs, n_epochs = _timed_barrier(
+        lambda: w.fit_epochs(it, MODEL_FSDP_EPOCHS))
+    res = {"held": held, "ms_per_fit": ms_fit / len(batches),
+           "ms_per_epoch": ms_epochs / MODEL_FSDP_EPOCHS,
+           "launches": {k: n_fit[k] + n_epochs[k] for k in n_fit},
+           "kinds": [type(l).__name__ for l in w.network.layers],
+           "local_shapes": {f"{k}/{leaf}": list(v.shape)
+                            for k, layer in w.network.params.items()
+                            for leaf, v in layer.items()}}
+    epoch_params = w.gather()[0]
+    if rank == 0:
+        ref = l2_mlp(mode, "cuda")
+        ref.fit(batches)
+        res["fit_err"] = tree_err(fit_params, ref.params)
+        res["fit_share"] = gate_ratio(fit_params, ref.params)
+        res["fit_ok"] = tree_close(fit_params, ref.params, **MESH_F32_TOL)
+        ref_hist = ref.fit_epochs(it, MODEL_FSDP_EPOCHS)
+        res["epoch_err"] = max(tree_err(epoch_params, ref.params),
+                               float((hist - ref_hist).abs().max()))
+        res["epoch_share"] = max(gate_ratio(epoch_params, ref.params),
+                                 gate_ratio(hist, ref_hist))
+        res["epoch_ok"] = (
+            tree_close(epoch_params, ref.params, **MESH_F32_TOL)
+            and tree_close(hist, ref_hist, **MESH_F32_TOL))
+    return res
+
+
 def model_rank(rank: int, n: int, tmp: str) -> None:
     """One rank of the 4-process gloo world of phase 16; writes its
     results to ``model<r>.json`` in ``tmp``."""
@@ -6065,13 +6218,16 @@ def model_rank(rank: int, n: int, tmp: str) -> None:
                                            device="cuda"),
             "pipe=4": build_mesh(MeshSpec(data=1, pipe=n), device="cuda"),
             "expert=4": build_mesh(MeshSpec(data=1, expert=n),
-                                   device="cuda")}
+                                   device="cuda"),
+            "data=4": build_mesh(MeshSpec(data=n), device="cuda")}
         for name, fn in (("allreduce", lambda: model_allreduce_ms(meshes)),
                          ("train", lambda: model_tp_train(rank, meshes)),
                          ("serve", lambda: model_tp_serve(rank, meshes)),
                          ("pipe", lambda: model_pipe(rank, meshes)),
                          ("moe", lambda: model_moe(rank, meshes)),
-                         ("mlp", lambda: model_mlp(rank, meshes))):
+                         ("mlp", lambda: model_mlp(rank, meshes)),
+                         ("l2", lambda: model_l2(rank, meshes)),
+                         ("fsdp", lambda: model_fsdp(rank, meshes))):
             torch.cuda.reset_peak_memory_stats()
             t = time.monotonic()
             out[name] = fn()
@@ -6138,6 +6294,74 @@ def model_kernels(card: str) -> dict:
     return rows
 
 
+def _summed(counts: list) -> dict:
+    """Launch counts by kernel, summed over the ranks' dicts."""
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def model_l2_lines(ranks: list, card: str) -> list:
+    """Cells (f) and (g)'s lines; their failures."""
+    failures = []
+    r0 = ranks[0]
+    pre = r0["l2"]["pre_clip"]
+    print(f"model (f) mnist_mlp float32 [{MESH_MLP_BATCH}, 784] SGD "
+          f"lr {MODEL_L2_LR} over data=2 x model=2 "
+          f"({r0['l2'][MODEL_L2_MODES[0]]['kinds']}): first-step norms "
+          "before normalization, by layer "
+          + ", ".join(f"{k} {v['layer']:.5f} (W {v['W']:.5f}, b "
+                      f"{v['b']:.5f})" for k, v in pre.items())
+          + f"; threshold {MODEL_L2_THRESHOLD}; "
+          f"{max(r['l2_s'] for r in ranks):.1f} s; peak_mem_bytes per rank "
+          f"{[r['l2_peak_mem_bytes'] for r in ranks]} [{card}]")
+    if not all(v["layer"] > MODEL_L2_THRESHOLD for v in pre.values()):
+        failures.append("a layer's norm lies under the clip threshold")
+    for mode in MODEL_L2_MODES:
+        c = r0["l2"][mode]
+        launches = _summed([r["l2"][mode]["launches"] for r in ranks])
+        print(f"model (f) {mode}: {MESH_STEPS} fits against fit on one "
+              f"device max_abs_err={c['err']:.3e} (rtol 1e-4, atol 1e-6; "
+              f"{c['gate_share']:.4f} of the gate) "
+              f"{'ok' if c['ok'] else 'MISMATCH'}; the control: this "
+              f"mode's one-device run and the run without normalization "
+              f"part by {c['moved']:.1f}x the gate (at least 10); "
+              f"{max(r['l2'][mode]['ms_per_fit'] for r in ranks):.2f} ms "
+              f"per fit; params per rank "
+              f"{[r['l2'][mode]['params_this_rank'] for r in ranks]}; "
+              f"B1-B3 launches over the ranks {launches} [{card}]")
+        if not c["ok"]:
+            failures.append(f"l2 {mode}")
+        if c["moved"] < 10.0:
+            failures.append(f"l2 {mode}: normalization moves the result "
+                            "by less than 10x the gate")
+        if any(launches.values()):
+            failures.append(f"l2 {mode} launched a flash kernel")
+    g = r0["fsdp"]
+    launches = _summed([r["fsdp"]["launches"] for r in ranks])
+    print(f"model (g) ParallelWrapper(fsdp=True) over data=2 x model=2, "
+          f"ClipL2PerLayer ({g['kinds']}; rank 0 holds "
+          f"{g['local_shapes']}): {MESH_STEPS} fits against one device "
+          f"max_abs_err={g['fit_err']:.3e} ({g['fit_share']:.4f} of the "
+          f"gate), then fit_epochs ({MODEL_FSDP_EPOCHS} epochs of "
+          f"bench_epoch, {EPOCH_BATCHES} x [{EPOCH_BATCH}, 784]) history "
+          f"and params max_abs_err={g['epoch_err']:.3e} "
+          f"({g['epoch_share']:.4f} of the gate; rtol 1e-4, atol 1e-6) "
+          f"{'ok' if g['fit_ok'] and g['epoch_ok'] else 'MISMATCH'}; "
+          f"{max(r['fsdp']['ms_per_fit'] for r in ranks):.2f} ms per fit, "
+          f"{max(r['fsdp']['ms_per_epoch'] for r in ranks):.1f} ms per "
+          f"epoch; {max(r['fsdp_s'] for r in ranks):.1f} s; params + "
+          "updater elements per rank: " + "; ".join(
+              f"{name} {[r['fsdp']['held'][name] for r in ranks]}"
+              for name in g["held"])
+          + f"; peak_mem_bytes per rank "
+          f"{[r['fsdp_peak_mem_bytes'] for r in ranks]}; B1-B3 launches "
+          f"over the ranks {launches} [{card}]")
+    if not (g["fit_ok"] and g["epoch_ok"]):
+        failures.append("fsdp over data x model")
+    if any(launches.values()):
+        failures.append("the FSDP x TP cell launched a flash kernel")
+    return failures
+
+
 def model_phase(card: str) -> dict:
     """Phase 16; returns B1–B3's launches over cell (a)'s steps and cell
     (c)'s step, summed over the ranks."""
@@ -6165,7 +6389,8 @@ def model_phase(card: str) -> dict:
           f"{time.monotonic() - t0:.1f} s; per rank join "
           + ", ".join(f"{r['join_s']:.1f}" for r in ranks) + " s; cells "
           + ", ".join(f"{c} {max(r[c + '_s'] for r in ranks):.1f} s"
-                      for c in ("train", "serve", "pipe", "moe", "mlp")))
+                      for c in ("train", "serve", "pipe", "moe", "mlp",
+                                "l2", "fsdp")))
     r0 = ranks[0]
     layers = TRAIN_CFG["num_layers"]
     failures = []
@@ -6270,6 +6495,7 @@ def model_phase(card: str) -> dict:
         failures.append("tp mlp")
     if any(v for r in ranks for v in r["mlp"]["launches"].values()):
         failures.append("the MLP launched a flash kernel")
+    failures += model_l2_lines(ranks, card)
     if failures:
         raise AssertionError("model axes: " + "; ".join(failures))
     torch.cuda.empty_cache()
@@ -8028,6 +8254,7 @@ def main() -> None:
                   "recurrent", "fused", "cli", "serve_extras", "data",
                   "monitor", "embeddings", "trees", "mesh", "model",
                   "cluster", "a15", "headdim", "f32_train"):
+        t_phase = time.monotonic()
         try:
             if phase == "flash":
                 entries["flash_attention_fwd"], f32_fwd = check_flash(card)
@@ -8082,6 +8309,8 @@ def main() -> None:
             traceback.print_exc()
             failed.append(phase)
         torch.cuda.empty_cache()
+        print(f"phase {phase}: {time.monotonic() - t_phase:.1f} s [{card}]",
+              flush=True)
     if failed:
         fail(f"phase(s) failed: {', '.join(failed)}")
     for name, e in entries.items():

@@ -151,10 +151,16 @@ class FusedTraining:
                         lr_scale_host=None):
         """LR schedule, updater math and parameter update on multi-tensor
         kernels, grouped by (spec, lr, dtype). Under master weights
-        ``params`` are the f32 masters and ``grads`` arrive upcast."""
+        ``params`` are the f32 masters and ``grads`` arrive upcast. A
+        network split over ``model`` takes its split layers' L2 norms
+        over the whole layers (``_split_norms``, set by
+        ``tensor_parallel.shard_network_params``)."""
+        items = self._update_items()
+        split_norms = getattr(self, "_split_norms", None)
         return grouped_apply_updaters(
-            self._update_items(), params, updater_state, grads,
-            self._lr_scale(iteration, lr_scale_host), iteration + 1)
+            items, params, updater_state, grads,
+            self._lr_scale(iteration, lr_scale_host), iteration + 1,
+            None if split_norms is None else split_norms(items, grads))
 
     def _plain_lr(self, lr):
         return lr if self._PLAIN_STEP_HOST_LR else None

@@ -21,6 +21,7 @@ value back to the host.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -122,33 +123,87 @@ def init_updater_state(spec: UpdaterSpec, params: Any) -> Any:
 # ---------------------------------------------------------------------------
 
 
+L2_PER_LAYER = (GradientNormalization.RENORMALIZE_L2_PER_LAYER,
+                GradientNormalization.CLIP_L2_PER_LAYER)
+L2_PER_PARAM_TYPE = (GradientNormalization.RENORMALIZE_L2_PER_PARAM_TYPE,
+                     GradientNormalization.CLIP_L2_PER_PARAM_TYPE)
+
+
 def _layer_norm(leaves):
     return torch.sqrt(sum(torch.sum(g * g) for g in leaves) + 1e-12)
 
 
-def normalize_gradients(spec: UpdaterSpec, grads: Any) -> Any:
+def normalize_gradients(spec: UpdaterSpec, grads: Any,
+                        sq_norms: Any = None) -> Any:
+    """One layer's gradients under its normalization mode.
+
+    ``sq_norms`` are the squared L2 norms an L2 mode divides by when this
+    rank holds only parts of the layer (:func:`split_sq_norms`): a scalar
+    under ``*_PER_LAYER``, a tree of scalars mirroring ``grads`` under
+    ``*_PER_PARAM_TYPE``. ``None`` takes them from ``grads``."""
     gn = spec.gradient_normalization
     thr = spec.gradient_normalization_threshold
-    if gn == GradientNormalization.NONE:
-        return grads
-    if gn == GradientNormalization.RENORMALIZE_L2_PER_LAYER:
-        norm = _layer_norm(tree_leaves(grads))
-        return tree_map(lambda g: g / norm, grads)
-    if gn == GradientNormalization.RENORMALIZE_L2_PER_PARAM_TYPE:
-        return tree_map(
-            lambda g: g / (torch.linalg.vector_norm(g) + 1e-12), grads)
+    if gn == GradientNormalization.NONE or not tree_leaves(grads):
+        return grads  # a layer without params (pooling) has no norm
+    if gn in L2_PER_LAYER:
+        norm = (_layer_norm(tree_leaves(grads)) if sq_norms is None
+                else torch.sqrt(sq_norms + 1e-12))
+        if gn == GradientNormalization.RENORMALIZE_L2_PER_LAYER:
+            return tree_map(lambda g: g / norm, grads)
+        scale = torch.clamp(thr / norm, max=1.0)
+        return tree_map(lambda g: g * scale, grads)
+    if gn in L2_PER_PARAM_TYPE:
+        renorm = gn == GradientNormalization.RENORMALIZE_L2_PER_PARAM_TYPE
+
+        def one(g, sq):
+            norm = (torch.linalg.vector_norm(g) if sq is None
+                    else torch.sqrt(sq)) + 1e-12
+            return g / norm if renorm else g * torch.clamp(thr / norm,
+                                                           max=1.0)
+
+        sqs = iter([] if sq_norms is None else tree_leaves(sq_norms))
+        return tree_map(lambda g: one(g, next(sqs, None)), grads)
     if gn == GradientNormalization.CLIP_ELEMENTWISE_ABSOLUTE_VALUE:
         return tree_map(lambda g: torch.clamp(g, -thr, thr), grads)
-    if gn == GradientNormalization.CLIP_L2_PER_LAYER:
-        scale = torch.clamp(thr / _layer_norm(tree_leaves(grads)), max=1.0)
-        return tree_map(lambda g: g * scale, grads)
-    if gn == GradientNormalization.CLIP_L2_PER_PARAM_TYPE:
-        def clip(g):
-            norm = torch.linalg.vector_norm(g) + 1e-12
-            return g * torch.clamp(thr / norm, max=1.0)
-
-        return tree_map(clip, grads)
     raise ValueError(gn)
+
+
+def split_sq_norms(items, grads, split, reduce) -> Dict[str, Any]:
+    """The squared L2 norms of the layers this rank holds only parts of,
+    over the whole layers, with one call of ``reduce``.
+
+    ``items`` is the ordered ``(layer_key, spec)`` list; ``split`` maps a
+    layer's key to a tree of bools mirroring its gradients: ``True``
+    where this rank holds one part of a leaf split over the ranks of
+    ``reduce``, ``False`` where every one of them holds the whole leaf
+    (the same values). ``reduce`` sums a 1-D tensor over those ranks, in
+    place or not, and returns it. A split leaf's parts are each counted
+    once, a whole leaf once, not once a rank. Layers with no L2 mode, or
+    absent from ``split``, get nothing. Returns ``{layer_key: sq_norms}``
+    as :func:`normalize_gradients` takes them."""
+    parts, layout = [], []  # (reduced, own) scalars; (key, per layer)
+    for key, spec in items:
+        gn = spec.gradient_normalization
+        if key not in split or gn not in L2_PER_LAYER + L2_PER_PARAM_TYPE:
+            continue
+        sq = [(torch.sum(g * g), f) for g, f in zip(
+            tree_leaves(grads[key]), tree_leaves(split[key]))]
+        if gn in L2_PER_LAYER:
+            zero = sq[0][0].new_zeros(())
+            parts.append((sum((s for s, f in sq if f), zero),
+                          sum((s for s, f in sq if not f), zero)))
+        else:
+            parts += [(s, s.new_zeros(())) if f else (s.new_zeros(()), s)
+                      for s, f in sq]
+        layout.append((key, gn in L2_PER_LAYER))
+    if not layout:
+        return {}
+    wide = functools.reduce(torch.promote_types, (s.dtype for s, _ in parts))
+    total = reduce(torch.stack([s.to(wide) for s, _ in parts]))
+    sums = iter([t.to(own.dtype) + own for t, (_, own) in zip(total, parts)])
+    return {key: next(sums) if per_layer
+            else tree_map(lambda _: next(sums), grads[key])
+            for key, per_layer in layout}
 
 
 # ---------------------------------------------------------------------------
@@ -319,7 +374,8 @@ def _put(root, path, value):
 
 
 def grouped_apply_updaters(items, params, updater_state, grads,
-                           lr_scale: torch.Tensor, step_count: torch.Tensor):
+                           lr_scale: torch.Tensor, step_count: torch.Tensor,
+                           sq_norms: Optional[Dict[str, Any]] = None):
     """The whole multi-layer optimizer tail as multi-tensor operations.
 
     ``items`` is the ordered ``(layer_key, spec)`` list; ``params`` /
@@ -327,9 +383,11 @@ def grouped_apply_updaters(items, params, updater_state, grads,
     are grouped by ``(spec, effective lr, dtype)`` and :func:`_apply_one`
     runs once per group on ``torch._foreach_*`` kernels, so the launches
     do not grow with depth. Per-layer gradient normalization runs per
-    layer before grouping (its norms are over one layer's gradient);
-    ``bias_learning_rate`` leaves form their own group. The result equals
-    the per-layer :func:`apply_updater` loop bit for bit.
+    layer before grouping (its norms are over one layer's gradient, or
+    ``sq_norms[key]`` where this rank holds only parts of the layer:
+    :func:`split_sq_norms`); ``bias_learning_rate`` leaves form their own
+    group. The result equals the per-layer :func:`apply_updater` loop bit
+    for bit.
 
     Returns ``(new_params, new_updater_state)`` in the input structure.
     """
@@ -340,7 +398,8 @@ def grouped_apply_updaters(items, params, updater_state, grads,
     for key, spec in items:
         new_params[key] = _skeleton(params[key])
         new_updater[key] = _skeleton(updater_state[key])
-        g_layer = normalize_gradients(spec, grads[key])
+        g_layer = normalize_gradients(spec, grads[key],
+                                      (sq_norms or {}).get(key))
         for path, g, s, p in _iter_leaf_records(
                 g_layer, updater_state[key], params[key]):
             gk = (spec, _leaf_lr(spec, path[-1]), g.dtype)

@@ -26,7 +26,9 @@ every rank takes part in gathering it, rank 0 alone writes it, and the
 ranks meet at a barrier before a save returns. ``resume(mesh=)`` places
 the restored state on any mesh of the current world (replicated, or the
 registry's tensor-parallel shards where it has a ``model`` axis), and
-``resume(fsdp=True)`` keeps this rank's FSDP shards over ``data``.
+``resume(fsdp=True)`` keeps this rank's FSDP shards over ``data``
+(through a ``ParallelWrapper`` over ``data × model``, composed with the
+tensor-parallel shards).
 """
 
 from __future__ import annotations
@@ -563,7 +565,9 @@ class FaultTolerantTrainer:
         tensor-parallel shards where the mesh has a ``model`` axis);
         ``fsdp=True`` keeps this rank's FSDP shards over ``data``. A
         ``ParallelWrapper`` handle adopts the mesh (its own when none is
-        given), so its next ``fit_epochs`` runs there. Every rank of the
+        given), so its next ``fit_epochs`` runs there; over a ``model``
+        axis with ``fsdp=True`` it composes the two (the split leaves on
+        ``model``, the rest over ``data``). Every rank of the
         world calls ``resume`` with the same arguments."""
         with tracer().span("checkpoint.resume") as resume_span:
             return self._resume_impl(mesh, fsdp, resume_span)

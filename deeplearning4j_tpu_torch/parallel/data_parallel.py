@@ -39,6 +39,17 @@ state, runs the step above and keeps its part of the result.
 ``gather()`` returns the whole trees; ``output``, ``score`` and
 ``evaluate`` gather what they need.
 
+Over a mesh with a ``model`` axis the rows go over ``data`` and each
+data group's model ranks split the layers (``tensor_parallel``). With
+``fsdp=True`` there the two compose as the reference's ``with_fsdp``
+composes them: a ``model``-split leaf keeps its split, every leaf the
+split replicates is sharded over ``data``; a step gathers the ``data``
+parts over the ``data`` group of this rank's model line, and the split
+layers gather their ``model`` shards themselves. Gradient normalization
+by L2 norms then spans a layer's ``data`` parts (gathered before the
+step, the gradients summed over ``data``) and its ``model`` parts (the
+split layers' norms summed over ``model``).
+
 ``ParameterAveragingTrainer`` keeps the reference's exact semantics
 (independent replicas, periodic averaging — local SGD): replicas stacked
 on a leading axis, each step's gradients ``torch.func.vmap``-ed over the
@@ -113,7 +124,8 @@ class ParallelWrapper:
     def __init__(self, network, mesh=None, donate: bool = True,
                  fsdp: bool = False):
         """``fsdp=True`` shards parameters AND updater state over the
-        ``data`` axis instead of replicating; batch sizes must then
+        ``data`` axis instead of replicating (over a ``model`` axis, the
+        leaves the tensor-parallel split replicates); batch sizes must then
         divide the data axis (no ragged-tail step). ``donate`` is the
         reference's buffer-donation switch; eager torch updates in place
         and ignores it."""
@@ -139,7 +151,7 @@ class ParallelWrapper:
             net._rng.manual_seed(net.conf.global_conf.seed
                                  + (self._rank << 32)
                                  + net.iteration_count)
-        self._registry = None
+        self._registry = self._fsdp_reg = None
         if mesh is not None:
             self._place_params()
 
@@ -152,33 +164,45 @@ class ParallelWrapper:
         return data_axis_size(self.mesh)
 
     def _place_params(self):
-        """Registry-driven placement: replicated on a pure-DP mesh,
-        composed with FSDP over ``data`` via ``with_fsdp`` when
-        ``fsdp=True``."""
+        """Registry-driven placement, composed as the reference composes
+        it: the registry's specs for the mesh first (replicated on a
+        pure-DP mesh; over a ``model`` axis the Megatron splits, run by
+        ``tensor_parallel.shard_network_params``), then with
+        ``fsdp=True`` ``with_fsdp``: every leaf those specs replicate is
+        split over ``data`` along its largest divisible dim, and a
+        ``model``-split leaf keeps its spec. ``_fsdp_reg`` holds the
+        ``data`` splits alone: a step gathers them over the ``data``
+        group of this rank's model line, and a split layer gathers its
+        ``model`` shards itself."""
         from deeplearning4j_tpu_torch.parallel.sharding_registry import (
-            ShardingRegistry)
-
-        from deeplearning4j_tpu_torch.parallel.sharding_registry import (
-            model_axis_size)
+            P, ShardingRegistry, _spec_leaves, model_axis_size)
         from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
             shard_network_params)
 
         net = self.network
-        if model_axis_size(self.mesh) > 1:
+        split = model_axis_size(self.mesh) > 1
+        if split:
             # rows over data, each data group's model ranks splitting
             # the layers as tensor_parallel does
-            if self.fsdp:
-                raise ValueError("fsdp=True over a mesh with a model axis "
-                                 "is unsupported")
             if getattr(net, "_tp_mesh", None) is not self.mesh:
                 shard_network_params(net, self.mesh)
-            self._registry = net._sharding_registry
-            return
-        reg = ShardingRegistry.for_network(net, self.mesh)
+            reg = net._sharding_registry
+        else:
+            reg = ShardingRegistry.for_network(net, self.mesh)
+        self._registry, self._fsdp_reg = reg, None
         if self.fsdp:
-            reg = reg.with_fsdp(net.params)
-        self._registry = reg
-        reg.place_network(net)
+            self._registry = self._fsdp_reg = reg.with_fsdp(net.params)
+            if split:
+                data_only = [c if t == P() else P() for c, t in zip(
+                    _spec_leaves(self._registry.spec_tree),
+                    _spec_leaves(reg.spec_tree))]
+                self._fsdp_reg = ShardingRegistry(
+                    self.mesh, _rebuild(net.params, data_only),
+                    name=self._registry.name)
+        elif split:
+            return   # shard_network_params placed the split
+        (reg if self._fsdp_reg is None else self._fsdp_reg).place_network(net)
+        net._sharding_registry = self._registry
 
     def gather(self):
         """The whole ``(params, updater_state)`` (under ``fsdp=True`` or
@@ -193,13 +217,14 @@ class ParallelWrapper:
 
     @contextlib.contextmanager
     def _whole_params(self):
-        """The network holds its whole params inside (FSDP gathers)."""
+        """The network holds its params whole over ``data`` inside (FSDP
+        gathers; a ``model``-split leaf stays this rank's shard)."""
         net = self.network
-        if not self.fsdp or self._group is None:
+        if self._fsdp_reg is None or self._group is None:
             yield
             return
         parts = net.params
-        net.params = self._registry.gather(parts)
+        net.params = self._fsdp_reg.gather(parts)
         try:
             yield
         finally:
@@ -227,6 +252,7 @@ class ParallelWrapper:
         net = self.network
         params, upd = self.gather()
         unshard_network_params(net)
+        net.__dict__.pop("_sharding_registry", None)
         net.params, net.updater_state = params, upd
         cache.respec(mesh)
         if mesh is None and world_size() > 1:
@@ -508,10 +534,10 @@ class ParallelWrapper:
         from deeplearning4j_tpu_torch.ops.losses import data_parallel_loss
 
         net = self.network
-        fsdp = self.fsdp and self._registry is not None
-        if fsdp:
-            params = self._registry.gather(params)
-            upd = self._registry.gather_state(upd)
+        fsdp = self._fsdp_reg
+        if fsdp is not None:
+            params = fsdp.gather(params)
+            upd = fsdp.gather_state(upd)
         itt = torch.full((), it, dtype=torch.int32, device=net.device)
         lr = torch.full((), net._lr_scale_host, dtype=torch.float32,
                         device=net.device)
@@ -521,9 +547,9 @@ class ParallelWrapper:
             p, u, s, loss, tripped, mets = net._variant_step(
                 params, upd, nst, itt, lr, batch, gen, accum, guarded,
                 stride)
-        if fsdp:
-            p = self._registry.place(p)
-            u = self._registry.place_state(u)
+        if fsdp is not None:
+            p = fsdp.place(p)
+            u = fsdp.place_state(u)
         return p, u, s, loss, tripped, mets
 
     def _plan(self, n: int, shuffle: bool):

@@ -27,7 +27,15 @@ each split layer's implementation with one that runs on its shards:
   compute is later speed work (ROADMAP).
 
 Updater state is sharded like its parameter; the updaters are
-elementwise, so each rank updates its own slices.
+elementwise, so each rank updates its own slices. Gradient
+normalization by L2 norms (``*_PER_LAYER``, ``*_PER_PARAM_TYPE``) needs
+the norm of the whole layer or leaf, as the reference's GSPMD program
+takes it on its sharded leaves: each split layer's squared norms are
+summed over ``model`` (``nn.updater.split_sq_norms``), every rank's
+part of a split leaf counted once and a leaf every model rank holds
+whole (a row layer's bias) once, in one all-reduce a step for all the
+network's split layers. Over ``data × model`` the gradients are summed
+over ``data`` first, so the norms are the global batch's.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ from typing import Any, Dict, List, Optional
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.parallel.mesh import MODEL_AXIS
 from deeplearning4j_tpu_torch.parallel.sharding_registry import (
-    P, PartitionSpec)
+    P, PartitionSpec, _entry_axes, _rebuild, _spec_leaves)
 
 
 def _dense_spec(column: bool) -> Dict[str, P]:
@@ -111,7 +119,8 @@ def shard_network_params(network, mesh,
     the registry's ``for_network`` specs) is a spec tree over the
     network's params. Every rank then calls the same methods with the
     same batches. A ``model`` axis of 1 places nothing."""
-    from deeplearning4j_tpu_torch.nn.conf.enums import GradientNormalization
+    from deeplearning4j_tpu_torch.nn.updater import (
+        L2_PER_LAYER, L2_PER_PARAM_TYPE)
     from deeplearning4j_tpu_torch.parallel.mesh import (
         axis_group, axis_size)
     from deeplearning4j_tpu_torch.parallel.sharding_registry import (
@@ -130,16 +139,10 @@ def shard_network_params(network, mesh,
     impls = network.layer_impls if graph else dict(
         (str(i), impl) for i, impl in enumerate(network.layers))
     split = {k for k in impls if _is_split(reg.spec_tree[k])}
-    for key in split:
-        spec = network.updater_specs[key if graph else int(key)]
-        if spec.gradient_normalization not in (
-                GradientNormalization.NONE,
-                GradientNormalization.CLIP_ELEMENTWISE_ABSOLUTE_VALUE):
-            raise ValueError(
-                f"layer {key}: gradient normalization by L2 norms needs "
-                "norms over the whole layer; a model-split layer supports "
-                "none or elementwise clipping")
     group = axis_group(mesh, MODEL_AXIS)
+    l2 = {k: _model_split(network.params[k], reg.spec_tree[k])
+          for k in split if network.updater_specs[k if graph else int(k)]
+          .gradient_normalization in L2_PER_LAYER + L2_PER_PARAM_TYPE}
     pairs = _dense_pairs(network, reg.spec_tree, graph)
     wrapped = {}
     for key, impl in impls.items():
@@ -158,6 +161,7 @@ def shard_network_params(network, mesh,
         for key, impl in wrapped.items():
             network.layers[int(key)] = impl
     network._tp_mesh = mesh
+    network._split_norms = _SplitNorms(l2, group) if l2 else None
 
 
 def unshard_network_params(network) -> None:
@@ -175,6 +179,7 @@ def unshard_network_params(network) -> None:
         network.layers = [impl.impl if isinstance(impl, _ShardLayer)
                           else impl for impl in network.layers]
     network._tp_mesh = None
+    network._split_norms = None
     network.__dict__.pop("_sharding_registry", None)
 
 
@@ -186,6 +191,31 @@ def _is_split(spec) -> bool:
     if isinstance(spec, (list, tuple)):
         return any(_is_split(v) for v in spec)
     return False
+
+
+def _model_split(params, spec):
+    """A layer's params as a tree of bools: ``True`` where the leaf is
+    split over ``model`` by ``spec``."""
+    return _rebuild(params, [any(MODEL_AXIS in _entry_axes(e) for e in s)
+                             for s in _spec_leaves(spec)])
+
+
+class _SplitNorms:
+    """The squared gradient norms of the split layers whose updater
+    normalizes by L2 norms, over the whole layers: one all-reduce over
+    ``model`` a step (``nn.updater.split_sq_norms``). ``split`` maps each
+    such layer's key to :func:`_model_split` of its specs."""
+
+    def __init__(self, split: Dict[str, Any], group):
+        self.split = split
+        self.group = group
+
+    def __call__(self, items, grads):
+        from deeplearning4j_tpu_torch.nn.updater import split_sq_norms
+        from deeplearning4j_tpu_torch.parallel.collectives import all_reduce_
+
+        return split_sq_norms(items, grads, self.split,
+                              lambda v: all_reduce_(v, self.group))
 
 
 def _splittable_dense(lc) -> bool:

@@ -32,9 +32,15 @@ import jax
 import numpy as np
 import pytest
 
+from deeplearning4j_tpu.datasets.dataset import DataSet as JaxDataSet
+from deeplearning4j_tpu.datasets.iterator import (
+    ListDataSetIterator as JaxListDataSetIterator)
 from deeplearning4j_tpu.nn.conf import NeuralNetConfiguration as JaxNNC
 from deeplearning4j_tpu.nn.conf import layers as jax_L
-from deeplearning4j_tpu.nn.conf.enums import Updater as JaxUpdater
+from deeplearning4j_tpu.nn.conf.enums import (
+    GradientNormalization as JaxGradientNormalization,
+    Updater as JaxUpdater,
+)
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JaxMLN
 from deeplearning4j_tpu.parallel import (
     DistributedTrainer as JaxDistributedTrainer,
@@ -110,6 +116,35 @@ def _mlp_case():
             "arrays": (x, y, None, None), "batch": 32}
 
 
+def _pair_conf():
+    """A dense pair and an output layer on SGD under per-layer L2
+    clipping (a threshold below every layer's first gradient norms):
+    over ``data=2 × model=2`` with FSDP the pair splits over ``model``,
+    the row layer's bias and the output layer's weight over ``data``."""
+    return (JaxNNC.Builder().seed(1).learning_rate(0.1)
+            .updater(JaxUpdater.SGD)
+            .gradient_normalization(JaxGradientNormalization.CLIP_L2_PER_LAYER)
+            .gradient_normalization_threshold(0.1).list()
+            .layer(0, jax_L.DenseLayer(n_in=6, n_out=12, activation="tanh"))
+            .layer(1, jax_L.DenseLayer(n_in=12, n_out=8, activation="relu"))
+            .layer(2, jax_L.OutputLayer(n_in=8, n_out=3)).build())
+
+
+def _fsdp_model_case(root):
+    ref = JaxMLN(_pair_conf()).init()
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(128, 6)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 128)]
+    state = jax.tree_util.tree_map(
+        np.asarray, (ref.params, ref.updater_state, ref.net_state))
+    return {"conf": ref.conf.to_json(),
+            "state": (*state, ref.iteration_count),
+            "arrays": (x, y, None, None), "batch": 32, "epochs": 2,
+            "batches": [(x[i:i + 32], y[i:i + 32], None, None)
+                        for i in range(0, 96, 32)],
+            "dir": os.path.join(root, "fsdp_model_ckpt")}
+
+
 def _port_net(case):
     net = MultiLayerNetwork(MultiLayerConfiguration.from_json(case["conf"]),
                             device="cpu").init()
@@ -141,9 +176,11 @@ def world(tmp_path_factory):
            "syn0": port.syn0.numpy().copy(),
            "syn1neg": port.syn1neg.numpy().copy(), "plans": plans}
     payload = {"elastic": _mlp_case(),
-               "resume": {**_mlp_case(), "dir": root}, "w2v": w2v}
+               "resume": {**_mlp_case(), "dir": root}, "w2v": w2v,
+               "fsdp_model": _fsdp_model_case(root)}
     out = torch_worlds.run_world(
-        4, ["elastic_case", "resume_cases", "w2v_cases", "contract_cases"],
+        4, ["elastic_case", "resume_cases", "w2v_cases", "contract_cases",
+            "fsdp_model_cases"],
         payload,
         os.path.join(root, "world"))
     return payload, out, (ref, port, plans)
@@ -187,15 +224,95 @@ def test_preempted_wrapper_run_resumes_bitwise(world):
     assert got["bitwise"]
 
 
-@pytest.mark.parametrize("name", ["m22", "fsdp"])
+@pytest.mark.parametrize("name", ["m22", "fsdp", "m22_fsdp"])
 def test_a_4_rank_checkpoint_resumes_on_another_layout(world, name):
     """The preempted checkpoint resumed over ``data=2 × model=2`` (W
-    column-split) and under FSDP (W split over ``data``), then run to
+    column-split), under FSDP (W split over ``data``) and under both
+    (W column-split, the output layer's W over ``data``), then run to
     the end: the uninterrupted run's params within the elastic gate."""
     _, out, _ = world
     got = out["resume_cases"]
     _close(got[name], got["base_params"], **ELASTIC_TOL)
-    assert got[f"{name}_local_w"] == {"m22": (6, 6), "fsdp": (6, 3)}[name]
+    assert got[f"{name}_local_w"] == {"m22": (6, 6), "fsdp": (6, 3),
+                                      "m22_fsdp": (6, 6)}[name]
+    if name == "m22_fsdp":   # every rank: layer 0 over model, 1 over data
+        assert got["m22_fsdp_ranks"] == [((6, 6), (6, 3))] * 4
+
+
+# the composed layout over data=2 x model=2: the pair's W and the column
+# layer's b over model (model rank r holds part r), the row layer's b and
+# the output layer's W over data, the output layer's b whole
+FSDP_MODEL_SHAPES = {"0/W": (6, 6), "0/b": (6,), "1/W": (6, 8),
+                     "1/b": (4,), "2/W": (4, 3), "2/b": (3,)}
+
+
+def test_fsdp_over_data_and_model_fit_matches_one_device(world):
+    """``ParallelWrapper(fsdp=True)`` over ``data=2 × model=2`` under
+    per-layer L2 clipping (norms over each layer's ``data`` and ``model``
+    parts): every rank holds the composed layout, and 3 fits give the
+    JAX network's one-device params and output within the elastic gate;
+    a checkpoint of the layout restores onto another network's parts
+    bitwise."""
+    payload, out, _ = world
+    got = out["fsdp_model_cases"]
+    assert got["shapes"] == [FSDP_MODEL_SHAPES] * 4
+    assert got["kinds"] == ["_ColumnDense", "_RowDense", "OutputImpl"]
+    case = payload["fsdp_model"]
+    ref = JaxMLN(_pair_conf()).init()
+    for b in case["batches"]:
+        ref.fit(JaxDataSet(*b))
+    _close(got["fit_params"], ref.params, **ELASTIC_TOL)
+    np.testing.assert_allclose(
+        got["output"], np.asarray(ref.output(case["batches"][0][0])),
+        **ELASTIC_TOL)
+    assert got["restored_equal"] == [True] * 4
+
+
+def test_fsdp_over_data_and_model_fit_epochs_matches_one_device(world):
+    """``fit_epochs`` through the same wrapper: the history and params
+    of the port's one-device ``fit_epochs`` on the same plans."""
+    payload, out, _ = world
+    got = out["fsdp_model_cases"]
+    case = payload["fsdp_model"]
+    net = _port_net(case)
+    hist = net.fit_epochs(ListDataSetIterator(DataSet(*case["arrays"]),
+                                              case["batch"]), case["epochs"])
+    np.testing.assert_allclose(got["epoch_hist"], hist.numpy(),
+                               **ELASTIC_TOL)
+    _close(got["epoch_params"],
+           jax.tree_util.tree_map(lambda t: t.numpy(), net.params),
+           **ELASTIC_TOL)
+
+
+def test_fsdp_over_data_and_model_fit_epochs_matches_the_reference(world):
+    """``fit_epochs`` through the same wrapper in the data's order: the
+    history and params of the JAX network's one-device ``fit_epochs``
+    (``shuffle=False``), each layer's clip norm over its ``data`` and
+    ``model`` parts."""
+    payload, out, _ = world
+    got = out["fsdp_model_cases"]
+    case = payload["fsdp_model"]
+    x, y = case["arrays"][:2]
+    ref = JaxMLN(_pair_conf()).init()
+    hist = ref.fit_epochs(JaxListDataSetIterator(JaxDataSet(x, y),
+                                                 case["batch"]),
+                          case["epochs"], shuffle=False)
+    np.testing.assert_allclose(got["epoch_hist_ordered"], np.asarray(hist),
+                               **ELASTIC_TOL)
+    _close(got["epoch_params_ordered"], ref.params, **ELASTIC_TOL)
+
+
+def test_elastic_reshard_onto_fsdp_over_data_and_model(world):
+    """``data=4``+FSDP resharded after its first epoch onto ``data=2 ×
+    model=2``+FSDP: the uninterrupted ``data=4``+FSDP run's history and
+    params within the elastic gate, the layout changed at the boundary."""
+    _, out, _ = world
+    got = out["fsdp_model_cases"]
+    np.testing.assert_allclose(got["elastic_hist"], got["base_hist"],
+                               **ELASTIC_TOL)
+    _close(got["elastic_params"], got["base_params"], **ELASTIC_TOL)
+    assert got["elastic_seen"][1]["0/W"] == (6, 3)   # over data=4
+    assert got["elastic_seen"][2] == FSDP_MODEL_SHAPES
 
 
 def test_a_4_rank_checkpoint_resumes_on_one_device(world, tmp_path):

@@ -32,6 +32,8 @@ over 20 steps; the MoE's y at 1e-4 / 1e-5, aux at 1e-4, gradients at
 1e-4 / 1e-5.
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,6 +46,10 @@ from deeplearning4j_tpu.nn.conf import NeuralNetConfiguration as JaxNNC
 from deeplearning4j_tpu.nn.conf import layers as jax_L
 from deeplearning4j_tpu.nn.conf import graph as jax_G
 from deeplearning4j_tpu.nn.conf.enums import Updater as JaxUpdater
+from deeplearning4j_tpu.nn.conf.graph import (
+    ComputationGraphConfiguration as JaxCGC)
+from deeplearning4j_tpu.nn.conf.neural_net import (
+    MultiLayerConfiguration as JaxMLC)
 from deeplearning4j_tpu.nn.graph import ComputationGraph as JaxCG
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JaxMLN
 from deeplearning4j_tpu.parallel.expert_parallel import (
@@ -68,6 +74,22 @@ TP_LM = {"m4": (dict(model=4), {}),
          "d2m2": (dict(data=2, model=2), {})}
 TP_SERVE = {"f32": {}, "int8": {"kv_dtype": "int8", "fuse_steps": 4}}
 TP_NETS = ("tp_mlp", "pair_mlp", "lenet", "lstm", "graph", "wrapped")
+# gradient normalization by L2 norms on split layers, under SGD (Adam's
+# step hardly moves when its gradient is scaled, so it would hide a wrong
+# norm): each net's threshold lies below most of its layers' and leaves'
+# first-step gradient norms (pair_mlp's layers 1.3-6.2, its biases
+# 0.29-0.44; the LSTM's layer 0.21, its leaves 0.008-0.15), so the clips
+# engage on some leaves and not on others
+L2_MODES = ("RenormalizeL2PerLayer", "ClipL2PerLayer",
+            "RenormalizeL2PerParamType", "ClipL2PerParamType")
+L2_THRESHOLD = {"pair_mlp": 0.5, "lenet": 0.5, "lstm": 0.1, "graph": 0.5,
+                "wrapped": 0.5, "fit_steps": 0.5, "fit_epochs": 0.5}
+L2_LR = 0.1
+L2_CASES = ([f"{kind}:{mode}" for kind in ("pair_mlp", "lenet", "lstm",
+                                           "graph") for mode in L2_MODES]
+            + ["wrapped:ClipL2PerLayer", "fit_steps:ClipL2PerParamType",
+               "fit_epochs:RenormalizeL2PerLayer", "pair_mlp:None"])
+L2_TOL = dict(rtol=2e-4, atol=1e-5)
 PIPES = {"p4": (dict(data=1, pipe=4), 4), "d2p2": (dict(data=2, pipe=2), 2)}
 MOE = dict(d_model=8, d_ff=16, n_experts=8, top_k=2, capacity_factor=2.0)
 DROP = dict(d_model=8, d_ff=16, n_experts=4, top_k=1, capacity_factor=0.25)
@@ -162,6 +184,65 @@ def _net(kind):
                   None, None)]
 
 
+def _sgd_with(conf_json: str, mode: str, threshold: float) -> str:
+    """A conf's JSON with every layer on SGD at ``L2_LR`` under the
+    gradient normalization ``mode``."""
+    conf = json.loads(conf_json)
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "updater" in node:
+                node.update(updater="SGD", learning_rate=L2_LR,
+                            gradient_normalization=mode,
+                            gradient_normalization_threshold=threshold)
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v)
+
+    walk(conf)
+    return json.dumps(conf)
+
+
+def _l2_net(key):
+    """(JAX network, its batches, the port case's fields) of an
+    ``L2_CASES`` key: the ``_net`` of its kind (pair_mlp's for the
+    ``fit_steps`` and ``fit_epochs`` cases) on SGD under its mode."""
+    kind, mode = key.split(":")
+    net, batches = _net("pair_mlp" if kind.startswith("fit_") else kind)
+    conf = _sgd_with(net.conf.to_json(), mode, L2_THRESHOLD[kind])
+    graph = kind == "graph"
+    jnet = (JaxCG(JaxCGC.from_json(conf)) if graph
+            else JaxMLN(JaxMLC.from_json(conf))).init()
+    fields = dict(mesh=dict(model=N), wrapper=kind == "wrapped", conf=conf,
+                  graph=graph)
+    if kind in ("wrapped", "fit_epochs"):
+        fields["mesh"] = dict(data=2, model=2)
+    if kind == "fit_steps":
+        batches = batches[:1]
+        fields.update(how="fit_steps", steps=3)
+    if kind == "fit_epochs":
+        fields.update(how="fit_epochs", epochs=2)
+    return jnet, batches, fields
+
+
+def _l2_fit(jnet, batches, fields):
+    """The JAX network's unsharded run of the case; its loss history
+    for ``fit_epochs``."""
+    ds = [JaxDataSet(*b) for b in batches]
+    how = fields.get("how", "fit")
+    if how == "fit_epochs":
+        return np.asarray(jnet.fit_epochs(ds, fields["epochs"],
+                                          shuffle=False))
+    if how == "fit_steps":
+        jnet.fit_steps(ds[0], fields["steps"])
+        return None
+    for d in ds:
+        jnet.fit(d)
+    return None
+
+
 # ---------------------------------------------------------------------------
 # pipeline and experts (tests/test_parallel.py:349-507)
 # ---------------------------------------------------------------------------
@@ -226,6 +307,13 @@ def world(tmp_path_factory):
             state=(_np(net.params), _np(net.updater_state),
                    _np(net.net_state), net.iteration_count),
             batches=batches, graph=kind == "graph")
+    for key in L2_CASES:
+        jnet, batches, fields = _l2_net(key)
+        refs[key] = (jnet, batches, fields)
+        payload["tp_net"][key] = dict(
+            state=(_np(jnet.params), _np(jnet.updater_state),
+                   _np(jnet.net_state), jnet.iteration_count),
+            batches=batches, **fields)
     # a dense pair with dropout against the port's own unsharded fit
     # (the reference's masks come from jax.random, so no JAX fit)
     conf = (JaxNNC.Builder().seed(12).learning_rate(0.1)
@@ -435,6 +523,42 @@ def test_tp_dense_pair_dropout_matches_unsharded_fit(world):
     assert len(want) == len(have)
     for a, b in zip(want, have):
         np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("key", L2_CASES)
+def test_tp_l2_normalization_matches_unsharded(world, key):
+    """Gradient normalization by L2 norms on model-split layers (column
+    and row dense pairs, a gathered convolution and dense layer, LSTM
+    gates, a graph's pair; through ``ParallelWrapper`` and ``fit_epochs``
+    over ``data=2 x model=2``, and ``fit_steps``): the norms span each
+    whole layer or leaf, so the params equal the JAX network's
+    unsharded run."""
+    refs, payload, results = world
+    jnet, batches, fields = refs[key]
+    got = results["tp_network_cases"][key]
+    hist = _l2_fit(jnet, batches, fields)
+    want = jax.tree_util.tree_leaves(jnet.params)
+    have = jax.tree_util.tree_leaves(got["params"])
+    assert len(want) == len(have)
+    for a, b in zip(want, have):
+        np.testing.assert_allclose(b, np.asarray(a), **L2_TOL)
+    if hist is not None:
+        np.testing.assert_allclose(got["hist"], hist, **L2_TOL)
+    split = {"_ColumnDense", "_RowDense", "_Gathered"}
+    assert split & set(got["kinds"].values())
+
+
+def test_l2_normalization_moves_the_result_beyond_the_gate(world):
+    """The control: the same net's run with L2 clipping and without part
+    by at least 10x the parity gate, so the gate sees the norm."""
+    got = world[2]["tp_network_cases"]
+    clipped = jax.tree_util.tree_leaves(got["pair_mlp:ClipL2PerLayer"]
+                                        ["params"])
+    plain = jax.tree_util.tree_leaves(got["pair_mlp:None"]["params"])
+    ratio = max(float(np.max(np.abs(a - b) / (L2_TOL["atol"]
+                                              + L2_TOL["rtol"] * np.abs(b))))
+                for a, b in zip(clipped, plain))
+    assert ratio >= 10.0, ratio
 
 
 # ---------------------------------------------------------------------------

@@ -140,3 +140,38 @@ def test_grouped_apply_is_bitwise_the_per_layer_apply(kind):
         for a, b in itertools.zip_longest(tree_leaves(grouped),
                                           tree_leaves(per_layer)):
             assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("norm", NORMS)
+def test_split_layer_norms_match_the_whole_layers(norm):
+    """``split_sq_norms`` over a layer split in two column halves (W and
+    b), with a leaf each half holds whole (``c``), emulating two ranks:
+    each half normalized by the reduced norms is its half of the JAX
+    reference's normalization of the whole layer (1e-6); the whole leaf
+    comes out the same in both halves; a layer without params passes
+    through."""
+    rng = np.random.default_rng(NORMS.index(norm))
+    whole = {"W": rng.standard_normal((4, 6)).astype(np.float32),
+             "b": rng.standard_normal(6).astype(np.float32),
+             "c": rng.standard_normal(3).astype(np.float32)}
+    want = jax_upd.normalize_gradients(
+        _spec(jax_upd, jax_enums, "SGD", norm),
+        {k: jnp.asarray(v) for k, v in whole.items()})
+    spec = _spec(upd, enums, "SGD", norm)
+    halves = [{"W": torch.tensor(whole["W"][:, h * 3:(h + 1) * 3]),
+               "b": torch.tensor(whole["b"][h * 3:(h + 1) * 3]),
+               "c": torch.tensor(whole["c"])} for h in (0, 1)]
+    split = {"0": {"W": True, "b": True, "c": False}}
+    shared = []
+    for half in halves:
+        upd.split_sq_norms([("0", spec)], {"0": half}, split,
+                           lambda v: shared.append(v.clone()) or v)
+    total = sum(shared) if shared else None
+    got = [upd.normalize_gradients(spec, half, upd.split_sq_norms(
+        [("0", spec)], {"0": half}, split, lambda v: total.clone()).get("0"))
+           for half in halves]
+    _close_rel(torch.cat([g["W"] for g in got], 1).numpy(), want["W"])
+    _close_rel(torch.cat([g["b"] for g in got]).numpy(), want["b"])
+    _close_rel(got[0]["c"].numpy(), want["c"])
+    assert torch.equal(got[0]["c"], got[1]["c"])
+    assert upd.normalize_gradients(spec, {}) == {}

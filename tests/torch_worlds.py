@@ -557,13 +557,16 @@ def _tp_network(case):
         from deeplearning4j_tpu_torch.parallel import ParallelWrapper
 
         return ParallelWrapper(net, mesh=mesh), mesh
-    shard_network_params(net, mesh)
+    if case.get("how") != "fit_epochs":   # fit_epochs(mesh=) splits it
+        shard_network_params(net, mesh)
     return net, mesh
 
 
 def tp_network_cases(rank, n, payload):
-    """MultiLayerNetworks under ``shard_network_params``: the output
-    before and the whole state after ``fit``."""
+    """MultiLayerNetworks and graphs under ``shard_network_params``: the
+    output before and the whole state after ``fit`` (or, by the case's
+    ``how``, ``fit_steps`` on its one batch, or ``net.fit_epochs(mesh=)``
+    unshuffled over its batches, which splits the network itself)."""
     import torch
 
     out = {}
@@ -572,15 +575,27 @@ def tp_network_cases(rank, n, payload):
         trainer = net
         if case.get("wrapper"):   # rows over data, layers over model
             net = trainer.network
+        res = {}
+        how = case.get("how", "fit")
+        if how != "fit_epochs":
+            x = torch.as_tensor(case["batches"][0][0])
+            y = net.output(x)
+            res["output"] = _np(y[0] if case.get("graph") else y)
+        if how == "fit_epochs":
+            from deeplearning4j_tpu_torch.datasets import DataSet
+
+            res["hist"] = _np(net.fit_epochs(
+                [DataSet(*b) for b in case["batches"]], case["epochs"],
+                mesh=mesh, shuffle=False))
+        elif how == "fit_steps":
+            (b,) = _batches(case)
+            net.fit_steps(b, case["steps"])
+        else:
+            for b in _batches(case):
+                trainer.fit(b)
         impls = (net.layer_impls if case.get("graph")
                  else dict(enumerate(net.layers)))
-        kinds = {str(k): type(v).__name__ for k, v in impls.items()}
-        x = torch.as_tensor(case["batches"][0][0])
-        y = net.output(x)
-        res = {"output": _np(y[0] if case.get("graph") else y),
-               "kinds": kinds}
-        for b in _batches(case):
-            trainer.fit(b)
+        res["kinds"] = {str(k): type(v).__name__ for k, v in impls.items()}
         reg = net._sharding_registry
         res.update(params=_tree_np(reg.gather(net.params)),
                    updater=_tree_np(reg.gather_state(net.updater_state)))
@@ -855,7 +870,8 @@ def resume_cases(rank, n, payload):
     out["same_world"] = _tree_np(again.network.gather()[0])
     out["bitwise"] = _equal_trees(again.network.gather()[0],
                                   base.gather()[0])
-    for name, kw in (("m22", dict(mesh=m22)), ("fsdp", dict(fsdp=True))):
+    for name, kw in (("m22", dict(mesh=m22)), ("fsdp", dict(fsdp=True)),
+                     ("m22_fsdp", dict(mesh=m22, fsdp=True))):
         other = os.path.join(root, f"from-{name}")
         if rank == 0:
             shutil.copytree(saved, other)
@@ -864,13 +880,80 @@ def resume_cases(rank, n, payload):
         t.resume(**kw)
         t.fit_epochs(_epoch_data(case), epochs)
         out[name] = _tree_np(t.network.gather()[0])
-        out[f"{name}_local_w"] = tuple(t.network.network.params["0"]["W"]
-                                       .shape)
+        params = t.network.network.params
+        out[f"{name}_local_w"] = tuple(params["0"]["W"].shape)
+        if name == "m22_fsdp":
+            out["m22_fsdp_ranks"] = _all_ranks(
+                (tuple(params["0"]["W"].shape),
+                 tuple(params["1"]["W"].shape)))
     dist.barrier()
     out["workers"] = sorted(tracker.workers())
     # the tracker's pointer finds a checkpoint outside an empty directory
     lone = trainer(_wrapped(case, m4), os.path.join(root, f"empty{rank}"))
     out["pointer_resumes"] = lone.resume()
+    return out
+
+
+def _local_shapes(tree):
+    """``{"layer/leaf": shape}`` of this rank's params."""
+    return {f"{k}/{leaf}": tuple(v.shape) for k, layer in tree.items()
+            for leaf, v in layer.items()}
+
+
+def fsdp_model_cases(rank, n, payload):
+    """``ParallelWrapper(fsdp=True)`` over ``data=2 × model=2``: every
+    rank's param shapes, the whole state and the output after ``fit``, a
+    checkpoint of that layout saved and restored onto another network's,
+    the history and state after ``fit_epochs`` (shuffled, and in the
+    data's order as ``*_ordered``), and the elastic run
+    ``data=4``+FSDP → ``data=2 × model=2``+FSDP beside the uninterrupted
+    ``data=4``+FSDP run."""
+    import torch
+
+    from deeplearning4j_tpu_torch.utils.checkpoint import (
+        restore_network, save_network)
+
+    case = payload["fsdp_model"]
+    m4, m22 = _mesh(data=4), _mesh(data=2, model=2)
+    out = {}
+    w = _wrapped(case, m22, fsdp=True)
+    out["shapes"] = _all_ranks(_local_shapes(w.network.params))
+    out["kinds"] = [type(impl).__name__ for impl in w.network.layers]
+    for b in _batches(case):
+        w.fit(b)
+    out["fit_params"] = _tree_np(w.gather()[0])
+    out["output"] = _np(w.output(torch.as_tensor(case["batches"][0][0])))
+    save_network(case["dir"], w.network, step=1)
+    other = _wrapped(case, m22, fsdp=True)
+    restore_network(case["dir"], other.network)
+    out["restored_equal"] = _all_ranks(
+        _equal_trees(other.network.params, w.network.params)
+        and _equal_trees(other.network.updater_state,
+                         w.network.updater_state))
+    for suffix, shuffle in (("", True), ("_ordered", False)):
+        w = _wrapped(case, m22, fsdp=True)
+        out[f"epoch_hist{suffix}"] = _np(w.fit_epochs(
+            _epoch_data(case), case["epochs"], shuffle=shuffle))
+        out[f"epoch_params{suffix}"] = _tree_np(w.gather()[0])
+    base = _wrapped(case, m4, fsdp=True)
+    out["base_hist"] = _np(base.fit_epochs(_epoch_data(case),
+                                           case["epochs"] + 1,
+                                           chunk_epochs=1))
+    out["base_params"] = _tree_np(base.gather()[0])
+    w = _wrapped(case, m4, fsdp=True)
+    seen = {}
+
+    def on_chunk(done):
+        seen[done] = _local_shapes(w.network.params)
+        if done == 1:
+            w.request_reshard(m22)
+        return False
+
+    out["elastic_hist"] = _np(w.fit_epochs(
+        _epoch_data(case), case["epochs"] + 1, chunk_epochs=1,
+        on_chunk=on_chunk))
+    out["elastic_params"] = _tree_np(w.gather()[0])
+    out["elastic_seen"] = seen
     return out
 
 
