@@ -363,7 +363,18 @@ Twenty phases; any failure exits non-zero and prints no result line.
    gate); (g) ``ParallelWrapper(fsdp=True)`` over ``data=2 x model=2``
    under ``ClipL2PerLayer``: 3 fits, then 2 epochs of ``fit_epochs`` on
    bench_epoch, against one device, with each rank's elements beside
-   TP alone and FSDP alone over ``data=4``; (f) and (g) launch no B1–B3.
+   TP alone and FSDP alone over ``data=4``; (f) and (g) launch no B1–B3;
+   (h) the serve cell's 8 greedy requests through a split fleet of three
+   replicas over ``model=4`` (prefill ``p0``, decode ``d0`` and ``d1``,
+   every rank holding the fleet): ``p0`` prefills (B1 8 launches a
+   prefill a rank, on ``[1, P, 2, 64]``) and hands each slab (the ranks'
+   heads gathered) to ``d0``, which ``FleetController.drain`` moves onto
+   ``d1`` mid-stream (``fallback_failovers`` 0); every stream equal to
+   the unsharded ``lm.generate``, every handoff ``kv_per_slot_bytes``
+   long, ``d0``/``d1`` launching no kernel; a TP slab decoded on a
+   one-device server and a one-device slab on ``d1``, both equal to
+   ``lm.generate``; a slot's export and install timed (CUDA events and
+   the host clock), TP beside one device.
    Each cell prints its ms, params and peak memory per rank, and one
    ``[16, 1024, 512]`` f32 all-reduce's ms. Then B1/B2/B3 at the two per-rank shapes
    against their bounds, plain versions and SDPA (CUDA events).
@@ -458,8 +469,8 @@ replays included, as ``launches_profile``; over phase 13 as
 ``launches_embeddings``, which must be 0; over phase 14 as
 ``launches_trees``, which must be 0; over phase 15's ring steps, summed
 over the four ranks, as ``launches_mesh``; over phase 16's TP train
-steps and its pipeline step, summed over the ranks, as ``launches_tp``
-and ``launches_pipe``; over phase 17, its ranks' summed with this
+steps and cell (h)'s prefills, and its pipeline step, summed over the
+ranks, as ``launches_tp`` and ``launches_pipe``; over phase 17, its ranks' summed with this
 process's, as ``launches_cluster``, which must be 0; over phase 18 as
 ``launches_a15``, B1's the fleet's warm-ups and prefills, B2's and B3's
 0; over phase 19's (b)–(d) as ``launches_headdim``, with phase 19's
@@ -5790,6 +5801,11 @@ MODEL_L2_MODES = ("RenormalizeL2PerLayer", "ClipL2PerLayer",
 MODEL_L2_LR = 1e-3
 MODEL_L2_THRESHOLD = 0.5
 MODEL_FSDP_EPOCHS = 2  # (g): bench_epoch's epochs after its 3 fits
+# cell (h): the serve cell's requests through a split fleet of TP
+# replicas; d0 decodes this many steps before it drains onto d1
+FLEET_DRAIN_AFTER = 4
+FLEET_DEVICE = "cuda"  # "cpu" only to rehearse the cell
+FLEET_HANDOFF_REPS = 5  # timed exports and installs of one slot
 
 
 def _launch_delta(before) -> dict:
@@ -6194,6 +6210,163 @@ def model_fsdp(rank: int, meshes: dict) -> dict:
     return res
 
 
+def _handoff_ms(fn, reps: int = FLEET_HANDOFF_REPS):
+    """Mean ms of ``fn()`` by CUDA events and by the host clock (the
+    export's gather over gloo and its copy to the host run on the host),
+    after one untimed call; and the last call's result."""
+    import torch
+
+    out = fn()
+    torch.cuda.synchronize()
+    dev = host = 0.0
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        host += (time.perf_counter() - t0) * 1e3
+        dev += a.elapsed_time(b)
+    return dev / reps, host / reps, out
+
+
+def model_fleet(rank: int, meshes: dict) -> dict:
+    """Cell (h): the Serve cell's 8 greedy requests through a split fleet
+    of three replicas over ``model=4`` (prefill ``p0``, decode ``d0`` and
+    ``d1``, every rank holding the fleet and making the same calls):
+    ``d1`` stands by while ``p0`` prefills into ``d0``, then ``d0``
+    drains onto it mid-stream. Then a slab of the TP prefill installs on
+    a one-device server (rank 0) and a one-device slab on ``d1``; the
+    exports and installs are timed beside a one-device server's."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+    from deeplearning4j_tpu_torch.perf import step_graph
+    from deeplearning4j_tpu_torch.serving import DecodeServer
+    from deeplearning4j_tpu_torch.serving.fleet import (
+        FleetController, FleetRouter, ServeReplica, SlotHandoff,
+        export_slot, install_slot, make_install)
+    from deeplearning4j_tpu_torch.serving.scheduler import ServeRequest
+
+    mesh = meshes["model=4"]
+    lm = TransformerLM(**SERVE_CFG, device=FLEET_DEVICE).init()
+    kw = dict(max_len=SERVE_MAX_LEN, mesh=mesh, device=FLEET_DEVICE)
+    reps = [ServeReplica("p0", lm, role="prefill", slots=1, **kw),
+            ServeReplica("d0", lm, role="decode", slots=SERVE_SLOTS, **kw),
+            ServeReplica("d1", lm, role="decode", slots=SERVE_SLOTS, **kw)]
+    p0, d0, d1 = reps
+    router = FleetRouter(reps)
+    handoffs = []
+    place = router.place_handoff
+
+    def recorded(freq, handoff):
+        handoffs.append(handoff)
+        return place(freq, handoff)
+
+    router.place_handoff = recorded
+    launches = {r.replica_id: {} for r in reps}
+
+    def step(r):
+        before = step_graph.kernel_launches()
+        r.step_once()
+        for k, v in _launch_delta(before).items():
+            launches[r.replica_id][k] = launches[r.replica_id].get(k, 0) + v
+
+    sched = serve_schedule()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    router.quiesce("d1")            # in reserve until d0 drains
+    frs = [router.submit(a.prompt, a.max_new_tokens) for a in sched]
+    while router.agree(p0.busy()):
+        step(p0)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(FLEET_DRAIN_AFTER):
+        step(d0)
+    placed = [fr.replica_id for fr in frs]
+    emitted = [len(fr.tokens) for fr in frs]
+    router._quiesced.discard("d1")  # the survivor takes new work again
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    decision = FleetController(router, None, evict_timeout_s=60.0).drain(
+        "d0")
+    torch.cuda.synchronize()
+    drain_ms = (time.perf_counter() - t1) * 1e3
+    while router.agree(bool(router.unfinished())):
+        step(d1)
+        router.retry_pending()
+    torch.cuda.synchronize()
+    fleet_ms = (time.perf_counter() - t0) * 1e3
+    stats = {r.replica_id: r.server.stats() for r in reps}
+    res = {"placed": placed, "emitted": emitted, "decision": decision,
+           "launches": launches, "fleet_ms": fleet_ms,
+           "prefill_ms": prefill_ms, "drain_ms": drain_ms,
+           "finished": sum(fr.finished for fr in frs),
+           "nbytes": sorted({h.nbytes for h in handoffs}),
+           "handoffs": len(handoffs),
+           "kv_per_slot_bytes": stats["d1"]["kv_per_slot_bytes"],
+           "kv_shards": {rid: st["kv_shards"] for rid, st in stats.items()},
+           "pool_bytes_this_rank": {
+               r.replica_id: r.server.engine.cache.nbytes
+               // r.server.engine.cache.n_shard for r in reps},
+           "local_heads": list(lm._local_heads()),
+           "prefill_buckets": stats["p0"]["compiles"]["prefill_buckets"]}
+    # slabs across layouts: a one-device server beside the TP replicas
+    one = TransformerLM(**SERVE_CFG, device=FLEET_DEVICE).init()
+    single = DecodeServer(one, slots=2, max_len=SERVE_MAX_LEN,
+                          device=FLEET_DEVICE)
+
+    def admitted(server, prompt, handoff, new):
+        req = ServeRequest(prompt=prompt, max_new_tokens=new)
+        req.tokens.append(handoff.first_token)
+        server.admit_external(req, make_install(handoff))
+        server.drain()
+        return req
+    streams = {}
+    if rank == 0:   # a slab the TP prefill exported, on one device
+        streams["tp_to_one"] = (admitted(single, sched[0].prompt,
+                                         handoffs[0],
+                                         sched[0].max_new_tokens), sched[0])
+    a = sched[1]
+    tok = int(single.engine.prefill(a.prompt, 1))
+    one_slab = SlotHandoff(
+        slabs=export_slot(single.engine, 1), cursor=len(a.prompt), key=None,
+        first_token=tok, kv_dtype=single.engine.kv_dtype,
+        max_len=single.max_len, device=FLEET_DEVICE)
+    streams["one_to_tp"] = (admitted(d1.server, a.prompt, one_slab,
+                                     a.max_new_tokens), a)
+    res["cross_nbytes"] = [one_slab.nbytes,
+                           single.stats()["kv_per_slot_bytes"]]
+    # one slot's export and install, TP (gather over model=4) and one
+    # device; d1 and single are idle, so their slots may be overwritten
+    times = {}
+    for name, eng in (("tp", d1.server.engine),
+                      ("one_device", single.engine)):
+        dev, host, slabs = _handoff_ms(lambda: export_slot(eng, 0))
+        times[f"{name}_export"] = (dev, host)
+        h = SlotHandoff(slabs=slabs, cursor=1, key=None, first_token=0,
+                        kv_dtype=eng.kv_dtype, max_len=eng.max_len,
+                        device=FLEET_DEVICE)
+        dev, host, _ = _handoff_ms(lambda: install_slot(eng, 1, h))
+        times[f"{name}_install"] = (dev, host)
+    res["handoff_times"] = times
+    if rank == 0:
+        bad = []
+        outs = [(fr.output, fr.prompt, fr.max_new_tokens) for fr in frs]
+        outs += [(req.output, a.prompt, a.max_new_tokens)
+                 for req, a in streams.values()]
+        for got, prompt, new in outs:
+            want = one.generate(prompt[None], new)[0].cpu().numpy()
+            if not np.array_equal(got, want):
+                bad.append(first_divergence(got, want, one, prompt))
+        res["streams_equal"] = not bad and res["finished"] == len(sched)
+        res["divergence"] = bad
+    return res
+
+
 def model_rank(rank: int, n: int, tmp: str) -> None:
     """One rank of the 4-process gloo world of phase 16; writes its
     results to ``model<r>.json`` in ``tmp``."""
@@ -6227,7 +6400,8 @@ def model_rank(rank: int, n: int, tmp: str) -> None:
                          ("moe", lambda: model_moe(rank, meshes)),
                          ("mlp", lambda: model_mlp(rank, meshes)),
                          ("l2", lambda: model_l2(rank, meshes)),
-                         ("fsdp", lambda: model_fsdp(rank, meshes))):
+                         ("fsdp", lambda: model_fsdp(rank, meshes)),
+                         ("fleet", lambda: model_fleet(rank, meshes))):
             torch.cuda.reset_peak_memory_stats()
             t = time.monotonic()
             out[name] = fn()
@@ -6362,9 +6536,79 @@ def model_l2_lines(ranks: list, card: str) -> list:
     return failures
 
 
+KERNEL_ORDER = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+                "flash_attention_bwd_dq")
+
+
+def model_fleet_lines(ranks: list, card: str, tp: dict) -> list:
+    """Cell (h)'s lines; its failures. Adds p0's B1 launches to ``tp``."""
+    failures = []
+    r0 = ranks[0]
+    h = r0["fleet"]
+    d = h["decision"]
+    layers = SERVE_CFG["num_layers"]
+    heads = h["local_heads"][0]
+    dh = SERVE_CFG["d_model"] // SERVE_CFG["num_heads"]
+    print(f"model (h) split fleet over model={MESH_RANKS} (p0 prefill, d0 "
+          f"and d1 decode, {SERVE_SLOTS} slots, max_len {SERVE_MAX_LEN}): "
+          f"{SERVE_REQUESTS} greedy requests placed on {h['placed']}, "
+          f"{h['emitted']} tokens out when d0 drained onto d1: migrated="
+          f"{d['migrated']} live={d['live']} handoffs={d['handoffs']} "
+          f"queued={d['queued']} fallback_failovers="
+          f"{d['fallback_failovers']}; finished {h['finished']}; streams "
+          f"(and a TP slab on one device, a one-device slab on d1) equal "
+          f"lm.generate: {h['streams_equal']} {h['divergence']}; "
+          f"{h['handoffs']} handoffs of {h['nbytes']} bytes, "
+          f"kv_per_slot_bytes {h['kv_per_slot_bytes']}, one-device slab "
+          f"{h['cross_nbytes']}; kv_shards {h['kv_shards']}; prefill "
+          f"{h['prefill_ms']:.1f} ms, drain {h['drain_ms']:.1f} ms, the "
+          f"whole run {h['fleet_ms']:.1f} ms; "
+          f"{max(r['fleet_s'] for r in ranks):.1f} s [{card}]")
+    for name in ("tp", "one_device"):
+        ex = [r["fleet"]["handoff_times"][f"{name}_export"] for r in ranks]
+        ins = [r["fleet"]["handoff_times"][f"{name}_install"] for r in ranks]
+        print(f"model (h) handoff {name} one slot [{layers}, "
+              f"{SERVE_MAX_LEN}, {SERVE_CFG['num_heads']}, {dh}] bf16 k+v "
+              f"({h['kv_per_slot_bytes']} bytes), mean of "
+              f"{FLEET_HANDOFF_REPS}, per rank (CUDA events ms, host ms): "
+              f"export {[(round(a, 3), round(b, 3)) for a, b in ex]}, "
+              f"install {[(round(a, 3), round(b, 3)) for a, b in ins]} "
+              f"[{card}]")
+    print("model (h) per rank: pool bytes "
+          + "; ".join(str(r["fleet"]["pool_bytes_this_rank"]) for r in ranks)
+          + f"; peak_mem_bytes {[r['fleet_peak_mem_bytes'] for r in ranks]};"
+          " B1, B2, B3 launches by replica "
+          + "; ".join(str({rid: [n.get(k, 0) for k in KERNEL_ORDER]
+                           for rid, n in r["fleet"]["launches"].items()})
+                      for r in ranks)
+          + f"; p0's prefill buckets {h['prefill_buckets']}, B1 on "
+          f"[1, P, {heads}, {dh}] a rank [{card}]")
+    if not h["streams_equal"]:
+        failures.append("fleet streams")
+    if (d["fallback_failovers"] or d["live"] < 1
+            or d["migrated"] != d["live"] + d["queued"] + d["handoffs"]):
+        failures.append(f"fleet drain {d}")
+    if h["nbytes"] != [h["kv_per_slot_bytes"]] or len(set(
+            h["cross_nbytes"])) != 1:
+        failures.append(f"handoff bytes {h['nbytes']} {h['cross_nbytes']}")
+    if set(h["kv_shards"].values()) != {MESH_RANKS}:
+        failures.append(f"fleet kv_shards {h['kv_shards']}")
+    for r in ranks:
+        n = r["fleet"]["launches"]
+        p = n["p0"]
+        if (p.get("flash_attention_fwd") != layers * SERVE_REQUESTS
+                or p.get("flash_attention_bwd_dkdv")
+                or p.get("flash_attention_bwd_dq")
+                or any(n["d0"].values()) or any(n["d1"].values())):
+            failures.append(f"fleet launched {n}, expected {layers} B1 a "
+                            "prefill in p0 alone")
+        tp["flash_attention_fwd"] += p.get("flash_attention_fwd", 0)
+    return failures
+
+
 def model_phase(card: str) -> dict:
     """Phase 16; returns B1–B3's launches over cell (a)'s steps and cell
-    (c)'s step, summed over the ranks."""
+    (h)'s prefills, and over cell (c)'s step, summed over the ranks."""
     import tempfile
 
     import torch
@@ -6390,7 +6634,7 @@ def model_phase(card: str) -> dict:
           + ", ".join(f"{r['join_s']:.1f}" for r in ranks) + " s; cells "
           + ", ".join(f"{c} {max(r[c + '_s'] for r in ranks):.1f} s"
                       for c in ("train", "serve", "pipe", "moe", "mlp",
-                                "l2", "fsdp")))
+                                "l2", "fsdp", "fleet")))
     r0 = ranks[0]
     layers = TRAIN_CFG["num_layers"]
     failures = []
@@ -6496,12 +6740,14 @@ def model_phase(card: str) -> dict:
     if any(v for r in ranks for v in r["mlp"]["launches"].values()):
         failures.append("the MLP launched a flash kernel")
     failures += model_l2_lines(ranks, card)
+    failures += model_fleet_lines(ranks, card, tp)
     if failures:
         raise AssertionError("model axes: " + "; ".join(failures))
     torch.cuda.empty_cache()
     model_kernels(card)
     print(f"model phase: {time.monotonic() - t_phase:.1f} s, B1-B3 launches "
-          f"over the TP steps {tp}, over the pipeline step {pipe} [{card}]")
+          f"over the TP steps and (h)'s prefills {tp}, over the pipeline "
+          f"step {pipe} [{card}]")
     return {"tp": tp, "pipe": pipe}
 
 

@@ -35,6 +35,10 @@ for training workers, on the heartbeat channel:
   survivors wholesale (KV slab + cursor + RNG via the handoff path —
   zero recompute, zero lost tokens), retire the replica. Eviction is
   for corpses; drain is for maintenance.
+
+A fleet of tensor-parallel replicas (see ``router.py``) ticks in every
+rank of their ``model`` group: rank 0's clock, heartbeat view and
+autopilot decide the evictions, which every rank then carries out.
 """
 
 from __future__ import annotations
@@ -99,13 +103,27 @@ class FleetController:
                 autopilot = GoodputAutopilot(
                     silence_s=self.evict_timeout_s, clock=clock)
         self.autopilot = autopilot
+        # the autopilot's evictions while a tick observes, carried out
+        # after (in every rank of a tensor-parallel fleet: rank 0's)
+        self._deferred: Optional[List[dict]] = None
         if autopilot is not None:
-            autopilot.bind(evict=lambda rid, d: self.evict(
-                rid, reason=f"autopilot:{d.reason}",
-                silent_s=d.gauges.get("silent_s"),
-                last_metrics={k: v for k, v in d.gauges.items()
-                              if k not in ("silent_s",
-                                           "silence_timeout_s")}))
+            autopilot.bind(evict=self._autopilot_evict)
+
+    def _autopilot_evict(self, rid: str, d) -> None:
+        kw = dict(replica_id=rid, reason=f"autopilot:{d.reason}",
+                  silent_s=d.gauges.get("silent_s"),
+                  last_metrics={k: v for k, v in d.gauges.items()
+                                if k not in ("silent_s",
+                                             "silence_timeout_s")})
+        if self._deferred is not None:
+            self._deferred.append(kw)
+        else:
+            self.evict(**kw)
+
+    def _evict_all(self, plan: List[dict]) -> None:
+        """Carry out rank 0's evictions in every rank."""
+        for kw in self.router.agree(plan):
+            self.evict(**kw)
 
     # ------------------------------------------------------------------
     def _payload(self, replica) -> Optional[dict]:
@@ -120,7 +138,8 @@ class FleetController:
         """One aggregation + health pass; returns the per-replica
         payload map (tests and dashboards read it)."""
         fleet: Dict[str, dict] = {}
-        now = self.clock()
+        now = self.router.agree(self.clock())
+        tp = self.router._tp
         for r in self.router.replicas:
             if r.replica_id in self._evicted_set:
                 continue
@@ -140,20 +159,11 @@ class FleetController:
             event_name="serve.straggler")
         self._evict_pass(now, fleet)
         if self.autopilot is not None:
-            try:
-                live = [r.replica_id for r in self.router.replicas
-                        if r.replica_id not in self._evicted_set]
-                self.autopilot.observe(
-                    fleet, stragglers=set(self.stragglers),
-                    last_beat=(
-                        {rid: self.tracker.last_heartbeat(rid)
-                         for rid in live}
-                        if self.tracker is not None else None),
-                    now=now)
-            except Exception:  # noqa: BLE001 — observing must not take
-                # the serve control loop down
-                logging.getLogger(__name__).exception(
-                    "serve autopilot observe pass failed")
+            self._deferred = []
+            if tp is None or tp._leader:
+                self._observe(fleet, now)
+            plan, self._deferred = self._deferred, None
+            self._evict_all(plan)
         alive = [r for r in self.router.replicas
                  if r.replica_id not in self._evicted_set and r.alive]
         self._reg.gauge("fleet_serve_replicas",
@@ -165,19 +175,38 @@ class FleetController:
         self.router.maybe_hedge()
         return fleet
 
+    def _observe(self, fleet: Dict[str, dict], now: float) -> None:
+        try:
+            live = [r.replica_id for r in self.router.replicas
+                    if r.replica_id not in self._evicted_set]
+            self.autopilot.observe(
+                fleet, stragglers=set(self.stragglers),
+                last_beat=(
+                    {rid: self.tracker.last_heartbeat(rid)
+                     for rid in live}
+                    if self.tracker is not None else None),
+                now=now)
+        except Exception:  # noqa: BLE001 — observing must not take
+            # the serve control loop down
+            logging.getLogger(__name__).exception(
+                "serve autopilot observe pass failed")
+
     # ------------------------------------------------------------------
     def _evict_pass(self, now: float, fleet: Dict[str, dict]) -> None:
         """Evict the in-process replicas whose loop died (the dead flag
         is honest local knowledge) and, with a tracker, those whose
         heartbeat has been silent for ``evict_timeout_s`` or more (a
-        replica that never beat yet is still booting)."""
+        replica that never beat yet is still booting); rank 0's choice
+        in a tensor-parallel fleet."""
+        plan = []
         for r in list(self.router.replicas):
             rid = r.replica_id
             if rid in self._evicted_set:
                 continue
             if r.dead:
-                self.evict(rid, reason=f"crashed: {r.dead_reason}",
-                           silent_s=None, last_metrics=fleet.get(rid))
+                plan.append(dict(replica_id=rid,
+                                 reason=f"crashed: {r.dead_reason}",
+                                 silent_s=None, last_metrics=fleet.get(rid)))
                 continue
             if self.tracker is None:
                 continue
@@ -186,10 +215,12 @@ class FleetController:
                 continue
             silent = now - t
             if silent >= self.evict_timeout_s:
-                self.evict(rid, reason="heartbeat_silence",
-                           silent_s=round(silent, 3),
-                           last_metrics=self.tracker.heartbeat_metrics(
-                               rid) or fleet.get(rid))
+                plan.append(dict(
+                    replica_id=rid, reason="heartbeat_silence",
+                    silent_s=round(silent, 3),
+                    last_metrics=self.tracker.heartbeat_metrics(rid)
+                    or fleet.get(rid)))
+        self._evict_all(plan)
 
     def evict(self, replica_id: str, *, reason: str,
               silent_s: Optional[float] = None,

@@ -20,6 +20,17 @@ Numerics: the installed slab is bit-identical to what a local prefill of
 the same prompt would have written (the round trip is a pure gather and
 scatter), so a handed-off stream is token-identical to a locally served
 one, greedy and sampled.
+
+Tensor-parallel pools (``DecodeServer(mesh=)``): the wire format is the
+whole slot on every layout, k/v ``[L, T, Hkv, Dh]`` and int8 scales
+``[L, Hkv]``. A pool whose heads are split over ``model`` exports by
+gathering the ranks' heads over the ``model`` group in rank order (a
+concatenation, no sum), so the slab holds the bytes an unsharded prefill
+writes; every rank of the group exports together and each gets the whole
+slab. An install writes the rank's own heads, ``Hkv / model`` of them
+from ``head_offset``. A pool the GQA fallback replicates holds every head
+in every rank and moves whole. So slabs travel between one-device and
+tensor-parallel replicas in either direction.
 """
 
 from __future__ import annotations
@@ -53,6 +64,29 @@ def _slot_export_impl(state: Dict[str, torch.Tensor],
     return {name: pool[:, slot] for name, pool in state.items()}
 
 
+def _head_axis(slab) -> int:
+    """The head axis of a slab: ``[L, T, Hkv, Dh]`` k/v, ``[L, Hkv]``
+    scales."""
+    return 2 if slab.ndim == 4 else 1
+
+
+@torch.no_grad()
+def _gather_heads(cache, slabs: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """Every rank's heads of one slot's slabs, in rank order along the
+    head axis (a collective over the ``model`` group). Each slab travels
+    as its raw bytes (gloo carries neither bf16 nor int16), its last
+    axis widened by the element size, which leaves the head axis's
+    order as it was."""
+    from deeplearning4j_tpu_torch.parallel.collectives import all_gather
+    from deeplearning4j_tpu_torch.parallel.mesh import MODEL_AXIS, axis_group
+
+    group = axis_group(cache.registry.mesh, MODEL_AXIS)
+    return {name: all_gather(slab.contiguous().view(torch.uint8), group,
+                             _head_axis(slab)).view(slab.dtype)
+            for name, slab in slabs.items()}
+
+
 @torch.no_grad()
 def _slot_import_impl(state: Dict[str, torch.Tensor],
                       slabs: Dict[str, torch.Tensor], slot: int) -> None:
@@ -71,7 +105,9 @@ class SlotHandoff:
     stamped there) and the fields the install checks against the target
     pool."""
 
-    slabs: Dict[str, np.ndarray]   # k/v [L, T, Hkv, Dh] (+ *_scale [L, Hkv])
+    # the whole slot, every head, whatever the pool's layout:
+    # k/v [L, T, Hkv, Dh] (+ *_scale [L, Hkv])
+    slabs: Dict[str, np.ndarray]
     # next write position: prompt_len for a prefill handoff,
     # prompt_len + emitted for a drain-time mid-stream migration
     cursor: int
@@ -87,7 +123,8 @@ class SlotHandoff:
 
     @property
     def nbytes(self) -> int:
-        """Bytes of the slabs (the key's few bytes not counted)."""
+        """Bytes of the slabs (the key's few bytes not counted): one
+        slot of the whole pool, ``stats()["kv_per_slot_bytes"]``."""
         return int(sum(s.nbytes for s in self.slabs.values()))
 
 
@@ -104,10 +141,13 @@ def _host(t: torch.Tensor) -> np.ndarray:
 def export_slot(engine, slot: int) -> Dict[str, np.ndarray]:
     """Pull one slot's pool state to host numpy (the handoff's wire
     format): once per request at the prefill/decode boundary, never per
-    token."""
+    token. On a pool split over ``model`` every rank calls it together
+    (a gather) and each gets the whole slot."""
     engine._program(("handoff_export", engine.slots))
-    return {name: _host(v) for name, v in _slot_export_impl(
-        _pool_state(engine.cache), slot).items()}
+    slabs = _slot_export_impl(_pool_state(engine.cache), slot)
+    if engine.cache.n_shard > 1:
+        slabs = _gather_heads(engine.cache, slabs)
+    return {name: _host(v) for name, v in slabs.items()}
 
 
 def generator_key(gen: Optional[torch.Generator]) -> Optional[np.ndarray]:
@@ -120,7 +160,10 @@ def install_slot(engine, slot: int,
     """Land a handoff in ``slot`` of ``engine``'s pool and start the
     cursor; returns the generator to continue the stream with (None for
     a greedy handoff). Checks pool compatibility first: a silent dtype,
-    capacity or device mismatch would decode garbage with no error."""
+    capacity, device or shape mismatch would decode garbage with no
+    error (a slab of fewer heads would broadcast into every head of the
+    slot). On a pool split over ``model`` the rank writes its own
+    heads."""
     if handoff.kv_dtype != engine.kv_dtype:
         raise ValueError(
             f"handoff kv_dtype={handoff.kv_dtype!r} != target pool "
@@ -134,12 +177,29 @@ def install_slot(engine, slot: int,
             f"handoff from a {handoff.device} replica cannot install on a "
             f"{engine.device.type} replica: its generator state belongs "
             "to the device type it came from")
-    state = _pool_state(engine.cache)
+    cache = engine.cache
+    state = _pool_state(cache)
+    if set(handoff.slabs) != set(state):
+        raise ValueError(
+            f"handoff slabs {sorted(handoff.slabs)} != the target pool's "
+            f"{sorted(state)}")
     slabs = {}
     for name, slab in handoff.slabs.items():
+        pool = state[name]
+        local = pool.shape[:1] + pool.shape[2:]       # the slot axis out
+        ax = 2 if len(local) == 4 else 1                # the heads
+        want = tuple(local[:ax]) + (local[ax] * cache.n_shard,) \
+            + tuple(local[ax + 1:])
+        if tuple(slab.shape) != want:
+            raise ValueError(
+                f"handoff slab {name!r} has shape {tuple(slab.shape)}; the "
+                f"target pool's slot is {want} (every head of the whole "
+                "pool)")
         t = torch.from_numpy(np.ascontiguousarray(slab))
-        if state[name].dtype == torch.bfloat16:
+        if pool.dtype == torch.bfloat16:
             t = t.view(torch.bfloat16)
+        if cache.n_shard > 1:
+            t = t.narrow(ax, cache.head_offset, local[ax])
         slabs[name] = t.to(engine.device)
     engine._program(("handoff_import", engine.slots))
     _slot_import_impl(state, slabs, slot)

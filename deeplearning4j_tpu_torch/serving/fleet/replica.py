@@ -31,6 +31,16 @@ body (:meth:`step_once`) is shared by the real-time thread and the
 bench's virtual-clock driver, and declares the ``serve.replica.step``
 fault site (plus a per-replica ``serve.replica.step.<id>`` site) so
 chaos tests can kill or wedge one specific replica mid-stream.
+
+A replica whose server is tensor-parallel (``DecodeServer(mesh=)``) is
+one replica of every rank of the ``model`` group: each rank holds its
+own copy of it (and of the fleet around it) and makes the same calls.
+Its ``step_once`` is then collective: a prefill-role replica runs the
+job rank 0 chose (by its sequence number, broadcast), so every rank
+prefills and exports the same prompt together. Such a fleet is stepped
+by its caller, alike in every rank (``step_once`` in one order): a loop
+thread of its own (``start``) would run its collectives in an order no
+other rank shares, so ``start`` refuses it.
 """
 
 from __future__ import annotations
@@ -93,10 +103,11 @@ class ServeReplica:
         self.retired = False
         self._stop: Optional[threading.Event] = None
         self._thread: Optional[threading.Thread] = None
-        # prefill-role work: (FleetRequest, on_handoff) jobs the router
-        # assigned; on_handoff(freq, SlotHandoff) places the result
+        # prefill-role work: (seq, FleetRequest, on_handoff) jobs the
+        # router assigned; on_handoff(freq, SlotHandoff) places the result
         self._prefill_jobs: Deque = deque()
         self._jobs_lock = threading.Lock()
+        self._job_seq = 0
         # rolling quality-of-service samples for the heartbeat payload
         self._ttfts: Deque[float] = deque(maxlen=128)
         self._tpots: Deque[float] = deque(maxlen=128)
@@ -161,9 +172,7 @@ class ServeReplica:
         # writes into the fixed scratch slot, which on a decode-capable
         # replica could hold a live stream mid-decode
         if self.role == "prefill":
-            with self._jobs_lock:
-                job = (self._prefill_jobs.popleft()
-                       if self._prefill_jobs else None)
+            job = self._next_job()
             if job is not None:
                 self._do_prefill(*job)
                 progressed = True
@@ -172,9 +181,29 @@ class ServeReplica:
         self._harvest()
         return progressed
 
+    def _next_job(self):
+        """The next prefill job, ``(freq, on_handoff)`` or None: the
+        oldest one, and on a tensor-parallel server the one rank 0 takes
+        (every rank runs it, so it names it by sequence number)."""
+        with self._jobs_lock:
+            head = self._prefill_jobs[0][0] if self._prefill_jobs else None
+        seq = self.server.agree(head)
+        if seq is None:
+            return None
+        with self._jobs_lock:
+            for i, (s, freq, on_handoff) in enumerate(self._prefill_jobs):
+                if s == seq:
+                    del self._prefill_jobs[i]
+                    return freq, on_handoff
+        raise RuntimeError(
+            f"rank 0 runs prefill job {seq} of replica {self.replica_id}, "
+            "which this rank was not assigned: every rank of a "
+            "tensor-parallel fleet must make the same calls")
+
     def _do_prefill(self, freq, on_handoff) -> None:
         """Run one prompt prefill into the scratch slot, export the
-        slab, stamp TTFT, and hand the package to the router's
+        slab (the whole slot: a tensor-parallel server gathers its
+        ranks' heads), stamp TTFT, and hand the package to the router's
         placement callback."""
         engine = self.server.engine
         req = freq.inner
@@ -216,7 +245,8 @@ class ServeReplica:
                 f"replica {self.replica_id} has role {self.role!r}; "
                 "prefill jobs only run on role='prefill' replicas")
         with self._jobs_lock:
-            self._prefill_jobs.append((freq, on_handoff))
+            self._prefill_jobs.append((self._job_seq, freq, on_handoff))
+            self._job_seq += 1
 
     def _harvest(self) -> None:
         """Pull QoS samples out of the server's bookkeeping: TTFTs of
@@ -273,6 +303,11 @@ class ServeReplica:
                                   self.server._generator(0)))
 
     def start(self) -> "ServeReplica":
+        if self.server._group is not None:
+            raise ValueError(
+                f"replica {self.replica_id} serves tensor-parallel: every "
+                "rank must run its collectives in one order, so step it "
+                "with step_once alike in every rank, not in a thread")
         if self._thread is not None and self._thread.is_alive():
             return self
         if self.lease is not None:

@@ -47,6 +47,17 @@ Spans: every placement runs under ``serve.route`` and every eviction
 recovery under ``serve.failover`` — both feed the flight recorder via
 the standard span forwarding, so a postmortem can replay routing
 decisions around a death.
+
+Tensor-parallel replicas (``DecodeServer(mesh=)``, all over one mesh):
+each rank of the ``model`` group holds its own copy of the fleet and
+makes the same calls on it (submissions, steps, drains). Whatever a
+routing decision reads that may differ between the ranks — a clock, a
+TTFT sample, a follower server's verdict (a follower only records a
+submission: rank 0's server decides it) — rank 0 decides and
+broadcasts (:meth:`FleetRouter.agree`), so every rank places each
+request, slab and job on the same replica and every rank's collectives
+line up. One-device replicas may stand in such a fleet (slabs move to
+and from them whole); each rank's copy of one serves on its own.
 """
 
 from __future__ import annotations
@@ -64,8 +75,8 @@ from deeplearning4j_tpu_torch.serving.fleet.handoff import (
     SlotHandoff, export_live_slot, make_install)
 from deeplearning4j_tpu_torch.serving.fleet.replica import ServeReplica
 from deeplearning4j_tpu_torch.serving.scheduler import (
-    CRITICALITIES, RetryBudget, ServeRequest, criticality_rank,
-    serve_hedge_s, serve_replicas)
+    CRITICALITIES, AdmissionVerdict, RetryBudget, ServeRequest,
+    criticality_rank, serve_hedge_s, serve_replicas)
 
 __all__ = ["FleetRequest", "FleetRouter", "FleetSaturated"]
 
@@ -217,6 +228,15 @@ class FleetRouter:
             raise ValueError("a fleet needs at least one decode-capable "
                              "(mixed/decode) replica")
         self.split = bool(self.prefill_replicas)
+        # tensor-parallel replicas: rank 0 of their model group decides
+        # whatever may differ between the ranks (see agree)
+        tp = [r.server for r in replicas if r.server._group is not None]
+        if len({id(srv.engine.mesh) for srv in tp}) > 1:
+            raise ValueError(
+                "the tensor-parallel replicas of one fleet must share one "
+                "mesh: every rank holds the same fleet and rank 0 of its "
+                "model group decides for all of them")
+        self._tp = tp[0] if tp else None
         temps = {r.server.engine.temperature for r in replicas}
         if len(temps) > 1:
             raise ValueError(
@@ -284,6 +304,45 @@ class FleetRouter:
             self._quiesced.add(replica_id)
             self._affinity = {k: v for k, v in self._affinity.items()
                               if v != replica_id}
+
+    def agree(self, value):
+        """Rank 0's ``value`` in every rank of a fleet of tensor-parallel
+        replicas (a collective over their ``model`` group); ``value``
+        itself otherwise."""
+        return value if self._tp is None else self._tp.agree(value)
+
+    def _agreed(self, replicas: List[ServeReplica]) -> List[ServeReplica]:
+        """Rank 0's ordering of ``replicas`` in every rank."""
+        if self._tp is None:
+            return replicas
+        return [self._by_id[rid]
+                for rid in self.agree([r.replica_id for r in replicas])]
+
+    def _try_submit(self, r: ServeReplica, prompt, max_new_tokens: int, *,
+                    seed: int, deadline_s, criticality: str,
+                    displace: bool, replay: int = 0) -> AdmissionVerdict:
+        """``r.server.try_submit`` with rank 0's verdict when ``r`` is
+        tensor-parallel: a follower's own call only records the request
+        under the same sequence number (rank 0's server decides it, and
+        tells the follower's at its next step)."""
+        verdict = r.server.try_submit(
+            prompt, max_new_tokens, seed=seed, deadline_s=deadline_s,
+            criticality=criticality, displace=displace, replay=replay)
+        srv = r.server
+        if srv._group is None:
+            return verdict
+        victim = verdict.displaced
+        admitted, reason, depth, victim_seq = self.agree(
+            (verdict.admitted, verdict.reason, verdict.queue_depth,
+             None if victim is None else victim.mesh_seq))
+        if srv._leader:
+            return verdict
+        return AdmissionVerdict(
+            admitted=admitted, reason=reason,
+            request=verdict.request if admitted else None,
+            queue_depth=depth,
+            displaced=(None if victim_seq is None
+                       else srv._by_seq.get(victim_seq)))
 
     @staticmethod
     def _rank(replicas: List[ServeReplica]) -> List[ServeReplica]:
@@ -387,10 +446,10 @@ class FleetRouter:
                 # without it, split-mode overload would grow host
                 # memory (queued prompts + parked slabs) without ever
                 # shedding, while a mixed fleet correctly drops
-                pre = [r for r in sorted(
+                pre = self._agreed([r for r in sorted(
                     self._alive_prefill(),
                     key=lambda r: (r.queue_depth(), r.replica_id))
-                    if r.queue_depth() < r.server.queue.max_depth]
+                    if r.queue_depth() < r.server.queue.max_depth])
                 if not pre:
                     sp.attrs["outcome"] = "prefill_saturated"
                     return False
@@ -415,11 +474,12 @@ class FleetRouter:
                 pinned = self._by_id.get(self._affinity.get(freq.affinity))
                 if pinned is not None and pinned.alive:
                     cands = [pinned] + [r for r in cands if r is not pinned]
+            cands = self._agreed(cands)
             # pass 1: plain spill — least-loaded first, no one harmed
             spilled = 0
             for r in cands:
-                verdict = r.server.try_submit(
-                    prompt, max_new_tokens, seed=freq.seed,
+                verdict = self._try_submit(
+                    r, prompt, max_new_tokens, seed=freq.seed,
                     deadline_s=freq.deadline_s,
                     criticality=freq.criticality, displace=False,
                     replay=replay)
@@ -450,8 +510,8 @@ class FleetRouter:
             # displaced, so an all-interactive overload still sheds
             # the newcomer, not a peer)
             for r in cands:
-                verdict = r.server.try_submit(
-                    prompt, max_new_tokens, seed=freq.seed,
+                verdict = self._try_submit(
+                    r, prompt, max_new_tokens, seed=freq.seed,
                     deadline_s=freq.deadline_s,
                     criticality=freq.criticality, displace=True,
                     replay=replay)
@@ -508,17 +568,12 @@ class FleetRouter:
         request for retry when every decode replica is packed."""
         with self._lock, tracer().span("serve.handoff",
                                        request=freq.id) as sp:
-            cands = sorted(
-                (r for r in self._alive_decode()
-                 if not r.server.engine.spec),
-                key=lambda r: (-r.server.handoff_headroom(),
-                               r.replica_id))
-            for r in cands:
-                if r.server.handoff_headroom() <= 0:
-                    continue
-                r.server.admit_external(freq.inner, make_install(handoff))
-                freq.replica_id = r.replica_id
-                sp.attrs.update(outcome="placed", replica=r.replica_id)
+            target = self._handoff_target()
+            if target is not None:
+                target.server.admit_external(freq.inner,
+                                             make_install(handoff))
+                freq.replica_id = target.replica_id
+                sp.attrs.update(outcome="placed", replica=target.replica_id)
                 return True
             # no headroom anywhere: hold the finished prefill and retry
             # at the next tick (the slab is host-resident — it costs
@@ -530,6 +585,18 @@ class FleetRouter:
                 self._pending.append(freq)
             sp.attrs["outcome"] = "parked"
             return False
+
+    def _handoff_target(self) -> Optional[ServeReplica]:
+        """The non-speculative decode replica with the most handoff
+        headroom (then id), rank 0's in every rank; None when none has
+        any."""
+        cands = sorted(
+            (r for r in self._alive_decode()
+             if not r.server.engine.spec
+             and r.server.handoff_headroom() > 0),
+            key=lambda r: (-r.server.handoff_headroom(), r.replica_id))
+        rid = self.agree(cands[0].replica_id if cands else None)
+        return None if rid is None else self._by_id[rid]
 
     # ------------------------------------------------------------------
     # failover
@@ -632,7 +699,7 @@ class FleetRouter:
         append back on a miss); past-deadline parkers shed instead of
         retrying — the earliest point that looks at a parked deadline."""
         with self._lock:
-            now = self.clock()
+            now = self.agree(self.clock())
             pending, self._pending = self._pending, []
             placed = 0
             for fr in pending:
@@ -685,7 +752,7 @@ class FleetRouter:
                     self._reconcile_hedge(fr)
             if self.hedge_after_s is None or not self.greedy:
                 return 0
-            now = self.clock()
+            now = self.agree(self.clock())
             placed = 0
             for fr in self.requests:
                 if (fr.criticality != "interactive"
@@ -705,11 +772,11 @@ class FleetRouter:
             return placed
 
     def _place_hedge(self, fr: FleetRequest, now: float) -> bool:
-        cands = [r for r in self._rank(self._alive_decode())
-                 if r.replica_id != fr.replica_id]
+        cands = self._agreed([r for r in self._rank(self._alive_decode())
+                              if r.replica_id != fr.replica_id])
         for r in cands[:1]:       # one extra bet, on the best candidate
-            verdict = r.server.try_submit(
-                fr.prompt, fr.max_new_tokens, seed=fr.seed,
+            verdict = self._try_submit(
+                r, fr.prompt, fr.max_new_tokens, seed=fr.seed,
                 deadline_s=fr.deadline_s, criticality=fr.criticality,
                 displace=False)   # a hedge must not shed anyone
             if verdict.admitted:
@@ -792,7 +859,12 @@ class FleetRouter:
         self._owner.pop(req.id, None)
         r = self._by_id.get(replica_id) if replica_id else None
         if r is not None and req.state == "queued":
-            if r.server.queue.remove(req):
+            removed = r.server.queue.remove(req)
+            if r.server._group is not None:   # rank 0's queue holds it
+                removed = self.agree(removed)
+                if removed:
+                    r.server._decided(req)
+            if removed:
                 req.state = "canceled"
 
     # ------------------------------------------------------------------
@@ -816,7 +888,12 @@ class FleetRouter:
         runs — a hedge is redundant by construction). Speculative
         survivors cannot accept handoffs; when no non-spec survivor
         exists the live slots fall back to failover re-prefill,
-        reported as ``fallback_failovers`` (recompute, never tokens)."""
+        reported as ``fallback_failovers`` (recompute, never tokens).
+
+        A tensor-parallel replica drains in every rank together: rank 0
+        names the queued requests (a follower's server only recorded
+        them), the live slots export by gathering the ranks' heads, and
+        every survivor is rank 0's choice."""
         victim = self._by_id.get(replica_id)
         if victim is None:
             raise KeyError(f"unknown replica {replica_id!r}")
@@ -828,15 +905,11 @@ class FleetRouter:
             while server._handoffs:
                 req, install = server._handoffs.popleft()
                 fr = self._owner.get(req.id)
-                survivors = sorted(
-                    (r for r in self._alive_decode()
-                     if r.server.handoff_headroom() > 0),
-                    key=lambda r: (-r.server.handoff_headroom(),
-                                   r.replica_id))
-                if survivors:
-                    survivors[0].server.admit_external(req, install)
+                target = self._handoff_target()
+                if target is not None:
+                    target.server.admit_external(req, install)
                     if fr is not None:
-                        fr.replica_id = survivors[0].replica_id
+                        fr.replica_id = target.replica_id
                     moved_handoffs += 1
                 elif fr is not None:
                     # no headroom anywhere right now: the install
@@ -848,10 +921,19 @@ class FleetRouter:
                     fallback += 1
             # (ii) queued, never admitted: re-place (zero compute done,
             # zero recomputed); drain moves are deliberate, not retries
+            queued = []
             while True:
                 req = server.queue.pop()
                 if req is None:
                     break
+                queued.append(req)
+            if server._group is not None:
+                # a follower's server only recorded its submissions:
+                # rank 0's queue names them
+                seqs = self.agree([req.mesh_seq for req in queued])
+                if not server._leader:
+                    queued = [server._by_seq.pop(seq) for seq in seqs]
+            for req in queued:
                 fr = self._owner.get(req.id)
                 if fr is None:
                     continue          # direct server user; nothing to do

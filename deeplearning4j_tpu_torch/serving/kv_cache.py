@@ -137,8 +137,10 @@ class SlotKVCache:
     model's device."""
 
     # the slot pool is single-replica device state, unless a registry
-    # splits its heads over ``model`` (then the ranks' count)
+    # splits its heads over ``model`` (then the ranks' count, and this
+    # rank's heads start at ``head_offset`` of the whole pool's)
     n_shard = 1
+    head_offset = 0
 
     def __init__(self, model, slots: int, max_len: Optional[int] = None,
                  kv_dtype: Optional[str] = None, registry=None):
@@ -159,12 +161,16 @@ class SlotKVCache:
         self.registry = registry
         kv_heads = None
         if registry is not None:
+            from deeplearning4j_tpu_torch.parallel.mesh import (
+                MODEL_AXIS, axis_rank)
             from deeplearning4j_tpu_torch.parallel.sharding_registry import (
                 P, model_axis_size)
 
             if registry.kv_pool_spec(model.num_kv_heads) != P():
                 self.n_shard = model_axis_size(registry.mesh)
                 kv_heads = model.num_kv_heads // self.n_shard
+                self.head_offset = (axis_rank(registry.mesh, MODEL_AXIS)
+                                    * kv_heads)
         shape = _pool_dims(model, self.slots, self.max_len, kv_heads)
         store = _TORCH_DTYPES[self.kv_dtype]
         self.k = torch.zeros(shape, dtype=store, device=dev)
@@ -207,6 +213,7 @@ class SlotKVCache:
             view.v_scale = self.v_scale[:, pick]
         view.cursors = self.cursors[pick]
         view.registry, view.n_shard = self.registry, self.n_shard
+        view.head_offset = self.head_offset
         return view
 
     @property

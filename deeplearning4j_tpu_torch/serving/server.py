@@ -26,8 +26,12 @@ broadcasts its decisions since the last one (sheds, cancels,
 rejections) and the step's admissions, with the requests themselves,
 and the other ranks apply them, so every rank runs the same prefills
 and decodes. A follower's own ``submit`` only records its request;
-its state follows rank 0's. ``drain`` and ``loadgen.run_open_loop``
-take rank 0's view of when to stop and of which arrivals are due.
+its state follows rank 0's. A handed-off slab (``admit_external``) is
+one more submission: every rank is handed the same slab in the same
+order, and rank 0 decides which slot it lands in and at which step, so
+every rank installs its heads of it together. ``drain`` and
+``loadgen.run_open_loop`` take rank 0's view of when to stop and of
+which arrivals are due.
 
 Randomness: a sampled request draws from a ``torch.Generator`` seeded
 with its seed; a speculative server gives it a second one for the draft's
@@ -272,10 +276,11 @@ class DecodeServer:
         ``install(engine, slot) -> (last_token, generator)`` lands the
         handed-off slab and cursor in it; the request then decodes like a
         locally prefilled one. ``req`` must already carry its first token
-        (sampled by the prefill replica, which recorded its TTFT)."""
-        if self._group is not None:
-            raise ValueError("handoff into a tensor-parallel server is "
-                             "unsupported: the slab is one rank's heads")
+        (sampled by the prefill replica, which recorded its TTFT).
+
+        On a mesh server every rank makes this call with the same slab,
+        in the same order among its submissions; rank 0 picks the slot
+        and the step."""
         if self.engine.spec:
             raise ValueError(
                 "handoff into a speculative decode server is "
@@ -285,6 +290,11 @@ class DecodeServer:
             raise ValueError(
                 "admit_external needs a prefilled request (its first "
                 "token sampled by the prefill replica)")
+        if self._group is not None:
+            req.mesh_seq = self._seq
+            self._seq += 1
+            if not self._leader:   # rank 0's decisions name it by seq
+                self._by_seq[req.mesh_seq] = req
         self._handoffs.append((req, install))
 
     def handoff_headroom(self) -> int:
@@ -327,8 +337,9 @@ class DecodeServer:
             req = self.queue.pop()
         return None
 
-    def _admit_handoff(self, slot: int) -> None:
-        req, install = self._handoffs.popleft()
+    def _admit_handoff(self, slot: int, entry: Tuple[ServeRequest, Callable]
+                       ) -> None:
+        req, install = entry
         with tracer().span("serve.handoff.install", request=req.id,
                            slot=slot):
             last_tok, gen = install(self.engine, slot)
@@ -359,7 +370,7 @@ class DecodeServer:
             # spent, and a queued prompt admitted ahead of them would idle
             # a finished prefill while burning a slot on new work
             if self._handoffs:
-                self._admit_handoff(slot)
+                self._admit_handoff(slot, self._handoffs.popleft())
                 admitted += 1
                 continue
             req = self._pop_live_request()
@@ -418,11 +429,15 @@ class DecodeServer:
         return box[0]
 
     def _lead(self) -> None:
-        """Rank 0: sweep, choose the admissions, broadcast them with the
-        decisions logged since the last step, then prefill."""
+        """Rank 0: sweep, choose the admissions (handed-off slabs first,
+        as ``_admit`` does), broadcast them with the decisions logged
+        since the last step, then install and prefill."""
         self._sweep_expired()
-        picks = []
+        slabs, picks = [], []
         for slot in self._free_slots():
+            if self._handoffs:
+                slabs.append((slot, self._handoffs.popleft()))
+                continue
             req = self._pop_live_request()
             if req is None:
                 break
@@ -430,8 +445,12 @@ class DecodeServer:
         admits = [(slot, req.mesh_seq, req.prompt, req.max_new_tokens,
                    req.seed, req.deadline_s, req.criticality, req.replay)
                   for slot, req in picks]
-        self.agree({"log": self._log, "admit": admits})
+        self.agree({"log": self._log, "admit": admits,
+                    "handoff": [(slot, entry[0].mesh_seq)
+                                for slot, entry in slabs]})
         self._log = []
+        for slot, entry in slabs:
+            self._admit_handoff(slot, entry)
         for slot, req in picks:
             self._admit_one(slot, req)
 
@@ -454,6 +473,8 @@ class DecodeServer:
                            displaced_by=by)
             elif kind == "canceled":
                 req.state = "canceled"
+        for slot, seq in plan["handoff"]:
+            self._admit_handoff(slot, self._take_handoff(seq))
         for (slot, seq, prompt, max_new, seed, deadline, crit,
              replay) in plan["admit"]:
             req = self._by_seq.get(seq)
@@ -464,6 +485,17 @@ class DecodeServer:
                 req.submit_s, req.mesh_seq = now, seq
                 self._by_seq[seq] = req
             self._admit_one(slot, req)
+
+    def _take_handoff(self, seq: int) -> Tuple[ServeRequest, Callable]:
+        """A follower's queued handoff that rank 0 admitted, by seq."""
+        for i, entry in enumerate(self._handoffs):
+            if entry[0].mesh_seq == seq:
+                del self._handoffs[i]
+                return entry
+        raise RuntimeError(
+            f"rank 0 admitted handoff {seq}, which this rank was not "
+            "handed: every rank of a mesh server must be handed the same "
+            "slabs in the same order")
 
     def _decided(self, req: ServeRequest) -> None:
         """A follower forgets a request whose fate is settled, once its

@@ -689,6 +689,30 @@ def test_handoff_validation():
         _server().admit_external(bare, make_install(good))
 
 
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_handoff_of_fewer_heads_raises(kv_dtype):
+    """A slab of fewer heads than the target pool's slot raises and
+    leaves the pool as it was: written as ``pool[:, slot] = slab``, a
+    one-head slab would broadcast into every head with no error (as a
+    tensor-parallel rank's share of a slot would on a one-device
+    pool)."""
+    src = _server(kv_dtype=kv_dtype)
+    prompt = _prompt()
+    tok = src.engine.prefill(prompt, 0)
+    good = _handoff(src.engine, 0, prompt, tok)
+    assert good.slabs["k"].shape[2] == FLEET_CFG["num_kv_heads"]
+    one_head = _handoff(src.engine, 0, prompt, tok, slabs={
+        name: (slab[:, :, :1] if slab.ndim == 4 else slab[:, :1])
+        for name, slab in good.slabs.items()})
+    dst = _server(kv_dtype=kv_dtype)
+    before = {name: t.clone() for name, t in
+              (("k", dst.engine.cache.k), ("v", dst.engine.cache.v))}
+    with pytest.raises(ValueError, match="shape"):
+        install_slot(dst.engine, 1, one_head)
+    for name, t in before.items():
+        assert torch.equal(getattr(dst.engine.cache, name), t)
+
+
 # ---------------------------------------------------------------------------
 # the virtual-clock driver
 # ---------------------------------------------------------------------------

@@ -10,6 +10,19 @@ from numpy seeds, and the JAX model's weights
 as the reference's own tests hold its sharded runs against them
 (``tests/test_parallel.py``).
 
+Slot handoff into and out of tensor-parallel replicas (``tp_fleet``
+cases): every rank holds the same fleet and makes the same calls, rank
+0's fake clock ticks 4 ms a read and the others' 1e7 s, so a decision a
+follower took from its own clock would part the streams or hang the
+world. Gates: greedy streams of a split fleet of TP replicas, of drains
+of a TP decode replica (a split fleet's, with live slots and a handoff
+not yet installed, and a mixed fleet's, with live slots and a queued
+request) and of slabs moved TP to one device and back equal the JAX
+``generate`` exactly (int8 pools the JAX server's int8 streams); a
+sampled split fleet's equal the port's one-device split fleet's; every
+handoff's bytes equal ``kv_per_slot_bytes``; a drain recomputes
+nothing.
+
 Gates: greedy and beam-3 tokens exactly equal (``TestShardedDecode``'s
 config, vocab 64, d64, H8, Hkv 4, RoPE, two layers; the GQA fallback at
 Hkv 2); one step's loss and gradients at float32 rtol 2e-3 / atol 1e-3,
@@ -73,6 +86,13 @@ TP_LM = {"m4": (dict(model=4), {}),
          "gqa2": (dict(model=4), {"num_kv_heads": 2}),
          "d2m2": (dict(data=2, model=2), {})}
 TP_SERVE = {"f32": {}, "int8": {"kv_dtype": "int8", "fuse_steps": 4}}
+# the fleets' requests: prompt lengths and max_new_tokens; the drains
+# take the first five (three live on the drained replica after its two
+# steps, one installed on the survivor, one handed off but not yet
+# installed)
+FLEET_REQUESTS = ((5, 8), (13, 6), (20, 8), (7, 8), (9, 6), (11, 4))
+FLEET_SAMPLED = dict(temperature=0.7, top_k=20, deadline_s=1e6)
+TP_CROSS = {"m4": {}, "gqa2": {"num_kv_heads": 2}}
 TP_NETS = ("tp_mlp", "pair_mlp", "lenet", "lstm", "graph", "wrapped")
 # gradient normalization by L2 norms on split layers, under SGD (Adam's
 # step hardly moves when its gradient is scaled, so it would hide a wrong
@@ -101,6 +121,13 @@ def _np(tree):
 
 def _prompt():
     return np.random.default_rng(0).integers(0, 64, (2, 8)).astype(np.int32)
+
+
+def _fleet_requests():
+    rng = np.random.default_rng(11)
+    return [dict(prompt=rng.integers(0, 64, n).astype(np.int32),
+                 max_new_tokens=m, seed=i)
+            for i, (n, m) in enumerate(FLEET_REQUESTS)]
 
 
 def _lm_tokens():
@@ -287,6 +314,21 @@ def world(tmp_path_factory):
             schedule=[dict(arrival_s=a.arrival_s, prompt=a.prompt,
                            max_new_tokens=a.max_new_tokens, seed=a.seed)
                       for a in sched], **extra)
+    fleet = dict(mesh=dict(model=N), cfg=SERVE, params=_np(sref.params),
+                 max_len=64, requests=_fleet_requests())
+    payload["tp_fleet"] = {
+        **{f"split:{key}": dict(kind="split", **fleet, **extra)
+           for key, extra in TP_SERVE.items()},
+        "split:sampled": dict(kind="split", **fleet, **FLEET_SAMPLED),
+        "drain:split": dict(kind="split_drain", **fleet),
+        "drain:mixed": dict(kind="mixed_drain", **fleet, fuse_steps=2)}
+    for key, extra in TP_CROSS.items():
+        cfg = {**SERVE, **extra}
+        refs[f"cross:{key}"] = _jax_lm(cfg)
+        payload["tp_fleet"][f"cross:{key}"] = dict(
+            fleet, kind="cross", cfg=cfg,
+            params=_np(refs[f"cross:{key}"].params),
+            requests=_fleet_requests()[:2])
     # the served policy: under float32 the CPU's projection GEMMs round a
     # row differently beside others even unsharded
     payload["tp_invariance"] = dict(
@@ -359,8 +401,8 @@ def world(tmp_path_factory):
             np.float32))
     results = torch_worlds.run_world(
         N, ["tp_lm_cases", "tp_invariance_case", "tp_serve_cases",
-            "tp_checkpoint_case", "tp_network_cases", "pipe_cases",
-            "moe_cases"], payload, str(tmp))
+            "tp_fleet_cases", "tp_checkpoint_case", "tp_network_cases",
+            "pipe_cases", "moe_cases"], payload, str(tmp))
     return refs, payload, results
 
 
@@ -462,6 +504,127 @@ def test_sharded_server_streams_equal_unsharded(world, key):
     for k in want:
         np.testing.assert_array_equal(got["streams"][k], want[k])
     assert got["kv_shards"] == N and got["pool_local_heads"] == 1
+
+
+def _generated(ref, requests):
+    return [np.asarray(ref.generate(jnp.asarray(r["prompt"][None]),
+                                    max_new_tokens=r["max_new_tokens"]))[0]
+            for r in requests]
+
+
+def _assert_streams(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def _assert_whole_slabs(got):
+    """Every handoff carried one slot of the whole pool."""
+    per_slot = set(got["kv_per_slot_bytes"].values())
+    assert len(per_slot) == 1 and set(got["nbytes"]) == per_slot
+
+
+@pytest.mark.parametrize("key", list(TP_SERVE))
+def test_tp_split_fleet_streams_equal_unsharded(world, key):
+    """A prefill replica and two decode replicas, each over
+    ``model=4``: the prefill exports the ranks' heads gathered, each
+    decode rank installs its own, and the greedy streams are the JAX
+    model's (an int8 pool's, the JAX int8 server's)."""
+    refs, payload, results = world
+    case = payload["tp_fleet"][f"split:{key}"]
+    got = results["tp_fleet_cases"][f"split:{key}"]
+    if key == "int8":
+        srv = JaxServer(refs["serve"], slots=2, max_len=64,
+                        kv_dtype="int8", fuse_steps=4)
+        reqs = [srv.submit(r["prompt"], r["max_new_tokens"])
+                for r in case["requests"]]
+        srv.drain()
+        want = [r.output for r in reqs]
+    else:
+        want = _generated(refs["serve"], case["requests"])
+    _assert_streams(got["streams"], want)
+    _assert_whole_slabs(got)
+    assert set(got["kv_shards"].values()) == {N}
+    assert set(got["placed"]) == {"d0", "d1"}
+    assert "step it with step_once alike in every rank" in got["thread"]
+
+
+def test_tp_sampled_split_fleet_equals_one_device_fleet(world):
+    """Sampled, with deadlines the followers' clocks pass at their first
+    read: the TP fleet's streams are the port's one-device split
+    fleet's, and nothing is shed (rank 0's clock decides)."""
+    refs, payload, results = world
+    case = payload["tp_fleet"]["split:sampled"]
+    got = results["tp_fleet_cases"]["split:sampled"]
+    lm = torch_worlds._lm(case["cfg"], case["params"])
+    clock = torch_worlds._rank_clock(0)
+    reps, router = torch_worlds._fleet(
+        [("p0", "prefill", lm, None), ("d0", "decode", lm, None),
+         ("d1", "decode", lm, None)], clock,
+        **torch_worlds._server_kw(case))
+    frs = [router.submit(r["prompt"], r["max_new_tokens"], seed=r["seed"],
+                         deadline_s=case["deadline_s"])
+           for r in case["requests"]]
+    torch_worlds._drive(router, reps)
+    _assert_streams(got["streams"], [fr.output for fr in frs])
+    assert got["placed"] == [fr.replica_id for fr in frs]
+    assert got["shed"] == 0
+    _assert_whole_slabs(got)
+
+
+@pytest.mark.parametrize("key", ["split", "mixed"])
+def test_tp_drain_migrates_with_zero_recompute(world, key):
+    """``FleetController.drain`` of a TP decode replica mid-stream: its
+    live slots export (the ranks' heads gathered) and install on the TP
+    survivor, its handed-off slab (split fleet) or queued request (mixed
+    fleet, built by ``FleetRouter.build`` under ``DL4J_TP_SHARDS``)
+    moves, nothing falls back to re-prefill, every stream keeps its
+    emitted prefix and equals the undrained greedy stream."""
+    refs, payload, results = world
+    case = payload["tp_fleet"][f"drain:{key}"]
+    got = results["tp_fleet_cases"][f"drain:{key}"]
+    d = got["decision"]
+    assert d["fallback_failovers"] == 0 and d["dropped_hedges"] == 0
+    assert d["migrated"] == d["live"] + d["queued"] + d["handoffs"]
+    if key == "split":
+        assert got["placed"] == ["d0", "d0", "d0", "d1", "d0"]
+        assert (d["live"], d["handoffs"], d["queued"]) == (3, 1, 0)
+        assert got["retired"]
+        requests = case["requests"][:5]
+    else:   # FleetRouter.build under DL4J_TP_SHARDS=4
+        assert got["placed"] == ["replica-0"] * 3
+        assert set(got["kv_shards"].values()) == {N}
+        assert (d["live"], d["handoffs"], d["queued"]) == (2, 0, 1)
+        requests = case["requests"][:3]
+    want = _generated(refs["serve"], requests)
+    _assert_streams(got["streams"], want)
+    for stream, r, before in zip(want, requests, got["emitted"]):
+        new = stream[len(r["prompt"]):]
+        assert list(new[:len(before)]) == before
+    _assert_whole_slabs(got)
+
+
+@pytest.mark.parametrize("key", list(TP_CROSS))
+def test_tp_handoff_across_layouts(world, key):
+    """Slabs from a TP prefill replica into a one-device decode replica
+    and from a one-device prefill replica into a TP decode replica, on a
+    pool split over ``model`` (m4: one KV head a rank) and on one the
+    GQA fallback replicates (gqa2): greedy streams equal the JAX
+    model's, and the TP export holds a one-device prefill's bytes."""
+    refs, payload, results = world
+    case = payload["tp_fleet"][f"cross:{key}"]
+    got = results["tp_fleet_cases"][f"cross:{key}"]
+    want = _generated(refs[f"cross:{key}"], case["requests"])
+    for name in ("tp_to_one", "one_to_tp"):
+        _assert_streams(got[name]["streams"], want)
+        _assert_whole_slabs(got[name])
+    assert got["slab_bytes_equal"] == [True, True]
+    split = key == "m4"
+    assert got["pool_local_heads"] == (1 if split else 2)
+    assert got["tp_to_one"]["kv_shards"] == {"p0": N if split else 1,
+                                             "d0": 1}
+    assert got["one_to_tp"]["kv_shards"] == {"p1": 1,
+                                             "d1": N if split else 1}
 
 
 def test_tp_checkpoint_round_trip(world):

@@ -538,6 +538,228 @@ def tp_serve_cases(rank, n, payload):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slot handoff into and out of tensor-parallel replicas: every rank holds
+# the same fleet and makes the same calls; rank 0 decides
+# ---------------------------------------------------------------------------
+def _rank_clock(rank):
+    """A fake clock: rank 0's ticks 4 ms a read, every other rank's 1e7 s
+    a read, past any deadline at once. A decision a follower took from
+    its own clock would part its fleet from rank 0's."""
+    t = [0.0]
+    tick = 0.004 if rank == 0 else 1e7
+
+    def clock():
+        t[0] += tick
+        return t[0]
+
+    return clock
+
+
+def _recording(router):
+    """``router``, recording every handoff it places in ``handoffs``."""
+    router.handoffs = []
+    place = router.place_handoff
+
+    def recorded(freq, handoff):
+        router.handoffs.append(handoff)
+        return place(freq, handoff)
+
+    router.place_handoff = recorded
+    return router
+
+
+def _fleet(specs, clock, **kw):
+    """Replicas ``(id, role, lm, mesh[, own settings])`` on the server
+    settings ``kw``, and a router over them that records every handoff
+    it places."""
+    from deeplearning4j_tpu_torch.serving import DecodeServer
+    from deeplearning4j_tpu_torch.serving.fleet import (
+        FleetRouter, ServeReplica)
+
+    reps = [ServeReplica(rid, lm, role=role, server=DecodeServer(
+        lm, mesh=mesh, device="cpu", clock=clock,
+        **{**kw, **(own[0] if own else {})}), clock=clock)
+        for rid, role, lm, mesh, *own in specs]
+    return reps, _recording(FleetRouter(reps, clock=clock))
+
+
+def _drive(router, reps, limit=400):
+    """Step every live replica in turn (and retry parked slabs) until
+    rank 0's router has nothing unfinished (asked through a TP server's
+    ``agree``, whichever replica holds one)."""
+    tp = [r.server for r in reps if r.server._group is not None]
+    for _ in range(limit):
+        left = bool(router.unfinished())
+        if not (tp[0].agree(left) if tp else left):
+            return
+        for r in reps:
+            if r.alive:
+                r.step_once()
+        router.retry_pending()
+    raise AssertionError("the fleet did not finish")
+
+
+def _server_kw(case):
+    return dict(slots=case.get("slots", 2), max_len=case["max_len"],
+                kv_dtype=case.get("kv_dtype"),
+                fuse_steps=case.get("fuse_steps", 1),
+                temperature=case.get("temperature", 0.0),
+                top_k=case.get("top_k"))
+
+
+def _fleet_result(router, frs, reps):
+    return {"streams": [fr.output for fr in frs],
+            "nbytes": [h.nbytes for h in router.handoffs],
+            "kv_per_slot_bytes": {r.replica_id:
+                                  r.server.stats()["kv_per_slot_bytes"]
+                                  for r in reps},
+            "kv_shards": {r.replica_id: r.server.stats()["kv_shards"]
+                          for r in reps}}
+
+
+def _tp_split_fleet(rank, case):
+    """A split fleet of TP replicas (``p0`` prefill, ``d0``/``d1``
+    decode) serving the case's requests."""
+    lm, mesh = _tp_lm(case)
+    clock = _rank_clock(rank)
+    reps, router = _fleet([("p0", "prefill", lm, mesh),
+                           ("d0", "decode", lm, mesh),
+                           ("d1", "decode", lm, mesh)], clock,
+                          **_server_kw(case))
+    frs = [router.submit(r["prompt"], r["max_new_tokens"], seed=r["seed"],
+                         deadline_s=case.get("deadline_s"))
+           for r in case["requests"]]
+    _drive(router, reps)
+    res = _fleet_result(router, frs, reps)
+    res["placed"] = [fr.replica_id for fr in frs]
+    res["shed"] = router.stats()["shed"]
+    try:   # a loop thread would order its collectives on its own
+        reps[1].start()
+        res["thread"] = "started"
+    except ValueError as e:
+        res["thread"] = str(e)
+    return res
+
+
+def _tp_split_drain(rank, case):
+    """Drain the TP decode replica ``d0`` of a split fleet mid-stream,
+    with live slots and a handoff it has not installed yet, onto
+    ``d1``."""
+    from deeplearning4j_tpu_torch.serving.fleet import FleetController
+
+    lm, mesh = _tp_lm(case)
+    clock = _rank_clock(rank)
+    reps, router = _fleet([("p0", "prefill", lm, mesh),
+                           ("d0", "decode", lm, mesh, {"slots": 4}),
+                           ("d1", "decode", lm, mesh)], clock,
+                          **_server_kw(case))
+    p0, d0, _ = reps
+    reqs = case["requests"]
+    frs = [router.submit(r["prompt"], r["max_new_tokens"]) for r in reqs[:4]]
+    for _ in range(4):   # three slabs land on d0 (4 slots), one on d1
+        p0.step_once()
+    d0.step_once()
+    d0.step_once()
+    frs.append(router.submit(reqs[4]["prompt"], reqs[4]["max_new_tokens"]))
+    p0.step_once()       # the fifth waits on d0, not installed yet
+    placed = [fr.replica_id for fr in frs]
+    emitted = [list(fr.tokens) for fr in frs]
+    decision = FleetController(router, None, evict_timeout_s=5.0,
+                               clock=clock).drain("d0")
+    _drive(router, reps)
+    res = _fleet_result(router, frs, reps)
+    res.update(placed=placed, emitted=emitted, decision=decision,
+               retired=d0.retired and not d0.dead)
+    return res
+
+
+def _tp_mixed_drain(rank, n, case):
+    """The one-device drain test's fleet on TP replicas, built as the
+    reference's ``DL4J_TP_SHARDS`` fleet is (``FleetRouter.build``, each
+    server's mesh from the environment): two mixed replicas, three
+    requests pinned to the first, which drains after two steps with two
+    live slots and one queued request."""
+    import os
+
+    from deeplearning4j_tpu_torch.serving.fleet import (
+        FleetController, FleetRouter)
+
+    lm = _lm(case["cfg"], case["params"])
+    clock = _rank_clock(rank)
+    os.environ["DL4J_TP_SHARDS"] = str(n)
+    try:
+        router = _recording(FleetRouter.build(
+            lm, replicas=2, role="mixed", clock=clock, device="cpu",
+            max_queue=4, **_server_kw(case)))
+    finally:
+        del os.environ["DL4J_TP_SHARDS"]
+    reps = router.replicas
+    frs = [router.submit(r["prompt"], r["max_new_tokens"], seed=i,
+                         affinity="pin")
+           for i, r in enumerate(case["requests"][:3])]
+    placed = [fr.replica_id for fr in frs]
+    reps[0].step_once()
+    reps[0].step_once()
+    emitted = [list(fr.tokens) for fr in frs]
+    decision = FleetController(router, None, evict_timeout_s=5.0,
+                               clock=clock).drain(placed[0])
+    _drive(router, reps)
+    res = _fleet_result(router, frs, reps)
+    res.update(placed=placed, emitted=emitted, decision=decision)
+    return res
+
+
+def _tp_cross_layout(rank, case):
+    """Slabs from a TP prefill replica into a one-device decode replica,
+    and from a one-device prefill replica into a TP decode replica; the
+    TP export against a one-device prefill of the same prompt."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import DecodeServer
+    from deeplearning4j_tpu_torch.serving.fleet import export_slot
+
+    lm, mesh = _tp_lm(case)
+    one = _lm(case["cfg"], case["params"])
+    clock = _rank_clock(rank)
+    kw = _server_kw(case)
+    out = {}
+    for name, specs in (("tp_to_one", [("p0", "prefill", lm, mesh),
+                                       ("d0", "decode", one, None)]),
+                        ("one_to_tp", [("p1", "prefill", one, None),
+                                       ("d1", "decode", lm, mesh)])):
+        reps, router = _fleet(specs, clock, **kw)
+        frs = [router.submit(r["prompt"], r["max_new_tokens"])
+               for r in case["requests"]]
+        _drive(router, reps)
+        out[name] = _fleet_result(router, frs, reps)
+        out[name]["slabs"] = router.handoffs
+    # the TP export holds the bytes a one-device prefill writes
+    single = DecodeServer(one, device="cpu", **kw)
+    same = []
+    for r, h in zip(case["requests"], out["tp_to_one"]["slabs"]):
+        single.engine.prefill(r["prompt"], 0)
+        want = export_slot(single.engine, 0)
+        same.append(all(np.array_equal(h.slabs[k][:, :h.cursor],
+                                       want[k][:, :h.cursor])
+                        for k in ("k", "v")))
+    for name in out:
+        out[name].pop("slabs")
+    out["slab_bytes_equal"] = same
+    out["pool_local_heads"] = int(lm._local_heads()[1])
+    return out
+
+
+def tp_fleet_cases(rank, n, payload):
+    """Slot handoff into and out of tensor-parallel replicas: split
+    fleets, drains and slabs across layouts (the case's ``kind``)."""
+    kinds = {"split": _tp_split_fleet, "split_drain": _tp_split_drain,
+             "mixed_drain": lambda r, c: _tp_mixed_drain(r, n, c),
+             "cross": _tp_cross_layout}
+    return {key: kinds[case["kind"]](rank, case)
+            for key, case in payload["tp_fleet"].items()}
+
+
 def _tp_network(case):
     from deeplearning4j_tpu_torch.models.convert import load_network_from_jax
     from deeplearning4j_tpu_torch.nn.conf.graph import (
