@@ -5804,7 +5804,6 @@ MODEL_FSDP_EPOCHS = 2  # (g): bench_epoch's epochs after its 3 fits
 # cell (h): the serve cell's requests through a split fleet of TP
 # replicas; d0 decodes this many steps before it drains onto d1
 FLEET_DRAIN_AFTER = 4
-FLEET_DEVICE = "cuda"  # "cpu" only to rehearse the cell
 FLEET_HANDOFF_REPS = 5  # timed exports and installs of one slot
 
 
@@ -6252,8 +6251,9 @@ def model_fleet(rank: int, meshes: dict) -> dict:
     from deeplearning4j_tpu_torch.serving.scheduler import ServeRequest
 
     mesh = meshes["model=4"]
-    lm = TransformerLM(**SERVE_CFG, device=FLEET_DEVICE).init()
-    kw = dict(max_len=SERVE_MAX_LEN, mesh=mesh, device=FLEET_DEVICE)
+    device = mesh.device_type
+    lm = TransformerLM(**SERVE_CFG, device=device).init()
+    kw = dict(max_len=SERVE_MAX_LEN, mesh=mesh, device=device)
     reps = [ServeReplica("p0", lm, role="prefill", slots=1, **kw),
             ServeReplica("d0", lm, role="decode", slots=SERVE_SLOTS, **kw),
             ServeReplica("d1", lm, role="decode", slots=SERVE_SLOTS, **kw)]
@@ -6288,7 +6288,7 @@ def model_fleet(rank: int, meshes: dict) -> dict:
         step(d0)
     placed = [fr.replica_id for fr in frs]
     emitted = [len(fr.tokens) for fr in frs]
-    router._quiesced.discard("d1")  # the survivor takes new work again
+    router.unquiesce("d1")  # the survivor takes new work again
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     decision = FleetController(router, None, evict_timeout_s=60.0).drain(
@@ -6315,9 +6315,9 @@ def model_fleet(rank: int, meshes: dict) -> dict:
            "local_heads": list(lm._local_heads()),
            "prefill_buckets": stats["p0"]["compiles"]["prefill_buckets"]}
     # slabs across layouts: a one-device server beside the TP replicas
-    one = TransformerLM(**SERVE_CFG, device=FLEET_DEVICE).init()
+    one = TransformerLM(**SERVE_CFG, device=device).init()
     single = DecodeServer(one, slots=2, max_len=SERVE_MAX_LEN,
-                          device=FLEET_DEVICE)
+                          device=device)
 
     def admitted(server, prompt, handoff, new):
         req = ServeRequest(prompt=prompt, max_new_tokens=new)
@@ -6335,7 +6335,7 @@ def model_fleet(rank: int, meshes: dict) -> dict:
     one_slab = SlotHandoff(
         slabs=export_slot(single.engine, 1), cursor=len(a.prompt), key=None,
         first_token=tok, kv_dtype=single.engine.kv_dtype,
-        max_len=single.max_len, device=FLEET_DEVICE)
+        max_len=single.max_len, device=device)
     streams["one_to_tp"] = (admitted(d1.server, a.prompt, one_slab,
                                      a.max_new_tokens), a)
     res["cross_nbytes"] = [one_slab.nbytes,
@@ -6349,7 +6349,7 @@ def model_fleet(rank: int, meshes: dict) -> dict:
         times[f"{name}_export"] = (dev, host)
         h = SlotHandoff(slabs=slabs, cursor=1, key=None, first_token=0,
                         kv_dtype=eng.kv_dtype, max_len=eng.max_len,
-                        device=FLEET_DEVICE)
+                        device=device)
         dev, host, _ = _handoff_ms(lambda: install_slot(eng, 1, h))
         times[f"{name}_install"] = (dev, host)
     res["handoff_times"] = times

@@ -224,40 +224,20 @@ def parse_mesh_shape(text: str) -> MeshSpec:
     return MeshSpec(data=dims[0], model=dims[1], pipe=dims[2])
 
 
-# (MeshSpec, device type) -> (the world it was built in, the mesh)
-_ENV_MESHES: Dict[tuple, tuple] = {}
-
-
 def mesh_from_env(device=None):
     """Resolve ``DL4J_MESH_SHAPE`` (full topology, wins) then
     ``DL4J_TP_SHARDS`` (model axis only, data takes the rest) into a
-    mesh over the current world; ``None`` when neither is set. The same
-    settings give the same mesh within one world, as the reference's
-    one global mesh: every server a fleet builds from the environment
-    then shares one model placement and one ``model`` group."""
-    import torch.distributed as dist
-
-    from deeplearning4j_tpu_torch._device import resolve_device
-
+    mesh over the current world; ``None`` when neither is set."""
     shape = os.environ.get("DL4J_MESH_SHAPE", "").strip()
-    tp = os.environ.get("DL4J_TP_SHARDS", "").strip()
     if shape:
-        spec = parse_mesh_shape(shape)
-    elif tp:
+        return build_mesh(parse_mesh_shape(shape), device=device)
+    tp = os.environ.get("DL4J_TP_SHARDS", "").strip()
+    if tp:
         n = int(tp)
         if n < 1:
             raise ValueError(f"DL4J_TP_SHARDS={tp!r} must be >= 1")
-        spec = MeshSpec(data=-1, model=n)
-    else:
-        return None
-    key = (spec, resolve_device(device).type)
-    world = dist.group.WORLD if dist.is_initialized() else None
-    hit = _ENV_MESHES.get(key)
-    if hit is not None and world is not None and hit[0] is world:
-        return hit[1]
-    mesh = build_mesh(spec, device=device)
-    _ENV_MESHES[key] = (dist.group.WORLD, mesh)
-    return mesh
+        return build_mesh(MeshSpec(data=-1, model=n), device=device)
+    return None
 
 
 # ---------------------------------------------------------------------------

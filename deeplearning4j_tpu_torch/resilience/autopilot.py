@@ -211,6 +211,13 @@ class GoodputAutopilot:
             return True
         return False
 
+    def unlatch(self, member: str) -> None:
+        """Forget an eviction whose actuator failed after the pass that
+        latched it (a caller that carries evictions out later), so the
+        next pass decides it again."""
+        self.evicted.discard(member)
+        self._evicted_at.pop(member, None)
+
     # ------------------------------------------------------------------
     def observe(self, fleet: Dict[str, dict], *,
                 stragglers: Sequence[str] = (),

@@ -103,27 +103,45 @@ class FleetController:
                 autopilot = GoodputAutopilot(
                     silence_s=self.evict_timeout_s, clock=clock)
         self.autopilot = autopilot
-        # the autopilot's evictions while a tick observes, carried out
-        # after (in every rank of a tensor-parallel fleet: rank 0's)
-        self._deferred: Optional[List[dict]] = None
-        if autopilot is not None:
-            autopilot.bind(evict=self._autopilot_evict)
+        # a tensor-parallel fleet's autopilot only advises: rank 0's
+        # evictions are carried out in every rank (_observe_tp)
+        if autopilot is not None and not router.tensor_parallel:
+            autopilot.bind(evict=lambda rid, d: self.evict(
+                **self._autopilot_eviction(rid, d)))
 
-    def _autopilot_evict(self, rid: str, d) -> None:
-        kw = dict(replica_id=rid, reason=f"autopilot:{d.reason}",
-                  silent_s=d.gauges.get("silent_s"),
-                  last_metrics={k: v for k, v in d.gauges.items()
-                                if k not in ("silent_s",
-                                             "silence_timeout_s")})
-        if self._deferred is not None:
-            self._deferred.append(kw)
-        else:
-            self.evict(**kw)
+    @staticmethod
+    def _autopilot_eviction(rid: str, d) -> dict:
+        return dict(replica_id=rid, reason=f"autopilot:{d.reason}",
+                    silent_s=d.gauges.get("silent_s"),
+                    last_metrics={k: v for k, v in d.gauges.items()
+                                  if k not in ("silent_s",
+                                               "silence_timeout_s")})
 
     def _evict_all(self, plan: List[dict]) -> None:
         """Carry out rank 0's evictions in every rank."""
         for kw in self.router.agree(plan):
             self.evict(**kw)
+
+    def _observe_tp(self, fleet: Dict[str, dict], now: float) -> None:
+        """The autopilot pass of a tensor-parallel fleet: rank 0's
+        autopilot observes and decides, every rank evicts. An eviction
+        that raises is logged and un-latched, so the next tick retries
+        it, as an actuator's failure inside the autopilot's pass is."""
+        decided = {d.target: d for d in (
+            self._observe(fleet, now) if self.router.is_leader else [])
+            if d.action == "evict"}
+        for kw in self.router.agree([self._autopilot_eviction(rid, d)
+                                     for rid, d in decided.items()]):
+            rid = kw["replica_id"]
+            try:
+                self.evict(**kw)
+            except Exception:  # noqa: BLE001 — the control loop survives
+                logging.getLogger(__name__).exception(
+                    "autopilot eviction of %s failed", rid)
+                self.autopilot.unlatch(rid)
+                continue
+            if rid in decided:
+                decided[rid].acted = True
 
     # ------------------------------------------------------------------
     def _payload(self, replica) -> Optional[dict]:
@@ -139,7 +157,6 @@ class FleetController:
         payload map (tests and dashboards read it)."""
         fleet: Dict[str, dict] = {}
         now = self.router.agree(self.clock())
-        tp = self.router._tp
         for r in self.router.replicas:
             if r.replica_id in self._evicted_set:
                 continue
@@ -159,11 +176,10 @@ class FleetController:
             event_name="serve.straggler")
         self._evict_pass(now, fleet)
         if self.autopilot is not None:
-            self._deferred = []
-            if tp is None or tp._leader:
+            if self.router.tensor_parallel:
+                self._observe_tp(fleet, now)
+            else:
                 self._observe(fleet, now)
-            plan, self._deferred = self._deferred, None
-            self._evict_all(plan)
         alive = [r for r in self.router.replicas
                  if r.replica_id not in self._evicted_set and r.alive]
         self._reg.gauge("fleet_serve_replicas",
@@ -175,11 +191,12 @@ class FleetController:
         self.router.maybe_hedge()
         return fleet
 
-    def _observe(self, fleet: Dict[str, dict], now: float) -> None:
+    def _observe(self, fleet: Dict[str, dict], now: float) -> list:
+        """The autopilot's pass; its decisions (none if it failed)."""
         try:
             live = [r.replica_id for r in self.router.replicas
                     if r.replica_id not in self._evicted_set]
-            self.autopilot.observe(
+            return self.autopilot.observe(
                 fleet, stragglers=set(self.stragglers),
                 last_beat=(
                     {rid: self.tracker.last_heartbeat(rid)
@@ -190,6 +207,7 @@ class FleetController:
             # the serve control loop down
             logging.getLogger(__name__).exception(
                 "serve autopilot observe pass failed")
+            return []
 
     # ------------------------------------------------------------------
     def _evict_pass(self, now: float, fleet: Dict[str, dict]) -> None:

@@ -303,7 +303,7 @@ class ServeReplica:
                                   self.server._generator(0)))
 
     def start(self) -> "ServeReplica":
-        if self.server._group is not None:
+        if self.server.tensor_parallel:
             raise ValueError(
                 f"replica {self.replica_id} serves tensor-parallel: every "
                 "rank must run its collectives in one order, so step it "

@@ -56,8 +56,10 @@ TTFT sample, a follower server's verdict (a follower only records a
 submission: rank 0's server decides it) — rank 0 decides and
 broadcasts (:meth:`FleetRouter.agree`), so every rank places each
 request, slab and job on the same replica and every rank's collectives
-line up. One-device replicas may stand in such a fleet (slabs move to
-and from them whole); each rank's copy of one serves on its own.
+line up. Every time the router stamps is rank 0's clock
+(:meth:`FleetRouter.now`), and so is a request's deadline. One-device
+replicas may stand in such a fleet (slabs move to and from them whole);
+each rank's copy of one serves on its own.
 """
 
 from __future__ import annotations
@@ -205,6 +207,12 @@ class FleetRouter:
         heterogeneous roles construct :class:`ServeReplica` lists
         themselves."""
         n = replicas if replicas is not None else serve_replicas()
+        if server_kw.get("mesh") is None:
+            from deeplearning4j_tpu_torch.parallel.sharding_registry import (
+                mesh_from_env)
+
+            # one mesh for every replica: a model is placed on one mesh
+            server_kw["mesh"] = mesh_from_env(device=server_kw.get("device"))
         reps = [ServeReplica(f"replica-{i}", model, tracker=tracker,
                              role=role, clock=clock, **server_kw)
                 for i in range(n)]
@@ -230,7 +238,7 @@ class FleetRouter:
         self.split = bool(self.prefill_replicas)
         # tensor-parallel replicas: rank 0 of their model group decides
         # whatever may differ between the ranks (see agree)
-        tp = [r.server for r in replicas if r.server._group is not None]
+        tp = [r.server for r in replicas if r.server.tensor_parallel]
         if len({id(srv.engine.mesh) for srv in tp}) > 1:
             raise ValueError(
                 "the tensor-parallel replicas of one fleet must share one "
@@ -295,6 +303,17 @@ class FleetRouter:
         return [r for r in self.prefill_replicas
                 if r.alive and r.replica_id not in self._quiesced]
 
+    @property
+    def tensor_parallel(self) -> bool:
+        """Whether the fleet holds tensor-parallel replicas."""
+        return self._tp is not None
+
+    @property
+    def is_leader(self) -> bool:
+        """Rank 0 of the TP replicas' ``model`` group, which decides for
+        the fleet; True in a fleet of one-device replicas."""
+        return self._tp is None or self._tp.is_leader
+
     def quiesce(self, replica_id: str) -> None:
         """Stop routing NEW work to ``replica_id`` (first step of a
         graceful drain): the replica keeps stepping its in-flight
@@ -304,6 +323,11 @@ class FleetRouter:
             self._quiesced.add(replica_id)
             self._affinity = {k: v for k, v in self._affinity.items()
                               if v != replica_id}
+
+    def unquiesce(self, replica_id: str) -> None:
+        """Route new work to a quiesced ``replica_id`` again."""
+        with self._lock:
+            self._quiesced.discard(replica_id)
 
     def agree(self, value):
         """Rank 0's ``value`` in every rank of a fleet of tensor-parallel
@@ -318,31 +342,19 @@ class FleetRouter:
         return [self._by_id[rid]
                 for rid in self.agree([r.replica_id for r in replicas])]
 
+    def now(self) -> float:
+        """The router's clock: rank 0's in every rank of a fleet of
+        tensor-parallel replicas (their clocks have unrelated offsets)."""
+        return self.agree(self.clock())
+
     def _try_submit(self, r: ServeReplica, prompt, max_new_tokens: int, *,
                     seed: int, deadline_s, criticality: str,
                     displace: bool, replay: int = 0) -> AdmissionVerdict:
         """``r.server.try_submit`` with rank 0's verdict when ``r`` is
-        tensor-parallel: a follower's own call only records the request
-        under the same sequence number (rank 0's server decides it, and
-        tells the follower's at its next step)."""
-        verdict = r.server.try_submit(
+        tensor-parallel."""
+        return r.server.agreed_verdict(r.server.try_submit(
             prompt, max_new_tokens, seed=seed, deadline_s=deadline_s,
-            criticality=criticality, displace=displace, replay=replay)
-        srv = r.server
-        if srv._group is None:
-            return verdict
-        victim = verdict.displaced
-        admitted, reason, depth, victim_seq = self.agree(
-            (verdict.admitted, verdict.reason, verdict.queue_depth,
-             None if victim is None else victim.mesh_seq))
-        if srv._leader:
-            return verdict
-        return AdmissionVerdict(
-            admitted=admitted, reason=reason,
-            request=verdict.request if admitted else None,
-            queue_depth=depth,
-            displaced=(None if victim_seq is None
-                       else srv._by_seq.get(victim_seq)))
+            criticality=criticality, displace=displace, replay=replay))
 
     @staticmethod
     def _rank(replicas: List[ServeReplica]) -> List[ServeReplica]:
@@ -380,16 +392,19 @@ class FleetRouter:
         """Non-raising admission: ``None`` means the fleet shed the
         request (every alive replica full, even after criticality
         displacement) — open-loop callers record the drop and move on.
-        ``deadline_s`` is ABSOLUTE on the router's clock axis."""
+        ``deadline_s`` is ABSOLUTE on the router's clock axis (rank 0's
+        in a fleet of tensor-parallel replicas)."""
         criticality_rank(criticality)     # fail fast on a typo'd class
         with self._lock:
             self.retry_pending()
+            # rank 0's clock and deadline in every rank (see now)
+            submit_s, deadline_s = self.agree((self.clock(), deadline_s))
             freq = FleetRequest(
                 prompt=np.asarray(prompt, np.int32).reshape(-1),
                 max_new_tokens=int(max_new_tokens), seed=int(seed),
                 affinity=affinity, deadline_s=deadline_s,
                 criticality=criticality)
-            freq.submit_s = self.clock()
+            freq.submit_s = submit_s
             # every accepted submission funds future retries for its
             # class — the token-bucket side of the retry-amplification
             # bound (retries <= ratio * submissions + burst)
@@ -499,7 +514,7 @@ class FleetRouter:
                     # the replica shed it at admission (past deadline) —
                     # probing further replicas cannot un-expire it
                     freq.shed_reason = "deadline"
-                    freq._finish_s = self.clock()
+                    freq._finish_s = self.now()
                     sp.attrs["outcome"] = "expired"
                     return False
                 spilled += 1
@@ -651,7 +666,7 @@ class FleetRouter:
             # everything already streamed before the death (e.g. a
             # prefill-complete max_new=1 request whose handoff never
             # installed): complete it here — no survivor has work to do
-            fr._finish_s = self.clock()
+            fr._finish_s = self.now()
             return True
         return self._place_continuation(fr, charge=charge)
 
@@ -673,7 +688,7 @@ class FleetRouter:
                 tracer().event("serve.retry_denied", request=fr.id,
                                kind="failover",
                                criticality=fr.criticality,
-                               t=self.clock())
+                               t=self.now())
             self._pending.append(fr)
             return False
         prompt = (np.concatenate(
@@ -699,7 +714,7 @@ class FleetRouter:
         append back on a miss); past-deadline parkers shed instead of
         retrying — the earliest point that looks at a parked deadline."""
         with self._lock:
-            now = self.agree(self.clock())
+            now = self.now()
             pending, self._pending = self._pending, []
             placed = 0
             for fr in pending:
@@ -720,7 +735,7 @@ class FleetRouter:
         """Shed a request the fleet (not a replica) owns right now —
         same evidence shape as the replica-side shed."""
         fr.shed_reason = reason
-        fr._finish_s = self.clock()
+        fr._finish_s = self.now()
         fr._parked_handoff = None
         decision = {"request": fr.id, "criticality": fr.criticality,
                     "where": where, "reason": reason, "t": fr._finish_s}
@@ -752,7 +767,7 @@ class FleetRouter:
                     self._reconcile_hedge(fr)
             if self.hedge_after_s is None or not self.greedy:
                 return 0
-            now = self.agree(self.clock())
+            now = self.now()
             placed = 0
             for fr in self.requests:
                 if (fr.criticality != "interactive"
@@ -831,7 +846,7 @@ class FleetRouter:
             self._reg.gauge("serve_hedge_wins").set(
                 float(self.hedge_wins))
             tracer().event("serve.hedge_win", request=fr.id,
-                           replica=fr.replica_id, t=self.clock())
+                           replica=fr.replica_id, t=self.now())
             return
         if pri_live and not h_live:
             # primary won: drop the hedge copy
@@ -859,12 +874,7 @@ class FleetRouter:
         self._owner.pop(req.id, None)
         r = self._by_id.get(replica_id) if replica_id else None
         if r is not None and req.state == "queued":
-            removed = r.server.queue.remove(req)
-            if r.server._group is not None:   # rank 0's queue holds it
-                removed = self.agree(removed)
-                if removed:
-                    r.server._decided(req)
-            if removed:
+            if r.server.withdraw(req):
                 req.state = "canceled"
 
     # ------------------------------------------------------------------
@@ -921,19 +931,7 @@ class FleetRouter:
                     fallback += 1
             # (ii) queued, never admitted: re-place (zero compute done,
             # zero recomputed); drain moves are deliberate, not retries
-            queued = []
-            while True:
-                req = server.queue.pop()
-                if req is None:
-                    break
-                queued.append(req)
-            if server._group is not None:
-                # a follower's server only recorded its submissions:
-                # rank 0's queue names them
-                seqs = self.agree([req.mesh_seq for req in queued])
-                if not server._leader:
-                    queued = [server._by_seq.pop(seq) for seq in seqs]
-            for req in queued:
+            for req in server.pop_queued():
                 fr = self._owner.get(req.id)
                 if fr is None:
                     continue          # direct server user; nothing to do

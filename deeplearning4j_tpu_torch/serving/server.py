@@ -428,6 +428,63 @@ class DecodeServer:
             box, src=dist.get_global_rank(self._group, 0), group=self._group)
         return box[0]
 
+    @property
+    def tensor_parallel(self) -> bool:
+        """Whether this server serves over a mesh's ``model`` group."""
+        return self._group is not None
+
+    @property
+    def is_leader(self) -> bool:
+        """Rank 0 of the ``model`` group, which takes every decision;
+        True on a one-device server."""
+        return self._leader
+
+    def agreed_verdict(self, verdict: AdmissionVerdict
+                       ) -> AdmissionVerdict:
+        """Rank 0's admission ``verdict`` in every rank of a mesh server
+        (a collective): a follower's ``try_submit`` only recorded the
+        request under its sequence number, and rank 0's server decided
+        it (the follower's learns at its next step). ``verdict`` itself
+        on a one-device server."""
+        if self._group is None:
+            return verdict
+        victim = verdict.displaced
+        admitted, reason, depth, victim_seq = self.agree(
+            (verdict.admitted, verdict.reason, verdict.queue_depth,
+             None if victim is None else victim.mesh_seq))
+        if self._leader:
+            return verdict
+        return AdmissionVerdict(
+            admitted=admitted, reason=reason,
+            request=verdict.request if admitted else None,
+            queue_depth=depth,
+            displaced=(None if victim_seq is None
+                       else self._by_seq.get(victim_seq)))
+
+    def withdraw(self, req: ServeRequest) -> bool:
+        """Pull a queued ``req`` from the admission queue; whether it was
+        there. On a mesh server rank 0's answer in every rank (only its
+        queue holds the request; a follower then forgets it)."""
+        removed = self.queue.remove(req)
+        if self._group is not None:
+            removed = self.agree(removed)
+            if removed:
+                self._decided(req)
+        return removed
+
+    def pop_queued(self) -> List[ServeRequest]:
+        """Empty the admission queue, oldest first. On a mesh server rank
+        0's queue names the requests in every rank (a follower's server
+        only recorded its submissions)."""
+        queued = []
+        while (req := self.queue.pop()) is not None:
+            queued.append(req)
+        if self._group is not None:
+            seqs = self.agree([r.mesh_seq for r in queued])
+            if not self._leader:
+                queued = [self._by_seq.pop(seq) for seq in seqs]
+        return queued
+
     def _lead(self) -> None:
         """Rank 0: sweep, choose the admissions (handed-off slabs first,
         as ``_admit`` does), broadcast them with the decisions logged

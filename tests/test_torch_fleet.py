@@ -556,6 +556,50 @@ def test_silence_eviction_with_evidence():
     assert reps[0].dead and "r0" not in controller.tick()
 
 
+@pytest.mark.parametrize("deferred", [False, True],
+                         ids=["one_device", "tp_deferred"])
+def test_autopilot_eviction_that_raises_is_retried(monkeypatch, deferred):
+    """An autopilot eviction whose ``evict`` raises leaves the member
+    un-latched and the tick standing, and the next tick evicts it: in
+    the autopilot's own pass (one-device fleets) and when a
+    tensor-parallel fleet carries rank 0's decisions out after the pass
+    (``deferred``: this one-device fleet takes that path)."""
+    from deeplearning4j_tpu_torch.parallel import InMemoryStateTracker
+    from deeplearning4j_tpu_torch.resilience import GoodputAutopilot
+
+    if deferred:
+        monkeypatch.setattr(FleetRouter, "tensor_parallel",
+                            property(lambda self: True))
+    reps, router = _fleet_of_three()
+    tracker = InMemoryStateTracker()
+    now = {"t": time.time()}
+    clock = lambda: now["t"]  # noqa: E731
+    ap = GoodputAutopilot(floor=0.0, silence_s=5.0, clock=clock)
+    controller = FleetController(router, tracker, evict_timeout_s=1e9,
+                                 clock=clock, autopilot=ap)
+    tracker.heartbeat("r0", metrics={"occupancy": 1.0, "tpot_s": 0.02})
+    now["t"] += 6.0
+    real, calls = controller.evict, []
+
+    def flaky(replica_id, **kw):
+        calls.append(replica_id)
+        if len(calls) == 1:
+            raise RuntimeError("transient")
+        return real(replica_id, **kw)
+
+    controller.evict = flaky
+    controller.tick()
+    assert calls == ["r0"] and controller.evicted == []
+    assert "r0" not in ap.evicted and not ap.decisions[-1].acted
+    controller.tick()
+    assert calls == ["r0", "r0"] and controller.evicted == ["r0"]
+    assert "r0" in ap.evicted and ap.decisions[-1].acted
+    assert controller.eviction_log[0]["reason"] == \
+        "autopilot:heartbeat_silence"
+    controller.tick()
+    assert calls == ["r0", "r0"]
+
+
 # ---------------------------------------------------------------------------
 # prefill/decode handoff
 # ---------------------------------------------------------------------------

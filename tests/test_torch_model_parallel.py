@@ -21,7 +21,9 @@ request) and of slabs moved TP to one device and back equal the JAX
 ``generate`` exactly (int8 pools the JAX server's int8 streams); a
 sampled split fleet's equal the port's one-device split fleet's; every
 handoff's bytes equal ``kv_per_slot_bytes``; a drain recomputes
-nothing.
+nothing; a hedge race (the followers' clocks running 1e7 s a read ahead,
+rank 0's settable) hedges, withdraws and wins as the one-device fleet
+does.
 
 Gates: greedy and beam-3 tokens exactly equal (``TestShardedDecode``'s
 config, vocab 64, d64, H8, Hkv 4, RoPE, two layers; the GQA fallback at
@@ -93,6 +95,7 @@ TP_SERVE = {"f32": {}, "int8": {"kv_dtype": "int8", "fuse_steps": 4}}
 FLEET_REQUESTS = ((5, 8), (13, 6), (20, 8), (7, 8), (9, 6), (11, 4))
 FLEET_SAMPLED = dict(temperature=0.7, top_k=20, deadline_s=1e6)
 TP_CROSS = {"m4": {}, "gqa2": {"num_kv_heads": 2}}
+HEDGES = ("win", "lose")   # which copy of the hedged request runs first
 TP_NETS = ("tp_mlp", "pair_mlp", "lenet", "lstm", "graph", "wrapped")
 # gradient normalization by L2 norms on split layers, under SGD (Adam's
 # step hardly moves when its gradient is scaled, so it would hide a wrong
@@ -128,6 +131,13 @@ def _fleet_requests():
     return [dict(prompt=rng.integers(0, 64, n).astype(np.int32),
                  max_new_tokens=m, seed=i)
             for i, (n, m) in enumerate(FLEET_REQUESTS)]
+
+
+def _hedge_requests():
+    """The hedge race's three requests: a short and a long one fill the
+    two replicas' slots, the third queues behind them."""
+    return [dict(r, max_new_tokens=m)
+            for r, m in zip(_fleet_requests(), (2, 8, 4))]
 
 
 def _lm_tokens():
@@ -321,7 +331,10 @@ def world(tmp_path_factory):
            for key, extra in TP_SERVE.items()},
         "split:sampled": dict(kind="split", **fleet, **FLEET_SAMPLED),
         "drain:split": dict(kind="split_drain", **fleet),
-        "drain:mixed": dict(kind="mixed_drain", **fleet, fuse_steps=2)}
+        "drain:mixed": dict(kind="mixed_drain", **fleet, fuse_steps=2),
+        **{f"hedge:{s}": dict(fleet, kind="hedge", scenario=s, slots=1,
+                              fuse_steps=2, requests=_hedge_requests())
+           for s in HEDGES}}
     for key, extra in TP_CROSS.items():
         cfg = {**SERVE, **extra}
         refs[f"cross:{key}"] = _jax_lm(cfg)
@@ -625,6 +638,28 @@ def test_tp_handoff_across_layouts(world, key):
                                              "d0": 1}
     assert got["one_to_tp"]["kv_shards"] == {"p1": 1,
                                              "d1": N if split else 1}
+
+
+@pytest.mark.parametrize("scenario", HEDGES)
+def test_tp_hedge_under_skewed_clocks(world, scenario):
+    """Hedging in a fleet of two mixed TP replicas whose followers'
+    clocks run 1e7 s a read ahead of rank 0's: every rank times the
+    queued request on rank 0's clock, so the TP fleet hedges, withdraws
+    the losing copy and counts the win as the port's one-device fleet
+    does on rank 0's clock, and the streams are the JAX model's."""
+    refs, payload, results = world
+    case = payload["tp_fleet"][f"hedge:{scenario}"]
+    got = dict(results["tp_fleet_cases"][f"hedge:{scenario}"])
+    want = torch_worlds._tp_hedge(0, {**case, "tp": False})
+    streams = got.pop("streams")
+    _assert_streams(streams, want.pop("streams"))
+    _assert_streams(streams, _generated(refs["serve"], case["requests"]))
+    assert got == want
+    assert got["hedges"] == [0, 1, 0] and got["hedge_log"] == 1
+    assert (got["primary"], got["hedge"]) == ("r0", "r1")
+    win = scenario == "win"
+    assert got["settled"] == ("r1" if win else "r0", True, int(win))
+    assert got["finished"] == [True, True, True]
 
 
 def test_tp_checkpoint_round_trip(world):

@@ -588,7 +588,7 @@ def _drive(router, reps, limit=400):
     """Step every live replica in turn (and retry parked slabs) until
     rank 0's router has nothing unfinished (asked through a TP server's
     ``agree``, whichever replica holds one)."""
-    tp = [r.server for r in reps if r.server._group is not None]
+    tp = [r.server for r in reps if r.server.tensor_parallel]
     for _ in range(limit):
         left = bool(router.unfinished())
         if not (tp[0].agree(left) if tp else left):
@@ -750,12 +750,71 @@ def _tp_cross_layout(rank, case):
     return out
 
 
+def _skewed_clock(rank):
+    """A settable fake clock: rank 0 reads ``t["now"]``, every other rank
+    runs 1e7 s a read ahead of it. A hedge a follower timed on its own
+    clock would part its fleet from rank 0's."""
+    t = {"now": 0.0, "reads": 0}
+
+    def clock():
+        if rank == 0:
+            return t["now"]
+        t["reads"] += 1
+        return t["now"] + 1e7 * t["reads"]
+
+    return t, clock
+
+
+def _tp_hedge(rank, case):
+    """The one-device hedge tests' race on two mixed replicas, TP unless
+    ``case["tp"]`` is False: two requests fill both one-slot replicas, a
+    third queues on ``r0``, the clock passes ``hedge_after_s`` and a
+    hedge goes to ``r1``; then the hedge (``win``) or the primary
+    (``lose``) reaches a slot first and the loser is withdrawn."""
+    t, clock = _skewed_clock(rank)
+    if case.get("tp", True):
+        lm, mesh = _tp_lm(case)
+    else:
+        lm, mesh = _lm(case["cfg"], case["params"]), None
+    reps, router = _fleet([("r0", "mixed", lm, mesh),
+                           ("r1", "mixed", lm, mesh)], clock, max_queue=2,
+                          **_server_kw(case))
+    router.hedge_after_s = 0.05
+    reqs = case["requests"]
+    a, b = [router.submit(r["prompt"], r["max_new_tokens"])
+            for r in reqs[:2]]
+    for r in reps:
+        r.step_once()
+    c = router.submit(reqs[2]["prompt"], reqs[2]["max_new_tokens"])
+    hedges = [router.maybe_hedge()]
+    t["now"] = 0.1
+    hedges.append(router.maybe_hedge())
+    primary, hedge = c.replica_id, c.hedge_replica_id
+    pri_rep, hedge_rep = router._by_id[primary], router._by_id[hedge]
+    if case["scenario"] == "win":   # the hedge's replica frees its slot
+        first = a if hedge == "r0" else b
+        while router.agree(not first.finished):
+            hedge_rep.step_once()
+        hedge_rep.step_once()
+    else:                           # the primary's replica admits it
+        while router.agree(c.inner.state == "queued"):
+            pri_rep.step_once()
+    hedges.append(router.maybe_hedge())
+    settled = (c.replica_id, c.hedge is None, router.hedge_wins)
+    _drive(router, reps)
+    return {"streams": [fr.output for fr in (a, b, c)], "hedges": hedges,
+            "primary": primary, "hedge": hedge, "settled": settled,
+            "hedge_log": len(router.hedge_log),
+            "finished": [fr.finished for fr in (a, b, c)]}
+
+
 def tp_fleet_cases(rank, n, payload):
     """Slot handoff into and out of tensor-parallel replicas: split
-    fleets, drains and slabs across layouts (the case's ``kind``)."""
+    fleets, drains, slabs across layouts and hedges (the case's
+    ``kind``)."""
     kinds = {"split": _tp_split_fleet, "split_drain": _tp_split_drain,
              "mixed_drain": lambda r, c: _tp_mixed_drain(r, n, c),
-             "cross": _tp_cross_layout}
+             "cross": _tp_cross_layout, "hedge": _tp_hedge}
     return {key: kinds[case["kind"]](rank, case)
             for key, case in payload["tp_fleet"].items()}
 
