@@ -197,10 +197,12 @@ Twenty phases; any failure exits non-zero and prints no result line.
    nothing lost or diverged; prints tokens/s, TTFT, balance, scaling and
    the failed-over requests' recovery seconds. Two threaded replicas,
    ``r0`` killed at its third step: nothing lost. Two child processes
-   with ``DL4J_COMPILE_CACHE_DIR`` on a temporary directory: the first
-   builds B1–B3 there, the second runs ``nvcc`` zero times; prints each
-   one's seconds to kernels-ready and ``compile_cache_stats()``. B2 and
-   B3 must not launch; prints the phase's wall time.
+   with ``DL4J_COMPILE_CACHE_DIR`` on a temporary directory: the first,
+   started beside phase 1's build, builds B1–B3 there (one ``nvcc`` a
+   source, all started together), the second runs ``nvcc`` zero times;
+   prints each one's seconds to kernels-ready and
+   ``compile_cache_stats()``. B2 and B3 must not launch; prints the
+   phase's wall time.
 
 11. Data, with every fetcher on its synthetic path (an empty
    ``DL4J_TPU_DATA_DIR``): ``MnistDataSetIterator(1024)`` and the Iris,
@@ -387,7 +389,14 @@ Twenty phases; any failure exits non-zero and prints no result line.
    one device (rtol 1e-4, atol 1e-6), each rank's cache a quarter of one
    device's, and the elastic run ``data=4 → None → data=2 × model=2 →
    data=4`` (one epoch each) against the uninterrupted run (rtol 2e-4,
-   atol 1e-5), 3 reshards counted; (c) ``DistributedWord2Vec`` on
+   atol 1e-5), 3 reshards counted; the width cell at the same gate:
+   ``data=4 → ranks [1,2,3] → ranks [0,1] → data=4`` (rank 0 parks, then
+   ranks 2 and 3; 3 reshards), and the ``GoodputAutopilot``'s shrink and
+   readmit (rank 3's first chunk stalls at its ``epoch.chunk`` site: it
+   is evicted, the run reshards onto ranks [0,1,2], then grows back; 2
+   reshards), every rank's history the lead's bitwise, with ms an epoch,
+   the watchdog's deadline and each parked rank's idle ms at each width
+   and the cell's seconds; (c) ``DistributedWord2Vec`` on
    ``bench_word2vec`` over ``data=4`` (``dp``) and row-sharded over
    ``model=4`` (``rows``: 4,260 words tile it) against the one-device
    fused epoch on the same plan (atol 1e-5), words/s beside it; (d)
@@ -486,6 +495,7 @@ then ``{"ok": true, "device": {...}}`` last.
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
 import math
 import os
@@ -3193,6 +3203,7 @@ from deeplearning4j_tpu_torch.kernels import KERNEL_SOURCES, _build
 lm = TransformerLM(vocab_size=64, d_model=128, num_heads=2, num_layers=1,
                    max_len=64)
 DecodeEngine(lm, 1)                       # points the build at the cache
+_build.build_all(KERNEL_SOURCES)          # one nvcc a source, all at once
 for name in KERNEL_SOURCES:
     _build.load(name)
 torch.cuda.synchronize()
@@ -3203,22 +3214,60 @@ print(json.dumps({"ready_s": round(time.monotonic() - t0, 3),
 """
 
 
-def extras_compile_cache(card: str) -> None:
-    """A cold child builds B1-B3 into DL4J_COMPILE_CACHE_DIR; a second,
-    warm child loads them from there and runs nvcc zero times."""
+COLD_CHILD = {}  # the cold compile-cache child and its cache directory
+
+
+def start_cold_compile_child() -> None:
+    """Start phase 10's cold compile-cache child (``COMPILE_CHILD`` over a
+    fresh ``DL4J_COMPILE_CACHE_DIR``): ``main`` starts it beside phase
+    1's build, so that its ``nvcc`` runs while the card's first phases do
+    (it held phase 10 for 88–124 s on its own)."""
     import tempfile
 
-    with tempfile.TemporaryDirectory() as tmp:
+    tmp = tempfile.mkdtemp(prefix="dl4j_compile_cache_")
+    COLD_CHILD.update(dir=tmp, proc=subprocess.Popen(
+        [sys.executable, "-c", COMPILE_CHILD], cwd=HERE,
+        env={**os.environ, "DL4J_COMPILE_CACHE_DIR": tmp},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+
+
+def stop_cold_compile_child() -> None:
+    """Kill the cold child if it still runs and remove its cache
+    directory (on every way out of the smoke)."""
+    import shutil
+
+    proc = COLD_CHILD.pop("proc", None)
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    if "dir" in COLD_CHILD:
+        shutil.rmtree(COLD_CHILD.pop("dir"), ignore_errors=True)
+
+
+def extras_compile_cache(card: str) -> None:
+    """The cold child (started beside phase 1's build, or now) built B1-B3
+    into DL4J_COMPILE_CACHE_DIR; a second, warm child loads them from
+    there and runs nvcc zero times."""
+    if "proc" not in COLD_CHILD:  # phase 10 without main's start
+        start_cold_compile_child()
+    try:
+        tmp = COLD_CHILD["dir"]
         env = {**os.environ, "DL4J_COMPILE_CACHE_DIR": tmp}
         runs = []
         for label in ("cold", "warm"):
-            proc = subprocess.run(
-                [sys.executable, "-c", COMPILE_CHILD], cwd=HERE, env=env,
-                capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+            if label == "cold":
+                proc = COLD_CHILD["proc"]
+                stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
+            else:
+                proc = subprocess.run(
+                    [sys.executable, "-c", COMPILE_CHILD], cwd=HERE,
+                    env=env, capture_output=True, text=True,
+                    timeout=CLI_TIMEOUT_S)
+                stdout, stderr = proc.stdout, proc.stderr
             if proc.returncode != 0:
                 raise AssertionError(f"{label} compile-cache child failed:"
-                                     f"\n{proc.stderr[-3000:]}")
-            run = json.loads(proc.stdout.strip().splitlines()[-1])
+                                     f"\n{stderr[-3000:]}")
+            run = json.loads(stdout.strip().splitlines()[-1])
             runs.append(run)
             print(f"extras compile cache {label} child: ready_s="
                   f"{run['ready_s']} nvcc_runs={run['nvcc_runs']} "
@@ -3233,6 +3282,8 @@ def extras_compile_cache(card: str) -> None:
                 not warm["stats"]["configured"]:
             raise AssertionError("the children did not build into "
                                  "DL4J_COMPILE_CACHE_DIR")
+    finally:
+        stop_cold_compile_child()
 
 
 def serve_extras(card: str) -> int:
@@ -6764,6 +6815,10 @@ CLUSTER_ELASTIC_TOL = dict(rtol=2e-4, atol=1e-5)  # the reference's gate
 CLUSTER_W2V_ATOL = 1e-5
 CLUSTER_W2V_EPOCHS = 1
 CLUSTER_JOBS = 4  # (e): one [4096, 784] job a worker thread
+# (b)'s width cell: data=4, then ranks [1,2,3], ranks [0,1], data=4 (one
+# epoch each); the autopilot's: rank 3's first chunk stalls this long
+CLUSTER_WIDTHS = ("data=4", "ranks [1,2,3]", "ranks [0,1]", "data=4")
+CLUSTER_SLOW_MS = 1500.0
 CLI_MH_ROWS, CLI_MH_FEATURES, CLI_MH_BATCH = 4096, 64, 256
 CLI_MH_PROCS = 4
 
@@ -6854,8 +6909,8 @@ def _sum_launches(into: dict, more: dict) -> None:
 def cluster_epochs(rank: int, meshes: dict, launches: dict) -> dict:
     """(b) ``fit_epochs`` over ``data=4`` (FSDP off and on) on bench_epoch
     in float32, and the elastic run ``data=4 → None → data=2 × model=2 →
-    data=4`` beside the uninterrupted one; rank 0 also runs the one-device
-    ``fit_epochs``."""
+    data=4`` and the width cell (``cluster_width``) beside the
+    uninterrupted one; rank 0 also runs the one-device ``fit_epochs``."""
     import torch
     from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
     from deeplearning4j_tpu_torch.dtypes import tree_map
@@ -6913,6 +6968,9 @@ def cluster_epochs(rank: int, meshes: dict, launches: dict) -> dict:
                                                                        p0),
         "reshards": counter.value(model="MultiLayerNetwork") - before,
         "ms_per_epoch": ms1, "uninterrupted_ms_per_epoch": ms0}
+    t = time.monotonic()
+    out["width"] = cluster_width(rank, meshes, it, h0, p0)
+    out["width"]["s"] = time.monotonic() - t
     if rank == 0:  # the one-device reference, in this rank alone
         one = build_network("mnist_mlp", "float32", CLUSTER_DEVICE)
         h1d = one.fit_epochs(it, CLUSTER_EPOCHS)
@@ -6932,6 +6990,134 @@ def cluster_epochs(rank: int, meshes: dict, launches: dict) -> dict:
             c["param_err"] = tree_err(c["_params"], params_1d)
     for fsdp in (False, True):
         del out[f"fsdp={fsdp}"]["_params"]
+    return out
+
+
+def _width_fit(rank: int, w, it, on_boundary, slow_first: bool = False):
+    """``w.fit_epochs`` one epoch a chunk, ``on_boundary(done, stall_s,
+    wall_s)`` deciding at each boundary, in every rank alike, the next
+    mesh (``False``: none); per chunk, this rank's wall ms from the
+    chunk's ``epoch.chunk`` site to its boundary (a parked rank's is idle
+    time), whether it sat the chunk out, its stall at the site and the
+    watchdog's deadline; rank 3's first chunk stalls at the site when
+    ``slow_first``."""
+    from deeplearning4j_tpu_torch.resilience import faults
+
+    clock = {"chunks": 0}
+    chunks = []
+    slow = faults.delay(CLUSTER_SLOW_MS)
+
+    def site(name):
+        clock["enter"] = time.perf_counter()
+        if slow_first and rank == 3 and clock["chunks"] == 0:
+            slow(name)
+        clock["chunks"] += 1
+        clock["stall"] = time.perf_counter() - clock["enter"]
+
+    def on_chunk(done):
+        _cluster_sync()
+        chunks.append({
+            "ms": (time.perf_counter() - clock["enter"]) * 1e3,
+            "parked": w._parked, "stall_s": clock["stall"],
+            "deadline_s": w.network._chunk_watchdog.deadline_s})
+        mesh = on_boundary(done, clock["stall"],
+                           (time.perf_counter() - clock["enter"]))
+        if mesh is not False:
+            w.request_reshard(mesh)
+        return False
+
+    faults.install("epoch.chunk", site)
+    try:
+        hist = w.fit_epochs(it, len(CLUSTER_WIDTHS), chunk_epochs=1,
+                            on_chunk=on_chunk)
+    finally:
+        faults.clear()
+    params = w.gather()[0]
+    digest = hashlib.sha256(hist.detach().cpu().numpy().tobytes())
+    return hist, params, chunks, digest.hexdigest()
+
+
+def cluster_width(rank: int, meshes: dict, it, h0, p0) -> dict:
+    """(b)'s width cell: the run over ``data=4 → ranks [1,2,3] → ranks
+    [0,1] → data=4`` (one epoch each; rank 0 parks for the second, ranks
+    2 and 3 for the third), and the autopilot's shrink and readmit (rank
+    3's first chunk stalls at its ``epoch.chunk`` site; rank 0's
+    ``GoodputAutopilot`` evicts it and reshards onto ranks [0,1,2], then
+    readmits it), each against the uninterrupted ``data=4`` run ``(h0,
+    p0)`` at the elastic gate; every rank's history must be the lead's,
+    bitwise."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.monitor import metrics
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshSpec, ParallelWrapper, build_mesh)
+    from deeplearning4j_tpu_torch.resilience import GoodputAutopilot
+
+    counter = metrics().counter("elastic_reshards_total")
+    sub = {"ranks [1,2,3]": build_mesh(MeshSpec(data=3), ranks=[1, 2, 3],
+                                       device=CLUSTER_DEVICE),
+           "ranks [0,1]": build_mesh(MeshSpec(data=2), ranks=[0, 1],
+                                     device=CLUSTER_DEVICE),
+           "data=4": meshes["data=4"]}
+    out = {}
+
+    def gate(name, hist, params, chunks, digest, reshards, **extra):
+        out[name] = {
+            "ok": (torch.allclose(hist, h0, **CLUSTER_ELASTIC_TOL)
+                   and tree_close(params, p0, **CLUSTER_ELASTIC_TOL)),
+            "hist_err": float((hist - h0).abs().max()),
+            "param_err": tree_err(params, p0), "chunks": chunks,
+            "digest": digest, "reshards": reshards, **extra}
+
+    before = counter.value(model="MultiLayerNetwork")
+    w = ParallelWrapper(build_network("mnist_mlp", "float32",
+                                      CLUSTER_DEVICE), mesh=sub["data=4"])
+    res = _width_fit(rank, w, it, lambda done, stall, wall: sub[
+        CLUSTER_WIDTHS[done]] if done < len(CLUSTER_WIDTHS) else False)
+    gate("widths", *res,
+         counter.value(model="MultiLayerNetwork") - before)
+
+    before = counter.value(model="MultiLayerNetwork")
+    w = ParallelWrapper(build_network("mnist_mlp", "float32",
+                                      CLUSTER_DEVICE), mesh=sub["data=4"])
+    n = dist.get_world_size()
+    wanted, decisions, widths = [], [], {}
+    ap = GoodputAutopilot(
+        floor=50.0, silence_s=1e9, straggler_ticks=1, cooldown_s=1e9,
+        evict=lambda member, d: None,
+        reshard=lambda healthy, d: wanted.append(
+            [int(h.split("-")[1]) for h in healthy]),
+        readmit=lambda member, d: wanted.append(list(range(n))))
+
+    def decide(done, stall, wall):
+        stalls = [None] * n
+        dist.all_gather_object(stalls, stall)
+        box = [None]
+        if rank == 0:
+            mid = statistics.median(stalls)
+            fleet = {f"rank-{r}": {"step_s": wall, "stall_s": v}
+                     for r, v in enumerate(stalls)}
+            asked = len(wanted)
+            decisions.extend(d.action for d in ap.observe(
+                fleet, stragglers=[f"rank-{r}" for r, v in enumerate(stalls)
+                                   if v > mid + CLUSTER_SLOW_MS / 2e3],
+                last_beat={m: float(done) for m in fleet},
+                goodput_pct=100.0 * max(0.0, 1.0 - max(stalls) / wall),
+                now=float(done)))
+            box = [wanted[-1] if len(wanted) > asked else None]
+        dist.broadcast_object_list(box, src=0)
+        if box[0] is None:
+            return False
+        widths[str(done)] = box[0]  # JSON keys
+        return sub["data=4"] if len(box[0]) == n else build_mesh(
+            MeshSpec(data=len(box[0])), ranks=box[0], device=CLUSTER_DEVICE)
+
+    res = _width_fit(rank, w, it, decide, slow_first=True)
+    gate("autopilot", *res,
+         counter.value(model="MultiLayerNetwork") - before,
+         decisions=decisions, widths=widths)
     return out
 
 
@@ -7238,6 +7424,47 @@ def cluster_cli(card: str, tmp: str) -> dict:
     return {"wall_s": wall, "local_s": local_s}
 
 
+def cluster_width_lines(ranks: list, card: str) -> list:
+    """Print (b)'s width cell from every rank's results; its failures."""
+    failures = []
+    wd = ranks[0]["epochs"]["width"]
+    for name, want in (("widths", 3), ("autopilot", 2)):
+        c = wd[name]
+        per = [r["epochs"]["width"][name]["chunks"] for r in ranks]
+        labels = list(CLUSTER_WIDTHS)
+        if name == "autopilot":  # the mesh each chunk ran on
+            labels, cur = [], "data=4"
+            for d in range(len(CLUSTER_WIDTHS)):
+                got = c["widths"].get(str(d))
+                if got is not None:
+                    cur = ("data=4" if len(got) == len(ranks)
+                           else f"ranks {got}")
+                labels.append(cur)
+        steps = []
+        for e, label in enumerate(labels):
+            members = [p[e]["ms"] for p in per if not p[e]["parked"]]
+            idle = {r: round(p[e]["ms"], 1) for r, p in enumerate(per)
+                    if p[e]["parked"]}
+            steps.append(f"{label}: {max(members):.1f} ms an epoch, "
+                         f"deadline {per[0][e]['deadline_s']:.0f} s"
+                         + (f", parked ranks idle {idle} ms" if idle else ""))
+        same = len({r["epochs"]["width"][name]["digest"] for r in ranks}) == 1
+        extra = (f"; decisions {c['decisions']}, shrink/readmit at "
+                 f"boundaries {c['widths']}" if name == "autopilot" else "")
+        print(f"cluster (b) width {name} mnist_mlp float32 [{EPOCH_BATCHES} x "
+              f"{EPOCH_BATCH}, 784] against the uninterrupted data="
+              f"{MESH_RANKS} run: hist_err {c['hist_err']:.3e}, param_err "
+              f"{c['param_err']:.3e} (rtol 2e-4, atol 1e-5) "
+              f"{'ok' if c['ok'] else 'MISMATCH'}; reshards {c['reshards']}; "
+              f"every rank's history the lead's bitwise: {same}; "
+              + "; ".join(steps) + extra + f"; cell {wd['s']:.1f} s [{card}]")
+        if not c["ok"] or c["reshards"] != want or not same:
+            failures.append(f"width {name}")
+    if wd["autopilot"]["decisions"] != ["evict", "reshard", "readmit"]:
+        failures.append("width autopilot decisions")
+    return failures
+
+
 def cluster_phase(card: str) -> dict:
     """Phase 17; returns B1–B3's launches over it, the parent's and the
     ranks' summed (0 each: nothing on its path runs attention)."""
@@ -7312,6 +7539,7 @@ def cluster_phase(card: str) -> dict:
           f"[{card}]")
     if not el["ok"] or el["reshards"] != 3:
         failures.append("elastic reshard")
+    failures += cluster_width_lines(ranks, card)
     w2 = r0["w2v"]
     for name, mode in (("data=4", "dp"), ("model=4", "rows")):
         c = w2[name]
@@ -8469,9 +8697,21 @@ def main() -> None:
         fail("no CUDA device is available")
     sys.path.insert(0, HERE)
     try:
-        from deeplearning4j_tpu_torch.kernels import KERNEL_SOURCES, _build
+        import deeplearning4j_tpu_torch.kernels  # noqa: F401
     except ImportError as e:
         fail(f"the port package is not beside this script: {e}")
+
+    start_cold_compile_child()  # phase 10's, beside phase 1's build
+    try:
+        run_phases()
+    finally:
+        stop_cold_compile_child()
+
+
+def run_phases() -> None:
+    """Phase 1's build, the phases, and the result lines (``main``)."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import KERNEL_SOURCES, _build
 
     failed = []
     card = card_line()

@@ -120,8 +120,10 @@ def _make_runtime(runtime: str, net, args, props: Dict[str, str]):
     - ``mesh``      — a data-parallel ``ParallelWrapper`` over the world
                        ``torchrun``'s environment describes (joined here
                        when it is not up yet), or a world of one;
-                       ``--mesh-devices``/``runtime.mesh.devices`` names
-                       the data axis's size, which must be the world's.
+                       ``--mesh-devices``/``runtime.mesh.devices`` n
+                       trains over ranks ``[0, n)`` (the reference's first
+                       n devices); the other ranks park, and n above the
+                       world's size raises.
     - ``multihost`` — join the world first
                        (``cluster.initialize_distributed``: coordinator and
                        rank from flags or ``runtime.*`` properties), then
@@ -166,7 +168,13 @@ def _make_runtime(runtime: str, net, args, props: Dict[str, str]):
     n_dev = args.mesh_devices or (
         int(props["runtime.mesh.devices"])
         if "runtime.mesh.devices" in props else None)
-    mesh = build_mesh(MeshSpec(data=n_dev or -1), device=net.device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n_dev is not None and n_dev > world:
+        raise SystemExit(
+            f"--mesh-devices {n_dev} exceeds the world's {world} rank(s): "
+            "each rank is one process on one device")
+    mesh = build_mesh(MeshSpec(data=n_dev or -1), device=net.device,
+                      ranks=None if n_dev is None else range(n_dev))
     return ParallelWrapper(net, mesh=mesh)
 
 
@@ -379,8 +387,8 @@ def build_parser() -> argparse.ArgumentParser:
                          help="execution runtime (Train.java:75 parity); "
                               "also the 'runtime' property")
     p_train.add_argument("--mesh-devices", type=int, default=None,
-                         help="the mesh's data axis size (default: every "
-                              "rank of the world)")
+                         help="train over the world's first n ranks (the "
+                              "others park; default: every rank)")
     p_train.add_argument("--checkpoint-dir", default=None,
                          help="checkpoint dir: saves after every epoch "
                               "(property: checkpoint.dir)")

@@ -43,6 +43,7 @@ one per step, where the reference counts one per fused program.
 
 from __future__ import annotations
 
+import types
 from typing import Any, Dict, Optional
 
 import torch
@@ -434,25 +435,17 @@ class FusedTraining:
         at the next chunk boundary the state and the dataset cache are
         re-laid out for ``mesh`` (``None``: whole batches on every rank's
         one device) and the run continues; the values are untouched. The
-        target must span every rank of the world (``ValueError``
-        otherwise: a process cannot leave a world in the middle of a
-        call; ``FaultTolerantTrainer.resume(mesh=)`` in a new world
-        changes the width)."""
-        from deeplearning4j_tpu_torch.parallel.mesh import check_world_mesh
+        target may span all or some of the world's ranks; the ranks
+        outside it park until a later target takes them back. In a world
+        of several ranks every rank requests the same target. A target
+        over ranks the world lacks raises ``ValueError``, and so does any
+        target of more than one device in a world of one (a process
+        holds one rank; a wider run starts in a wider world)."""
+        from deeplearning4j_tpu_torch.parallel.mesh import (
+            check_mesh_in_world)
 
-        check_world_mesh(mesh)
+        check_mesh_in_world(mesh)
         self._pending_mesh = (mesh,)
-
-    def _reshard_meshless(self, mesh) -> None:
-        """The meshless run's reshard: a mesh of one device (or None)
-        places nothing; a wider target needs the mesh path."""
-        from deeplearning4j_tpu_torch.parallel.mesh import mesh_devices
-
-        if mesh_devices(mesh) > 1:
-            raise ValueError(
-                "a fit_epochs run without a mesh cannot reshard onto "
-                f"{mesh_devices(mesh)} devices; start it with "
-                "fit_epochs(mesh=) or ParallelWrapper.fit_epochs")
 
     def _fit_trains_nothing(self) -> bool:
         return False
@@ -493,14 +486,20 @@ class FusedTraining:
         ``mesh=`` (or a prebuilt cache built over one) runs the epoch over
         that mesh with replicated state, every rank calling it with the
         same data: the run of ``parallel.ParallelWrapper(self, mesh)
-        .fit_epochs``. A mesh of one device runs this meshless path."""
-        from deeplearning4j_tpu_torch.parallel.mesh import mesh_devices
-        from deeplearning4j_tpu_torch.resilience.guard import nan_guard_policy
+        .fit_epochs``. A mesh of one device in a world of one runs this
+        meshless path. Without a mesh in a world of several ranks, every
+        rank runs it alike, and a reshard onto a mesh hands the rest of
+        the run to the wrapper's driver (``_MeshlessRun``)."""
+        from deeplearning4j_tpu_torch.parallel.mesh import (
+            mesh_devices, world_size)
+        from deeplearning4j_tpu_torch.resilience.guard import (
+            TrainingDivergedError, nan_guard_policy)
 
         self._ensure_init()
         if mesh is None and isinstance(data, self._CACHE):
             mesh = data.mesh
-        if mesh_devices(mesh) > 1:
+        if mesh is not None and (mesh_devices(mesh) > 1
+                                 or world_size() > 1):
             return self._mesh_wrapper(mesh).fit_epochs(
                 data, num_epochs, shuffle=shuffle, chunk_epochs=chunk_epochs,
                 cache_mb=cache_mb, accum_steps=accum_steps, guard=guard,
@@ -546,14 +545,23 @@ class FusedTraining:
                 params, upd, nst, itt, lr, batch, gen, accum, False, 0)
             return p, u, s, loss
 
+        run = _MeshlessRun(self, cache, prog.launch, replay_step, on_chunk,
+                           (shuffle, accum, guarded, stride))
         try:
-            return drive_epoch_chunks(self, cache, num_epochs, chunk_epochs,
-                                      prog.launch, shuffle=shuffle,
-                                      guard=guard, replay_step=replay_step,
-                                      on_chunk=on_chunk,
-                                      reshard=self._reshard_meshless)
+            hist = drive_epoch_chunks(
+                self, cache, num_epochs, chunk_epochs,
+                lambda k: run.hooks.launch(k), shuffle=shuffle, guard=guard,
+                replay_step=lambda *a: run.hooks.replay_step(*a),
+                on_chunk=lambda done: run.hooks.on_chunk(done),
+                reshard=run.reshard,
+                gen_state_fn=lambda: run.hooks.gen_state_fn())
+        except TrainingDivergedError as e:
+            if run.wrapper is not None:
+                run.wrapper._raise_divergence(e)
+            raise
         finally:
             prog.stacks = None
+        return run.finish(hist)
 
     def _mesh_wrapper(self, mesh):
         """The replicated ``ParallelWrapper`` over ``mesh`` that
@@ -636,6 +644,49 @@ class FusedTraining:
                guarded, stride)
         binding = tuple(a.data_ptr() for a in _flat(stacks))
         return self._program(key, binding, build)
+
+
+class _MeshlessRun:
+    """The chunk driver's callbacks of a meshless ``fit_epochs`` run,
+    until a reshard onto a mesh in a world of several ranks hands the
+    rest of the run to a ``ParallelWrapper`` over it (its launch, replay,
+    agreed ``on_chunk``, reshard and lead's generator). ``None``, or a
+    mesh of one device in a world of one, places nothing
+    (``request_reshard`` refuses a wider one there)."""
+
+    def __init__(self, net, cache, launch, replay_step, on_chunk, key):
+        self.net, self.cache, self.key = net, cache, key
+        self.on_chunk = on_chunk
+        self.wrapper = None
+        self.hooks = types.SimpleNamespace(
+            launch=launch, replay_step=replay_step,
+            on_chunk=lambda done: bool(on_chunk(done)) if on_chunk else False,
+            gen_state_fn=net._rng.get_state)
+
+    def reshard(self, mesh) -> None:
+        from deeplearning4j_tpu_torch.parallel.data_parallel import (
+            ParallelWrapper)
+        from deeplearning4j_tpu_torch.parallel.mesh import world_size
+
+        if self.wrapper is not None:
+            self.wrapper._apply_reshard(mesh, self.cache)
+            return
+        if mesh is None or world_size() == 1:
+            return
+        # every rank holds the same whole state and the same stream: the
+        # wrapper places it, and the cache keeps each member's rows
+        self.wrapper = ParallelWrapper(self.net, mesh=mesh)
+        self.cache.respec(mesh)
+        shuffle, accum, guarded, stride = self.key
+        accum = effective_accum_steps(accum, self.cache.rows_per_shard)
+        self.hooks = self.wrapper._driver_hooks(
+            self.cache, shuffle, accum, guarded, stride, self.on_chunk)
+
+    def finish(self, hist):
+        """The run's history (broadcast from the wrapper's lead, with its
+        state, where the run left ranks parked)."""
+        return hist if self.wrapper is None else self.wrapper._finish_run(
+            hist)
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:

@@ -24,9 +24,11 @@ tracker (:mod:`.statetracker`), the multi-host runtime and
 from deeplearning4j_tpu_torch.parallel.mesh import (  # noqa: F401
     MeshSpec,
     build_mesh,
+    in_mesh,
     join_world,
     leave_world,
     local_device_count,
+    mesh_ranks,
 )
 from deeplearning4j_tpu_torch.parallel.data_parallel import (  # noqa: F401
     ParallelWrapper,

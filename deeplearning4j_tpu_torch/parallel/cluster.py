@@ -22,7 +22,8 @@ Port of ``deeplearning4j_tpu/parallel/cluster.py``:
 
 Over a mesh (a ``ParallelWrapper`` handed in, every rank running the
 trainer with the same directory) the checkpoint holds the whole state:
-every rank takes part in gathering it, rank 0 alone writes it, and the
+every rank takes part in gathering it, the lead of the wrapper's mesh
+(rank 0, unless the mesh leaves it parked) alone writes it, and the
 ranks meet at a barrier before a save returns. ``resume(mesh=)`` places
 the restored state on any mesh of the current world (replicated, or the
 registry's tensor-parallel shards where it has a ``model`` axis), and
@@ -419,10 +420,17 @@ class FaultTolerantTrainer:
 
     def _over_mesh(self) -> bool:
         """Whether the handle trains over a world of several ranks (a
-        ``ParallelWrapper``): saves then gather and rank 0 writes."""
+        ``ParallelWrapper``): saves then gather and its mesh's lead
+        writes (:meth:`_writer`)."""
         from deeplearning4j_tpu_torch.parallel.mesh import world_size
 
         return hasattr(self.network, "gather") and world_size() > 1
+
+    def _writer(self) -> bool:
+        """Whether this rank writes a checkpoint over a mesh: the lead of
+        the wrapper's current mesh, which holds the run's state even when
+        rank 0 is parked outside it."""
+        return _world_rank() == getattr(self.network, "_lead", 0)
 
     def save(self) -> str:
         faults.fault_point("checkpoint.save")
@@ -431,7 +439,7 @@ class FaultTolerantTrainer:
         if not self._over_mesh():
             return self._write_checkpoint(self.model, path)
         snap = self._snapshot_model()  # every rank gathers
-        if _world_rank() == 0:
+        if self._writer():
             self._write_checkpoint(snap, path)
         _barrier()
         return path
@@ -492,8 +500,8 @@ class FaultTolerantTrainer:
             "checkpoint_snapshot_seconds",
             "device-to-host state copy (the blocking part of save_async)"
         ).observe(sp.duration_s)
-        if self._over_mesh() and _world_rank() != 0:
-            # rank 0 writes the checkpoint; the others only gathered
+        if self._over_mesh() and not self._writer():
+            # the lead writes the checkpoint; the others only gathered
             fut = concurrent.futures.Future()
             fut.set_result(self._ckpt_path(snap.iteration_count))
             return fut

@@ -64,14 +64,27 @@ keeps each rank's ``B/n`` rows of every batch (``perf.epoch_cache``
 rows of every batch of the plan, eagerly (gloo collectives cannot be
 captured), with the ``[E, N]`` history, the numeric sentinel, telemetry
 and ``accum_steps`` of the one-device ``fit_epochs``. Every rank trains
-on one plan: rank 0 draws each epoch's order from the network's
-generator (the one-device run's stream) and broadcasts it. A world of
-one runs the network's own captured ``fit_epochs``, bitwise.
+on one plan: the mesh's lead (its first rank) draws each epoch's order
+from the network's generator (the one-device run's stream) and
+broadcasts it to the members. A world of one runs the network's own
+captured ``fit_epochs``, bitwise.
+
 ``request_reshard(mesh)`` re-lays the run out at the next chunk boundary
-(elastic reshard: another topology over the same ranks, or ``None``:
-every rank the one-device step on whole batches); chunk-boundary
-decisions (``on_chunk``'s stop, a reshard request) must agree across
-ranks, which the boundary checks with one ``all_gather``.
+(elastic reshard): another topology, over all of the world's ranks or
+some of them (``build_mesh(ranks=)``), or ``None``: every rank the
+one-device step on whole batches. A rank outside the mesh *parks*: it
+skips each chunk's compute and the mesh's collectives, keeps whole
+batches of the dataset cache, and receives each chunk's history from
+the lead. It still joins each boundary's world-wide decision, so that a
+stop, a disagreement or a grow reaches it; a grow sends it the lead's
+whole state (params, updater and net state) and the generator, the
+iteration count, the learning-rate scale and the epoch cursor, and a
+shrink hands the generator from the old lead to the new one. At the end
+of a call that left ranks parked, the lead broadcasts its history and
+whole state over the world, so that every rank returns the same history
+and holds the same state. Chunk-boundary decisions (``on_chunk``'s
+stop, a reshard request) must agree across ranks, which the boundary
+checks with one ``all_gather`` over the world.
 """
 
 from __future__ import annotations
@@ -97,8 +110,12 @@ from deeplearning4j_tpu_torch.parallel.mesh import (
     axis_rank,
     build_mesh,
     data_axis_size,
+    in_mesh,
     local_chunk,
     mesh_devices,
+    mesh_group,
+    mesh_lead,
+    mesh_ranks,
     world_size,
 )
 from deeplearning4j_tpu_torch.parallel.sharding_registry import _rebuild
@@ -135,14 +152,29 @@ class ParallelWrapper:
         self.fsdp = fsdp
         self._epoch_plans = []  # each epoch's order, as every rank drew it
         self._programs = {}  # the epoch programs fit_epochs ran, by key
+        self._ran_partial = False  # a fit_epochs run left ranks parked
         self._set_mesh(mesh if mesh is not None else build_mesh(
             device=network.device))
 
     def _set_mesh(self, mesh) -> None:
         """Adopt ``mesh`` (``None``: whole batches in every rank) and
-        place the network's whole state on it."""
+        place the network's whole state on it; a rank outside it parks,
+        holding the whole state as it stands."""
         net = self.network
         self.mesh = mesh
+        self._lead = mesh_lead(mesh)
+        self._members = mesh_group(mesh)
+        self._parked = not in_mesh(mesh)
+        # some rank of the world lies outside the mesh
+        self._partial = len(mesh_ranks(mesh)) < world_size()
+        self._ran_partial = self._ran_partial or self._partial
+        # the rank that holds the run's state for a checkpoint
+        # (``utils.checkpoint.save_network``) while ranks are parked
+        net._mesh_lead = self._lead if self._partial else None
+        self._registry = self._fsdp_reg = None
+        if self._parked:
+            self._group, self._rank = None, 0
+            return
         self._group = axis_group(mesh, DATA_AXIS)
         self._rank = axis_rank(mesh, DATA_AXIS)
         if self._group is not None and self._rank:
@@ -151,7 +183,6 @@ class ParallelWrapper:
             net._rng.manual_seed(net.conf.global_conf.seed
                                  + (self._rank << 32)
                                  + net.iteration_count)
-        self._registry = self._fsdp_reg = None
         if mesh is not None:
             self._place_params()
 
@@ -232,34 +263,54 @@ class ParallelWrapper:
 
     def request_reshard(self, mesh) -> None:
         """Request an elastic reshard of the in-flight ``fit_epochs`` run
-        onto ``mesh`` (another topology over all the world's ranks, or
-        ``None``: every rank the one-device step on whole batches),
-        applied at the next chunk boundary (``_apply_reshard``). Every
-        rank must request the same one. A mesh over a strict subset of
-        the ranks raises ``ValueError``."""
+        onto ``mesh`` (another topology over all or some of the world's
+        ranks, or ``None``: every rank the one-device step on whole
+        batches), applied at the next chunk boundary
+        (``_apply_reshard``). Every rank of the world must request the
+        same one. A mesh over ranks the world lacks raises
+        ``ValueError``."""
         self.network.request_reshard(mesh)
 
     def _apply_reshard(self, mesh, cache) -> None:
-        """The chunk driver's reshard actuator: the whole state gathered
-        from the old layout (tensor-parallel layers unwrapped), the
-        dataset cache re-laid for ``mesh``, the state placed on it. With
-        ``None`` every rank continues from rank 0's generator, so that
-        the ranks' whole-batch steps stay the same bytes. Values are
-        untouched; only placement changes."""
+        """The chunk driver's reshard actuator, in every rank of the
+        world: the whole state gathered from the old layout by its
+        members (tensor-parallel layers unwrapped), the dataset cache
+        re-laid for ``mesh``, the state placed on it. Ranks that come
+        back from parking receive the old lead's whole state; every rank
+        takes the old lead's generator, iteration count, learning-rate
+        scale and epoch cursor (the new lead continues its stream, and
+        with ``None`` the ranks' whole-batch steps stay the same bytes).
+        Values are untouched; only placement changes."""
         from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
             unshard_network_params)
 
         net = self.network
-        params, upd = self.gather()
-        unshard_network_params(net)
+        old_ranks, old_lead = mesh_ranks(self.mesh), self._lead
+        if not self._parked:
+            params, upd = self.gather()
+            unshard_network_params(net)
+            net.params, net.updater_state = params, upd
         net.__dict__.pop("_sharding_registry", None)
-        net.params, net.updater_state = params, upd
         cache.respec(mesh)
-        if mesh is None and world_size() > 1:
-            state = [net._rng.get_state()]
-            dist.broadcast_object_list(state, src=0)
-            net._rng.set_state(state[0])
+        if world_size() > 1:
+            if set(mesh_ranks(mesh)) - set(old_ranks):  # parked ranks return
+                _adopt_state(net, old_lead, (net.params, net.updater_state,
+                                             net.net_state))
+            _adopt_host_state(net, old_lead, adopt=True)
         self._set_mesh(mesh)
+
+    def _share_with_parked(self) -> None:
+        """The end of a call over a mesh that leaves ranks out: the
+        lead's whole state (gathered by the members where it is sharded)
+        and its host state, broadcast over the world, adopted by every
+        parked rank. Nothing when every rank is a member."""
+        if not self._partial:
+            return
+        net = self.network
+        params, upd = self.gather()
+        _adopt_state(net, self._lead, (params, upd, net.net_state),
+                     adopt=self._parked)
+        _adopt_host_state(net, self._lead, adopt=self._parked)
 
     def fit(self, data, num_epochs: int = 1):
         """fit(DataSetIterator | DataSet). Every rank passes the same
@@ -269,14 +320,23 @@ class ParallelWrapper:
         configurations are NOT sharded: they delegate wholly to the
         network's own fit (every rank runs the same whole batches, so
         the replicas stay equal) rather than silently taking different
-        steps on the mesh."""
+        steps on the mesh. A rank outside the mesh takes no step and
+        receives the lead's state at the end."""
         net = self.network
-        if not self._shardable():
-            if self.fsdp:
-                raise ValueError(
-                    "ParallelWrapper(fsdp=True) does not support "
-                    "TBPTT/non-SGD/pretrain/SCORE-lr/iterations>1 "
-                    "configs; use fsdp=False (replicated DP) for these")
+        shardable = self._shardable()
+        if not shardable and self.fsdp:
+            raise ValueError(
+                "ParallelWrapper(fsdp=True) does not support "
+                "TBPTT/non-SGD/pretrain/SCORE-lr/iterations>1 "
+                "configs; use fsdp=False (replicated DP) for these")
+        if not self._parked:
+            self._fit_member(data, num_epochs, shardable)
+        self._share_with_parked()
+        return self
+
+    def _fit_member(self, data, num_epochs: int, shardable: bool) -> None:
+        net = self.network
+        if not shardable:
             from deeplearning4j_tpu_torch.nn.multilayer import (
                 MultiLayerNetwork)
 
@@ -288,16 +348,14 @@ class ParallelWrapper:
             logger.info("ParallelWrapper: %s — delegating to the "
                         "network's own fit path", reason)
             net.fit(data, num_epochs=num_epochs)
-            return self
-        if isinstance(data, DataSet):
+        elif isinstance(data, DataSet):
             self._fit_one(data)
-            return self
-        for _ in range(num_epochs):
-            if hasattr(data, "reset"):
-                data.reset()
-            for ds in data:
-                self._fit_one(ds)
-        return self
+        else:
+            for _ in range(num_epochs):
+                if hasattr(data, "reset"):
+                    data.reset()
+                for ds in data:
+                    self._fit_one(ds)
 
     def _shardable(self) -> bool:
         """Configs whose per-batch semantics the sharded step keeps
@@ -391,15 +449,16 @@ class ParallelWrapper:
         the graph's own ``fit`` for a ComputationGraph (which raises
         under ``fsdp=True``)."""
         from deeplearning4j_tpu_torch.monitor import fused_metrics_stride
-        from deeplearning4j_tpu_torch.nn.fused import _map
         from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
         from deeplearning4j_tpu_torch.perf.epoch_cache import (
             accum_steps_default,
             drive_epoch_chunks,
             effective_accum_steps,
+            layout_shards,
             stream_epochs,
         )
-        from deeplearning4j_tpu_torch.resilience.guard import nan_guard_policy
+        from deeplearning4j_tpu_torch.resilience.guard import (
+            TrainingDivergedError, nan_guard_policy)
 
         net = self.network
         net._ensure_init()
@@ -422,8 +481,10 @@ class ParallelWrapper:
                 raise ValueError(
                     "ParallelWrapper(fsdp=True) cannot run this "
                     "configuration's per-step fallback; use fsdp=False")
-            for _ in range(num_epochs):
-                net.fit(data)
+            if not self._parked:
+                for _ in range(num_epochs):
+                    net.fit(data)
+            self._share_with_parked()
             return None
         cache = data if prebuilt else self.build_epoch_cache(
             data, accum_steps=accum_steps, cache_mb=cache_mb)
@@ -436,17 +497,42 @@ class ParallelWrapper:
                     "DL4J_CACHE_DTYPE=bfloat16, or increase accum_steps")
             stream_epochs(self, data, num_epochs)
             return None
-        if self.fsdp and cache.n_shard == 1 and self._group is not None:
+        if (self.fsdp and self.data_parallelism > 1
+                and layout_shards(cache.batch, self.mesh) == 1):
+            # decided from the mesh, so that a parked rank raises too
             raise ValueError(
                 f"FSDP requires the bucket batch ({cache.batch}) to divide "
                 f"the data axis ({self.data_parallelism})")
         accum = effective_accum_steps(accum_steps, cache.rows_per_shard)
         guard = nan_guard_policy() if guard is None else guard
-        guarded = guard != "off"
         stride = fused_metrics_stride(telemetry)
+        hooks = self._driver_hooks(cache, shuffle, accum, guard != "off",
+                                   stride, on_chunk)
+        self._ran_partial = self._partial
+        try:
+            hist = drive_epoch_chunks(
+                net, cache, num_epochs, chunk_epochs, hooks.launch,
+                shuffle=shuffle, guard=guard, replay_step=hooks.replay_step,
+                on_chunk=hooks.on_chunk, reshard=hooks.reshard,
+                gen_state_fn=hooks.gen_state_fn)
+        except TrainingDivergedError as e:
+            self._raise_divergence(e)
+            raise
+        return self._finish_run(hist)
+
+    def _driver_hooks(self, cache, shuffle: bool, accum: int, guarded: bool,
+                      stride: int, on_chunk):
+        """The chunk driver's callbacks over this wrapper's mesh:
+        ``launch``, the ``raise`` replay, the agreed ``on_chunk``, the
+        reshard actuator and the lead's generator state (also what a
+        meshless run hands the rest of its run to)."""
+        from deeplearning4j_tpu_torch.nn.fused import _map
 
         def replay_step(params, upd, nst, it, i, gen):
-            # the ``raise`` replay: the same step on the same rows
+            # the ``raise`` replay: the same step on the same rows (a
+            # parked rank localizes nothing: its state is not the run's)
+            if self._parked:
+                return params, upd, nst, torch.tensor(float("nan"))
             batch = _map(lambda a: a[i], cache.batch_stacks())
             p, u, s, loss, _, _ = self._sharded_step(
                 params, upd, nst, it, batch, self._cache_group(cache), accum,
@@ -458,13 +544,34 @@ class ParallelWrapper:
             self._agree(stop)
             return stop
 
-        return drive_epoch_chunks(
-            net, cache, num_epochs, chunk_epochs,
-            self._epoch_launch(cache, shuffle, accum, guarded, stride),
-            shuffle=shuffle, guard=guard, replay_step=replay_step,
-            on_chunk=agreed,
+        return types.SimpleNamespace(
+            launch=self._epoch_launch(cache, shuffle, accum, guarded, stride),
+            replay_step=replay_step, on_chunk=agreed,
             reshard=lambda mesh: self._apply_reshard(mesh, cache),
-            gen_state_fn=self._rank0_generator_state)
+            gen_state_fn=self._lead_generator_state)
+
+    def _finish_run(self, hist):
+        """The end of a ``fit_epochs`` run that left ranks parked at some
+        boundary: the lead's ``[E, N]`` history and whole state in every
+        rank (parked ranks adopt the state; members keep their layout)."""
+        if self._ran_partial:
+            dist.broadcast(hist, src=self._lead)
+            self._share_with_parked()
+        return hist
+
+    def _raise_divergence(self, e) -> None:
+        """A ``TrainingDivergedError`` ``e``, which every rank raises at
+        the same boundary, raised again with the lead's replayed batch
+        and loss where the run left ranks parked (a parked rank replays
+        nothing); nothing otherwise."""
+        from deeplearning4j_tpu_torch.resilience.guard import (
+            TrainingDivergedError)
+
+        if self._ran_partial:
+            box = [(e.batch_index, e.loss)]
+            dist.broadcast_object_list(box, src=self._lead)
+            raise TrainingDivergedError(
+                e.epoch, e.step, *box[0], n_trips=e.n_trips) from e
 
     def _cache_group(self, cache):
         """The group a step over ``cache`` sums over: the ``data`` axis's
@@ -494,10 +601,12 @@ class ParallelWrapper:
                 self._cache_group(cache), accum, guarded, stride, net._rng)
 
         def launch(k: int):
+            # a parked rank computes nothing: it receives the lead's rows
             n = cache.n_batches
-            out = torch.empty((k, n, width), dtype=hdtype, device=net.device)
+            out = (torch.zeros if self._parked else torch.empty)(
+                (k, n, width), dtype=hdtype, device=net.device)
             it = net.iteration_count
-            for e in range(k):
+            for e in range(k if not self._parked else 0):
                 for j, i in enumerate(self._plan(n, shuffle)):
                     p, u, s, loss, tripped, mets = step(i, it)
                     net.params, net.updater_state, net.net_state = p, u, s
@@ -509,6 +618,8 @@ class ParallelWrapper:
                     out[e, j] = torch.cat([v.to(hdtype) for v in vals])
                     net._train_dispatches += 1
                     it += 1
+            if self._partial:
+                dist.broadcast(out, src=self._lead)
             hist = out[..., 0].contiguous()
             trips = out[..., 1] != 0 if guarded else None
             mets = (out[..., width - 4:].to(torch.float32)
@@ -553,26 +664,33 @@ class ParallelWrapper:
         return p, u, s, loss, tripped, mets
 
     def _plan(self, n: int, shuffle: bool):
-        """This epoch's batch order, the same list in every rank: drawn
-        by rank 0 from the network's generator and broadcast."""
+        """This epoch's batch order, the same list in every member: drawn
+        by the lead from the network's generator and broadcast to the
+        members (with ``None`` every rank draws it from the same
+        stream)."""
         from deeplearning4j_tpu_torch.perf.epoch_cache import epoch_schedule
 
         net = self.network
         if not shuffle:
             order = list(range(n))
+        elif self.mesh is None:
+            order = epoch_schedule(net._rng, n, True).tolist()
         else:
             box = [epoch_schedule(net._rng, n, True).tolist()
-                   if dist.get_rank() == 0 else None]
-            dist.broadcast_object_list(box, src=0)
+                   if dist.get_rank() == self._lead else None]
+            dist.broadcast_object_list(box, src=self._lead,
+                                       group=self._members)
             order = box[0]
         self._epoch_plans.append(order)
         return order
 
-    def _rank0_generator_state(self):
-        """Rank 0's generator state, in every rank (the ``raise``
-        replay redraws rank 0's plans from it)."""
+    def _lead_generator_state(self):
+        """The lead's generator state, in every member (the ``raise``
+        replay redraws the lead's plans from it); a parked rank's own."""
         state = [self.network._rng.get_state()]
-        dist.broadcast_object_list(state, src=0)
+        if self.mesh is not None and not self._parked:
+            dist.broadcast_object_list(state, src=self._lead,
+                                       group=self._members)
         return state[0]
 
     def _agree(self, stop: bool) -> None:
@@ -793,12 +911,59 @@ class ParameterAveragingTrainer:
 
 
 def _mesh_key(mesh):
-    """What identifies a reshard target across ranks."""
+    """What identifies a reshard target across ranks: its axes, their
+    sizes and the world ranks it spans."""
     if mesh is None:
         return None
-    ranks = getattr(mesh, "mesh", None)
     return (tuple(mesh.mesh_dim_names), tuple(int(d) for d in mesh.shape),
-            None if ranks is None else tuple(ranks.flatten().tolist()))
+            tuple(mesh_ranks(mesh)))
+
+
+def _broadcast_tree(tree, src: int):
+    """Every tensor leaf of ``tree`` as world rank ``src`` holds it,
+    broadcast over the world (each other rank receives into a copy of its
+    own leaf, which must have the same shape)."""
+    me = dist.get_rank()
+
+    def one(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        buf = t.detach().contiguous()
+        if me != src:
+            buf = buf.clone()
+        dist.broadcast(buf.view(torch.uint8) if buf.dtype == torch.bool
+                       else buf, src)
+        return buf
+
+    return tree_map(one, tree)
+
+
+def _adopt_state(net, src: int, trees, adopt: bool = True) -> None:
+    """``(params, updater state, net state)``, whole, broadcast from world
+    rank ``src``; the network takes them where ``adopt``."""
+    params, upd, nst = _broadcast_tree(trees, src)
+    if adopt:
+        net.params, net.updater_state, net.net_state = params, upd, nst
+
+
+def _adopt_host_state(net, src: int, adopt: bool) -> None:
+    """The network's host state as world rank ``src`` holds it: the
+    generator, the iteration count, the learning-rate scale, the epoch
+    cursor and the score; the network takes it where ``adopt``."""
+    score = net._score
+    if isinstance(score, torch.Tensor):
+        score = score.detach().cpu()
+    box = [(net._rng.get_state(), net.iteration_count, net._lr_scale_host,
+            getattr(net, "_epoch_cursor", None), score)]
+    dist.broadcast_object_list(box, src=src)
+    if not adopt:
+        return
+    gen, net.iteration_count, net._lr_scale_host, cursor, score = box[0]
+    net._rng.set_state(gen)
+    if cursor is not None:
+        net._epoch_cursor = cursor
+    net._score = (score.to(net.device) if isinstance(score, torch.Tensor)
+                  else score)
 
 
 def _stack_trees(trees):

@@ -23,6 +23,14 @@ worlds on one host (test workers, four ranks sharing one card) cannot
 collide. :func:`build_mesh` joins a world of one that way when no world
 is up, so a one-device mesh needs no launcher and runs exactly the
 meshless program.
+
+A mesh may span some of the world's ranks (``build_mesh(ranks=)``, the
+reference's ``devices=``): every rank of the world builds it, since the
+process groups are made by world-wide collectives, and a rank outside it
+gets a mesh whose ``get_coordinate()`` is ``None`` (:func:`in_mesh`).
+Such a rank stays in the world, *parked*: it takes no part in the mesh's
+collectives and can be brought back by a later mesh over it. The
+mesh's first rank is its *lead* (:func:`mesh_lead`).
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ import dataclasses
 import datetime
 import os
 import tempfile
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -125,9 +133,19 @@ def local_device_count(device: DeviceLike = None) -> int:
 
 
 def build_mesh(spec: Optional[MeshSpec] = None, *,
-               device: DeviceLike = None):
+               device: DeviceLike = None,
+               ranks: Optional[Sequence[int]] = None):
     """A ``DeviceMesh`` over the current world (joining a world of one
     when none is up), on the type of ``device`` (default: the card).
+
+    ``ranks`` (default: every rank of the world) lists the world ranks
+    the mesh spans, in ascending order; ``spec.resolve(len(ranks))``
+    sizes its axes. Every rank of the world calls it, inside the mesh or
+    not (the groups are made by world-wide collectives); a rank outside
+    gets a mesh whose ``get_coordinate()`` is ``None``. A rank that is
+    not a rank of the world, a repeated or unordered list (a process
+    group orders its members by rank, so the axes' coordinates would not
+    be the list's order) raise ``ValueError``, before any collective.
 
     Axes of size 1 are dropped, as in the reference, except ``data``,
     which is always there: a pure-DP mesh is 1-D ("data",), a mesh of one
@@ -136,12 +154,46 @@ def build_mesh(spec: Optional[MeshSpec] = None, *,
     so the innermost axis holds neighbouring ranks."""
     spec = spec or MeshSpec()
     dev = resolve_device(device)
+    if ranks is not None:
+        ranks = [int(r) for r in ranks]
+        check_ranks(ranks)
+        axes = spec.resolve(len(ranks))
     _ensure_world(dev)
-    from torch.distributed.device_mesh import init_device_mesh
+    if ranks is None or ranks == list(range(dist.get_world_size())):
+        from torch.distributed.device_mesh import init_device_mesh
 
-    axes = spec.resolve(dist.get_world_size())
-    return init_device_mesh(dev.type, tuple(s for _, s in axes),
-                            mesh_dim_names=tuple(n for n, _ in axes))
+        axes = spec.resolve(dist.get_world_size())
+        return init_device_mesh(dev.type, tuple(s for _, s in axes),
+                                mesh_dim_names=tuple(n for n, _ in axes))
+    from torch.distributed.device_mesh import DeviceMesh
+
+    mesh = DeviceMesh(dev.type, torch.tensor(ranks).reshape(
+        tuple(s for _, s in axes)), mesh_dim_names=tuple(n for n, _ in axes))
+    # the group of every member, made by every rank of the world: the
+    # lead's broadcasts to its mesh run over it
+    mesh._dl4j_members = dist.new_group(ranks)
+    return mesh
+
+
+def check_ranks(ranks: Sequence[int]) -> None:
+    """``ValueError`` unless ``ranks`` are distinct ranks of the current
+    world (of one when none is up), in ascending order."""
+    world = world_size()
+    ranks = list(ranks)
+    if not ranks:
+        raise ValueError("a mesh needs at least one rank")
+    if world == 1 and len(ranks) > 1:
+        raise ValueError(
+            f"a world of one cannot span {len(ranks)} devices: each rank "
+            "is one process, so a run grows only onto ranks its world "
+            "already has; start it in a world of that many ranks")
+    outside = [r for r in ranks if not 0 <= r < world]
+    if outside:
+        raise ValueError(f"ranks {outside} are not ranks of the world of "
+                         f"{world}")
+    if any(b <= a for a, b in zip(ranks, ranks[1:])):
+        raise ValueError(f"list a mesh's ranks once each, in ascending "
+                         f"order (got {ranks})")
 
 
 def mesh_shape(mesh) -> Dict[str, int]:
@@ -185,18 +237,42 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def check_world_mesh(mesh) -> None:
-    """An elastic reshard's target must span every rank of the world
-    (or be None: whole batches on every rank's device): a process cannot
-    leave a world in the middle of a call. ``ValueError`` otherwise."""
+def mesh_ranks(mesh) -> List[int]:
+    """The world ranks ``mesh`` spans, row-major over its axes; every
+    rank of the world for None (each runs whole batches)."""
     if mesh is None:
-        return
-    n, world = mesh_devices(mesh), world_size()
-    if n != world:
-        raise ValueError(
-            f"a reshard target must span all {world} ranks of the world "
-            f"(got a mesh of {n}); to change the width, checkpoint and "
-            "FaultTolerantTrainer.resume(mesh=) in a world of that size")
+        return list(range(world_size()))
+    ranks = getattr(mesh, "mesh", None)
+    if ranks is None:  # a mesh that names no ranks: the world's first
+        return list(range(mesh_devices(mesh)))
+    return [int(r) for r in ranks.flatten().tolist()]
+
+
+def mesh_lead(mesh) -> int:
+    """The mesh's first rank: the one that draws its plans and holds the
+    network's generator."""
+    return mesh_ranks(mesh)[0]
+
+
+def in_mesh(mesh) -> bool:
+    """Whether this rank is a member of ``mesh`` (always, for None)."""
+    if mesh is None or not hasattr(mesh, "get_coordinate"):
+        return True
+    return mesh.get_coordinate() is not None
+
+
+def mesh_group(mesh):
+    """The process group of every member of ``mesh``: the world's (None)
+    for a mesh over the whole world or None."""
+    return getattr(mesh, "_dl4j_members", None)
+
+
+def check_mesh_in_world(mesh) -> None:
+    """A reshard target must span ranks of the current world (or be
+    None: whole batches in every rank): ``ValueError`` otherwise. A world
+    of one cannot grow onto more devices."""
+    if mesh is not None:
+        check_ranks(mesh_ranks(mesh))
 
 
 def data_axis_size(mesh) -> int:

@@ -224,19 +224,22 @@ def parse_mesh_shape(text: str) -> MeshSpec:
     return MeshSpec(data=dims[0], model=dims[1], pipe=dims[2])
 
 
-def mesh_from_env(device=None):
+def mesh_from_env(device=None, ranks=None):
     """Resolve ``DL4J_MESH_SHAPE`` (full topology, wins) then
     ``DL4J_TP_SHARDS`` (model axis only, data takes the rest) into a
-    mesh over the current world; ``None`` when neither is set."""
+    mesh over ``ranks`` of the current world (default: all of them);
+    ``None`` when neither is set."""
     shape = os.environ.get("DL4J_MESH_SHAPE", "").strip()
     if shape:
-        return build_mesh(parse_mesh_shape(shape), device=device)
+        return build_mesh(parse_mesh_shape(shape), device=device,
+                          ranks=ranks)
     tp = os.environ.get("DL4J_TP_SHARDS", "").strip()
     if tp:
         n = int(tp)
         if n < 1:
             raise ValueError(f"DL4J_TP_SHARDS={tp!r} must be >= 1")
-        return build_mesh(MeshSpec(data=-1, model=n), device=device)
+        return build_mesh(MeshSpec(data=-1, model=n), device=device,
+                          ranks=ranks)
     return None
 
 

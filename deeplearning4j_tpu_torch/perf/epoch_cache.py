@@ -40,7 +40,10 @@ kept whole in every rank, as the reference replicates it. ``respec``
 re-places the stacks for another mesh in the middle of a run (the elastic
 reshard): the rows are all-gathered over the old ``data`` group and each
 rank keeps its chunk on the new mesh, or whole batches with ``None``.
-The values are untouched.
+A rank outside the mesh (parked, ``parallel.mesh.in_mesh``) keeps whole
+batches, so that it can rejoin a later mesh without a transfer; the
+budget is priced at a member's share all the same, so that every rank
+takes the same decision. The values are untouched.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch._device import resolve_device
+from deeplearning4j_tpu_torch.parallel.mesh import data_axis_size
 from deeplearning4j_tpu_torch.perf.bucketing import bucket_size, pad_axis0
 
 DEFAULT_CACHE_MB = 2048
@@ -61,13 +65,21 @@ DEFAULT_PREFETCH_DEPTH = 8
 
 def _data_shards(mesh) -> Tuple[int, int]:
     """(size, this rank's index) of the mesh's ``data`` axis; (1, 0)
-    without a mesh."""
+    without a mesh and in a rank outside it (it keeps whole batches)."""
     from deeplearning4j_tpu_torch.parallel.mesh import (
-        DATA_AXIS, axis_rank, data_axis_size)
+        DATA_AXIS, axis_rank, data_axis_size, in_mesh)
 
-    if mesh is None:
+    if mesh is None or not in_mesh(mesh):
         return 1, 0
     return data_axis_size(mesh), axis_rank(mesh, DATA_AXIS)
+
+
+def layout_shards(batch: int, mesh) -> int:
+    """The ``data`` shards a bucket batch ``batch`` takes on ``mesh``, as
+    every rank of the world sees it (a parked rank too): the axis's size,
+    or 1 when the batch does not tile it or there is no mesh."""
+    n = data_axis_size(mesh)
+    return n if batch % n == 0 else 1
 
 
 def _local_rows(arr: np.ndarray, n_shard: int, rank: int) -> np.ndarray:
@@ -281,6 +293,7 @@ class DeviceDataSetCache:
             return None
         limit = budget * 1024 ** 2
         n_shard, rank = _data_shards(mesh)
+        n_price = data_axis_size(mesh)  # a member's share, in every rank
         try:
             batches = _drain(data)
         except TypeError:
@@ -299,11 +312,12 @@ class DeviceDataSetCache:
             running += (_nbytes_padded(ds.features, b, itemsize)
                         + _nbytes_padded(ds.labels, b, itemsize))
             # early exit; the per-rank check below governs
-            if running / n_shard > limit:
+            if running / n_price > limit:
                 _reset(data)
                 return None
-        if target % n_shard:  # the batch does not tile the data axis
-            n_shard, rank = 1, 0
+        if target % n_price:  # the batch does not tile the data axis
+            n_price = n_shard = 1
+            rank = 0
         total = 0
         step_bytes = 0
         for ds in batches:
@@ -318,7 +332,7 @@ class DeviceDataSetCache:
         # gathered batch and its gradient-side twin), the latter divided
         # by K
         accum = effective_accum_steps(accum_steps, target)
-        if (total + 2 * step_bytes / accum) / n_shard > limit:
+        if (total + 2 * step_bytes / accum) / n_price > limit:
             _reset(data)
             return None
         any_fm = any(ds.features_mask is not None for ds in batches)
@@ -422,6 +436,7 @@ class DeviceMultiDataSetCache:
             return None
         limit = budget * 1024 ** 2
         n_shard, rank = _data_shards(mesh)
+        n_price = data_axis_size(mesh)  # a member's share, in every rank
         try:
             batches = _drain(data)
         except TypeError:
@@ -444,11 +459,12 @@ class DeviceMultiDataSetCache:
             target = max(target, b)
             running += sum(_nbytes_padded(a, b, itemsize)
                            for a in list(mds.features) + list(mds.labels))
-            if running / n_shard > limit:
+            if running / n_price > limit:
                 _reset(data)
                 return None
-        if target % n_shard:  # the batch does not tile the data axis
-            n_shard, rank = 1, 0
+        if target % n_price:  # the batch does not tile the data axis
+            n_price = n_shard = 1
+            rank = 0
         try:
             features = tuple(
                 _stack_padded([b.features[i] for b in batches], target)
@@ -482,7 +498,7 @@ class DeviceMultiDataSetCache:
         step_bytes = sum(_stored_nbytes(a[0], itemsize)
                          for a in features + labels)
         accum = effective_accum_steps(accum_steps, target)
-        if (nbytes + 2 * step_bytes / accum) / n_shard > limit:
+        if (nbytes + 2 * step_bytes / accum) / n_price > limit:
             _reset(data)
             return None
         device = resolve_device(device)
@@ -508,8 +524,9 @@ class DeviceMultiDataSetCache:
 
 
 def _respec_shards(batch: int, mesh) -> int:
-    """The ``data`` shards a cache of bucket batch ``batch`` takes on
-    ``mesh``: 1 when the batch does not tile the axis."""
+    """The ``data`` shards this rank's stacks of bucket batch ``batch``
+    take on ``mesh``: 1 when the batch does not tile the axis or this
+    rank lies outside the mesh."""
     n, _ = _data_shards(mesh)
     return n if batch % n == 0 else 1
 
@@ -580,10 +597,15 @@ def drive_epoch_chunks(net, cache, num_epochs: int,
     whose deadline scales with its steps; ``epoch.chunk`` is a fault
     site. A pending elastic reshard (``net._pending_mesh``, set by
     ``request_reshard``) is applied through ``reshard(mesh)`` before the
-    next chunk, or, without it, logged and dropped. ``gen_state_fn()``
-    (default the network generator's ``get_state``) gives the state the
-    ``raise`` replay redraws the chunk's orders from: over a mesh, rank
-    0's, whose generator draws every rank's plan.
+    next chunk, inside a ``reshard.elastic`` span that records the new
+    ``n_shard``, or, without it, logged and dropped. After a reshard the
+    watchdog's deadline is rescaled by the width the first chunk ran at
+    over the new one (``chunk_deadline_s``'s ``width_factor``, never
+    below 1), as in the reference: a chunk over fewer shards is slower,
+    not stalled. ``gen_state_fn()`` (default the network generator's
+    ``get_state``) gives the state the ``raise`` replay redraws the
+    chunk's orders from: over a mesh, its lead's, whose generator draws
+    every member's plan.
 
     The run ledger (and the flight recorder, when on) hears from the
     driver at the reference's points only: the run's start, each chunk's
@@ -619,6 +641,10 @@ def drive_epoch_chunks(net, cache, num_epochs: int,
     done = 0
     stopped = False
     run_error = None
+    # the width the deadline is calibrated at: a later reshard onto 1/f
+    # of it rescales the deadline by f (read from the mesh, so that a
+    # parked rank waits as long as the members compute)
+    base_shard = layout_shards(cache.batch, cache.mesh)
     watchdog = StepWatchdog(chunk_deadline_s(chunk_epochs * cache.n_batches))
     net._chunk_watchdog = watchdog
     ledger_run_start(model=model_name, epochs=num_epochs,
@@ -636,10 +662,16 @@ def drive_epoch_chunks(net, cache, num_epochs: int,
                             "has no reshard; request dropped")
                     else:
                         with tracer().span("reshard.elastic",
-                                           model=model_name, epoch0=done):
+                                           model=model_name,
+                                           epoch0=done) as span:
                             reshard(pending[0])
+                            n_shard = layout_shards(cache.batch, cache.mesh)
+                            span.attrs["n_shard"] = n_shard
                         record_counter("elastic_reshards_total",
                                        model=model_name)
+                        watchdog.set_deadline(chunk_deadline_s(
+                            chunk_epochs * cache.n_batches,
+                            base_shard / n_shard))
                 k = min(chunk_epochs, num_epochs - done)
                 faults.fault_point("epoch.chunk")
                 snapshot = gen_state = None

@@ -117,12 +117,17 @@ class GoodputAutopilot:
       members. NOT auto-wired by the built-in integrations (the
       control-plane trainer and serve controller own no fused network):
       the caller that owns the run wires
-      ``reshard=lambda healthy, d: net.request_reshard(...)`` so the
-      resize lands at the next chunk boundary through the elastic
-      reshard path. Unwired, the decision is still evidence-logged with
-      ``acted=False``.
+      ``reshard=lambda healthy, d: w.request_reshard(build_mesh(
+      MeshSpec(data=len(healthy)), ranks=...))`` so the resize lands at
+      the next chunk boundary through the elastic reshard path, the
+      ranks outside the mesh parked. ``build_mesh`` is a collective of
+      the whole world, so in a world of several ranks one rank observes,
+      its decision is broadcast in the ``on_chunk`` hook, and every rank
+      builds the same mesh and requests it. Unwired, the decision is
+      still evidence-logged with ``acted=False``.
     - ``readmit(member_id, decision)`` — restore an evicted member the
-      autopilot sees beating healthily again.
+      autopilot sees beating healthily again (for a run: a reshard onto
+      a mesh over it, which grows the run back).
 
     ``observe()`` is the tick: pass the payload map the master tick
     aggregated plus the straggler set and last-beat timestamps it

@@ -184,16 +184,21 @@ def _writes() -> bool:
 def save_network(directory: str, network, step: Optional[int] = None,
                  keep: int = 3) -> None:
     """Checkpoint a network's training state as step ``step`` (its
-    iteration count when None)."""
+    iteration count when None). A network a ``ParallelWrapper`` trains
+    over a mesh that leaves ranks parked (``_mesh_lead``) is written by
+    the mesh's lead alone: a parked rank's state is stale until the call
+    that parked it ends."""
+    import torch.distributed as dist
+
     state = _network_state(network)
     sharded = _registry(network) is not None
-    if not sharded or _writes():
+    lead = getattr(network, "_mesh_lead", None)
+    if (dist.get_rank() == lead if lead is not None
+            else not sharded or _writes()):
         save_checkpoint(directory, state,
                         step if step is not None else int(state["iteration"]),
                         keep=keep)
-    if sharded and _world():
-        import torch.distributed as dist
-
+    if sharded and lead is None and _world():
         dist.barrier()
 
 

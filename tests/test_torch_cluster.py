@@ -51,6 +51,7 @@ from deeplearning4j_tpu.parallel import (
 )
 
 import torch_worlds
+from test_torch_data_parallel import _epoch_case, _jax_epoch_data
 from test_torch_word2vec import _jax_plans, _pair, _sentences
 from deeplearning4j_tpu_torch.cli import main
 from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
@@ -74,6 +75,7 @@ from deeplearning4j_tpu_torch.parallel import (
     initialize_distributed,
 )
 from deeplearning4j_tpu_torch.parallel import cluster as port_cluster
+from deeplearning4j_tpu_torch.perf.epoch_cache import chunk_deadline_s
 from deeplearning4j_tpu_torch.resilience import (
     RetryPolicy,
     fail_times,
@@ -177,10 +179,11 @@ def world(tmp_path_factory):
            "syn1neg": port.syn1neg.numpy().copy(), "plans": plans}
     payload = {"elastic": _mlp_case(),
                "resume": {**_mlp_case(), "dir": root}, "w2v": w2v,
-               "fsdp_model": _fsdp_model_case(root)}
+               "fsdp_model": _fsdp_model_case(root),
+               "graph": _epoch_case("epoch_graph2-4")[1]}
     out = torch_worlds.run_world(
-        4, ["elastic_case", "resume_cases", "w2v_cases", "contract_cases",
-            "fsdp_model_cases"],
+        4, ["elastic_case", "width_cases", "resume_cases", "w2v_cases",
+            "contract_cases", "fsdp_model_cases"],
         payload,
         os.path.join(root, "world"))
     return payload, out, (ref, port, plans)
@@ -198,15 +201,224 @@ def test_elastic_reshard_matches_the_uninterrupted_run(world):
     plans = got["plans"]
     assert all(p == plans[0] for p in plans) and len(plans[0]) == 4
     # seen at each boundary: (this rank's W, mesh None, data axis size)
-    assert got["seen"][1] == ((6, 12), False, 4)
-    assert got["seen"][2] == ((6, 12), True, 1)
-    assert got["seen"][3] == ((6, 6), False, 2)  # W column-split
-    assert got["seen"][4] == ((6, 12), False, 4)
+    assert [v[:3] for v in got["seen"].values()] == [
+        ((6, 12), False, 4), ((6, 12), True, 1),
+        ((6, 6), False, 2),  # W column-split
+        ((6, 12), False, 4)]
 
 
-def test_a_sub_mesh_is_refused(world):
+def test_watchdog_deadline_rescaled_after_reshard(world):
+    """The chunk deadline follows the width, as the reference's driver
+    rescales it: 4x the first chunk's after ``data=4 → None``, 2x over
+    ``data=2 × model=2``, back to 1x after ``→ data=4`` (a chunk over
+    fewer shards is slower, not stalled)."""
     _, out, _ = world
-    assert "span all 4 ranks" in out["elastic_case"]["refused"]
+    seen = out["elastic_case"]["seen"]
+    first = seen[1][3]
+    assert [seen[d][3] / first for d in (1, 2, 3, 4)] == [1.0, 4.0, 2.0,
+                                                           1.0]
+
+
+# ---------------------------------------------------------------------------
+# a run that changes width in-process: meshes over some of the world's
+# ranks, the parked ranks, the autopilot's reshard to the healthy ranks
+# ---------------------------------------------------------------------------
+# the lead at the end of each width case, the ranks parked there, the
+# reshards it makes and the width factor of its deadline at each boundary
+# (batch 32 tiles data=2 and data=4, not data=3)
+WIDTH_ENDS = {"a": (0, [], 2, [1, 2, 1, 1]),
+              "b": (1, [0], 1, [1, 4, 4, 4]),
+              "c": (0, [], 3, [1, 1, 1, 1]),  # growth never tightens it
+              "d": (0, [2, 3], 1, [1, 2, 2, 2]),
+              "e": (0, [], 2, [1, 4, 1, 1]),
+              "g": (0, [], 3, [1, 4, 2, 1]),
+              "m": (0, [], 2, [1, 4, 4, 1])}
+
+
+@pytest.fixture(scope="module")
+def jax_width_ref(world):
+    """The JAX networks' one-device ``fit_epochs(shuffle=False)`` on the
+    width cases' weights and data: the MLP's, and the two-input graph's
+    of case (g)."""
+    payload, _, _ = world
+    case = payload["elastic"]
+    x, y = case["arrays"][:2]
+    ref = JaxMLN(_mlp_conf()).init()
+    hist = ref.fit_epochs(JaxListDataSetIterator(JaxDataSet(x, y),
+                                                 case["batch"]),
+                          torch_worlds.WIDTH_EPOCHS, shuffle=False)
+    graph, case = _epoch_case("epoch_graph2-4")
+    graph_hist = graph.fit_epochs(_jax_epoch_data(case),
+                                  torch_worlds.WIDTH_EPOCHS, shuffle=False)
+    return {"elastic": (np.asarray(hist), ref.params),
+            "graph": (np.asarray(graph_hist), graph.params)}
+
+
+@pytest.mark.parametrize("name", sorted(WIDTH_ENDS))
+def test_a_run_changes_width_in_process(world, jax_width_ref, name):
+    """(a) ``data=4 → ranks [0,1] → data=4``; (b) ``data=4 → ranks
+    [1,2,3]`` (rank 0 parked, the lead moved, the batch whole over
+    ``data=3``); (c) ``net.fit_epochs`` without a mesh in every rank
+    ``→ data=4 → ranks [2,3] → None``; (d) FSDP onto ranks [0,1]; (e)
+    the autopilot's shrink and readmit; (g) a two-input
+    ``ComputationGraph`` over ``data=4 → ranks [1,2,3] → ranks [0,1] →
+    data=4``; (m) ``data=4 → ranks [0,1] as model=2`` (the dense layer
+    column-split over the two) ``→ data=4``. Shuffled, the port's uninterrupted ``data=4`` run; in the
+    data's order, the JAX network's one-device ``fit_epochs`` and the
+    port's uninterrupted run, all within the elastic gate."""
+    _, out, _ = world
+    got = out["width_cases"]
+    key = "graph" if name == "g" else "elastic"
+    jax_hist, jax_params = jax_width_ref[key]
+    for shuffle in (True, False):
+        run, base = got[(name, shuffle)], got[(f"base_{key}", shuffle)]
+        np.testing.assert_allclose(run["hist"], base["hist"], **ELASTIC_TOL)
+        _close(run["params"], base["params"], **ELASTIC_TOL)
+        assert run["reshards"] == WIDTH_ENDS[name][2]
+    ordered = got[(name, False)]
+    np.testing.assert_allclose(ordered["hist"], jax_hist, **ELASTIC_TOL)
+    _close(ordered["params"], jax_params, **ELASTIC_TOL)
+    if name == "m":  # rank 0's W over model=2, after the split's chunks
+        assert [ordered["shapes"][d]["0/W"] for d in (1, 2, 3, 4)] == [
+            (6, 12), (6, 6), (6, 6), (6, 12)]
+
+
+@pytest.mark.parametrize("name", sorted(WIDTH_ENDS))
+def test_parked_ranks_return_the_leads_history_and_state(world, name):
+    """Every rank returns the lead's ``[E, N]`` history bitwise and ends
+    at its iteration; a rank parked at the end holds the lead's whole
+    params bitwise; the watchdog's deadline follows the width."""
+    _, out, _ = world
+    lead, parked, _, factors = WIDTH_ENDS[name]
+    for shuffle in (True, False):
+        run = out["width_cases"][(name, shuffle)]
+        ranks = run["ranks"]
+        assert [r[2] for r in ranks] == [r in parked for r in range(4)]
+        hist, params, _, it = ranks[lead]
+        for r, (h, p, _, i) in enumerate(ranks):
+            np.testing.assert_array_equal(h, hist)
+            assert i == it
+            if r in parked:
+                for a, b in zip(_leaves(p), _leaves(params)):
+                    np.testing.assert_array_equal(a, b)
+        steps = 3 if name == "g" else 4  # a chunk: one epoch's batches
+        assert [run["deadlines"][d] for d in (1, 2, 3, 4)] == [
+            chunk_deadline_s(steps, f) for f in factors]
+
+
+def test_the_autopilot_shrinks_to_the_healthy_ranks_and_readmits(world):
+    """Case (e): rank 3's stall gets it evicted and the run resharded onto
+    ranks [0,1,2] at the first boundary; at the next, its healthy beat
+    readmits it and the run grows back over all 4 ranks; the decisions
+    and the reshards are on the tracer."""
+    _, out, _ = world
+    for shuffle in (True, False):
+        run = out["width_cases"][("e", shuffle)]
+        assert run["decisions"] == ["evict", "reshard", "readmit"]
+        assert run["meshes"] == {1: [0, 1, 2], 2: [0, 1, 2, 3]}
+        assert {"autopilot.decision", "reshard.elastic"} <= set(run["spans"])
+
+
+def test_a_mesh_of_one_rank_parks_the_other_three(world, jax_width_ref):
+    """``net.fit_epochs(mesh=)`` over rank 0 alone in the world of 4:
+    rank 0 trains the JAX network's one-device run (first 2 epochs, in
+    the data's order), the others take no step and return its history
+    and params bitwise."""
+    _, out, _ = world
+    got = out["width_cases"]["one_rank"]
+    jax_hist, _ = jax_width_ref["elastic"]
+    np.testing.assert_allclose(got["hist"], jax_hist[:2], **ELASTIC_TOL)
+    hist, params, steps, parked = got["ranks"][0]
+    assert steps == 8 and not parked
+    for h, p, s, k in got["ranks"][1:]:
+        assert s == 0 and k
+        np.testing.assert_array_equal(h, hist)
+        for a, b in zip(_leaves(p), _leaves(params)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_wrapper_fit_over_two_ranks_parks_the_others(world):
+    """``ParallelWrapper.fit`` over ranks [0,1] on four batches: the JAX
+    network's one-device ``fit`` within the elastic gate; ranks 2 and 3
+    take no step and hold rank 0's params and iteration bitwise."""
+    payload, out, _ = world
+    got = out["width_cases"]["fit_r01"]
+    case = payload["elastic"]
+    x, y = case["arrays"][:2]
+    ref = JaxMLN(_mlp_conf()).init()
+    for i in range(0, 128, 32):
+        ref.fit(JaxDataSet(x[i:i + 32], y[i:i + 32]))
+    _close(got["params"], ref.params, **ELASTIC_TOL)
+    params, steps, parked, it = got["ranks"][0]
+    assert steps > 0 and not parked and it == 4
+    for r, (p, s, k, i) in enumerate(got["ranks"][1:], 1):
+        assert (s == 0) == k == (r >= 2) and i == it
+        for a, b in zip(_leaves(p), _leaves(params)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_a_checkpoint_with_rank_0_parked_is_the_leads(world):
+    """``FaultTolerantTrainer`` over ranks [1,2,3], preempted after an
+    epoch: the lead (rank 1) writes the checkpoint, so it restores, in
+    every rank, the params at the stop bitwise (rank 0's own state is
+    stale while it is parked)."""
+    _, out, _ = world
+    got = out["width_cases"]["parked_checkpoint"]
+    lead = got["final"][1]
+    for restored, final in zip(got["restored"], got["final"]):
+        for a, b, c in zip(_leaves(restored), _leaves(lead), _leaves(final)):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(c, b)
+
+
+def test_save_network_with_ranks_parked_is_the_leads(world):
+    """``save_network`` in every rank of an FSDP run shrunk onto ranks
+    [0,1]: the lead writes its gathered state, no parked rank writes its
+    stale one or waits at a barrier the members skip, and every rank
+    restores the lead's params bitwise."""
+    _, out, _ = world
+    got = out["width_cases"]["parked_save"]
+    assert got["parked"] == [False, False, True, True]
+    for restored in got["restored"]:
+        for a, b in zip(_leaves(restored), _leaves(got["lead"])):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_a_divergence_with_rank_0_parked_raises_in_every_rank(world):
+    """``guard="raise"`` over ranks [1,2,3] with a non-finite row in the
+    second batch: every rank raises ``TrainingDivergedError`` at the same
+    epoch and step (rank 0 from the trips the lead broadcasts, with no
+    world left waiting), naming the batch the lead's replay found."""
+    _, out, _ = world
+    got = out["width_cases"]["parked_divergence"]
+    assert got["parked"] == [True, False, False, False]
+    assert got["raised"] == [(0, 1, 1)] * 4
+
+
+def test_a_target_outside_the_world_raises(world):
+    """(f) In the world of 4: a rank the world lacks, a negative rank and
+    an unordered list raise before any collective."""
+    _, out, _ = world
+    refused = out["width_cases"]["refused"]
+    assert "[4] are not ranks of the world of 4" in refused[0]
+    assert "[-1] are not ranks" in refused[1]
+    assert "ascending order" in refused[2]
+
+
+class _TwoDevices:
+    mesh_dim_names, shape = ("data",), (2,)
+
+
+def test_a_world_of_one_cannot_grow():
+    """(f) The one width change the port refuses: a world of one has no
+    rank to grow onto."""
+    from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    with pytest.raises(ValueError, match="a world of one cannot span 2"):
+        build_mesh(MeshSpec(data=2), ranks=[0, 1], device="cpu")
+    net = _port_net(_mlp_case())
+    with pytest.raises(ValueError, match="a world of one cannot span 2"):
+        net.request_reshard(_TwoDevices())
 
 
 def test_ranks_that_disagree_at_a_chunk_boundary_stop(world):
@@ -968,6 +1180,45 @@ def test_multihost_runtime_as_two_processes_matches_local(tmp_path):
     assert [p.returncode for p in procs] == [0, 0], logs
     assert "runtime=multihost" in logs[0]
     _close(_zip_params(out), _zip_params(local), rtol=1e-4, atol=1e-6)
+
+
+def test_multihost_runtime_over_the_first_rank_parks_the_other(tmp_path):
+    """``--mesh-devices 1`` in a world of two CLI processes: rank 0
+    trains alone over ranks ``[0, 1)``, rank 1 parks, rank 0 writes the
+    zip, which is ``-runtime local``'s bitwise."""
+    data, model = _cli_files(tmp_path)
+    local = str(tmp_path / "l.zip")
+    assert _cli_train(data, model, local) == 0
+    out = str(tmp_path / "mh1.zip")
+    port = _free_port()
+    env = {**os.environ, "PYTHONPATH": torch_worlds.REPO,
+           "OMP_NUM_THREADS": "1"}
+    env.pop("JAX_PLATFORMS", None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "train",
+         "-input", data, "-model", model, "-output", out, "--num-classes",
+         "2", "--batch-size", "16", "--epochs", "2", "--device", "cpu",
+         "-runtime", "multihost", "--coordinator", f"127.0.0.1:{port}",
+         "--num-processes", "2", "--process-id", str(r),
+         "--mesh-devices", "1"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=120)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0, 0], logs
+    for a, b in zip(_leaves(_zip_params(out)), _leaves(_zip_params(local))):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_mesh_devices_above_the_world_exits(tmp_path):
+    data, model = _cli_files(tmp_path)
+    with pytest.raises(SystemExit, match="exceeds the world's 1 rank"):
+        _cli_train(data, model, str(tmp_path / "x.zip"), "-runtime",
+                   "mesh", "--mesh-devices", "2")
 
 
 def test_multihost_without_a_coordinator_exits(tmp_path):

@@ -1031,23 +1031,21 @@ def moe_cases(rank, n, payload):
 # ---------------------------------------------------------------------------
 # the cluster layer (tests/test_torch_cluster.py)
 # ---------------------------------------------------------------------------
-class _SubMesh:
-    """A mesh over 2 of the world's ranks (a reshard target to refuse)."""
-
-    mesh_dim_names = ("data",)
-    shape = (2,)
-
-
 def _wrapped(case, mesh, fsdp=False):
     from deeplearning4j_tpu_torch.parallel import ParallelWrapper
 
     return ParallelWrapper(_network(case), mesh=mesh, fsdp=fsdp)
 
 
+def _deadline(net):
+    return net._chunk_watchdog.deadline_s
+
+
 def elastic_case(rank, n, payload):
     """The uninterrupted ``data=4`` run against one resharded between
     chunks ``data=4 → None → data=2 × model=2 → data=4``; the reshard
-    counter, the shard shapes on the way and a refused sub-mesh."""
+    counter, the shard shapes and the watchdog's deadline on the way, and
+    ranks that disagree at a boundary."""
     from deeplearning4j_tpu_torch.monitor import metrics
 
     case = payload["elastic"]
@@ -1063,18 +1061,13 @@ def elastic_case(rank, n, payload):
     def on_chunk(done):
         net = w.network
         seen[done] = (tuple(net.params["0"]["W"].shape),
-                      w.mesh is None, w.data_parallelism)
+                      w.mesh is None, w.data_parallelism, _deadline(net))
         if done in plan:
             w.request_reshard(plan[done])
         return False
 
     hist = w.fit_epochs(_epoch_data(case), 4, chunk_epochs=1,
                         on_chunk=on_chunk)
-    refused = None
-    try:
-        w.request_reshard(_SubMesh())
-    except ValueError as e:
-        refused = str(e)
     # a reshard that only rank 0 asks for: every rank stops alike
     lone = _wrapped(case, m4)
 
@@ -1094,8 +1087,284 @@ def elastic_case(rank, n, payload):
             "params": _tree_np(w.gather()[0]),
             "base_params": _tree_np(base.gather()[0]),
             "reshards": counter.value(model="MultiLayerNetwork") - before,
-            "seen": seen, "refused": refused,
-            "plans": _all_ranks(w._epoch_plans)}
+            "seen": seen, "plans": _all_ranks(w._epoch_plans)}
+
+
+# the width cases: name -> (payload key, start, fsdp, {epochs done:
+# target}); a target names a mesh of ``width_cases``, "None" whole batches
+WIDTH_EPOCHS = 4
+WIDTH_PLANS = {
+    "a": ("elastic", "m4", False, {1: "r01", 2: "m4"}),
+    "b": ("elastic", "m4", False, {1: "r123"}),
+    "c": ("elastic", None, False, {1: "m4", 2: "r23", 3: "None"}),
+    "d": ("elastic", "m4", True, {1: "r01"}),
+    "g": ("graph", "m4", False, {1: "r123", 2: "r01", 3: "m4"}),
+    "m": ("elastic", "m4", False, {1: "r01_model", 3: "m4"}),
+}
+WIDTH_SLOW_MS = 600.0  # rank 3's injected epoch.chunk delay in case (e)
+
+
+def _width_run(rank, case, meshes, start, fsdp, plan, shuffle):
+    """One run of a width case, from ``start`` (a mesh name, or None:
+    ``net.fit_epochs`` without a mesh in every rank), resharded at the
+    boundaries of ``plan``; what every rank returned and holds."""
+    from deeplearning4j_tpu_torch.monitor import metrics
+
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+    counter = metrics().counter("elastic_reshards_total")
+    net = _any_network(case)
+    model = type(net).__name__
+    before = counter.value(model=model)
+    w = None if start is None else ParallelWrapper(net, meshes[start],
+                                                   fsdp=fsdp)
+    owner = net if w is None else w
+    deadlines, shapes = {}, {}
+
+    def on_chunk(done):
+        deadlines[done] = _deadline(net)
+        shapes[done] = _local_shapes(net.params)
+        if done in plan:
+            owner.request_reshard(meshes[plan[done]])
+        return False
+
+    hist = owner.fit_epochs(_epoch_data(case), WIDTH_EPOCHS,
+                            chunk_epochs=1, on_chunk=on_chunk,
+                            shuffle=shuffle)
+    out = _width_result(w, net, hist, deadlines,
+                        counter.value(model=model) - before)
+    out["shapes"] = shapes
+    return out
+
+
+def _width_result(w, net, hist, deadlines, reshards):
+    params = net.params if w is None else w.gather()[0]
+    parked = False if w is None else w._parked
+    return {"hist": _np(hist), "params": _tree_np(params),
+            "deadlines": deadlines, "reshards": reshards,
+            "ranks": _all_ranks((_np(hist), _tree_np(params), parked,
+                                 net.iteration_count))}
+
+
+def _autopilot_run(rank, n, case, meshes, shuffle):
+    """Case (e), the chaos soak's counterpart: rank 3's first chunk
+    straggles by an injected ``epoch.chunk`` delay. Each rank reports the
+    time it stalled at the chunk's site (every rank's wall time is the
+    straggler's, since the chunk's collectives wait for it); rank 0's
+    ``GoodputAutopilot`` sees the stall, evicts rank 3 and reshards onto
+    the healthy ranks, and once rank 3 beats healthily again readmits it,
+    and the run grows back. Rank 0's decisions are broadcast at the
+    boundary, and every rank builds the same mesh and requests it."""
+    import statistics
+    import time
+
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.monitor import metrics, tracer
+    from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from deeplearning4j_tpu_torch.resilience import GoodputAutopilot, faults
+
+    counter = metrics().counter("elastic_reshards_total")
+    before = counter.value(model="MultiLayerNetwork")
+    w = _wrapped(case, meshes["m4"])
+    wanted = []
+    ap = GoodputAutopilot(
+        floor=50.0, silence_s=1e9, straggler_ticks=1, cooldown_s=1e9,
+        evict=lambda member, d: None,
+        reshard=lambda healthy, d: wanted.append(
+            [int(h.split("-")[1]) for h in healthy]),
+        readmit=lambda member, d: wanted.append(list(range(n))))
+    clock = {"chunks": 0}
+    slow = faults.delay(WIDTH_SLOW_MS)
+
+    def chunk_site(name):
+        clock["enter"] = time.perf_counter()
+        if rank == 3 and clock["chunks"] == 0:
+            slow(name)
+        clock["chunks"] += 1
+        clock["stall"] = time.perf_counter() - clock["enter"]
+
+    deadlines, meshes_seen, decisions = {}, {}, []
+
+    def on_chunk(done):
+        deadlines[done] = _deadline(w.network)
+        wall = time.perf_counter() - clock["enter"]
+        stalls = _all_ranks(clock["stall"])
+        box = [None]
+        if rank == 0:
+            mid = statistics.median(stalls)
+            fleet = {f"rank-{r}": {"step_s": wall, "stall_s": s}
+                     for r, s in enumerate(stalls)}
+            flagged = [f"rank-{r}" for r, s in enumerate(stalls)
+                       if s > mid + WIDTH_SLOW_MS / 2e3]
+            asked = len(wanted)
+            decisions.extend(d.action for d in ap.observe(
+                fleet, stragglers=flagged,
+                last_beat={m: float(done) for m in fleet},
+                goodput_pct=100.0 * max(0.0, 1.0 - max(stalls) / wall),
+                now=float(done)))
+            box = [wanted[-1] if len(wanted) > asked else None]
+        dist.broadcast_object_list(box, src=0)
+        if box[0] is not None:
+            ranks = box[0]
+            mesh = (meshes["m4"] if len(ranks) == n else build_mesh(
+                MeshSpec(data=len(ranks)), ranks=ranks, device="cpu"))
+            meshes_seen[done] = ranks
+            w.request_reshard(mesh)
+        return False
+
+    mark = len(tracer().spans())
+    faults.install("epoch.chunk", chunk_site)
+    try:
+        hist = w.fit_epochs(_epoch_data(case), WIDTH_EPOCHS, chunk_epochs=1,
+                            on_chunk=on_chunk, shuffle=shuffle)
+    finally:
+        faults.clear()
+    out = _width_result(w, w.network, hist, deadlines,
+                        counter.value(model="MultiLayerNetwork") - before)
+    out.update(decisions=decisions, meshes=meshes_seen,
+               spans=sorted({sp.name for sp in tracer().spans()[mark:]}))
+    return out
+
+
+def _one_rank_runs(case, meshes):
+    """A mesh of rank 0 alone in the world of 4: ``net.fit_epochs(mesh=)``
+    in the data's order, and ``ParallelWrapper.fit`` over ranks [0,1] on
+    the case's batches; in every rank its steps, history and state."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+    net = _network(case)
+    hist = net.fit_epochs(_epoch_data(case), 2, mesh=meshes["r0"],
+                          shuffle=False)
+    one = {"hist": _np(hist), "ranks": _all_ranks((
+        _np(hist), _tree_np(net.params), net._train_dispatches,
+        net._mesh_wrapper_._parked))}
+    w = ParallelWrapper(_network(case), meshes["r01"])
+    x, y = case["arrays"][:2]
+    w.fit([DataSet(x[i:i + 32], y[i:i + 32]) for i in range(0, 128, 32)])
+    net = w.network
+    fit = {"params": _tree_np(w.gather()[0]), "ranks": _all_ranks((
+        _tree_np(w.gather()[0]), net._train_dispatches, w._parked,
+        net.iteration_count))}
+    return {"one_rank": one, "fit_r01": fit}
+
+
+def _parked_checkpoint(rank, case, meshes, directory):
+    """``FaultTolerantTrainer`` over ranks [1,2,3] (rank 0 parked),
+    preempted after its first epoch: the checkpoint taken at that
+    boundary, restored onto a fresh network in every rank, beside the
+    lead's params at the stop."""
+    from deeplearning4j_tpu_torch.parallel import FaultTolerantTrainer
+    from deeplearning4j_tpu_torch.resilience import faults
+    from deeplearning4j_tpu_torch.resilience.preemption import (
+        PreemptionGuard)
+
+    w = _wrapped(case, meshes["r123"])
+    ft = FaultTolerantTrainer(w, directory, worker_id=f"rank-{rank}")
+    faults.install("preempt.chunk", faults.fail_nth(1))
+    try:
+        ft.fit_epochs(_epoch_data(case), 2,
+                      preemption=PreemptionGuard(signals=()))
+    finally:
+        faults.clear()
+    ft.wait_for_saves()
+    _all_ranks(ft.preempted)  # every save is on disk
+    again = FaultTolerantTrainer(_network(case), directory)
+    again.resume()
+    return {"restored": _all_ranks(_tree_np(again.network.params)),
+            "final": _all_ranks(_tree_np(w.gather()[0]))}
+
+
+def _parked_divergence(case, meshes):
+    """``fit_epochs(guard="raise")`` over ranks [1,2,3] on the case's data
+    with one row of its second batch non-finite: what each rank raised
+    (epoch, step, batch index)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.resilience.guard import (
+        TrainingDivergedError)
+
+    x, y = case["arrays"][:2]
+    x = x.copy()
+    x[40] = np.nan
+    w = _wrapped(case, meshes["r123"])
+    seen = None
+    try:
+        w.fit_epochs(_epoch_data({**case, "arrays": (x, y, None, None)}), 2,
+                     chunk_epochs=1, guard="raise", shuffle=False)
+    except TrainingDivergedError as e:
+        seen = (e.epoch, e.step, e.batch_index)
+    return {"raised": _all_ranks(seen), "parked": _all_ranks(w._parked)}
+
+
+def _parked_save_network(case, meshes, directory):
+    """``save_network`` in every rank of an FSDP run over ranks [0,1]
+    (ranks 2 and 3 parked), then ``restore_network`` onto a fresh
+    network in every rank, beside the lead's gathered params."""
+    from deeplearning4j_tpu_torch.utils.checkpoint import (
+        restore_network, save_network)
+
+    w = _wrapped(case, meshes["m4"], fsdp=True)
+
+    def shrink(done):
+        if done == 1:
+            w.request_reshard(meshes["r01"])
+        return False
+
+    w.fit_epochs(_epoch_data(case), 2, chunk_epochs=1, on_chunk=shrink)
+    save_network(directory, w.network, step=1)
+    _all_ranks(None)  # the lead's save is on disk
+    fresh = restore_network(directory, _network(case))
+    return {"restored": _all_ranks(_tree_np(fresh.params)),
+            "lead": _tree_np(w.gather()[0]), "parked": _all_ranks(w._parked)}
+
+
+def width_cases(rank, n, payload):
+    """Cases (a)-(e) of a run that changes width in-process, each in the
+    plans' order (``shuffle=False``, against the JAX package) and
+    shuffled (against the port's uninterrupted run), beside those
+    uninterrupted ``data=4`` runs; and (f), targets that cannot be
+    built."""
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    case = payload["elastic"]
+    meshes = {"m4": _mesh(data=4), "None": None}
+    for name, ranks in (("r01", [0, 1]), ("r123", [1, 2, 3]),
+                        ("r23", [2, 3])):
+        meshes[name] = build_mesh(MeshSpec(data=len(ranks)), ranks=ranks,
+                                  device="cpu")
+    meshes["r0"] = build_mesh(MeshSpec(data=1), ranks=[0], device="cpu")
+    meshes["r01_model"] = build_mesh(MeshSpec(data=1, model=2),
+                                     ranks=[0, 1], device="cpu")
+    out = {}
+    for shuffle in (False, True):
+        for key in ("elastic", "graph"):
+            base = ParallelWrapper(_any_network(payload[key]),
+                                   meshes["m4"])
+            hist = base.fit_epochs(_epoch_data(payload[key]), WIDTH_EPOCHS,
+                                   chunk_epochs=1, shuffle=shuffle)
+            out[(f"base_{key}", shuffle)] = {
+                "hist": _np(hist), "params": _tree_np(base.gather()[0])}
+        for name, (key, start, fsdp, plan) in WIDTH_PLANS.items():
+            out[(name, shuffle)] = _width_run(rank, payload[key], meshes,
+                                              start, fsdp, plan, shuffle)
+        out[("e", shuffle)] = _autopilot_run(rank, n, case, meshes, shuffle)
+    out.update(_one_rank_runs(case, meshes))
+    out["parked_checkpoint"] = _parked_checkpoint(
+        rank, case, meshes, payload["resume"]["dir"] + "/parked_ck")
+    out["parked_divergence"] = _parked_divergence(case, meshes)
+    out["parked_save"] = _parked_save_network(
+        case, meshes, payload["resume"]["dir"] + "/parked_save")
+    refused = []
+    for bad in ([3, 4], [-1, 0], [2, 1]):
+        try:
+            build_mesh(MeshSpec(data=2), ranks=bad, device="cpu")
+        except ValueError as e:
+            refused.append(str(e))
+    out["refused"] = refused
+    return out
 
 
 def resume_cases(rank, n, payload):
