@@ -1,0 +1,8 @@
+"""Share of the traced stretch in which no kernel, copy or set ran on the
+card: one less the union of the device's intervals over the stretch."""
+
+
+def read(ctx):
+    if ctx.trace is None or ctx.trace["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.trace["busy_s"] / ctx.trace["window_s"])
